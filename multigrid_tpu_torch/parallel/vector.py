@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core.actions import NUM_ACTIONS
+from ..core.constants import Color, State
 from ..core.state import MultiGridState, where_state
 from ..envs.env import MultiGridEnv
 from ..ops.obs_cuda import gen_obs_batched
@@ -40,6 +41,11 @@ class VectorEnv:
 
     ``device=None`` takes the env's device (which itself defaults to the
     card); another device than the env's is an error.
+
+    ``packed_obs=True`` gives images as the obs kernel's packed int32 cells
+    ``type<<8 | color<<4 | state`` on a flat ``(E, N, vs·vs)`` cell axis
+    (the training format: a third of the triples' bytes), bit-equal to the
+    JAX package's ``VectorEnv(packed_obs=True)``.
     """
 
     def __init__(
@@ -48,13 +54,23 @@ class VectorEnv:
         num_envs: int,
         *,
         device: str | torch.device | None = None,
+        packed_obs: bool = False,
     ):
+        if packed_obs:
+            # Observation wrappers work on (vs, vs, 3) channel triples, so
+            # only an unwrapped env packs; 4-bit fields bound colors and states.
+            if getattr(type(env), 'transform_obs', None) is not None:
+                raise ValueError('packed_obs requires an unwrapped env '
+                                 '(observation wrappers take channel triples)')
+            if len(Color) > 16 or len(State) > 16:
+                raise ValueError('packed_obs packs colors and states into 4 bits')
         if device is not None and resolve_device(device) != env.device:
             raise ValueError(
                 f'VectorEnv on {device} needs an env on it, not on {env.device}')
         self.env = env
         self.num_envs = num_envs
         self.device = env.device
+        self.packed_obs = packed_obs
         self.generator = torch.Generator(device=self.device)
 
     @property
@@ -97,7 +113,8 @@ class VectorEnv:
     def observe(self, state: MultiGridState):
         """Observations of a batched state, through the kernel wrapper."""
         cfg = self.env.cfg
-        image = gen_obs_batched(state, cfg.view_size, cfg.see_through_walls)
+        image = gen_obs_batched(state, cfg.view_size, cfg.see_through_walls,
+                                self.packed_obs)
         return self.env.attach_mission(
             {'image': image, 'direction': state.agent_dir}, state)
 

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build    — builds the three CUDA sources of ``multigrid_tpu_torch/csrc``
+2. build    — builds the four CUDA sources of ``multigrid_tpu_torch/csrc``
                (one nvcc each, in parallel) and prints registers and spills.
 3. kernels  — each kernel against its plain PyTorch version on the card.
                The observation kernel, ``torch.equal``, on seeded states
@@ -17,8 +17,10 @@ Phases, in order; any failure exits non-zero:
                borders, terminated and carrying. The training kernels in
                bf16, each with its tolerance: the first layer (B=16384,
                C=49, H=128; C 9/25/169, H 32/256, a ragged batch, pad
-               cells), its weight gradient (B=262144 and small shapes) and
-               the PPO loss (B=262144, and B=256 with 0 and 5 missions).
+               cells), its weight gradient (B=262144 and small shapes), the
+               PPO loss (B=262144, and B=256 with 0 and 5 missions), and
+               the fused rollout policy (B=16384; C 9/25, H 32/256, F 2/14,
+               a ragged batch; a constructed tie takes the first index).
 4. main     — ``VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4), 4096)``
                on the default device: reset, then ``rollout_random`` for 256
                steps, with the kernel's launch count set to 0 just before and
@@ -49,6 +51,18 @@ Phases, in order; any failure exits non-zero:
                version and a library call.
 10. train breakdown — one update under ``torch.profiler``: the device's
                busy share and the kernels that take its time.
+11. variants — the same flagship through each learner variant, launch
+               counts set to 0 before each run and checked exactly after
+               it: the fully fused rollout policy (``MULTIGRID_FUSED_POLICY``;
+               its metrics track the default path's over 3 updates, and
+               under 2% of the first rollout step's actions differ), per-agent
+               policies on the loss kernel and with its gate off (metrics
+               tracking), and the centralized critic with a shared and with
+               per-agent actors (actor and critic parameters move).
+12. variant timing — each variant's trained agent-steps/s beside the
+               default path's, the rollout step's layers with and without the
+               fused policy, and the fused policy's kernel time at B=16384
+               beside its bound and plain version.
 
 Products in float32 run in full float32 (TF32 off) for the plain versions.
 The line before the last is the kernels' JSON record; the last line is
@@ -74,7 +88,7 @@ E, N, SIZE, VS = 4096, 4, 16, 7
 STEPS = 256
 #: The trained flagship: mlp 128 on packed cells, T 16 (scripts/measure_train.py:25-36).
 TRAIN_T, HIDDEN, C = 16, 128, VS * VS
-SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu')
+SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu')
 
 
 def fail(msg: str) -> None:
@@ -518,16 +532,85 @@ def train_kernel_cases(device):
     return errs
 
 
+def policy_kernel_cases(device):
+    """The fused rollout policy against its bf16 plain version: actions
+    equal on every row whose plain top-two perturbed logits are more than
+    1e-3 apart (bf16 roundings of sums taken in other orders may flip a
+    nearer tie), log-probs where the actions agree and values within
+    2e-2·(|want| + 1); and the first index on a constructed tie. Returns
+    the largest abs error and the largest error in the tolerance's measure."""
+    import numpy as np
+    import torch
+
+    from multigrid_tpu_torch.ops import fused_policy as fp
+
+    rng = np.random.default_rng(31)
+    worst = [0.0, 0.0]
+
+    def inputs(b, c, h, f, pad):
+        params, args = ppo_inputs(rng, b, c, h, f - 2, device)
+        gumbel = torch.as_tensor(rng.gumbel(size=(b, 7)).astype(np.float32), device=device)
+        return fp.prepare(params), random_cells(rng, b, c, device, pad), args[1], gumbel
+
+    for b, c, h, f, pad in [(E * N, C, HIDDEN, 2, 0.0), (4096, 9, 128, 2, 0.0),
+                            (4096, 25, 32, 14, 0.05), (2048, C, 256, 2, 0.0),
+                            (1001, 25, 256, 14, 0.1), (777, 9, 64, 5, 0.0)]:
+        w, packed, dirf, gumbel = inputs(b, c, h, f, pad)
+        action, logp, value = fp.policy_sample_prepared(w, packed, dirf, gumbel)
+        want_a, want_lp, want_v = fp.policy_sample_plain(w, packed, dirf, gumbel,
+                                                         compute_dtype=torch.bfloat16)
+        logits, _ = fp.policy_heads_plain(w, packed, dirf, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        top2 = (logits + gumbel).topk(2, -1).values
+        near = (top2[:, 0] - top2[:, 1]) <= 1e-3
+        same = action == want_a
+        d_lp, d_v = (logp - want_lp).abs()[same], (value - want_v).abs()
+        abs_err = max(float(d_lp.max()), float(d_v.max()))
+        err = max(float((d_lp / (want_lp.abs()[same] + 1)).max()),
+                  float((d_v / (want_v.abs() + 1)).max()))
+        worst[0], worst[1] = max(worst[0], abs_err), max(worst[1], err)
+        ok = bool((same | near).all()) and err < 2e-2
+        print(f'  {"ok  " if ok else "FAIL"} policy_sample B={b} C={c} H={h} F={f} pad={pad}: '
+              f'{int(near.sum())} rows with a top-two gap <= 1e-3, {int((~same).sum())} '
+              f'actions differ, max_abs_err={abs_err:.3e} err={err:.3e} (< 2e-2)')
+        if not ok:
+            fail(f'policy_sample differs from its plain version at B={b} C={c} H={h} F={f}')
+    # Two identical Wa columns and biases and equal noise, far above the rest.
+    w, packed, dirf, gumbel = inputs(4096, C, HIDDEN, 2, 0.0)
+    w['wa'][:, 5] = w['wa'][:, 2]
+    w['ba'][:] = -30.0
+    w['ba'][[2, 5]] = 1.0
+    gumbel[:] = 0.0
+    gumbel[:, [2, 5]] = 0.25
+    action, _, _ = fp.policy_sample_prepared(w, packed, dirf, gumbel)
+    torch.cuda.synchronize()
+    firsts = int((action == 2).sum())
+    print(f'  {"ok  " if firsts == 4096 else "FAIL"} policy_sample tie of actions 2 and 5: '
+          f'{firsts} of 4096 rows take 2')
+    if firsts != 4096:
+        fail('policy_sample does not take the first index on a tie')
+    return worst
+
+
 def _counts():
-    from multigrid_tpu_torch.ops import fused_linear, fused_ppo, obs_cuda
+    from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
     return {'obs': obs_cuda.launches, 'onehot_linear': fused_linear.launches,
-            'onehot_linear_grad': fused_linear.grad_launches, 'ppo_loss': fused_ppo.launches}
+            'onehot_linear_grad': fused_linear.grad_launches, 'ppo_loss': fused_ppo.launches,
+            'policy_sample': fused_policy.launches}
 
 
 def _zero_counts():
-    from multigrid_tpu_torch.ops import fused_linear, fused_ppo, obs_cuda
+    from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
     obs_cuda.launches = fused_linear.launches = fused_linear.grad_launches = 0
-    fused_ppo.launches = 0
+    fused_ppo.launches = fused_policy.launches = 0
+
+
+def _set_counts(counts):
+    from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
+    obs_cuda.launches, fused_linear.launches = counts['obs'], counts['onehot_linear']
+    fused_linear.grad_launches, fused_ppo.launches = (counts['onehot_linear_grad'],
+                                                      counts['ppo_loss'])
+    fused_policy.launches = counts['policy_sample']
 
 
 def _run(step, state, updates):
@@ -549,6 +632,46 @@ def _check_finite(rows, label):
                 fail(f'{label}: {k} = {v}')
 
 
+def _snapshot(step, state):
+    """A warmed-up state (one update) and the generators' states."""
+    state, _ = _run(step, state, 1)
+    return state, state.generator.get_state(), step.venv.generator.get_state()
+
+
+def _restore(step, snap):
+    state, g, venv_g = snap
+    state.generator.set_state(g)
+    step.venv.generator.set_state(venv_g)
+    return state
+
+
+def _counted(step, snap, updates, label, **want):
+    """``updates`` updates from ``snap``, the launch counts set to 0 just
+    before and checked exactly just after against ``want`` (16 obs launches
+    an update, 0 of any kernel not named)."""
+    state = _restore(step, snap)
+    _zero_counts()
+    state, rows = _run(step, state, updates)
+    counts = _counts()
+    want = {**{k: 0 for k in counts}, 'obs': TRAIN_T * updates, **want}
+    print(f'{label}, {updates} updates: launches {counts}')
+    if counts != want:
+        fail(f'{label}: expected launches {want}, got {counts}')
+    _check_finite(rows, label)
+    return state, rows
+
+
+def _track(rows, ref, label):
+    """``rows``' metrics track ``ref``'s: rtol 0.05, atol 5e-3
+    (tests/test_fused_ppo.py:140-147)."""
+    for i, (a, b) in enumerate(zip(rows, ref)):
+        print(f'  update {i + 1}: ' + ', '.join(
+            f'{k} {a[k]:.6f}/{b[k]:.6f}' for k in ('loss', 'pg_loss', 'vf_loss', 'entropy')))
+        for k in ('loss', 'pg_loss', 'vf_loss', 'entropy'):
+            if abs(a[k] - b[k]) > 5e-3 + 0.05 * abs(b[k]):
+                fail(f'{label}, update {i + 1}: {k} {a[k]} vs {b[k]}')
+
+
 def train_path(device=None):
     """PPO on the flagship with the learner's two paths and minibatches.
     Each path runs with the launch counts set to 0 just before it."""
@@ -563,48 +686,25 @@ def train_path(device=None):
     state, net, config, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=TRAIN_T),
                                       hidden=HIDDEN)
     step = make_train_step(venv, net, config, tx)
-    state, _ = _run(step, state, 1)  # warm-up: first launches, cuBLAS handles
-    snapshot = (state, state.generator.get_state(), venv.generator.get_state())
+    snap = _snapshot(step, state)  # warm-up: first launches, cuBLAS handles
     per_update = TRAIN_T + 1
-
-    _zero_counts()
-    state_b4, rows_b4 = _run(step, state, 3)
+    state_b4, rows_b4 = _counted(step, snap, 3, 'fused loss kernel',
+                                 onehot_linear=3 * per_update, ppo_loss=3)
     counts = _counts()
-    print(f'3 updates, fused loss kernel: launches {counts}')
-    want = {'obs': 3 * TRAIN_T, 'onehot_linear': 3 * per_update, 'onehot_linear_grad': 0,
-            'ppo_loss': 3}
-    if counts != want:
-        fail(f'expected launches {want}, got {counts}')
-    _check_finite(rows_b4, 'fused loss path')
 
     # The learner with the kernel's gate off: autograd of the loss, whose
     # first layer's dW is the gradient kernel, from the same state and the
     # same generator states.
-    state, g_state, venv_g_state = snapshot
-    state.generator.set_state(g_state)
-    venv.generator.set_state(venv_g_state)
     gate = fused_ppo.supports
     fused_ppo.supports = lambda *a: False
     try:
         step_off = make_train_step(venv, net, config, tx)
     finally:
         fused_ppo.supports = gate
-    _zero_counts()
-    _, rows_off = _run(step_off, state, 3)
+    _, rows_off = _counted(step_off, snap, 3, 'autograd learner',
+                           onehot_linear=3 * (per_update + 1), onehot_linear_grad=3)
     counts_off = _counts()
-    print(f'3 updates, autograd learner: launches {counts_off}')
-    want = {'obs': 3 * TRAIN_T, 'onehot_linear': 3 * (per_update + 1),
-            'onehot_linear_grad': 3, 'ppo_loss': 0}
-    if counts_off != want:
-        fail(f'expected launches {want}, got {counts_off}')
-    _check_finite(rows_off, 'autograd learner path')
-    # rtol 0.05, atol 5e-3, as tests/test_fused_ppo.py:140-147.
-    for i, (a, b) in enumerate(zip(rows_b4, rows_off)):
-        print(f'  update {i + 1}: ' + ', '.join(
-            f'{k} {a[k]:.6f}/{b[k]:.6f}' for k in ('loss', 'pg_loss', 'vf_loss', 'entropy')))
-        for k in ('loss', 'pg_loss', 'vf_loss', 'entropy'):
-            if abs(a[k] - b[k]) > 5e-3 + 0.05 * abs(b[k]):
-                fail(f'update {i + 1}: {k} {a[k]} (fused) vs {b[k]} (autograd)')
+    _track(rows_b4, rows_off, 'fused loss kernel vs autograd learner')
 
     step_mb = make_train_step(venv, net, config.replace(epochs=2, minibatches=4), tx)
     _zero_counts()
@@ -724,8 +824,7 @@ def train_timing(venv, step, state):
     bd = bound(in_bytes + param_bytes, vector_ops=2 * nnz * h, tensor_ops=dense)
     out['ppo_loss'] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bd[0],
                            bound_by=bd[1])
-    fl.launches, fl.grad_launches, fused_ppo.launches = (
-        counts['onehot_linear'], counts['onehot_linear_grad'], counts['ppo_loss'])
+    _set_counts(counts)
     for name, r in out.items():
         lib = 'none' if r['library_ms'] is None else f'{r["library_ms"]:.6f} ms'
         print(f'{name}: {r["ms"]:.6f} ms/launch; plain {r["plain_ms"]:.6f} ms; library {lib}; '
@@ -734,37 +833,39 @@ def train_timing(venv, step, state):
     return state, dict(rate=rate, kernels=out)
 
 
+def rollout_layers(step, state, steps=8):
+    """Where a rollout step's host time goes, each layer synchronized: the
+    policy step (noise, forward and sampling, through ``step.policy_step``:
+    the fused-policy kernel where the step takes it) and the env step."""
+    import torch
+
+    venv, params, obs, env_state = step.venv, state.params, state.last_obs, state.env_state
+    prepped = step.prepare_policy(params)
+    layers = {'policy step': 0.0, 'env step': 0.0}
+    with torch.no_grad():
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            action = step.policy_step(params, prepped, obs, state.generator)[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            obs, env_state, *_ = venv.step(env_state, action)
+            torch.cuda.synchronize()
+            layers['policy step'] += t1 - t0
+            layers['env step'] += time.perf_counter() - t1
+    label = 'fused policy' if prepped is not None else 'default path'
+    print(f'per-rollout-step host time by layer, {label} (synchronized): ' + ', '.join(
+        f'{k} {v / steps * 1e3:.4f} ms' for k, v in layers.items()))
+    return state.replace(last_obs=obs, env_state=env_state)
+
+
 def train_breakdown(step, state, steps=8):
     """Where a rollout step's host time goes (each layer synchronized), then
     where an update's device time goes, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from multigrid_tpu_torch.learn.ppo import _select_log_prob, gumbel_noise, sample_actions
-
-    venv, params, obs, env_state = step.venv, state.params, state.last_obs, state.env_state
-    layers = {'policy forward': 0.0, 'sampling': 0.0, 'env step': 0.0}
-    with torch.no_grad():
-        for _ in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, value = step.policy(params, obs)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            action = sample_actions(logits, gumbel_noise(logits.shape, state.generator,
-                                                         venv.device))
-            _select_log_prob(logits, action)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            obs, env_state, *_ = venv.step(env_state, action)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            layers['policy forward'] += t1 - t0
-            layers['sampling'] += t2 - t1
-            layers['env step'] += t3 - t2
-    print('per-rollout-step host time by layer (synchronized): ' + ', '.join(
-        f'{k} {v / steps * 1e3:.4f} ms' for k, v in layers.items()))
-    state = state.replace(last_obs=obs, env_state=env_state)
+    state = rollout_layers(step, state, steps)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -785,6 +886,160 @@ def train_breakdown(step, state, steps=8):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f'  {us / 1e3:9.4f} ms  {name[:90]}')
     return state
+
+
+def variants(device=None):
+    """The trained flagship through each learner variant, each from its own
+    warmed-up state, with exact launch counts. Returns ``{name: (step,
+    snapshot)}`` for the timing and the fused run's launch counts."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.ops import fused_ppo
+
+    venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=N, device=device), E,
+                     packed_obs=True)
+    per_update = TRAIN_T + 1
+    out = {}
+
+    # The fully fused rollout policy beside the default path, from one state.
+    state, net, config, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=TRAIN_T),
+                                      hidden=HIDDEN)
+    default = make_train_step(venv, net, config, tx)
+    os.environ['MULTIGRID_FUSED_POLICY'] = '1'
+    try:
+        fused = make_train_step(venv, net, config, tx)
+    finally:
+        del os.environ['MULTIGRID_FUSED_POLICY']
+    if not fused.fused_policy or default.fused_policy:
+        fail('MULTIGRID_FUSED_POLICY does not select the fused policy at the flagship')
+    snap = _snapshot(default, state)
+    # The first rollout step's actions from the same observations and noise:
+    # they differ only where the top two perturbed logits nearly tie (the
+    # kernel keeps f32 logits, the net rounds them to bf16).
+    state = _restore(default, snap)
+    with torch.no_grad():
+        a_fused = fused.policy_step(state.params, fused.prepare_policy(state.params),
+                                    state.last_obs, state.generator)[0]
+        state = _restore(default, snap)
+        a_default = default.policy_step(state.params, None, state.last_obs,
+                                        state.generator)[0]
+    share = float((a_fused != a_default).float().mean())
+    print(f'first rollout step: {int((a_fused != a_default).sum())} of {a_fused.numel()} '
+          f'actions differ between the fused policy and the default path ({share:.6f})')
+    if not share < 0.02:
+        fail(f'the fused policy changes {share} of the first step\'s actions')
+    _, rows_f = _counted(fused, snap, 3, 'fused policy', onehot_linear=3, ppo_loss=3,
+                         policy_sample=3 * TRAIN_T)
+    counts_fused = _counts()
+    _, rows_d = _counted(default, snap, 3, 'default path', onehot_linear=3 * per_update,
+                         ppo_loss=3)
+    _track(rows_f, rows_d, 'fused policy vs default path')
+    out['default'] = (default, snap)
+    out['fused policy'] = (fused, snap)
+
+    # Per-agent policies: the loss kernel once per agent, and its gate off.
+    cfg = PPOConfig(rollout_steps=TRAIN_T, per_agent_policies=True)
+    state, net, cfg, tx = ppo_init(venv, 1, config=cfg, hidden=HIDDEN)
+    per_agent = make_train_step(venv, net, cfg, tx)
+    gate = fused_ppo.supports
+    fused_ppo.supports = lambda *a: False
+    try:
+        per_agent_off = make_train_step(venv, net, cfg, tx)
+    finally:
+        fused_ppo.supports = gate
+    snap = _snapshot(per_agent, state)
+    _, rows_k = _counted(per_agent, snap, 3, 'per-agent policies, loss kernel',
+                         onehot_linear=3 * N * per_update, ppo_loss=3 * N)
+    _, rows_o = _counted(per_agent_off, snap, 3, 'per-agent policies, gate off',
+                         onehot_linear=3 * (N * per_update + N), onehot_linear_grad=3 * N)
+    _track(rows_o, rows_k, 'per-agent gate off vs loss kernel')
+    out['per-agent'] = (per_agent, snap)
+    out['per-agent, gate off'] = (per_agent_off, snap)
+
+    # The centralized critic (its first layer on the first-layer kernel over
+    # N·C cells, its dW on the gradient kernel) with a shared and with
+    # per-agent actors; the learner is autograd.
+    for shared in (True, False):
+        cfg = PPOConfig(rollout_steps=TRAIN_T, per_agent_policies=not shared,
+                        centralized_critic=True)
+        state, net, cfg, tx = ppo_init(venv, 2, config=cfg, hidden=HIDDEN)
+        step = make_train_step(venv, net, cfg, tx)
+        snap = _snapshot(step, state)
+        actors = 1 if shared else N
+        name = f'centralized critic, {"shared" if shared else "per-agent"} actor'
+        after, _ = _counted(step, snap, 2, name,
+                            onehot_linear=2 * ((actors + 1) * per_update + actors + 1),
+                            onehot_linear_grad=2 * (actors + 1))
+        for group in ('actor.', 'critic.'):
+            keys = [k for k in snap[0].params if k.startswith(group)]
+            moved = sum(not torch.equal(snap[0].params[k], after.params[k]) for k in keys)
+            print(f'  {group[:-1]}: {moved} of {len(keys)} parameters moved')
+            if not moved:
+                fail(f'{name}: no {group[:-1]} parameter moved')
+        out[name] = (step, snap)
+    return out, counts_fused
+
+
+def variant_timing(steps):
+    """Trained agent-steps/s of each variant (median of 3 length-differenced
+    pairs of 1 and 4 updates, the variants in turns), the rollout step's
+    layers with and without the fused policy, and the fused policy kernel's
+    time at the flagship beside its bound and plain version."""
+    import statistics
+
+    import torch
+
+    from multigrid_tpu_torch.learn.nets import direction_features
+    from multigrid_tpu_torch.ops import fused_policy as fp
+
+    samples = E * N * TRAIN_T
+    short, long_ = 1, 4
+    states = {name: _restore(step, snap) for name, (step, snap) in steps.items()}
+    rates = {name: [] for name in steps}
+    for _ in range(3):
+        for name, (step, _) in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = _run(step, states[name], short)
+            t1 = time.perf_counter()
+            states[name], _ = _run(step, state, long_)
+            t2 = time.perf_counter()
+            rates[name].append(samples * (long_ - short) / ((t2 - t1) - (t1 - t0)))
+    base = statistics.median(rates['default'])
+    medians = {}
+    for name, r in rates.items():
+        medians[name] = statistics.median(r)
+        print(f'{name}: trained agent-steps/s {medians[name]:.6e} '
+              f'({samples / medians[name] * 1e3:.4f} ms/update, {medians[name] / base:.4f} of '
+              f'the default path; pairs {", ".join(f"{x:.6e}" for x in r)})')
+
+    default, fused = steps['default'][0], steps['fused policy'][0]
+    for step in (default, fused, fused, default):
+        rollout_layers(step, states['default'], 8)
+
+    counts = _counts()
+    state = states['fused policy']
+    obs, b = state.last_obs, E * N
+    w = fp.prepare(state.params)
+    packed = obs['image'].reshape(b, C)
+    dirf = direction_features(obs['direction']).float().reshape(b, 2)
+    gumbel = -torch.log(-torch.log(torch.rand(b, 7, device=packed.device).clamp_min(1e-30)))
+    ms = event_ms(lambda: fp.policy_sample_prepared(w, packed, dirf, gumbel), 100)
+    plain = event_ms(lambda: fp.policy_sample_plain(w, packed, dirf, gumbel,
+                                                    compute_dtype=torch.bfloat16), 10)
+    _set_counts(counts)
+    t, col, st = packed >> 8, (packed >> 4) & 15, packed & 15
+    nnz = int(((t >= 0) & (t < 11)).sum() + (col < 6).sum() + (st < 4).sum())
+    in_bytes = sum(x.numel() * x.element_size() for x in [packed, dirf, gumbel, *w.values()])
+    bd = bound(in_bytes + 12 * b, vector_ops=nnz * HIDDEN,
+               tensor_ops=2 * b * (HIDDEN * HIDDEN + 3 * HIDDEN + 8 * HIDDEN))
+    print(f'policy_sample: {ms:.6f} ms/launch; plain {plain:.6f} ms; library none; '
+          f'bound {bd[0]:.6f} ms by {bd[1]} ({in_bytes + 12 * b} bytes, {nnz * HIDDEN} adds); '
+          f'{bd[0] / ms:.4f} of the bound')
+    return dict(rates=medians, kernel=dict(ms=ms, plain_ms=plain, library_ms=None,
+                                           bound_ms=bd[0], bound_by=bd[1]))
 
 
 def main() -> None:
@@ -810,6 +1065,7 @@ def main() -> None:
     phase('kernels')
     obs_err = obs_cases(device)
     errs = train_kernel_cases(device)
+    policy_err = policy_kernel_cases(device)
     phase('main')
     venv, obs, state, summary, launches = main_path()
     phase('check')
@@ -824,6 +1080,10 @@ def main() -> None:
     tstate, tt = train_timing(tvenv, step, tstate)
     phase('train breakdown')
     train_breakdown(step, tstate)
+    phase('variants')
+    steps, counts_fused = variants()
+    phase('variant timing')
+    vt = variant_timing(steps)
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
@@ -843,7 +1103,14 @@ def main() -> None:
                             max_rel_err=errs[name][1],
                             **tt['kernels'][name]))
     kernels[2]['launches_path'] = 'train, learner gate off (autograd)'
-    print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate']}))
+    kernels.append(dict(name='policy_sample', route='cuda',
+                        source='multigrid_tpu_torch/csrc/fused_policy.cu',
+                        replaces='multigrid_tpu/ops/fused_policy.py:62',
+                        launches=counts_fused['policy_sample'],
+                        launches_path='train, MULTIGRID_FUSED_POLICY set',
+                        max_abs_err=policy_err[0], max_rel_err=policy_err[1], **vt['kernel']))
+    print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate'],
+                      'variants_trained_agent_steps_per_s': vt['rates']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

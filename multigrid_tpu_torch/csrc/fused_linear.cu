@@ -37,26 +37,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "onehot_rows.cuh"
+
 namespace {
 
-constexpr int kNch = 21;  // one-hot channels: 11 types, 6 colors, 4 states
-constexpr int kTypes = 11;
-constexpr int kColors = 6;
-constexpr int kStates = 4;
 constexpr int kThreads = 256;
 constexpr int kMaxCols = 8;  // columns per lane: H <= 256
 
-// The three weight rows a packed cell selects, -1 where a field is out of
-// its channel's range.
-__device__ __forceinline__ void cell_rows(int p, int cell, int rows[3]) {
-  const int t = p >> 8, col = (p >> 4) & 15, st = p & 15;
-  const int base = cell * kNch;
-  rows[0] = (t >= 0 && t < kTypes) ? base + t : -1;
-  rows[1] = col < kColors ? base + kTypes + col : -1;
-  rows[2] = st < kStates ? base + kTypes + kColors + st : -1;
-}
-
-// One warp per sample; lane l owns columns l, l+32, ...
+// One warp per sample (onehot_rows.cuh); lane l owns columns l, l+32, ...
 __global__ void __launch_bounds__(kThreads) onehot_linear_kernel(
     const int32_t* __restrict__ packed,     // (B, C)
     const __nv_bfloat16* __restrict__ w,    // (C*21, H)
@@ -68,21 +56,7 @@ __global__ void __launch_bounds__(kThreads) onehot_linear_kernel(
   float acc[kMaxCols];
 #pragma unroll
   for (int i = 0; i < kMaxCols; ++i) acc[i] = 0.f;
-  const int32_t* p = packed + static_cast<size_t>(sample) * c;
-  for (int cell = 0; cell < c; ++cell) {
-    int rows[3];
-    cell_rows(p[cell], cell, rows);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if (rows[k] < 0) continue;
-      const __nv_bfloat16* wr = w + static_cast<size_t>(rows[k]) * h;
-#pragma unroll
-      for (int i = 0; i < kMaxCols; ++i) {
-        const int j = lane + 32 * i;
-        if (j < h) acc[i] += __bfloat162float(wr[j]);
-      }
-    }
-  }
+  gather_onehot_rows<kMaxCols>(packed + static_cast<size_t>(sample) * c, c, w, h, lane, acc);
   __nv_bfloat16* o = out + static_cast<size_t>(sample) * h;
 #pragma unroll
   for (int i = 0; i < kMaxCols; ++i) {

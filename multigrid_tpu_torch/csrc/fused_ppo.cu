@@ -40,21 +40,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "onehot_rows.cuh"
+
 namespace {
 
-constexpr int kNch = 21;
-constexpr int kTypes = 11;
-constexpr int kColors = 6;
-constexpr int kStates = 4;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kS = 32;       // samples per tile
 constexpr int kA = 8;        // actions at most
 constexpr int kF1 = 16;      // direction features + the bias column, at most
-
-__device__ __forceinline__ float bf(float x) {  // round to bf16 and back
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 struct Coefs {
   float inv_b, c_ent, c_vf, lo, hi;
@@ -79,9 +73,9 @@ struct Layout {
 };
 
 // The first layer, h = one_hot(packed) @ W_img + [dirf, 1] @ [W0; b0], and
-// x1 = bf16(relu(h)), one warp per sample: the gather of 3*C weight rows
-// from L2 needs many warps in flight, which the loss kernel (one block of
-// 8 warps an SM) does not have.
+// x1 = bf16(relu(h)), one warp per sample (onehot_rows.cuh): the gather of
+// 3*C weight rows from L2 needs many warps in flight, which the loss kernel
+// (one block of 8 warps an SM) does not have.
 template <int H>
 __global__ void __launch_bounds__(kThreads) first_layer_kernel(
     const int32_t* __restrict__ packed,        // (B, C)
@@ -90,36 +84,15 @@ __global__ void __launch_bounds__(kThreads) first_layer_kernel(
     const __nv_bfloat16* __restrict__ wd,      // (F+1, H): [W0; b0]
     __nv_bfloat16* __restrict__ x1_out,        // (B, H)
     int b, int c, int f) {
-  constexpr int kCols = H / 32;
   const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (n >= b) return;
-  float acc[kCols];
+  float x1[H / 32];
+  first_layer_x1<H>(packed + static_cast<size_t>(n) * c, c, dirf + static_cast<size_t>(n) * f,
+                    f, w_img, wd, lane, x1);
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
-  const int32_t* p = packed + static_cast<size_t>(n) * c;
-  for (int cell = 0; cell < c; ++cell) {
-    const int v = p[cell];
-    const int t = v >> 8, col = (v >> 4) & 15, st = v & 15;
-    const __nv_bfloat16* wc = w_img + static_cast<size_t>(cell) * kNch * H + lane;
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      if (t >= 0 && t < kTypes) acc[i] += __bfloat162float(wc[t * H + 32 * i]);
-      if (col < kColors) acc[i] += __bfloat162float(wc[(kTypes + col) * H + 32 * i]);
-      if (st < kStates)
-        acc[i] += __bfloat162float(wc[(kTypes + kColors + st) * H + 32 * i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kCols; ++i) {
-    const int j = lane + 32 * i;
-    float d = 0.f;
-    for (int q = 0; q <= f; ++q) {
-      const float x = q < f ? bf(dirf[static_cast<size_t>(n) * f + q]) : 1.f;
-      d += x * __bfloat162float(wd[q * H + j]);
-    }
-    x1_out[static_cast<size_t>(n) * H + j] = __float2bfloat16(fmaxf(acc[i] + d, 0.f));
-  }
+  for (int i = 0; i < H / 32; ++i)
+    x1_out[static_cast<size_t>(n) * H + lane + 32 * i] = __float2bfloat16(x1[i]);
 }
 
 template <int H>

@@ -1,6 +1,15 @@
-"""PPO training: the mlp ``ActorCritic`` and the shared-policy learner."""
+"""PPO training: the mlp ``ActorCritic``, the centralized critic, and the
+learner for shared or per-agent policies."""
 
-from .nets import OBS_CHANNELS, ActorCritic, one_hot_image, params_from_flax, params_to_flax
+from .nets import (
+    OBS_CHANNELS,
+    ActorCritic,
+    CentralizedCritic,
+    make_centralized_critic,
+    one_hot_image,
+    params_from_flax,
+    params_to_flax,
+)
 from .ppo import (
     Optimizer,
     PPOConfig,
@@ -12,7 +21,7 @@ from .ppo import (
 )
 
 __all__ = [
-    'OBS_CHANNELS', 'ActorCritic', 'Optimizer', 'PPOConfig', 'Rollout',
-    'TrainState', 'make_train_loop', 'make_train_step', 'one_hot_image',
-    'params_from_flax', 'params_to_flax', 'ppo_init',
+    'OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic', 'Optimizer', 'PPOConfig',
+    'Rollout', 'TrainState', 'make_centralized_critic', 'make_train_loop',
+    'make_train_step', 'one_hot_image', 'params_from_flax', 'params_to_flax', 'ppo_init',
 ]

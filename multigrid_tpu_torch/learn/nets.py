@@ -1,28 +1,35 @@
-"""Policy/value network for gridworld observations (the mlp encoder).
+"""Policy/value networks for gridworld observations (the mlp encoder).
 
-Counterpart of ``multigrid_tpu.learn.nets`` for ``encoder='mlp'``. The
-module keeps flax's layout and numerics so that the JAX package's weights
-carry across (:func:`params_from_flax`, :func:`params_to_flax`):
+Counterpart of ``multigrid_tpu.learn.nets`` for ``encoder='mlp'``: the
+``ActorCritic`` and the MAPPO ``CentralizedCritic``. The modules keep
+flax's layout and numerics so that the JAX package's weights carry across
+(:func:`params_from_flax`, :func:`params_to_flax`):
 
 - parameters are float32 and stored as flax stores them: ``img_kernel``
   (C·21, H) over the flattened one-hot features (feature ``cell·21 + ch``)
   and ``Dense_i.kernel`` (in, out), ``Dense_i.bias`` (out,);
-- the trunk and heads compute in bfloat16 from those parameters (flax's
-  ``dtype=bfloat16``); the heads' small outputs are promoted to float32;
+- the trunk and heads compute in the module's ``dtype`` from those
+  parameters (flax's ``dtype``, bfloat16 by default; float32 nets exist for
+  tests); the heads' small outputs are promoted to float32;
 - the direction enters as ``cos``/``sin`` of a bfloat16 ``theta``
   (nets.py:106-107) through ``Dense_0`` with a bias, added to the first
   layer's output (W·[x; d] == W_x·x + W_d·d).
 
-On packed observations the first layer is ``one_hot(packed) @ img_kernel``
-through :func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear`: a CUDA
-kernel on the card (with a kernel for its weight gradient), the plain
-one-hot product on the CPU.
+On packed observations the first layer is ``one_hot(packed) @ W`` through
+:func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear`: on the card a
+CUDA kernel (with a kernel for its weight gradient) whatever the net's
+``dtype``, as the JAX package's fused path takes its kernel; on the CPU the
+kernel's plain version for a bf16 net, and for a float32 net (which exists
+for the tests) the one-hot product in float32, as flax computes it outside
+the kernel.
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,17 +38,17 @@ from ..ops.fused_linear import NCH, OBS_CHANNELS, one_hot_image, onehot_linear
 #: The compute type of the trunk and heads (flax's ``dtype``).
 DTYPE = torch.bfloat16
 
-__all__ = ['OBS_CHANNELS', 'ActorCritic', 'direction_features', 'one_hot_image',
-           'params_from_flax', 'params_to_flax']
+__all__ = ['OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic', 'direction_features',
+           'make_centralized_critic', 'one_hot_image', 'params_from_flax', 'params_to_flax']
 
 
-def direction_features(direction: torch.Tensor) -> torch.Tensor:
-    """(…) directions → (…, 2) ``[cos θ, sin θ]`` in bfloat16, θ = dir·π/2
-    rounded to bfloat16 as flax computes it (``cos(bf16(π/2))`` is not 0)."""
+def direction_features(direction: torch.Tensor, dtype=DTYPE) -> torch.Tensor:
+    """(…) directions → (…, 2) ``[cos θ, sin θ]`` in ``dtype``, θ = dir·π/2
+    rounded to ``dtype`` as flax computes it (``cos(bf16(π/2))`` is not 0)."""
     # bf16 × f32(π/2), rounded to bf16, equals flax's bf16 × bf16(π/2) for
     # the four directions (tests/test_torch_nets.py pins them); a Python
     # scalar makes no host-to-device copy.
-    theta = direction.to(DTYPE) * (math.pi / 2)
+    theta = direction.to(dtype) * (math.pi / 2)
     return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
 
 
@@ -52,16 +59,20 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` with ``dtype=bfloat16``: float32 ``kernel`` (in,
-    out) and ``bias``, cast to bfloat16 for the product and the add."""
+    """flax ``nn.Dense``: float32 ``kernel`` (in, out) and ``bias`` (none
+    with ``use_bias=False``), cast to ``dtype`` for the product and the add."""
 
-    def __init__(self, fan_in: int, features: int, generator: torch.Generator):
+    def __init__(self, fan_in: int, features: int, generator: torch.Generator,
+                 dtype=DTYPE, use_bias: bool = True):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(lecun_normal_(torch.empty(fan_in, features), generator))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_parameter('bias', nn.Parameter(torch.zeros(features)) if use_bias
+                                else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(DTYPE) @ self.kernel.to(DTYPE) + self.bias.to(DTYPE)
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class ActorCritic(nn.Module):
@@ -71,67 +82,136 @@ class ActorCritic(nn.Module):
     vs, vs, 3) triples (C = vs·vs); ``direction`` is (...). Returns float32
     ``(logits (..., num_actions), value (...))``. Parameters are made on the
     CPU from ``seed`` (the same weights on any device); move the module with
-    ``.to(device)``.
+    ``.to(device)``. ``dtype`` is the compute type (flax's ``dtype``).
     """
 
     def __init__(self, num_cells: int, *, num_actions: int = 7, hidden: int = 128,
-                 packed_obs: bool = False, seed: int = 0):
+                 packed_obs: bool = False, seed: int = 0, dtype=DTYPE):
         super().__init__()
         self.num_cells = num_cells
         self.num_actions = num_actions
         self.hidden = hidden
         self.packed_obs = packed_obs
+        self.dtype = dtype
         g = torch.Generator().manual_seed(seed)
         self.img_kernel = nn.Parameter(
             lecun_normal_(torch.empty(num_cells * NCH, hidden), g))
-        self.Dense_0 = Dense(2, hidden, g)
-        self.Dense_1 = Dense(hidden, hidden, g)
-        self.Dense_2 = Dense(hidden, num_actions, g)
-        self.Dense_3 = Dense(hidden, 1, g)
+        self.Dense_0 = Dense(2, hidden, g, dtype)
+        self.Dense_1 = Dense(hidden, hidden, g, dtype)
+        self.Dense_2 = Dense(hidden, num_actions, g, dtype)
+        self.Dense_3 = Dense(hidden, 1, g, dtype)
 
     def forward(self, image: torch.Tensor, direction: torch.Tensor):
-        c = self.num_cells
-        if self.packed_obs:
-            lead = image.shape[:-1]
-            h = onehot_linear(image.reshape(-1, c), self.img_kernel)
-            h = h.reshape(lead + (self.hidden,))
-        else:
-            lead = image.shape[:-3]
-            x = one_hot_image(image).reshape(lead + (c * NCH,))
-            h = x @ self.img_kernel.to(DTYPE)
-        x = torch.relu(h + self.Dense_0(direction_features(direction)))
+        lead = image.shape[:-1] if self.packed_obs else image.shape[:-3]
+        h = _first_layer(image, self.img_kernel, self.num_cells, lead, self.packed_obs,
+                         self.dtype)
+        x = torch.relu(h + self.Dense_0(direction_features(direction, self.dtype)))
         x = torch.relu(self.Dense_1(x))
         logits = self.Dense_2(x).float()
         value = self.Dense_3(x).float()
         return logits, value.squeeze(-1)
 
 
+def _first_layer(image, w, cells, lead, packed, dtype):
+    """``one_hot(image) @ w`` over ``cells`` cells → (*lead, H) in ``dtype``:
+    the first-layer kernel for packed cells on the card or a bf16 net, else
+    the one-hot product in ``dtype``."""
+    if packed and (image.is_cuda or dtype == torch.bfloat16):
+        h = onehot_linear(image.reshape(-1, cells), w).reshape(lead + (w.shape[1],))
+        return h.to(dtype)
+    x = one_hot_image(image, dtype, packed=packed).reshape(lead + (cells * NCH,))
+    return x @ w.to(dtype)
+
+
+class CentralizedCritic(nn.Module):
+    """Joint-observation value function for MAPPO-style training:
+    V(o_1..o_N) from every agent's observation and direction (the actors
+    stay partial). Counterpart of flax ``CentralizedCritic`` (nets.py:172),
+    with its parameter names: ``Dense_0`` (N·C·21, H) with a bias over the
+    joint one-hot, ``Dense_1`` (2N, H) without one over the direction
+    features, ``Dense_2`` the trunk, ``Dense_3`` the value.
+
+    ``images`` (..., N, C) packed or (..., N, vs, vs, 3) triples,
+    ``directions`` (..., N); returns the float32 value (...). The first
+    layer takes the one-hot over all N·C cells as one row of cells, so a
+    bf16 critic on packed cells runs the first-layer kernel (and its weight
+    gradient) on (..., N·C).
+    """
+
+    def __init__(self, num_cells: int, num_agents: int, *, hidden: int = 128,
+                 packed_obs: bool = False, seed: int = 0, dtype=DTYPE):
+        super().__init__()
+        self.num_cells, self.num_agents = num_cells, num_agents
+        self.hidden, self.packed_obs, self.dtype = hidden, packed_obs, dtype
+        g = torch.Generator().manual_seed(seed)
+        self.Dense_0 = Dense(num_agents * num_cells * NCH, hidden, g, dtype)
+        self.Dense_1 = Dense(2 * num_agents, hidden, g, dtype, use_bias=False)
+        self.Dense_2 = Dense(hidden, hidden, g, dtype)
+        self.Dense_3 = Dense(hidden, 1, g, dtype)
+
+    def forward(self, images: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+        n = self.num_agents
+        lead = directions.shape[:-1]
+        h = _first_layer(images, self.Dense_0.kernel, n * self.num_cells, lead,
+                         self.packed_obs, self.dtype) + self.Dense_0.bias.to(self.dtype)
+        d = direction_features(directions, self.dtype).reshape(lead + (2 * n,))
+        x = torch.relu(h + self.Dense_1(d))
+        x = torch.relu(self.Dense_2(x))
+        return self.Dense_3(x).float().squeeze(-1)
+
+
+def make_centralized_critic(net: ActorCritic, num_agents: int, seed: int = 0):
+    """The joint-observation critic matched to an actor net's attributes."""
+    return CentralizedCritic(net.num_cells, num_agents, hidden=net.hidden,
+                             packed_obs=net.packed_obs, seed=seed, dtype=net.dtype)
+
+
 #: flax's parameter names of the mlp ``ActorCritic``, as state-dict keys.
 PARAM_NAMES = ('img_kernel',) + tuple(
     f'Dense_{i}.{leaf}' for i in range(4) for leaf in ('kernel', 'bias'))
 
+#: Key prefixes of the two groups of an actor/critic parameter dict.
+ACTOR, CRITIC = 'actor.', 'critic.'
+
 
 def params_from_flax(tree, device=None) -> dict[str, torch.Tensor]:
-    """flax params of the mlp ``ActorCritic`` (``{'params': {...}}`` or the
-    inner dict, leaves as numpy arrays) → a state dict of float32 tensors,
-    keyed ``img_kernel`` and ``Dense_i.kernel``/``Dense_i.bias``."""
-    tree = tree.get('params', tree)
+    """flax params → a state dict of float32 tensors keyed by the flax path
+    joined with dots (``img_kernel``, ``Dense_i.kernel``, ``Dense_i.bias``).
+
+    Takes the tree of an ``ActorCritic`` or a ``CentralizedCritic``
+    (``{'params': {...}}`` or the inner dict, leaves as arrays), a stacked
+    tree of per-agent policies (the leading agent axis stays), or
+    ``{'actor': ..., 'critic': ...}`` (keys prefixed ``actor.`` and
+    ``critic.``)."""
+    if 'actor' in tree:
+        return {prefix + k: v for prefix, part in ((ACTOR, 'actor'), (CRITIC, 'critic'))
+                for k, v in params_from_flax(tree[part], device).items()}
     out = {}
-    for name in PARAM_NAMES:
-        leaf = tree
-        for part in name.split('.'):
-            leaf = leaf[part]
-        out[name] = torch.tensor(leaf, dtype=torch.float32, device=device)
+
+    def walk(node, path):
+        for key, leaf in node.items():
+            if isinstance(leaf, Mapping):
+                walk(leaf, path + key + '.')
+            else:
+                out[path + key] = torch.tensor(np.asarray(leaf), dtype=torch.float32,
+                                               device=device)
+
+    walk(tree.get('params', tree), '')
     return out
 
 
 def params_to_flax(params: dict[str, torch.Tensor]) -> dict:
-    """Inverse of :func:`params_from_flax`: ``{'params': {...}}`` of numpy."""
+    """Inverse of :func:`params_from_flax`: ``{'params': {...}}`` of numpy,
+    or ``{'actor': {'params': ...}, 'critic': {'params': ...}}``."""
+    if any(k.startswith(ACTOR) for k in params):
+        return {part: params_to_flax({k[len(prefix):]: v for k, v in params.items()
+                                      if k.startswith(prefix)})
+                for prefix, part in ((ACTOR, 'actor'), (CRITIC, 'critic'))}
     tree: dict = {}
-    for name in PARAM_NAMES:
+    for name, value in params.items():
         *path, leaf = name.split('.')
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = params[name].detach().cpu().numpy()
+        node[leaf] = value.detach().cpu().numpy()
     return {'params': tree}

@@ -1,15 +1,21 @@
-"""PPO with a shared policy: rollout, GAE and clipped-surrogate updates.
+"""PPO: rollout, GAE and clipped-surrogate updates.
 
-Counterpart of ``multigrid_tpu.learn.ppo`` for one policy shared by all
-agents, the mlp ``ActorCritic``, and optax's ``clip_by_global_norm`` then
-``adam``. An update (:class:`TrainStep`) runs ``rollout_steps`` lockstep
-steps of the vector env with actions sampled from the policy, computes GAE,
-and takes ``epochs`` × ``minibatches`` SGD steps. On the card the rollout's
-first layer is the ``onehot_linear`` kernel, and the learner is the fused
-PPO-loss kernel where :func:`~multigrid_tpu_torch.ops.fused_ppo.supports`
-holds, else autograd of :meth:`TrainStep.loss_fn` (whose first layer's
-weight gradient is the ``onehot_linear`` gradient kernel). On the CPU the
-same code takes the plain versions.
+Counterpart of ``multigrid_tpu.learn.ppo`` for the mlp ``ActorCritic``: one
+policy shared by all agents, or per-agent policies
+(``PPOConfig.per_agent_policies``, the reference's ``policy_{i}``: every
+parameter has a leading agent axis), each with an optional MAPPO
+centralized critic (``PPOConfig.centralized_critic``). An update
+(:class:`TrainStep`) runs ``rollout_steps`` lockstep steps of the vector env
+with actions sampled from the policy, computes GAE, and takes ``epochs`` ×
+``minibatches`` SGD steps. On the card the rollout's first layer is the
+``onehot_linear`` kernel (once per agent with per-agent policies), or, with
+``MULTIGRID_FUSED_POLICY`` set for a shared policy without the critic, the
+whole policy step is the fused-policy kernel. The learner is the fused
+PPO-loss kernel (once per agent with per-agent policies) where
+:func:`~multigrid_tpu_torch.ops.fused_ppo.supports` holds and there is no
+centralized critic, else autograd of :meth:`TrainStep.loss_fn` (whose first
+layers' weight gradients are the ``onehot_linear`` gradient kernel). On the
+CPU the same code takes the plain versions.
 
 Parameters and optimizer state are plain dicts of tensors, updated
 functionally: no tensor of a ``TrainState`` is written in place, so a caller
@@ -22,6 +28,7 @@ numbers than ``jax.random``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
@@ -29,9 +36,9 @@ import torch
 from torch.func import functional_call
 
 from ..core.state import MultiGridState
-from ..ops import fused_ppo
+from ..ops import fused_policy, fused_ppo
 from ..parallel.vector import VectorEnv
-from .nets import PARAM_NAMES, ActorCritic, direction_features
+from .nets import ACTOR, CRITIC, ActorCritic, direction_features, make_centralized_critic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +55,12 @@ class PPOConfig:
     #: SGD minibatches per epoch: contiguous env blocks, with a fresh
     #: T-permutation and env-axis roll each epoch (ppo.py:58-63).
     minibatches: int = 1
+    #: Independent parameters per agent (the reference's ``policy_{i}``): a
+    #: leading agent axis on every parameter, gradients clipped per agent.
+    per_agent_policies: bool = False
+    #: MAPPO-style centralized critic: the value conditions on all agents'
+    #: observations; the actors stay partial (ppo.py:66-71).
+    centralized_critic: bool = False
 
     def replace(self, **changes) -> 'PPOConfig':
         return dataclasses.replace(self, **changes)
@@ -61,28 +74,56 @@ class OptState:
 
 
 class Optimizer:
-    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))``.
+    """``optax.chain(clip, adam(lr))``, the clip as the JAX package builds it
+    (ppo.py:192-221):
 
-    The clip scales by ``max_norm / norm`` only where ``norm >= max_norm``,
-    with no epsilon (torch's ``clip_grad_norm_`` divides by ``norm + 1e-6``);
+    - ``optax.clip_by_global_norm(max_grad_norm)``: scales by
+      ``max_norm / norm`` only where ``norm >= max_norm``, with no epsilon
+      (torch's ``clip_grad_norm_`` divides by ``norm + 1e-6``);
+    - ``per_agent=True``, ``clip_by_global_norm_per_agent``: one norm per
+      leading-axis (agent) slice, ``scale = min(1, max_norm / (norm +
+      1e-16))`` (ppo.py:113-137);
+    - ``critic=True`` (keys ``actor.*`` and ``critic.*``), optax's
+      ``multi_transform``: the actor's group clipped as above, the critic's
+      by its own global norm.
+
     Adam's ``eps`` is outside the square root of the bias-corrected second
     moment. ``update`` returns the updates to add to the parameters.
     """
 
     def __init__(self, lr: float, max_grad_norm: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, *, per_agent: bool = False,
+                 critic: bool = False):
         self.lr, self.max_grad_norm = lr, max_grad_norm
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.per_agent, self.critic = per_agent, critic
 
     def init(self, params: dict[str, torch.Tensor]) -> OptState:
         return OptState(0, {k: torch.zeros_like(v) for k, v in params.items()},
                         {k: torch.zeros_like(v) for k, v in params.items()})
 
-    def update(self, grads: dict[str, torch.Tensor], state: OptState):
+    def _clip_group(self, grads: dict[str, torch.Tensor], per_agent: bool):
+        if per_agent:
+            sq = sum(torch.sum(g * g, dim=tuple(range(1, g.dim()))) for g in grads.values())
+            scale = torch.clamp(self.max_grad_norm / (torch.sqrt(sq) + 1e-16), max=1.0)
+            return {k: g * scale.reshape((-1,) + (1,) * (g.dim() - 1))
+                    for k, g in grads.items()}
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = norm < self.max_grad_norm
-        grads = {k: torch.where(keep, g, g / norm * self.max_grad_norm)
-                 for k, g in grads.items()}
+        return {k: torch.where(keep, g, g / norm * self.max_grad_norm)
+                for k, g in grads.items()}
+
+    def clip(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        if not self.critic:
+            return self._clip_group(grads, self.per_agent)
+        clipped = {}
+        for prefix, per_agent in ((ACTOR, self.per_agent), (CRITIC, False)):
+            clipped.update(self._clip_group(
+                {k: g for k, g in grads.items() if k.startswith(prefix)}, per_agent))
+        return {k: clipped[k] for k in grads}
+
+    def update(self, grads: dict[str, torch.Tensor], state: OptState):
+        grads = self.clip(grads)
         count = state.count + 1
         mu = {k: (1 - self.b1) * g + self.b1 * state.mu[k] for k, g in grads.items()}
         nu = {k: (1 - self.b2) * (g * g) + self.b2 * state.nu[k] for k, g in grads.items()}
@@ -146,25 +187,39 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
-             hidden: int = 128):
+             hidden: int = 128, dtype=torch.bfloat16):
     """``(train_state, net, config, optimizer)`` for training on ``venv``.
 
-    The env, the net's weights and the train state's generator get
-    independent seeds derived from ``seed``.
+    The env, the net's weights, the train state's generator and the critic
+    get independent seeds derived from ``seed``; per-agent policies get one
+    net each, from seeds derived from the net's. ``dtype`` is the nets'
+    compute type. With the centralized critic the parameters are keyed
+    ``actor.*`` and ``critic.*``.
     """
     config = config or PPOConfig()
-    env_seed, net_seed, train_seed = (
-        int(s) for s in np.random.SeedSequence(seed).generate_state(3))
+    env_seed, net_seed, train_seed, critic_seed = (
+        int(s) for s in np.random.SeedSequence(seed).generate_state(4))
     obs, env_state = venv.reset(seed=env_seed)
     if 'mission' in obs:
         raise NotImplementedError(
             'mission-conditioned envs are not ported yet: the net has no '
             'mission input')
     vs = venv.env.cfg.view_size
-    net = ActorCritic(vs * vs, hidden=hidden, packed_obs=venv.packed_obs,
-                      seed=net_seed).to(venv.device)
-    params = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    tx = Optimizer(config.lr, config.max_grad_norm)
+    kw = dict(hidden=hidden, packed_obs=venv.packed_obs, dtype=dtype)
+    net = ActorCritic(vs * vs, seed=net_seed, **kw).to(venv.device)
+    if config.per_agent_policies:
+        seeds = np.random.SeedSequence(net_seed).generate_state(venv.num_agents)
+        nets = [ActorCritic(vs * vs, seed=int(s), **kw).state_dict() for s in seeds]
+        params = {k: torch.stack([sd[k] for sd in nets]).to(venv.device) for k in nets[0]}
+    else:
+        params = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    if config.centralized_critic:
+        critic = make_centralized_critic(net, venv.num_agents, critic_seed)
+        params = {**{ACTOR + k: v for k, v in params.items()},
+                  **{CRITIC + k: v.detach().to(venv.device)
+                     for k, v in critic.state_dict().items()}}
+    tx = Optimizer(config.lr, config.max_grad_norm, per_agent=config.per_agent_policies,
+                   critic=config.centralized_critic)
     state = TrainState(
         params=params, opt_state=tx.init(params), env_state=env_state,
         last_obs=obs,
@@ -178,18 +233,88 @@ class TrainStep:
     (``rollout_phase``, ``compute_gae``, ``sgd_step``), which the tests and
     ``chip_smoke.py`` call one by one.
 
-    The learner's kernel gate is :func:`fused_ppo.supports`, read when the
-    step is built (as the JAX package reads it).
+    The learner's kernel gate is :func:`fused_ppo.supports`, and the fully
+    fused rollout policy's is ``MULTIGRID_FUSED_POLICY`` (any non-empty
+    value) with :func:`fused_policy.supports`; both are read when the step
+    is built (as the JAX package reads them).
     """
 
     def __init__(self, venv: VectorEnv, net: ActorCritic, config: PPOConfig,
                  tx: Optimizer):
         self.venv, self.net, self.config, self.tx = venv, net, config, tx
         self._loss_kernel_ok = fused_ppo.supports
+        self.critic = (make_centralized_critic(net, venv.num_agents).to(venv.device)
+                       if config.centralized_critic else None)
+        #: Whether the rollout samples through the fused-policy kernel:
+        #: opt-in, for a shared policy without the centralized critic, whose
+        #: value the kernel does not compute (ppo.py:342-349).
+        self.fused_policy = bool(
+            os.environ.get('MULTIGRID_FUSED_POLICY') and net.packed_obs
+            and not config.per_agent_policies and not config.centralized_critic
+            and fused_policy.supports(venv.num_envs * venv.num_agents, net.hidden,
+                                      net.num_actions))
+
+    def actor_params(self, params):
+        """The actor's parameters (without the ``actor.`` prefix)."""
+        if self.critic is None:
+            return params
+        return {k[len(ACTOR):]: v for k, v in params.items() if k.startswith(ACTOR)}
+
+    def actor(self, params, image, direction):
+        """The actor's ``(logits, value)`` for (..., N, ...) observations.
+        Per-agent policies apply agent i's parameter slice to agent i's
+        observations: one first-layer launch per agent, each on that agent's
+        cells, copied once into a contiguous batch."""
+        ap = self.actor_params(params)
+        if not self.config.per_agent_policies:
+            return functional_call(self.net, ap, (image, direction))
+        # Agent axis first, copied once, so each agent's rows are contiguous
+        # (a strided slice of (E, N, C) may reshape to a non-contiguous view).
+        image = image.movedim(image.dim() - (2 if self.net.packed_obs else 4), 0).contiguous()
+        outs = [functional_call(self.net, {k: v[i] for k, v in ap.items()},
+                                (image[i], direction[..., i]))
+                for i in range(direction.shape[-1])]
+        return (torch.stack([o[0] for o in outs], -2),
+                torch.stack([o[1] for o in outs], -1))
+
+    def central_value(self, params, image, direction):
+        """The centralized critic's value of the joint observation,
+        broadcast to every agent: (..., N)."""
+        cp = {k[len(CRITIC):]: v for k, v in params.items() if k.startswith(CRITIC)}
+        value = functional_call(self.critic, cp, (image, direction))
+        return value[..., None].expand(direction.shape)
 
     def policy(self, params, obs):
-        """``(logits, value)`` for (E, N, ...) observations."""
-        return functional_call(self.net, params, (obs['image'], obs['direction']))
+        """``(logits, value)`` for (E, N, ...) observations; the value is the
+        centralized critic's where there is one."""
+        logits, value = self.actor(params, obs['image'], obs['direction'])
+        if self.critic is not None:
+            value = self.central_value(params, obs['image'], obs['direction'])
+        return logits, value
+
+    def prepare_policy(self, params):
+        """The fused-policy kernel's weight operands
+        (:func:`fused_policy.prepare`), made once per rollout, where the
+        rollout takes that kernel; else None."""
+        return fused_policy.prepare(params) if self.fused_policy else None
+
+    def policy_step(self, params, prepped, obs, generator: torch.Generator):
+        """One rollout step's ``(action, log_prob, value)``, each (E, N): the
+        fused-policy kernel on ``prepped`` (from :meth:`prepare_policy`)
+        where it is not None, else :meth:`policy` and Gumbel-max sampling.
+        Both paths draw the same noise, of one shape from one generator."""
+        lead, a = obs['direction'].shape, self.net.num_actions
+        gumbel = gumbel_noise(lead + (a,), generator, self.venv.device)
+        if prepped is None:
+            logits, value = self.policy(params, obs)
+            action = sample_actions(logits, gumbel)
+            return action, _select_log_prob(logits, action), value
+        b = obs['direction'].numel()
+        dirf = direction_features(obs['direction'], self.net.dtype).float()
+        out = fused_policy.policy_sample_prepared(
+            prepped, obs['image'].reshape(b, -1), dirf.reshape(b, -1),
+            gumbel.reshape(b, a), num_actions=a)
+        return tuple(x.reshape(lead) for x in out)
 
     @torch.no_grad()
     def rollout_phase(self, state: TrainState):
@@ -202,11 +327,9 @@ class TrainStep:
         ep_cnt = torch.zeros((), dtype=torch.int64, device=venv.device)
         ep_suc = torch.zeros((), dtype=torch.int64, device=venv.device)
         steps = []
+        prepped = self.prepare_policy(params)
         for _ in range(self.config.rollout_steps):
-            logits, value = self.policy(params, obs)
-            action = sample_actions(
-                logits, gumbel_noise(logits.shape, state.generator, venv.device))
-            log_prob = _select_log_prob(logits, action)
+            action, log_prob, value = self.policy_step(params, prepped, obs, state.generator)
             next_obs, env_state, reward, term, _, done, success = venv.step(
                 env_state, action)
             ep_acc = ep_acc + reward.sum(-1)
@@ -249,7 +372,15 @@ class TrainStep:
                                              'direction': traj.direction})
         log_probs = torch.log_softmax(logits, dim=-1)
         ratio = torch.exp(_select_log_prob(logits, traj.action) - traj.log_prob)
-        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        if cfg.per_agent_policies:
+            # Each agent's own statistics, over all axes but the agent axis
+            # (ppo.py:499-511), so the policies do not couple through them.
+            axes = tuple(range(advantages.dim() - 1))
+            mu = advantages.mean(axes, keepdim=True)
+            sd = advantages.std(axes, correction=0, keepdim=True)
+        else:
+            mu, sd = advantages.mean(), advantages.std(correction=0)
+        adv = (advantages - mu) / (sd + 1e-8)
         pg_loss = -torch.minimum(
             ratio * adv,
             torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv).mean()
@@ -262,32 +393,66 @@ class TrainStep:
     def kernel_inputs(self, traj: Rollout, advantages, targets) -> list[torch.Tensor]:
         """The fused PPO-loss kernel's per-sample arguments for a (T, E, N)
         trajectory: packed cells, direction features, actions, old
-        log-probs, normalized advantages and targets, flattened to B rows."""
-        b = traj.direction.numel()
+        log-probs, normalized advantages and targets. A shared policy's are
+        flattened to B rows; per-agent policies' to (N, T·E) rows, each
+        agent's contiguous, with advantages normalized per agent
+        (ppo.py:540-565)."""
+        dirf = direction_features(traj.direction, self.net.dtype).float()
+        if not self.config.per_agent_policies:
+            b = traj.direction.numel()
 
-        def flat(x):
-            return x.reshape((b,) + x.shape[3:]).contiguous()
+            def flat(x):
+                return x.reshape((b,) + x.shape[3:]).contiguous()
 
-        mu, sd = advantages.mean(), advantages.std(correction=0)
-        return [flat(traj.image), flat(direction_features(traj.direction).float()),
-                flat(traj.action.to(torch.int32)), flat(traj.log_prob),
-                flat((advantages - mu) / (sd + 1e-8)), flat(targets)]
+            mu, sd = advantages.mean(), advantages.std(correction=0)
+            adv = flat((advantages - mu) / (sd + 1e-8))
+        else:
+            n = traj.direction.shape[-1]
+            b = traj.direction.numel() // n
+
+            def flat(x):  # (T, E, N, ...) → (N, T·E, ...), one copy
+                return x.movedim(2, 0).reshape((n, b) + x.shape[3:]).contiguous()
+
+            adv = flat(advantages)
+            adv = (adv - adv.mean(1, keepdim=True)) / (adv.std(1, correction=0, keepdim=True)
+                                                       + 1e-8)
+        return [flat(traj.image), flat(dirf), flat(traj.action.to(torch.int32)),
+                flat(traj.log_prob), adv, flat(targets)]
 
     def loss_grads(self, params, traj: Rollout, advantages, targets):
         """``(grads, metrics)``: the fused PPO-loss kernel where its gate
-        holds, else autograd of :meth:`loss_fn`."""
+        holds and there is no centralized critic (the kernel computes the
+        actor's own value head), once per agent with per-agent policies;
+        else autograd of :meth:`loss_fn` (ppo.py:583-637)."""
         cfg, net = self.config, self.net
-        if net.packed_obs and self._loss_kernel_ok(
-                traj.direction.numel(), net.hidden, net.num_actions):
-            return fused_ppo.ppo_mlp_grads(
-                params, *self.kernel_inputs(traj, advantages, targets),
-                clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-                num_actions=net.num_actions)
-        leaves = {k: params[k].detach().requires_grad_(True) for k in PARAM_NAMES}
+        b, n = traj.direction.numel(), traj.direction.shape[-1]
+        kw = dict(clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
+                  num_actions=net.num_actions)
+        if net.packed_obs and self.critic is None:
+            if cfg.per_agent_policies and self._loss_kernel_ok(
+                    b // n, net.hidden, net.num_actions):
+                args = self.kernel_inputs(traj, advantages, targets)
+                per = [fused_ppo.ppo_mlp_grads({k: v[i] for k, v in params.items()},
+                                               *(a[i] for a in args), **kw)
+                       for i in range(n)]
+                # Each launch means its loss over its agent's T·E samples;
+                # autograd of loss_fn means over all N·T·E (ppo.py:575-579).
+                grads = {k: torch.stack([g[k] for g, _ in per]) / n for k in params}
+                return grads, {k: torch.stack([m[k] for _, m in per]).mean()
+                               for k in per[0][1]}
+            if not cfg.per_agent_policies and self._loss_kernel_ok(
+                    b, net.hidden, net.num_actions):
+                return fused_ppo.ppo_mlp_grads(
+                    params, *self.kernel_inputs(traj, advantages, targets), **kw)
+        names = list(params)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         with torch.enable_grad():
             loss, metrics = self.loss_fn(leaves, traj, advantages, targets)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_NAMES])
-        return (dict(zip(PARAM_NAMES, grads)),
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
+        # With the centralized critic the actor's own value head is out of
+        # the loss: its gradient is 0, and counts in the actor's clip norm.
+        return ({k: torch.zeros_like(leaves[k]) if g is None else g
+                 for k, g in zip(names, grads)},
                 {k: v.detach() for k, v in metrics.items()})
 
     @torch.no_grad()

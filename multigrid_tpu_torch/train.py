@@ -1,14 +1,18 @@
-"""Train a shared PPO policy on a MultiGrid environment, on the card.
+"""Train PPO policies on a MultiGrid environment, on the card.
 
 The counterpart of the JAX package's ``scripts/train.py`` for the mlp
-encoder on packed observations and one policy shared by all agents:
+encoder on packed observations: one policy shared by all agents, or one per
+agent (``--per-agent-policies``), with each agent's own value head or a
+centralized critic (``--critic centralized``):
 
     python -m multigrid_tpu_torch.train --env MultiGrid-Empty-16x16-v0 \\
         --num-agents 4 --num-envs 4096 --num-timesteps 10000000
 
 Every ``--log-interval`` updates (and after the last) it prints one JSON row
 of metrics, and appends it to ``--log-jsonl`` when given. ``--device cpu``
-runs on the CPU with the kernels' plain versions.
+runs on the CPU with the kernels' plain versions. With
+``MULTIGRID_FUSED_POLICY`` set (a shared policy, local critic), the rollout
+samples through the fused-policy kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
-        description='Train a shared PPO policy on MultiGrid (PyTorch/CUDA).')
+        description='Train PPO policies on MultiGrid (PyTorch/CUDA).')
     p.add_argument('--env', default='MultiGrid-Empty-8x8-v0')
     p.add_argument('--num-agents', type=int, default=2)
     p.add_argument('--num-envs', type=int, default=1024,
@@ -38,6 +42,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument('--gamma', type=float, default=0.99)
     p.add_argument('--ent-coef', type=float, default=0.01)
     p.add_argument('--hidden', type=int, default=128)
+    p.add_argument('--per-agent-policies', action='store_true',
+                   help="independent parameters per agent (the reference "
+                        "example's policy_{i}); default is shared self-play")
+    p.add_argument('--critic', default='local', choices=['local', 'centralized'],
+                   help="'centralized' = MAPPO-style joint-observation value "
+                        'function (actors stay partial)')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--log-interval', type=int, default=10,
                    help='log metrics every N updates')
@@ -57,7 +67,9 @@ def train(args: argparse.Namespace) -> None:
     venv = VectorEnv(env, args.num_envs, packed_obs=True)
     config = PPOConfig(rollout_steps=args.rollout_steps, lr=args.lr,
                        gamma=args.gamma, ent_coef=args.ent_coef,
-                       epochs=args.epochs, minibatches=args.minibatches)
+                       epochs=args.epochs, minibatches=args.minibatches,
+                       per_agent_policies=args.per_agent_policies,
+                       centralized_critic=args.critic == 'centralized')
     state, net, config, tx = ppo_init(venv, args.seed, config=config,
                                       hidden=args.hidden)
     train_step = make_train_step(venv, net, config, tx)

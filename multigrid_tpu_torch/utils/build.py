@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``. A
 library lives in ``multigrid_tpu_torch/_build/<key>/``, where the key hashes
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is built once. Several sources build in parallel, one ``nvcc`` each.
+the source, the ``csrc`` headers it includes (``#include "x.cuh"``, followed
+through the headers) and the flags, so an edited source or header is rebuilt
+and an unchanged one is built once. Several sources build in parallel, one ``nvcc`` each.
 
 Nothing here runs at import time: the package imports where no CUDA
 toolkit is installed.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,6 +30,8 @@ NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 )
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -43,9 +47,23 @@ def nvcc() -> str:
     return found
 
 
+def sources_of(source: str) -> list[str]:
+    """``source`` and the ``csrc`` files it includes, each once, in the
+    order first included."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name not in seen:
+            seen.append(name)
+            todo += [m.decode() for m in _INCLUDE.findall((CSRC_DIR / name).read_bytes())]
+    return seen
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    digest = hashlib.sha256()
+    for name in sources_of(source):
+        digest.update(name.encode() + b'\0' + (CSRC_DIR / name).read_bytes())
     digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / digest.hexdigest()[:16] / f'lib{Path(source).stem}.so'
 

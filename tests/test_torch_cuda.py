@@ -192,6 +192,29 @@ def test_ppo_loss_kernel_matches_plain(cuda_device, b, h, missions):
         assert err < 5e-2, (k, err)
 
 
+def test_float32_nets_take_the_first_layer_kernel_on_the_card(cuda_device):
+    """A float32 net on packed cells runs its first layer, and the
+    centralized critic's over N·C cells, through the kernel on the card (as
+    the JAX package's fused path does whatever the dtype), and agrees with
+    the same net's float32 one-hot product on the CPU."""
+    from multigrid_tpu_torch.learn.nets import ActorCritic, make_centralized_critic
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    rng = np.random.default_rng(11)
+    image = _packed(rng, 64, 49).reshape(32, 2, 49)
+    direction = torch.as_tensor(rng.integers(0, 4, (32, 2)))
+    outs = []
+    for dev, kernels in ((torch.device('cpu'), 0), (cuda_device, 2)):
+        net = ActorCritic(49, hidden=64, packed_obs=True, dtype=torch.float32).to(dev)
+        critic = make_centralized_critic(net, 2).to(dev)
+        before = fl.launches
+        outs.append((*net(image.to(dev), direction.to(dev)),
+                     critic(image.to(dev), direction.to(dev))))
+        assert fl.launches == before + kernels
+    for g, w in zip(outs[1], outs[0]):
+        assert g.dtype == torch.float32
+        assert _rel_err(g.cpu(), w) < 2e-2
+
+
 def test_train_step_on_the_card(cuda_device):
     """Two PPO updates on the card: 5 forward launches per update (4 steps
     and the last value), the loss kernel once per SGD step, no dW kernel."""
@@ -207,3 +230,61 @@ def test_train_step_on_the_card(cuda_device):
         state, metrics = step(state)
     assert (fl.launches, fl.grad_launches, fused_ppo.launches) == (10, 0, 2)
     assert all(np.isfinite(float(metrics[k])) for k in ('loss', 'entropy', 'vf_loss'))
+
+
+def _policy_inputs(rng, b, c, h, f, device):
+    """Prepared fused-policy operands (bf16 on the card), cells, direction
+    (and mission) features and Gumbel noise."""
+    from multigrid_tpu_torch.ops import fused_policy
+    shapes = {'img_kernel': (c * 21, h), 'Dense_0.kernel': (f, h), 'Dense_0.bias': (h,),
+              'Dense_1.kernel': (h, h), 'Dense_1.bias': (h,), 'Dense_2.kernel': (h, 7),
+              'Dense_2.bias': (7,), 'Dense_3.kernel': (h, 1), 'Dense_3.bias': (1,)}
+    params = {k: torch.as_tensor((rng.normal(size=s) / np.sqrt(s[0] if len(s) > 1 else 4))
+                                 .astype(np.float32)).to(device) for k, s in shapes.items()}
+    theta = rng.integers(0, 4, b) * np.pi / 2
+    dirf = np.stack([np.cos(theta), np.sin(theta)], -1)
+    if f > 2:
+        dirf = np.concatenate([dirf, np.eye(f - 2)[rng.integers(0, f - 2, b)]], -1)
+    args = [_packed(rng, b, c, 0.05), torch.as_tensor(dirf.astype(np.float32)),
+            torch.as_tensor(rng.gumbel(size=(b, 7)).astype(np.float32))]
+    return fused_policy.prepare(params), [a.to(device) for a in args]
+
+
+@pytest.mark.parametrize('b,c,h,f', [(16384, 49, 128, 2), (1001, 9, 32, 14),
+                                     (333, 25, 256, 2), (64, 49, 64, 5)])
+def test_policy_sample_kernel_matches_plain(cuda_device, b, c, h, f):
+    """The fused-policy kernel ≡ its bf16 plain version: the same action on
+    every row whose top-two perturbed logits are more than 1e-3 apart, the
+    same log-prob where the actions agree, and the value, within
+    2e-2·(|want| + 1) (sums in another order round to bf16 elsewhere)."""
+    from multigrid_tpu_torch.ops import fused_policy
+    w, (packed, dirf, gumbel) = _policy_inputs(np.random.default_rng(b + h), b, c, h, f,
+                                               cuda_device)
+    launches = fused_policy.launches
+    action, logp, value = fused_policy.policy_sample_prepared(w, packed, dirf, gumbel)
+    assert fused_policy.launches == launches + 1
+    want_a, want_lp, want_v = fused_policy.policy_sample_plain(
+        w, packed, dirf, gumbel, compute_dtype=torch.bfloat16)
+    assert action.dtype == torch.int32 and action.shape == (b,)
+    logits, _ = fused_policy.policy_heads_plain(w, packed, dirf, compute_dtype=torch.bfloat16)
+    top2 = (logits + gumbel).topk(2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(action[clear], want_a[clear])
+    same = action == want_a
+    assert float(((logp - want_lp).abs() / (want_lp.abs() + 1))[same].max()) < 2e-2
+    assert float(((value - want_v).abs() / (want_v.abs() + 1)).max()) < 2e-2
+
+
+def test_policy_sample_kernel_takes_the_first_index_on_a_tie(cuda_device):
+    """Two identical Wa columns and biases and equal noise, far above the
+    other actions: the kernel picks the lower index on every row."""
+    from multigrid_tpu_torch.ops import fused_policy
+    w, (packed, dirf, gumbel) = _policy_inputs(np.random.default_rng(3), 4096, 49, 128, 2,
+                                               cuda_device)
+    w['wa'][:, 5] = w['wa'][:, 2]
+    w['ba'][:] = -30.0
+    w['ba'][[2, 5]] = 1.0
+    gumbel[:] = 0.0
+    gumbel[:, [2, 5]] = 0.25
+    action, _, _ = fused_policy.policy_sample_prepared(w, packed, dirf, gumbel)
+    assert (action == 2).all()

@@ -84,3 +84,21 @@ def test_autograd_function_on_the_cpu():
     want = fl.onehot_linear_grad_w_plain(packed, torch.as_tensor(g).to(torch.bfloat16))
     torch.testing.assert_close(wt.grad, want, rtol=0, atol=0)
     assert (fl.launches, fl.grad_launches) == launches  # the CPU launches nothing
+
+
+def test_build_key_follows_included_headers(tmp_path, monkeypatch):
+    """A library's key hashes the csrc headers its source includes, followed
+    through the headers, so an edited header rebuilds every kernel that uses
+    it; the package's kernels share the first layer's gather."""
+    from multigrid_tpu_torch.utils import build
+    for src in ('fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu'):
+        assert build.sources_of(src) == [src, 'onehot_rows.cuh']
+    monkeypatch.setattr(build, 'CSRC_DIR', tmp_path)
+    (tmp_path / 'k.cu').write_text('#include <stdint.h>\n#include "a.cuh"\n')
+    (tmp_path / 'a.cuh').write_text('#pragma once\n #  include "b.cuh"\n')
+    (tmp_path / 'b.cuh').write_text('// b\n')
+    assert build.sources_of('k.cu') == ['k.cu', 'a.cuh', 'b.cuh']
+    keys = [build.library_path('k.cu')]
+    (tmp_path / 'b.cuh').write_text('// b, edited\n')
+    keys.append(build.library_path('k.cu'))
+    assert keys[0] != keys[1] and keys[1] == build.library_path('k.cu')

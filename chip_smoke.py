@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    — builds the four CUDA sources of ``multigrid_tpu_torch/csrc``
-               (one nvcc each, in parallel) and prints registers and spills.
+               (one nvcc each, in parallel), prints registers and spills,
+               and the tensor-core instructions in each kernel's SASS
+               (cuobjdump; B2 and B4 must have some).
 3. kernels  — each kernel against its plain PyTorch version on the card.
                The observation kernel, ``torch.equal``, on seeded states
                stepped a few times: the flagship shape (E=4096, N=4, 16x16,
@@ -16,9 +18,11 @@ Phases, in order; any failure exits non-zero:
                (open, closed, locked), keys, balls, boxes, agents at the
                borders, terminated and carrying. The training kernels in
                bf16, each with its tolerance: the first layer (B=16384,
-               C=49, H=128; C 9/25/169, H 32/256, a ragged batch, pad
+               C=49, H=128; the per-agent (4096, 49) and critic (4096, 196)
+               shapes; C 9/25/169, H 32/100/256, a ragged batch, pad
                cells), its weight gradient (B=262144 and small shapes), the
-               PPO loss (B=262144, and B=256 with 0 and 5 missions), and
+               PPO loss (B=262144 and 65536, B=256 with 0 and 5 missions, a
+               ragged B=1001; equal from run to run), and
                the fused rollout policy (B=16384; C 9/25, H 32/256, F 2/14,
                a ragged batch; a constructed tie takes the first index).
 4. main     — ``VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4), 4096)``
@@ -47,8 +51,11 @@ Phases, in order; any failure exits non-zero:
 9. train timing — trained agent-steps/s by length differencing (median
                of 3 pairs of 1 and 4 updates), the rollout, GAE and SGD
                phases, peak memory, and each training kernel's time at the
-               path's shapes on a rollout's data beside its bound, its plain
-               version and a library call.
+               path's shapes on a rollout's data beside its bound (the
+               one-hot part the lesser of the sparse adds and the dense
+               product, both printed), its plain version and a library
+               call; B2 also at the per-agent and critic shapes, B4 also at
+               65,536 samples, and B4's stages apart (torch.profiler).
 10. train breakdown — one update under ``torch.profiler``: the device's
                busy share and the kernels that take its time.
 11. variants — the same flagship through each learner variant, launch
@@ -63,6 +70,10 @@ Phases, in order; any failure exits non-zero:
                default path's, the rollout step's layers with and without the
                fused policy, and the fused policy's kernel time at B=16384
                beside its bound and plain version.
+
+``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
+B2, B4 (with its stages) and B5 on seeded inputs, for comparing two trees
+in turns within one call (copy the script into the other tree).
 
 Products in float32 run in full float32 (TF32 off) for the plain versions.
 The line before the last is the kernels' JSON record; the last line is
@@ -173,12 +184,102 @@ def event_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, vector_ops=0, tensor_ops=0):
+def bound(nbytes, vector_ops=0, tensor_ops=0, ops_ms=0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over their peak rates."""
+    and the operations over their peak rates (plus ``ops_ms`` of operations
+    already reckoned, see :func:`onehot_ms`)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (vector_ops / VECTOR_OPS_PER_S + tensor_ops / TENSOR_OPS_PER_S) * 1e3
+    ops_ms += (vector_ops / VECTOR_OPS_PER_S + tensor_ops / TENSOR_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
+def onehot_ms(nnz, b, c, h, label):
+    """The least time of one one-hot product one_hot(packed) @ W (or its
+    transpose) over b samples of c cells and h columns, in ms: the lesser of
+    its ``nnz`` · h adds on the CUDA cores (the sparse form) and the dense
+    2·b·c·21·h on the tensor cores, so the bound reads the same work
+    whatever implements it. Prints both."""
+    sparse = nnz * h / VECTOR_OPS_PER_S * 1e3
+    dense = 2 * b * c * 21 * h / TENSOR_OPS_PER_S * 1e3
+    print(f'  {label} one-hot part: sparse {sparse:.6f} ms ({nnz * h} adds), dense '
+          f'{dense:.6f} ms ({2 * b * c * 21 * h} ops); the lesser counts')
+    return min(sparse, dense)
+
+
+def nonzeros(packed):
+    """The one-hot's ones in these packed cells: fields in their channel's
+    range."""
+    t, col, st = packed >> 8, (packed >> 4) & 15, packed & 15
+    return int(((t >= 0) & (t < 11)).sum() + (col < 6).sum() + (st < 4).sum())
+
+
+def onehot_launch_ms(packed, w, reps=200):
+    """CUDA-event time of the first-layer kernel's launches alone, without
+    the wrapper's weight cast and checks: the kernel takes less time than
+    the wrapper's host work, which event timing of whole calls measures."""
+    import torch
+
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    b, c = packed.shape
+    h = w.shape[1]
+    wb = fl.pad_columns(w.detach().to(torch.bfloat16)).contiguous()
+    out = torch.empty((b, h), dtype=torch.bfloat16, device=packed.device)
+    fn = fl._lib_fn('mgt_onehot_linear_launch', 3, 4)
+    args = (packed.data_ptr(), wb.data_ptr(), out.data_ptr(), b, c, h, wb.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        if fn(*args):
+            fail('onehot_linear kernel launch failed')
+    return event_ms(launch, reps)
+
+
+def kernel_device_ms(fn, name, reps=20):
+    """Device time in ms of the kernels named ``name`` in one call of
+    ``fn``, from torch.profiler (None where it sees no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 / reps if us else None
+
+
+def ppo_stages(fn, reps=5):
+    """Device time in ms of each stage of a loss-kernel call ``fn``, from
+    torch.profiler: the loss kernel (and a first-layer pre-pass where there
+    is one), the sum of its partials, B3 on dx1 and B3's partial sum, and
+    the rest (casts and fills)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    stages, last = {}, None
+    for e in events:
+        key = next((k for name, k in (('first_layer_kernel', 'first-layer pre-pass'),
+                                      ('ppo_loss_kernel', 'loss kernel'),
+                                      ('onehot_grad_kernel', 'B3 on dx1')) if name in e.name), None)
+        if key is not None:
+            last = key
+        elif 'sum_partials' in e.name and last in ('loss kernel', 'B3 on dx1'):
+            key = 'partial sum' if last == 'loss kernel' else 'B3 partial sum'
+        else:
+            key = 'other'
+        stages[key] = stages.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    if not events:
+        print('  stages: not measured (the profiler saw no device time)')
+    return stages
 
 
 # ------------------------------------------------------------------ phases
@@ -208,6 +309,30 @@ def build_kernels():
                 print('    ' + line.split("'")[1][:100])
             elif 'registers' in line or 'spill' in line or 'error' in line.lower():
                 print('      ' + line.strip())
+
+
+def sass_tensor_ops():
+    """{kernel: tensor-core instructions in the SASS of all its builds};
+    fails unless B2's and B4's loss kernel have some. Printed on one line."""
+    from multigrid_tpu_torch.utils import build
+    names = {'obs.cu': [('obs', 'obs')],
+             'fused_linear.cu': [('onehot_linear', 'onehot_linear'),
+                                 ('onehot_linear_grad', 'onehot_grad')],
+             'fused_ppo.cu': [('ppo_loss', 'ppo_loss')],
+             'fused_policy.cu': [('policy_sample', 'policy_sample')]}
+    found = {k: set() for ks in names.values() for k, _ in ks}
+    for src, kernels in names.items():
+        for fn, ops in build.tensor_core_ops(src).items():
+            for k, stem in kernels:
+                if f'{stem}_kernel' in fn:
+                    found[k].update(ops)
+    found = {k: sorted(v) for k, v in found.items()}
+    print('tensor-core instructions in the SASS (cuobjdump): ' + '; '.join(
+        f'{k}: {" ".join(v) or "none"}' for k, v in found.items()))
+    for k in ('onehot_linear', 'ppo_loss'):
+        if not found[k]:
+            fail(f'no tensor-core instruction in the SASS of the {k} kernel')
+    return found
 
 
 def obs_cases(device):
@@ -490,7 +615,9 @@ def train_kernel_cases(device):
     # outputs of f32 sums taken in other orders.
     for b, c, h, pad in [(E * N, C, HIDDEN, 0.0), (E * N, C, HIDDEN, 0.1), (4096, 9, 128, 0.0),
                          (4096, 25, 128, 0.0), (1024, 169, 128, 0.05), (E * N, C, 32, 0.0),
-                         (E * N, C, 256, 0.0), (1001, C, HIDDEN, 0.1)]:
+                         (E * N, C, 256, 0.0), (1001, C, HIDDEN, 0.1),
+                         # per-agent and critic shapes, and an odd width
+                         (E, C, HIDDEN, 0.0), (E, N * C, HIDDEN, 0.0), (E, N * C, 100, 0.05)]:
         packed = random_cells(rng, b, c, device, pad)
         w = torch.as_tensor(rng.normal(size=(c * 21, h)).astype(np.float32), device=device)
         got = fl.onehot_linear_forward(packed, w)
@@ -517,18 +644,23 @@ def train_kernel_cases(device):
     # B4: per leaf max|g - r| / (max|r| + 1e-6) < 5e-2 (bench.py:85-90),
     # and the metrics likewise.
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
-    for b, missions in [(E * N * TRAIN_T, 0), (256, 0), (256, 5)]:
+    for b, missions in [(E * N * TRAIN_T, 0), (E * TRAIN_T, 0), (256, 0), (256, 5), (1001, 3)]:
         params, args = ppo_inputs(rng, b, C, HIDDEN, missions, device)
         grads, metrics = fused_ppo.ppo_mlp_grads(params, *args, **kw)
         want_g, want_m = fused_ppo.ppo_mlp_grads_plain(
             params, *args, compute_dtype=torch.bfloat16, **kw)
+        again, again_m = fused_ppo.ppo_mlp_grads(params, *args, **kw)
         torch.cuda.synchronize()
+        if not (all(torch.equal(grads[k], again[k]) for k in grads)
+                and all(torch.equal(metrics[k], again_m[k]) for k in metrics)):
+            fail(f'ppo_loss differs from run to run at B={b}')
         abs_err = max(float((grads[k] - want_g[k]).abs().max()) for k in want_g)
         err = max(float((grads[k] - want_g[k]).abs().max()) / (float(want_g[k].abs().max()) + 1e-6)
                   for k in want_g)
         err = max([err] + [abs(float(metrics[k]) - float(want_m[k])) / (abs(float(want_m[k])) + 1e-6)
                            for k in want_m])
-        check('ppo_loss', f'B={b} missions={missions}', abs_err, err, 5e-2)
+        check('ppo_loss', f'B={b} missions={missions} (equal from run to run)', abs_err, err,
+              5e-2)
     return errs
 
 
@@ -786,22 +918,41 @@ def train_timing(venv, step, state):
 
     def fields(p):
         t, col, st = p >> 8, (p >> 4) & 15, p & 15
-        valid = [(t >= 0) & (t < 11), col < 6, st < 4]
         rows = torch.stack([t, 11 + col, 17 + st], -1) \
             + 21 * torch.arange(p.shape[1], device=p.device)[:, None]
         # Out-of-range fields (none in these observations) would index a
         # real row here: the library call is only a yardstick of time.
-        return (int(sum(v.sum() for v in valid)),
-                rows.reshape(p.shape[0], -1).clamp(0, 21 * C - 1).long())
+        return nonzeros(p), rows.reshape(p.shape[0], -1).clamp(0, 21 * C - 1).long()
 
     nnz16, idx16 = fields(packed16)
     nnz, idx = fields(packed)
     out = {}
-    ms = event_ms(lambda: fl.onehot_linear_forward(packed16, w), 100)
+    ms = onehot_launch_ms(packed16, w)
+    call_ms = event_ms(lambda: fl.onehot_linear_forward(packed16, w), 100)
+    dev_ms = kernel_device_ms(lambda: fl.onehot_linear_forward(packed16, w),
+                              'onehot_linear_kernel')
+    print(f'onehot_linear ({b16}, {C}) H={h}: launches {ms:.6f} ms, the wrapper\'s call '
+          f'{call_ms:.6f} ms (CUDA events), the kernel {dev_ms} ms (torch.profiler)')
     plain = event_ms(lambda: fl.onehot_linear_plain(packed16, w), 10)
     lib = event_ms(lambda: F.embedding_bag(idx16, w, mode='sum'), 100)
-    bd = bound(packed16.numel() * 4 + w.numel() * 4 + b16 * h * 2, vector_ops=nnz16 * h)
-    out['onehot_linear'] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bd[0], bound_by=bd[1])
+    bd = bound(packed16.numel() * 4 + w.numel() * 4 + b16 * h * 2,
+               ops_ms=onehot_ms(nnz16, b16, C, h, 'onehot_linear'))
+    # The per-agent (agent 0's cells, as TrainStep.actor copies them) and
+    # the critic's shapes (every agent's cells of an env, critic-sized W).
+    shapes = {}
+    for label, p16, wx in [
+            ('per agent', traj.image[0][:, 0].contiguous(), w),
+            ('critic', traj.image[0].reshape(E, N * C).contiguous(),
+             torch.randn(N * C * 21, h, device=w.device) * 0.05)]:
+        t = onehot_launch_ms(p16, wx)
+        bx = bound(p16.numel() * 4 + wx.numel() * 4 + p16.shape[0] * h * 2,
+                   ops_ms=onehot_ms(nonzeros(p16), *p16.shape, h, f'onehot_linear {label}'))
+        shapes[label] = dict(shape=[*p16.shape, h], ms=t, bound_ms=bx[0])
+        print(f'onehot_linear {label} {tuple(p16.shape)} H={h}: {t:.6f} ms/launch; bound '
+              f'{bx[0]:.6f} ms by {bx[1]}')
+    out['onehot_linear'] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bd[0],
+                                bound_by=bd[1], call_ms=call_ms, profiler_ms=dev_ms,
+                                shapes=shapes)
 
     ms = event_ms(lambda: fl.onehot_linear_grad_w(packed, g), 20)
     plain = event_ms(lambda: fl.onehot_linear_grad_w_plain(packed, g), 5)
@@ -809,7 +960,8 @@ def train_timing(venv, step, state):
     emb = F.embedding_bag(idx, wl, mode='sum')
     g32 = g.float()
     lib = event_ms(lambda: torch.autograd.grad(emb, wl, g32, retain_graph=True), 20)
-    bd = bound(packed.numel() * 4 + g.numel() * 2 + w.numel() * 4, vector_ops=nnz * h)
+    bd = bound(packed.numel() * 4 + g.numel() * 2 + w.numel() * 4,
+               ops_ms=onehot_ms(nnz, samples, C, h, 'onehot_linear_grad'))
     out['onehot_linear_grad'] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bd[0],
                                      bound_by=bd[1])
 
@@ -818,12 +970,25 @@ def train_timing(venv, step, state):
     plain = event_ms(lambda: fused_ppo.ppo_mlp_grads_plain(
         p, *args, compute_dtype=torch.bfloat16, **kw), 3)
     f1 = args[1].shape[1] + 1
+    # Read: the per-sample inputs and the float32 parameters, once; written:
+    # the float32 gradients, one per parameter.
     param_bytes = sum(v.numel() * 4 for v in p.values())
     in_bytes = sum(a.numel() * a.element_size() for a in args) + param_bytes
+    grad_bytes = param_bytes
     dense = 2 * samples * (2 * f1 * h + 3 * h * h + 3 * h * 8)
-    bd = bound(in_bytes + param_bytes, vector_ops=2 * nnz * h, tensor_ops=dense)
+    bd = bound(in_bytes + grad_bytes, tensor_ops=dense,
+               ops_ms=2 * onehot_ms(nnz, samples, C, h, 'ppo_loss (h and dW_img, each)'))
+    stages = ppo_stages(lambda: fused_ppo.ppo_mlp_grads(p, *args, **kw))
+    print(f'ppo_loss B={samples} stages (torch.profiler, ms): '
+          + ', '.join(f'{k} {v:.6f}' for k, v in stages.items()))
+    quarter = [a[:samples // N] for a in args]
+    ms_q = event_ms(lambda: fused_ppo.ppo_mlp_grads(p, *quarter, **kw), 10)
+    stages_q = ppo_stages(lambda: fused_ppo.ppo_mlp_grads(p, *quarter, **kw))
+    print(f'ppo_loss B={samples // N} (per agent): {ms_q:.6f} ms/launch; stages (ms): '
+          + ', '.join(f'{k} {v:.6f}' for k, v in stages_q.items()))
     out['ppo_loss'] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bd[0],
-                           bound_by=bd[1])
+                           bound_by=bd[1], stages=stages,
+                           per_agent=dict(batch=samples // N, ms=ms_q, stages=stages_q))
     _set_counts(counts)
     for name, r in out.items():
         lib = 'none' if r['library_ms'] is None else f'{r["library_ms"]:.6f} ms'
@@ -1030,19 +1195,62 @@ def variant_timing(steps):
     plain = event_ms(lambda: fp.policy_sample_plain(w, packed, dirf, gumbel,
                                                     compute_dtype=torch.bfloat16), 10)
     _set_counts(counts)
-    t, col, st = packed >> 8, (packed >> 4) & 15, packed & 15
-    nnz = int(((t >= 0) & (t < 11)).sum() + (col < 6).sum() + (st < 4).sum())
+    nnz = nonzeros(packed)
     in_bytes = sum(x.numel() * x.element_size() for x in [packed, dirf, gumbel, *w.values()])
-    bd = bound(in_bytes + 12 * b, vector_ops=nnz * HIDDEN,
-               tensor_ops=2 * b * (HIDDEN * HIDDEN + 3 * HIDDEN + 8 * HIDDEN))
+    bd = bound(in_bytes + 12 * b,
+               tensor_ops=2 * b * (HIDDEN * HIDDEN + 3 * HIDDEN + 8 * HIDDEN),
+               ops_ms=onehot_ms(nnz, b, C, HIDDEN, 'policy_sample'))
     print(f'policy_sample: {ms:.6f} ms/launch; plain {plain:.6f} ms; library none; '
-          f'bound {bd[0]:.6f} ms by {bd[1]} ({in_bytes + 12 * b} bytes, {nnz * HIDDEN} adds); '
+          f'bound {bd[0]:.6f} ms by {bd[1]} ({in_bytes + 12 * b} bytes); '
           f'{bd[0] / ms:.4f} of the bound')
     return dict(rates=medians, kernel=dict(ms=ms, plain_ms=plain, library_ms=None,
                                            bound_ms=bd[0], bound_by=bd[1]))
 
 
+def kernel_times(device):
+    """``--kernel-times``: B2 at the rollout's three shapes, B4 at 262,144
+    and 65,536 samples with its stages, and B5 at 16,384, on seeded inputs:
+    CUDA-event times of the package beside this script, for comparing two
+    trees in turns within one call. Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    from multigrid_tpu_torch.ops import fused_policy as fp
+    from multigrid_tpu_torch.ops import fused_ppo
+
+    rng = np.random.default_rng(40)
+    res = {}
+    for label, b, c in [('flagship', E * N, C), ('per agent', E, C), ('critic', E, N * C)]:
+        packed = random_cells(rng, b, c, device)
+        w = torch.as_tensor((rng.normal(size=(c * 21, HIDDEN)) * 0.05).astype(np.float32),
+                            device=device)
+        key = f'onehot_linear {label} ({b}, {c}, {HIDDEN})'
+        res[key + ' call'] = event_ms(lambda: fl.onehot_linear_forward(packed, w), 100)
+        res[key + ' kernel (profiler)'] = kernel_device_ms(
+            lambda: fl.onehot_linear_forward(packed, w), 'onehot_linear_kernel')
+        if hasattr(fl, 'pad_columns'):  # the launcher's signature of this tree
+            res[key + ' launches'] = onehot_launch_ms(packed, w)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
+    for b in (E * N * TRAIN_T, E * TRAIN_T):
+        params, args = ppo_inputs(rng, b, C, HIDDEN, 0, device)
+        res[f'ppo_loss B={b}'] = event_ms(lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw), 10)
+        res[f'ppo_loss B={b} stages'] = ppo_stages(
+            lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw))
+    params, args = ppo_inputs(rng, E * N, C, HIDDEN, 0, device)
+    w = fp.prepare(params)
+    gumbel = torch.as_tensor(rng.gumbel(size=(E * N, 7)).astype(np.float32), device=device)
+    res[f'policy_sample ({E * N}, {C}, {HIDDEN})'] = event_ms(
+        lambda: fp.policy_sample_prepared(w, args[0], args[1], gumbel), 100)
+    for k, v in res.items():
+        print(f'{k}: {v}')
+    print(json.dumps({'kernel_times_ms': res, 'tree': HERE}))
+
+
 def main() -> None:
+    times_only = sys.argv[1:] == ['--kernel-times']
+    if sys.argv[1:] and not times_only:
+        fail(f'unknown arguments {sys.argv[1:]}; usage: chip_smoke.py [--kernel-times]')
     try:
         import torch
     except ImportError:
@@ -1062,6 +1270,11 @@ def main() -> None:
     card_info()
     phase('build')
     build_kernels()
+    if times_only:
+        phase('kernel times')
+        kernel_times(device)
+        return
+    sass = sass_tensor_ops()
     phase('kernels')
     obs_err = obs_cases(device)
     errs = train_kernel_cases(device)
@@ -1090,7 +1303,7 @@ def main() -> None:
                     replaces='multigrid_tpu/ops/obs_pallas.py:176', launches=launches,
                     max_abs_err=obs_err, equal=obs_err == 0, ms=t['ms'],
                     plain_ms=t['plain_ms'], bound_ms=t['bound_ms'], bound_by=t['bound_by'],
-                    library_ms=None)]
+                    library_ms=None, sass_tensor_ops=sass['obs'])]
     for name, replaces, src, n in [
             ('onehot_linear', 'multigrid_tpu/ops/fused_linear.py:133', 'fused_linear.cu',
              counts['onehot_linear']),
@@ -1100,7 +1313,7 @@ def main() -> None:
              counts['ppo_loss'])]:
         kernels.append(dict(name=name, route='cuda', source=f'multigrid_tpu_torch/csrc/{src}',
                             replaces=replaces, launches=n, max_abs_err=errs[name][0],
-                            max_rel_err=errs[name][1],
+                            max_rel_err=errs[name][1], sass_tensor_ops=sass[name],
                             **tt['kernels'][name]))
     kernels[2]['launches_path'] = 'train, learner gate off (autograd)'
     kernels.append(dict(name='policy_sample', route='cuda',
@@ -1108,7 +1321,8 @@ def main() -> None:
                         replaces='multigrid_tpu/ops/fused_policy.py:62',
                         launches=counts_fused['policy_sample'],
                         launches_path='train, MULTIGRID_FUSED_POLICY set',
-                        max_abs_err=policy_err[0], max_rel_err=policy_err[1], **vt['kernel']))
+                        max_abs_err=policy_err[0], max_rel_err=policy_err[1],
+                        sass_tensor_ops=sass['policy_sample'], **vt['kernel']))
     print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate'],
                       'variants_trained_agent_steps_per_s': vt['rates']}))
     print(json.dumps({'ok': True, 'device': {

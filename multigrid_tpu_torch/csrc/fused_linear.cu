@@ -13,16 +13,20 @@
 // Numerics follow the TPU kernels: bf16 weights (forward) and bf16 g
 // (gradient), f32 sums, bf16 output (forward) or f32 output (gradient).
 //
-// What bounds them on this card: the forward reads 3*C weight rows for
-// every sample (C=49, H=128: 37 KB a sample, 0.6 GB at B=16384) against
-// 7.7 MB of compulsory traffic; the 263 KB bf16 weight matrix does not fit a
-// block's shared memory but stays in the 50 MB L2, so the kernel is bound
-// by L2 bandwidth. The design answers with one warp per sample, lanes on
-// neighbouring columns so each row read is coalesced, and f32 sums in
-// registers. The gradient, written as the dense product one_hot^T @ g, is
+// What bounds them on this card: operations, as the dense products the
+// tensor cores run them. The forward at (B, C, H) = (16384, 49, 128) is
+// 4.3 GFLOP as one_hot @ W (4.4 us at 989 TFLOP/s), or 3.1e8 adds on the
+// CUDA cores as the embedding-bag it is (4.6 us at 67 TFLOP/s), against
+// 7.7 MB of compulsory traffic (2.3 us). Its first design gathered 3*C
+// weight rows a sample from L2 (0.6 GB at B = 16384) and was bound by
+// that. Redesigned for Hopper, it is the tensor-core product of
+// onehot_mma.cuh: a block takes 64 samples and BN columns, builds the
+// one-hot A fragments in registers from the cells, and streams W's rows
+// through a cp.async ring once per block (34-67 MB of L2 reads at the
+// flagship); mma.sync rather than wgmma, for the reasons that header
+// gives. The gradient, written as the dense product one_hot^T @ g, is
 // 2*B*C*21*H operations (69 GFLOP at B=262144), of which the sparse
-// one-hot needs only 3*C*H adds a sample; the design takes the dense form
-// to the tensor cores, where it is cheaper than the adds on the CUDA cores:
+// one-hot needs only 3*C*H adds a sample; it too runs on the tensor cores:
 // the one-hot A tile is built in registers from the packed cells (it never
 // exists in memory), g is staged through shared memory, and mma.sync
 // m16n8k16 sums in f32. A block holds 6 cells' rows of dW in registers over
@@ -37,47 +41,59 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "onehot_rows.cuh"
+#include "onehot_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxCols = 8;  // columns per lane: H <= 256
+constexpr int kFwdThreads = 128;  // forward: 4 warps of 16 samples
+constexpr int kFwdRows = 64;
+constexpr int kFwdStages = 3;     // W stages in the ring
+constexpr int kFwdGroup = 3;      // channels a stage: 48 W rows
 
-// One warp per sample (onehot_rows.cuh); lane l owns columns l, l+32, ...
-__global__ void __launch_bounds__(kThreads) onehot_linear_kernel(
+// out[s0 .. s0 + 64, col0 .. col0 + BN) = bf16(one_hot(packed) @ W): the
+// block's 64 x BN tile on the tensor cores (onehot_mma.cuh). W is (C*21,
+// ldw) with ldw >= h a multiple of 8 (zero columns past h).
+template <int BN>
+__global__ void __launch_bounds__(kFwdThreads) onehot_linear_kernel(
     const int32_t* __restrict__ packed,     // (B, C)
-    const __nv_bfloat16* __restrict__ w,    // (C*21, H)
+    const __nv_bfloat16* __restrict__ w,    // (C*21, ldw)
     __nv_bfloat16* __restrict__ out,        // (B, H)
-    int b, int c, int h) {
-  const int sample = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (sample >= b) return;
-  float acc[kMaxCols];
+    int b, int c, int h, int ldw) {
+  constexpr int kNT = BN / 8;
+  __shared__ __align__(16) __nv_bfloat16 ring[kFwdStages * 16 * kFwdGroup * (BN + 8)];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int s0 = blockIdx.x * kFwdRows, col0 = blockIdx.y * BN;
+  float acc[kNT][4];
 #pragma unroll
-  for (int i = 0; i < kMaxCols; ++i) acc[i] = 0.f;
-  gather_onehot_rows<kMaxCols>(packed + static_cast<size_t>(sample) * c, c, w, h, lane, acc);
-  __nv_bfloat16* o = out + static_cast<size_t>(sample) * h;
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-  for (int i = 0; i < kMaxCols; ++i) {
-    const int j = lane + 32 * i;
-    if (j < h) o[j] = __float2bfloat16(acc[i]);
+    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+  onehot_mma<BN, kNT, kFwdThreads, kFwdStages, kFwdGroup>(packed, b, c, s0, 16 * warp + grp, w, ldw, col0,
+                                               ldw, ring, 0, acc);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = s0 + 16 * warp + grp + 8 * i;
+    if (row >= b) continue;
+    __nv_bfloat16* o = out + static_cast<size_t>(row) * h;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int col = col0 + nt * 8 + 2 * tig;
+      if ((h & 1) == 0 && col + 1 < h) {
+        *reinterpret_cast<__nv_bfloat162*>(o + col) =
+            __floats2bfloat162_rn(acc[nt][2 * i], acc[nt][2 * i + 1]);
+      } else {
+        if (col < h) o[col] = __float2bfloat16(acc[nt][2 * i]);
+        if (col + 1 < h) o[col + 1] = __float2bfloat16(acc[nt][2 * i + 1]);
+      }
+    }
   }
 }
 
 constexpr int kCellsPerTile = 6;   // a tile's 128 rows hold 6 cells (126 rows)
 constexpr int kKStep = 16;         // samples per mma k-step
 constexpr int kGStride = kKStep + 8;  // bf16 row stride of the g^T tile (no bank conflicts)
-constexpr int kPad = (0x7FF << 8) | (15 << 4) | 15;  // a cell matching no channel
-
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // dW = one_hot(packed)^T @ g as a tensor-core product: block (row tile,
 // batch chunk) holds the f32 sums of 6 cells' 126 rows x H columns in
@@ -129,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) onehot_grad_kernel(
 
   const uint32_t* g32 = reinterpret_cast<const uint32_t*>(g);
   uint32_t greg[kWords];
-  int preg = kPad;
+  int preg = kPadCell;
   auto load = [&](int s0) {
 #pragma unroll
     for (int i = 0; i < kWords; ++i) {
@@ -141,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) onehot_grad_kernel(
       const int s = s0 + threadIdx.x / kCellsPerTile;
       const int cc = threadIdx.x % kCellsPerTile;
       preg = (s < s_end && cc < ncell)
-                 ? packed[static_cast<size_t>(s) * c + cell0 + cc] : kPad;
+                 ? packed[static_cast<size_t>(s) * c + cell0 + cc] : kPadCell;
     }
   };
 
@@ -174,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) onehot_grad_kernel(
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
       const uint16_t* col = &gs[buf][nt * 8 + grp][2 * tig];
-      mma_bf16(acc[nt], a, *reinterpret_cast<const uint32_t*>(col),
+      mma_16816(acc[nt], a, *reinterpret_cast<const uint32_t*>(col),
                *reinterpret_cast<const uint32_t*>(col + 8));
     }
     buf ^= 1;
@@ -205,16 +221,29 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// Launches on `stream`; returns cudaGetLastError() (0 on success). W is
+// (C*21, ldw), ldw a multiple of 8 and 16-byte aligned rows. A block takes
+// 64 samples and BN columns: BN the smallest of 32, 64, 128 that covers
+// ldw, halved while the blocks would fill under half the SMs.
 extern "C" int mgt_onehot_linear_launch(const void* packed, const void* w,
                                         void* out, int b, int c, int h,
-                                        void* stream) {
-  const int warps = kThreads / 32;
-  onehot_linear_kernel<<<(b + warps - 1) / warps, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(packed),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      b, c, h);
+                                        int ldw, void* stream) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int rows = (b + kFwdRows - 1) / kFwdRows;
+  int bn = ldw <= 32 ? 32 : ldw <= 64 ? 64 : 128;
+  while (bn > 32 && 2 * rows * ((ldw + bn - 1) / bn) <= sms) bn /= 2;
+  const dim3 grid(rows, (ldw + bn - 1) / bn);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const int32_t*>(packed);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  switch (bn) {
+    case 32: onehot_linear_kernel<32><<<grid, kFwdThreads, 0, st>>>(p, wb, o, b, c, h, ldw); break;
+    case 64: onehot_linear_kernel<64><<<grid, kFwdThreads, 0, st>>>(p, wb, o, b, c, h, ldw); break;
+    default: onehot_linear_kernel<128><<<grid, kFwdThreads, 0, st>>>(p, wb, o, b, c, h, ldw); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

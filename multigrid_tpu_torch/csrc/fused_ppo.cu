@@ -10,28 +10,33 @@
 // Numerics follow the TPU kernel: bf16 matrix operands (weights,
 // activations, dlogits, dx), f32 sums, f32 softmax and loss.
 //
-// What bounds it on this card: operations. Per sample it does three HxH
-// products (x2, dx1 and the dW1 outer product, 3*2*H*H flops), the two
-// embedding-bag passes over 3*C weight rows (forward h, and dW_img), and a
+// What bounds it on this card: operations. Per sample it does the first
+// layer's one-hot product (3*C weight rows as adds, or 2*C*21*H as a dense
+// product; 70 GFLOP at B = 262144, C = 49, H = 128, padded to whole cell
+// blocks), three HxH products (x2, dx1 and dW1, 3*2*H*H), the heads and a
 // few hundred more; the compulsory bytes are the packed cells and the
-// per-sample inputs (about 70 MB at B = 262144, C = 49). The design keeps
-// the (sample, H) activations of the loss on chip: a block walks tiles of
-// 32 samples, with W1 (bf16, 32 KB at H = 128, rows padded against bank
-// conflicts) and the tile's x1, x2 and dx2 in shared memory, and the small
-// weight gradients in registers across all its tiles. Blocks write
-// per-block partials that a second pass sums in a fixed order, so the
-// gradients are the same from run to run. The products are plain FMA loops
-// on the CUDA cores, not tensor cores: that is the gap to the bound a later
-// version closes (mma/wgmma on bf16 tiles).
+// per-sample inputs (about 70 MB at the flagship) and dx1 out.
 //
-// Two (sample, H) tensors leave the chip, bf16, 67 MB each at the flagship:
-// x1, which a first pass computes at one warp a sample (the first layer's
-// gather of 3*C weight rows from L2 needs many warps in flight to hide its
-// latency, and the loss kernel, at 248 registers a thread, runs 8 warps an
-// SM); and dx1, because
-// dW_img, the (C*21, H) f32 gradient of the first layer, does not fit a
-// block's shared memory: the wrapper runs the gradient kernel of
-// csrc/fused_linear.cu on it.
+// Redesigned for Hopper's tensor cores. A block of 8 warps walks tiles of
+// 64 samples and keeps every (sample, H) activation on chip: the first
+// layer is the one-hot product of onehot_mma.cuh (W_img streamed through a
+// cp.async ring, the A fragments built from the cells in registers) plus
+// one more K step for [bf16(dirf), 1] @ [W0; b0]; x2 = x1 @ W1, dx1 = dx2
+// @ W1^T, dW1 += x1^T dx2, the heads [logits | value] = x2 @ [Wa | wv]
+// and [dWa | dWv] += x2^T [dlogits | dv] are mma.sync m16n8k16 products on
+// bf16 tiles in shared memory (W1, rows padded by 16 bytes against bank
+// conflicts; the tile's x1, x2, dx2), with dW1 and dWa in registers across
+// all the block's tiles. The loss and dlogits take one thread a sample,
+// dx2 (K <= 9) one thread a column, on the CUDA cores. A stage of the
+// W_img ring holds 7 channels' steps (3 stages): fewer, larger stages beat
+// a deeper ring of small ones. Blocks write per-block partials that a second
+// pass sums in a fixed order, so the gradients are the same from run to
+// run. mma.sync rather than wgmma: see onehot_mma.cuh.
+//
+// One (sample, H) tensor leaves the chip: dx1, bf16 (67 MB at the
+// flagship), because dW_img, the (C*21, H) f32 gradient of the first layer,
+// does not fit a block's shared memory: the wrapper runs the gradient
+// kernel of csrc/fused_linear.cu on it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (multigrid_tpu_torch/utils/build.py does this).
@@ -40,69 +45,83 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "onehot_rows.cuh"
+#include "onehot_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kS = 32;       // samples per tile
+constexpr int kTM = 64;      // samples per tile: 4 warp rows of 16
 constexpr int kA = 8;        // actions at most
 constexpr int kF1 = 16;      // direction features + the bias column, at most
+constexpr int kStages = 3;   // W_img stages in the ring
+constexpr int kGroup = 7;    // channels a stage: 112 W_img rows
+constexpr int kDlLd = 24;    // bf16 row stride of the 16-wide [Wa | wv] and [dlogits | dv]
+                             // tiles (no bank conflicts)
+constexpr int kTailWarp = 12;  // per-warp sums: dba (8), dbv, pg, vf, entropy
 
 struct Coefs {
   float inv_b, c_ent, c_vf, lo, hi;
 };
 
+constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
+
 template <int H>
 struct Layout {
+  static constexpr int kLd = H + 8;              // bf16 row stride of H-wide tiles
   static constexpr int kNg = kThreads / H;       // threads sharing a column
-  static constexpr int kPer = kS / kNg;          // samples of a thread
-  static constexpr int kR = H / 16;              // dW1 tile side per thread
-  static constexpr int kW1Stride = H + 2;        // bf16 row stride of W1
+  static constexpr int kPer = kTM / kNg;         // samples of a thread
+  static constexpr int kNT = H / 16;             // n8 tiles of a warp: half of H
+  static constexpr int kRT = H / 16;             // dW1: 16-row tiles
+  static constexpr int kCS = kWarps / kRT < H / 16 ? kWarps / kRT : H / 16;  // column splits
+  static constexpr int kWNT = H / kCS / 8;       // dW1: n8 tiles of a warp
+  static constexpr int kW1Warps = kRT * kCS;
   static constexpr int kTail = 9 * H + 12;       // dWa, dWv, dba, dbv, sums
-  static constexpr int kRed = kNg * (kF1 + 1) * H > kWarps * kTail
-                                  ? kNg * (kF1 + 1) * H
-                                  : kWarps * kTail;
-  static constexpr int kBig = 3 * kS * H > kRed ? 3 * kS * H : kRed;
-  // floats after W1: big (x1, x2, dx2 | reductions), dirf, wa, wv, b1, dl,
-  // dv
-  static constexpr int kFloats = kBig + kS * kF1 + H * kA + H + H + kS * kA + kS;
-  static constexpr size_t kSmem =
-      sizeof(__nv_bfloat16) * H * kW1Stride + sizeof(float) * kFloats;
+  // Byte offsets in shared memory.
+  static constexpr int kW1 = 0;                                        // (H, kLd) bf16
+  static constexpr int kWd = kW1 + align16(H * kLd * 2);               // (16, kLd) bf16
+  static constexpr int kRing = kWd + align16(16 * kLd * 2);  // kStages x (16 kGroup, kLd)
+  static constexpr int kBig = kRing + align16(kStages * 16 * kGroup * kLd * 2);
+  static constexpr int kBigBytes = 3 * kTM * kLd * 2 > kThreads * (kF1 + 1) * 4
+                                       ? 3 * kTM * kLd * 2 : kThreads * (kF1 + 1) * 4;
+  static constexpr int kDl = kBig + align16(kBigBytes);                // (kTM, kDlLd) bf16
+  static constexpr int kDirs = kDl + align16(kTM * kDlLd * 2);         // (kTM, kF1) f32
+  static constexpr int kWh = kDirs + kTM * kF1 * 4;                    // (H, kDlLd) bf16
+  static constexpr int kLg = kWh + align16(H * kDlLd * 2);             // (kTM, 16) f32
+  static constexpr int kB1 = kLg + kTM * 16 * 4;                       // (H,) f32
+  static constexpr int kBa = kB1 + H * 4;                              // ba (kA), bv
+  static constexpr int kSmp = kBa + 16 * 4;                            // (4, kTM): the tile's
+                                                                       // action, old_logp, adv, target
+  static constexpr int kRed = kSmp + 4 * kTM * 4;                      // (kWarps, kTailWarp)
+  static constexpr size_t kSmem = kRed + kWarps * kTailWarp * 4;
 };
 
-// The first layer, h = one_hot(packed) @ W_img + [dirf, 1] @ [W0; b0], and
-// x1 = bf16(relu(h)), one warp per sample (onehot_rows.cuh): the gather of
-// 3*C weight rows from L2 needs many warps in flight, which the loss kernel
-// (one block of 8 warps an SM) does not have.
-template <int H>
-__global__ void __launch_bounds__(kThreads) first_layer_kernel(
-    const int32_t* __restrict__ packed,        // (B, C)
-    const float* __restrict__ dirf,            // (B, F)
-    const __nv_bfloat16* __restrict__ w_img,   // (C*21, H)
-    const __nv_bfloat16* __restrict__ wd,      // (F+1, H): [W0; b0]
-    __nv_bfloat16* __restrict__ x1_out,        // (B, H)
-    int b, int c, int f) {
-  const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (n >= b) return;
-  float x1[H / 32];
-  first_layer_x1<H>(packed + static_cast<size_t>(n) * c, c, dirf + static_cast<size_t>(n) * f,
-                    f, w_img, wd, lane, x1);
-#pragma unroll
-  for (int i = 0; i < H / 32; ++i)
-    x1_out[static_cast<size_t>(n) * H + lane + 32 * i] = __float2bfloat16(x1[i]);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+}
+
+// The whole loss, forward and backward, a tile of 64 samples at a time; a
+// block walks tiles tile = blockIdx.x, + gridDim.x, ... and writes its
+// partial sums once.
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
-    const __nv_bfloat16* __restrict__ x1_in,   // (B, H) from first_layer_kernel
+    const int32_t* __restrict__ packed,        // (B, C)
     const float* __restrict__ dirf,            // (B, F)
     const int32_t* __restrict__ action,        // (B,)
     const float* __restrict__ old_logp,        // (B,)
     const float* __restrict__ adv,             // (B,)
     const float* __restrict__ target,          // (B,)
+    const __nv_bfloat16* __restrict__ w_img,   // (C*21, H)
+    const __nv_bfloat16* __restrict__ wd,      // (F+1, H): [W0; b0]
     const __nv_bfloat16* __restrict__ w1,      // (H, H) (in, out)
     const float* __restrict__ b1,              // (H,)
     const __nv_bfloat16* __restrict__ wa,      // (H, A)
@@ -111,68 +130,74 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
     const float* __restrict__ bv,              // (1,)
     __nv_bfloat16* __restrict__ dx1_out,       // (B, H)
     float* __restrict__ partial,               // (gridDim.x, P)
-    int b, int f, int na, Coefs k) {
+    int b, int c, int f, int na, Coefs k) {
   using L = Layout<H>;
+  constexpr int kLd = L::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* big = reinterpret_cast<float*>(w1s + H * L::kW1Stride);
-  float* x1s = big;                 // (S, H)
-  float* x2s = x1s + kS * H;        // (S, H)
-  float* dx2s = x2s + kS * H;       // (S, H)
-  float* dirs = big + L::kBig;      // (S, kF1): bf16(dirf), 1, 0...
-  float* was = dirs + kS * kF1;     // (H, kA)
-  float* wvs = was + H * kA;        // (H,)
-  float* b1s = wvs + H;             // (H,)
-  float* dls = b1s + H;             // (S, kA) bf16(dlogits)
-  float* dvs = dls + kS * kA;       // (S,) bf16(dvalue)
+  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kW1);
+  __nv_bfloat16* wds = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kWd);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kRing);
+  __nv_bfloat16* x1s = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kBig);  // (kTM, kLd)
+  __nv_bfloat16* x2s = x1s + kTM * kLd;     // (kTM, kLd); dx1 once x2 is spent
+  __nv_bfloat16* dx2s = x2s + kTM * kLd;    // (kTM, kLd)
+  __nv_bfloat16* dlv = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kDl);   // [dl | dv]
+  float* dirs = reinterpret_cast<float*>(smem_raw + L::kDirs);  // bf16(dirf), 1, 0...
+  __nv_bfloat16* whs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kWh);  // [Wa | wv | 0]
+  float* lgs = reinterpret_cast<float*>(smem_raw + L::kLg);     // [logits | value]
+  float* b1s = reinterpret_cast<float*>(smem_raw + L::kB1);
+  float* bas = reinterpret_cast<float*>(smem_raw + L::kBa);    // ba, then bv at kA
+  int32_t* acts = reinterpret_cast<int32_t*>(smem_raw + L::kSmp);
+  float* olps = reinterpret_cast<float*>(acts + kTM);
+  float* advs = olps + kTM;
+  float* tgts = advs + kTM;
+  float* wred = reinterpret_cast<float*>(smem_raw + L::kRed);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane >> 2, tig = lane & 3;
   const int f1 = f + 1;
-  for (int i = tid; i < H * H; i += kThreads)
-    w1s[(i / H) * L::kW1Stride + i % H] = w1[i];
-  for (int i = tid; i < H * kA; i += kThreads) {
-    const int a = i % kA;
-    was[i] = a < na ? __bfloat162float(wa[(i / kA) * na + a]) : 0.f;
+  for (int i = tid; i < H * H / 8; i += kThreads) {
+    const int r = i / (H / 8), q = (i % (H / 8)) * 8;
+    *reinterpret_cast<uint4*>(w1s + r * kLd + q) = *reinterpret_cast<const uint4*>(w1 + r * H + q);
   }
-  for (int i = tid; i < H; i += kThreads) {
-    wvs[i] = __bfloat162float(wv[i]);
-    b1s[i] = b1[i];
+  for (int i = tid; i < 16 * H; i += kThreads) {
+    const int r = i / H;
+    wds[r * kLd + i % H] = r < f1 ? wd[i] : __float2bfloat16(0.f);
   }
+  for (int i = tid; i < H * kDlLd; i += kThreads) {
+    const int r = i / kDlLd, a = i % kDlLd;
+    whs[i] = a < na ? wa[r * na + a] : a == kA ? wv[r] : __float2bfloat16(0.f);
+  }
+  for (int i = tid; i < H; i += kThreads) b1s[i] = b1[i];
+  if (tid < kA) bas[tid] = tid < na ? ba[tid] : 0.f;
+  if (tid == kA) bas[kA] = bv[0];
+  for (int i = tid; i < kTM * kDlLd; i += kThreads) dlv[i] = __float2bfloat16(0.f);
+  const int ntiles = (b + kTM - 1) / kTM;
+  if (blockIdx.x < ntiles) onehot_prime<H, kThreads, kStages, kGroup>(c, w_img, H, 0, H, ring);
 
-  // Column-owner mapping of the H-wide phases: column j, samples g + kNg*i.
+  // Forward products: warp (wm, wn) owns rows 16*wm.. and columns wn*H/2...
+  const int wm = warp & 3, r0 = 16 * wm + grp, n0 = (warp >> 2) * (H / 2);
+  // Column-owner mapping of the H-wide CUDA-core phases: column j, samples
+  // g + kNg*i.
   const int j = tid % H;
-  const int grp = tid / H;
-  // dW1 tile of this thread: rows r0.., columns q0..
-  const int r0 = (tid / 16) * L::kR;
-  const int q0 = (tid % 16) * L::kR;
-  const int warp = tid / 32, lane = tid % 32;
+  const int g0 = tid / H;
+  // dW1 block of this warp: rows 16*rt.., columns cs*H/kCS...
+  const int rt = warp % L::kRT, cs = warp / L::kRT;
 
-  float acc_w1[L::kR][L::kR];
-#pragma unroll
-  for (int u = 0; u < L::kR; ++u)
-#pragma unroll
-    for (int v = 0; v < L::kR; ++v) acc_w1[u][v] = 0.f;
+  float acc_w1[L::kWNT][4], acc_wa[2][4];
+  zero(acc_w1);
+  zero(acc_wa);
   float acc_wd[kF1];
 #pragma unroll
   for (int q = 0; q < kF1; ++q) acc_wd[q] = 0.f;
-  float acc_b1 = 0.f;
-  float acc_wa[H / 32][kA], acc_wv[H / 32];
-#pragma unroll
-  for (int i = 0; i < H / 32; ++i) {
-    acc_wv[i] = 0.f;
-#pragma unroll
-    for (int a = 0; a < kA; ++a) acc_wa[i][a] = 0.f;
-  }
   float acc_ba[kA];
 #pragma unroll
   for (int a = 0; a < kA; ++a) acc_ba[a] = 0.f;
-  float acc_bv = 0.f, sum_pg = 0.f, sum_vf = 0.f, sum_ent = 0.f;
+  float acc_b1 = 0.f, acc_bv = 0.f, sum_pg = 0.f, sum_vf = 0.f, sum_ent = 0.f;
 
-  const int ntiles = (b + kS - 1) / kS;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int s0 = tile * kS;
+    const int s0 = tile * kTM;
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kS * kF1; i += kThreads) {
+    for (int i = tid; i < kTM * kF1; i += kThreads) {
       const int s = i / kF1, q = i % kF1;
       float v = 0.f;
       if (s0 + s < b) {
@@ -181,187 +206,297 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
       }
       dirs[i] = v;
     }
-    __syncthreads();
-
-    // x1 from the first-layer pass.
-#pragma unroll
-    for (int i = 0; i < L::kPer; ++i) {
-      const int s = grp + L::kNg * i;
-      x1s[s * H + j] = s0 + s < b
-          ? __bfloat162float(x1_in[static_cast<size_t>(s0 + s) * H + j]) : 0.f;
+    if (tid < kTM && s0 + tid < b) {
+      const int n = s0 + tid;
+      acts[tid] = action[n];
+      olps[tid] = old_logp[n];
+      advs[tid] = adv[n];
+      tgts[tid] = target[n];
     }
-    __syncthreads();
 
-    // x2 = bf16(relu(x1 @ W1 + b1)).
+    // h = one_hot(packed) @ W_img (its barriers also publish the tile's
+    // inputs), then one more K step for [bf16(dirf), 1] @ [W0; b0]; x1 =
+    // bf16(relu(h)). The ring, free again, is primed for the next tile.
+    float acc[L::kNT][4];
+    zero(acc);
+    onehot_mma_primed<H, L::kNT, kThreads, kStages, kGroup>(packed, b, c, s0, r0, w_img, H, 0, H,
+                                                            ring, n0, acc);
+    if (tile + gridDim.x < ntiles)
+      onehot_prime<H, kThreads, kStages, kGroup>(c, w_img, H, 0, H, ring);
     {
-      float acc[L::kPer];
+      uint32_t a[4];
+      const float* d0 = dirs + r0 * kF1 + 2 * tig;
+      const float* d1 = d0 + 8 * kF1;
+      a[0] = pack_bf16(d0[0], d0[1]);
+      a[1] = pack_bf16(d1[0], d1[1]);
+      a[2] = pack_bf16(d0[8], d0[9]);
+      a[3] = pack_bf16(d1[8], d1[9]);
 #pragma unroll
-      for (int i = 0; i < L::kPer; ++i) acc[i] = 0.f;
-      for (int kk = 0; kk < H; ++kk) {
-        const float w = __bfloat162float(w1s[kk * L::kW1Stride + j]);
-#pragma unroll
-        for (int i = 0; i < L::kPer; ++i)
-          acc[i] += x1s[(grp + L::kNg * i) * H + kk] * w;
+      for (int np = 0; np < L::kNT / 2; ++np) {
+        uint32_t bb[4];
+        load_b2(bb, wds, kLd, 0, n0 + 16 * np, lane);
+        mma_16816(acc[2 * np], a, bb[0], bb[1]);
+        mma_16816(acc[2 * np + 1], a, bb[2], bb[3]);
       }
+    }
 #pragma unroll
-      for (int i = 0; i < L::kPer; ++i) {
-        const int s = grp + L::kNg * i;
-        x2s[s * H + j] = s0 + s < b ? bf(fmaxf(acc[i] + b1s[j], 0.f)) : 0.f;
+    for (int nt = 0; nt < L::kNT; ++nt) {
+      const int col = n0 + nt * 8 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(x1s + (r0 + 8 * i) * kLd + col) =
+            __floats2bfloat162_rn(fmaxf(acc[nt][2 * i], 0.f), fmaxf(acc[nt][2 * i + 1], 0.f));
+    }
+    __syncthreads();
+
+    // x2 = bf16(relu(x1 @ W1 + b1)); rows past the batch 0.
+    zero(acc);
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      uint32_t a[4];
+      load_a(a, x1s, kLd, 16 * wm, 16 * kk, lane);
+#pragma unroll
+      for (int np = 0; np < L::kNT / 2; ++np) {
+        uint32_t bb[4];
+        load_b2(bb, w1s, kLd, 16 * kk, n0 + 16 * np, lane);
+        mma_16816(acc[2 * np], a, bb[0], bb[1]);
+        mma_16816(acc[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < L::kNT; ++nt) {
+      const int col = n0 + nt * 8 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bool in = s0 + r0 + 8 * i < b;
+        *reinterpret_cast<__nv_bfloat162*>(x2s + (r0 + 8 * i) * kLd + col) =
+            __floats2bfloat162_rn(in ? fmaxf(acc[nt][2 * i] + b1s[col], 0.f) : 0.f,
+                                  in ? fmaxf(acc[nt][2 * i + 1] + b1s[col + 1], 0.f) : 0.f);
       }
     }
     __syncthreads();
 
-    // Heads, loss and dlogits: one warp per sample.
-    for (int s = warp; s < kS; s += kWarps) {
-      const int n = s0 + s;
-      if (n >= b) {
-        if (lane < kA) dls[s * kA + lane] = 0.f;
-        if (lane == 0) dvs[s] = 0.f;
-        continue;
-      }
-      float lg[kA], pv = 0.f;
+    // The heads on the tensor cores, [logits | value] = x2 @ [Wa | wv]
+    // (f32 sums), warps 0-3 a 16-row tile each.
+    if (warp < 4) {
+      float hacc[2][4];
+      zero(hacc);
 #pragma unroll
-      for (int a = 0; a < kA; ++a) lg[a] = 0.f;
-#pragma unroll
-      for (int i = 0; i < H / 32; ++i) {
-        const int kk = lane + 32 * i;
-        const float x = x2s[s * H + kk];
-#pragma unroll
-        for (int a = 0; a < kA; ++a) lg[a] += x * was[kk * kA + a];
-        pv += x * wvs[kk];
+      for (int kk = 0; kk < H / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        load_a(a, x2s, kLd, 16 * warp, 16 * kk, lane);
+        load_b2(bb, whs, kDlLd, 16 * kk, 0, lane);
+        mma_16816(hacc[0], a, bb[0], bb[1]);
+        mma_16816(hacc[1], a, bb[2], bb[3]);
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int a = 0; a < kA; ++a) lg[a] += __shfl_xor_sync(0xffffffffu, lg[a], off);
-        pv += __shfl_xor_sync(0xffffffffu, pv, off);
-      }
-      float zmax = __int_as_float(0xff800000);  // -inf
-#pragma unroll
-      for (int a = 0; a < kA; ++a) {
-        if (a < na) {
-          lg[a] += ba[a];
-          zmax = fmaxf(zmax, lg[a]);
+        for (int i = 0; i < 2; ++i) {
+          float* row = lgs + (16 * warp + grp + 8 * i) * 16 + nt * 8 + 2 * tig;
+          row[0] = hacc[nt][2 * i];
+          row[1] = hacc[nt][2 * i + 1];
         }
-      }
-      float ez[kA], sez = 0.f;
+    }
+    __syncthreads();
+
+    // The loss and dlogits: one thread a sample.
+    if (tid < kTM) {
+      const int s = tid;
+      if (s0 + s >= b) {
 #pragma unroll
-      for (int a = 0; a < kA; ++a) {
-        ez[a] = a < na ? expf(lg[a] - zmax) : 0.f;
-        sez += ez[a];
-      }
-      const float lse = logf(sez);
-      const int act = action[n];
-      float logp[kA], prob[kA], lp = 0.f, ent = 0.f;
+        for (int a = 0; a <= kA; ++a) dlv[s * kDlLd + a] = __float2bfloat16(0.f);
+      } else {
+        float lg[kA];
+        float zmax = __int_as_float(0xff800000);  // -inf
 #pragma unroll
-      for (int a = 0; a < kA; ++a) {
-        logp[a] = a < na ? lg[a] - zmax - lse : 0.f;
-        prob[a] = a < na ? ez[a] / sez : 0.f;
-        if (a == act) lp = logp[a];
-        ent += prob[a] * logp[a];
-      }
-      ent = -ent;
-      const float av = adv[n];
-      const float ratio = expf(lp - old_logp[n]);
-      const float u1 = ratio * av;
-      const float u2 = fminf(fmaxf(ratio, k.lo), k.hi) * av;
-      const float verr = (pv + bv[0]) - target[n];
-      const float coef = u1 <= u2 ? (-k.inv_b * av) * ratio : 0.f;
-      const float dv = k.c_vf * verr;
-      const float dv16 = bf(dv);
-      float dl[kA];
+        for (int a = 0; a < kA; ++a) {
+          lg[a] = lgs[s * 16 + a];
+          if (a < na) {
+            lg[a] += bas[a];
+            zmax = fmaxf(zmax, lg[a]);
+          }
+        }
+        float ez[kA], sez = 0.f;
 #pragma unroll
-      for (int a = 0; a < kA; ++a) {
-        const float g = a < na ? coef * ((a == act ? 1.f : 0.f) - prob[a])
-                                     + k.c_ent * prob[a] * (logp[a] + ent)
-                               : 0.f;
-        dl[a] = bf(g);
-        acc_ba[a] += g;
-      }
-      acc_bv += dv;
-      if (lane == 0) {
+        for (int a = 0; a < kA; ++a) {
+          ez[a] = a < na ? expf(lg[a] - zmax) : 0.f;
+          sez += ez[a];
+        }
+        const float lse = logf(sez);
+        const int act = acts[s];
+        float logp[kA], prob[kA], lp = 0.f, ent = 0.f;
+#pragma unroll
+        for (int a = 0; a < kA; ++a) {
+          logp[a] = a < na ? lg[a] - zmax - lse : 0.f;
+          prob[a] = a < na ? ez[a] / sez : 0.f;
+          if (a == act) lp = logp[a];
+          ent += prob[a] * logp[a];
+        }
+        ent = -ent;
+        const float av = advs[s];
+        const float ratio = expf(lp - olps[s]);
+        const float u1 = ratio * av;
+        const float u2 = fminf(fmaxf(ratio, k.lo), k.hi) * av;
+        const float verr = (lgs[s * 16 + kA] + bas[kA]) - tgts[s];
+        const float coef = u1 <= u2 ? (-k.inv_b * av) * ratio : 0.f;
+        const float dv = k.c_vf * verr;
+#pragma unroll
+        for (int a = 0; a < kA; ++a) {
+          const float dl = a < na ? coef * ((a == act ? 1.f : 0.f) - prob[a])
+                                        + k.c_ent * prob[a] * (logp[a] + ent)
+                                  : 0.f;
+          acc_ba[a] += dl;
+          dlv[s * kDlLd + a] = __float2bfloat16(dl);
+        }
+        acc_bv += dv;
         sum_pg += -fminf(u1, u2);
         sum_vf += 0.5f * verr * verr;
         sum_ent += ent;
-        dvs[s] = dv16;
-#pragma unroll
-        for (int a = 0; a < kA; ++a) dls[s * kA + a] = dl[a];
-      }
-#pragma unroll
-      for (int i = 0; i < H / 32; ++i) {
-        const float x = x2s[s * H + lane + 32 * i];
-#pragma unroll
-        for (int a = 0; a < kA; ++a) acc_wa[i][a] += dl[a] * x;
-        acc_wv[i] += dv16 * x;
+        dlv[s * kDlLd + kA] = __float2bfloat16(dv);
       }
     }
     __syncthreads();
 
     // dx2 = dlogits @ Wa^T + dv wv^T, through the relu: bf16.
+    float waj[kA + 1];
+#pragma unroll
+    for (int a = 0; a <= kA; ++a) waj[a] = __bfloat162float(whs[j * kDlLd + a]);
 #pragma unroll 1
     for (int i = 0; i < L::kPer; ++i) {
-      const int s = grp + L::kNg * i;
+      const int s = g0 + L::kNg * i;
       float d = 0.f;
 #pragma unroll
-      for (int a = 0; a < kA; ++a) d += was[j * kA + a] * dls[s * kA + a];
-      d += wvs[j] * dvs[s];
-      const float g = x2s[s * H + j] > 0.f ? bf(d) : 0.f;
-      dx2s[s * H + j] = g;
+      for (int a = 0; a <= kA; ++a) d += waj[a] * __bfloat162float(dlv[s * kDlLd + a]);
+      const float g = __bfloat162float(x2s[s * kLd + j]) > 0.f ? bf(d) : 0.f;
+      dx2s[s * kLd + j] = __float2bfloat16(g);
       acc_b1 += g;
     }
     __syncthreads();
 
-    // dx1 = dx2 @ W1^T, through the relu: bf16, out to memory for dW_img;
-    // dWd gets dx1 (x) [dirf, 1].
-    {
-      float acc[L::kPer];
+    // dWa, dWv += x2^T @ [dlogits | dv]: warp w owns rows 16w...
+    if (warp < H / 16) {
 #pragma unroll
-      for (int i = 0; i < L::kPer; ++i) acc[i] = 0.f;
-      for (int q = 0; q < H; ++q) {
-        const float w = __bfloat162float(w1s[j * L::kW1Stride + q]);
-#pragma unroll
-        for (int i = 0; i < L::kPer; ++i)
-          acc[i] += w * dx2s[(grp + L::kNg * i) * H + q];
-      }
-#pragma unroll
-      for (int i = 0; i < L::kPer; ++i) {
-        const int s = grp + L::kNg * i;
-        if (s0 + s >= b) continue;
-        const float g = x1s[s * H + j] > 0.f ? bf(acc[i]) : 0.f;
-        dx1_out[static_cast<size_t>(s0 + s) * H + j] = __float2bfloat16(g);
-#pragma unroll
-        for (int q = 0; q < kF1; ++q) acc_wd[q] += g * dirs[s * kF1 + q];
+      for (int kk = 0; kk < kTM / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        load_a_t(a, x2s, kLd, 16 * warp, 16 * kk, lane);
+        load_b2(bb, dlv, kDlLd, 16 * kk, 0, lane);
+        mma_16816(acc_wa[0], a, bb[0], bb[1]);
+        mma_16816(acc_wa[1], a, bb[2], bb[3]);
       }
     }
-
-    // dW1 += x1^T dx2 over the tile.
-    for (int s = 0; s < kS; ++s) {
-      float xr[L::kR], gr[L::kR];
+    // dW1 += x1^T @ dx2.
+    if (warp < L::kW1Warps) {
 #pragma unroll
-      for (int u = 0; u < L::kR; ++u) {
-        xr[u] = x1s[s * H + r0 + u];
-        gr[u] = dx2s[s * H + q0 + u];
+      for (int kk = 0; kk < kTM / 16; ++kk) {
+        uint32_t a[4];
+        load_a_t(a, x1s, kLd, 16 * rt, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < L::kWNT / 2; ++np) {
+          uint32_t bb[4];
+          load_b2(bb, dx2s, kLd, 16 * kk, cs * (H / L::kCS) + 16 * np, lane);
+          mma_16816(acc_w1[2 * np], a, bb[0], bb[1]);
+          mma_16816(acc_w1[2 * np + 1], a, bb[2], bb[3]);
+        }
       }
+    }
+    // dx1 = dx2 @ W1^T, through the relu: bf16, into x2's tile once every
+    // reader of x2 is done.
+    zero(acc);
 #pragma unroll
-      for (int u = 0; u < L::kR; ++u)
+    for (int kk = 0; kk < H / 16; ++kk) {
+      uint32_t a[4];
+      load_a(a, dx2s, kLd, 16 * wm, 16 * kk, lane);
 #pragma unroll
-        for (int v = 0; v < L::kR; ++v) acc_w1[u][v] += xr[u] * gr[v];
+      for (int np = 0; np < L::kNT / 2; ++np) {
+        uint32_t bb[4];
+        load_b2_t(bb, w1s, kLd, 16 * kk, n0 + 16 * np, lane);
+        mma_16816(acc[2 * np], a, bb[0], bb[1]);
+        mma_16816(acc[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();
+    __nv_bfloat16* dx1s = x2s;
+#pragma unroll
+    for (int nt = 0; nt < L::kNT; ++nt) {
+      const int col = n0 + nt * 8 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(x1s + r * kLd + col);
+        *reinterpret_cast<__nv_bfloat162*>(dx1s + r * kLd + col) = __floats2bfloat162_rn(
+            __bfloat162float(x.x) > 0.f ? acc[nt][2 * i] : 0.f,
+            __bfloat162float(x.y) > 0.f ? acc[nt][2 * i + 1] : 0.f);
+      }
+    }
+    __syncthreads();
+
+    // dx1 out to memory for dW_img; dWd += [dirf, 1]^T dx1.
+    for (int i = tid; i < kTM * H / 8; i += kThreads) {
+      const int s = i / (H / 8), q = (i % (H / 8)) * 8;
+      if (s0 + s < b)
+        *reinterpret_cast<uint4*>(dx1_out + static_cast<size_t>(s0 + s) * H + q) =
+            *reinterpret_cast<const uint4*>(dx1s + s * kLd + q);
+    }
+#pragma unroll 1
+    for (int i = 0; i < L::kPer; ++i) {
+      const int s = g0 + L::kNg * i;
+      const float g = __bfloat162float(dx1s[s * kLd + j]);
+#pragma unroll
+      for (int q = 0; q < kF1; ++q) acc_wd[q] += g * dirs[s * kF1 + q];
     }
   }
   __syncthreads();
 
-  // Per-block partial: [dW1 H*H][db1 H][dWd (F+1)*H][tail 9H+12].
+  // Per-block partial: [dW1 H*H][db1 H][dWd (F+1)*H][tail 9H+12], the tail
+  // dWa (H, kA) at kk*kA + a, dWv at kA*H + kk, then dba, dbv and the three
+  // sums at 9H.
   const int p_len = H * H + H + f1 * H + L::kTail;
   float* out = partial + static_cast<size_t>(blockIdx.x) * p_len;
+  float* tail = out + H * H + H + f1 * H;
+  if (warp < L::kW1Warps) {
 #pragma unroll
-  for (int u = 0; u < L::kR; ++u)
+    for (int nt = 0; nt < L::kWNT; ++nt) {
+      const int col = cs * (H / L::kCS) + nt * 8 + 2 * tig;
 #pragma unroll
-    for (int v = 0; v < L::kR; ++v) out[(r0 + u) * H + q0 + v] = acc_w1[u][v];
+      for (int i = 0; i < 2; ++i) {
+        const int row = 16 * rt + grp + 8 * i;
+        out[row * H + col] = acc_w1[nt][2 * i];
+        out[row * H + col + 1] = acc_w1[nt][2 * i + 1];
+      }
+    }
+  }
+  if (warp < H / 16) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = 16 * warp + grp + 8 * i;
+      tail[row * kA + 2 * tig] = acc_wa[0][2 * i];
+      tail[row * kA + 2 * tig + 1] = acc_wa[0][2 * i + 1];
+      if (tig == 0) tail[kA * H + row] = acc_wa[1][2 * i];  // column 8: dv
+    }
+  }
 
-  float* red = big;
+  float* red = reinterpret_cast<float*>(x1s);
 #pragma unroll
-  for (int q = 0; q < kF1; ++q) red[(grp * (kF1 + 1) + q) * H + j] = acc_wd[q];
-  red[(grp * (kF1 + 1) + kF1) * H + j] = acc_b1;
+  for (int q = 0; q < kF1; ++q) red[(g0 * (kF1 + 1) + q) * H + j] = acc_wd[q];
+  red[(g0 * (kF1 + 1) + kF1) * H + j] = acc_b1;
+  // The per-sample sums, over the warp's lanes (a fixed tree), then the
+  // warps in order.
+  float tv[kTailWarp];
+#pragma unroll
+  for (int a = 0; a < kA; ++a) tv[a] = acc_ba[a];
+  tv[8] = acc_bv;
+  tv[9] = sum_pg;
+  tv[10] = sum_vf;
+  tv[11] = sum_ent;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int v = 0; v < kTailWarp; ++v) tv[v] += __shfl_xor_sync(0xffffffffu, tv[v], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int v = 0; v < kTailWarp; ++v) wred[warp * kTailWarp + v] = tv[v];
+  }
   __syncthreads();
   if (tid < H) {
     float s = 0.f;
@@ -373,32 +508,10 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
       out[H * H + H + q * H + tid] = s;
     }
   }
-  __syncthreads();
-
-  // Tail, per warp: dWa (H, kA) at kk*kA + a, dWv at kA*H + kk, then dba,
-  // dbv and the three sums at 9H.
-  float* rw = red + warp * L::kTail;
-#pragma unroll
-  for (int i = 0; i < H / 32; ++i) {
-    const int kk = lane + 32 * i;
-#pragma unroll
-    for (int a = 0; a < kA; ++a) rw[kk * kA + a] = acc_wa[i][a];
-    rw[kA * H + kk] = acc_wv[i];
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int a = 0; a < kA; ++a) rw[9 * H + a] = acc_ba[a];
-    rw[9 * H + 8] = acc_bv;
-    rw[9 * H + 9] = sum_pg;
-    rw[9 * H + 10] = sum_vf;
-    rw[9 * H + 11] = sum_ent;
-  }
-  __syncthreads();
-  float* tail = out + H * H + H + f1 * H;
-  for (int i = tid; i < L::kTail; i += kThreads) {
+  if (tid < kTailWarp) {
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * L::kTail + i];
-    tail[i] = s;
+    for (int w = 0; w < kWarps; ++w) s += wred[w * kTailWarp + tid];
+    tail[9 * H + tid] = s;
   }
 }
 
@@ -416,29 +529,22 @@ int launch(const void* packed, const void* dirf, const void* action,
            const void* old_logp, const void* adv, const void* target,
            const void* w_img, const void* wd, const void* w1, const void* b1,
            const void* wa, const void* ba, const void* wv, const void* bv,
-           void* x1, void* dx1, void* partial, void* out, int b, int c, int f,
-           int na, int blocks, Coefs k, cudaStream_t st) {
-  first_layer_kernel<H><<<(b + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      static_cast<const int32_t*>(packed), static_cast<const float*>(dirf),
-      static_cast<const __nv_bfloat16*>(w_img),
-      static_cast<const __nv_bfloat16*>(wd), static_cast<__nv_bfloat16*>(x1),
-      b, c, f);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+           void* dx1, void* partial, void* out, int b, int c, int f, int na,
+           int blocks, Coefs k, cudaStream_t st) {
   const size_t smem = Layout<H>::kSmem;
-  err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       ppo_loss_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   ppo_loss_kernel<H><<<blocks, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x1), static_cast<const float*>(dirf),
+      static_cast<const int32_t*>(packed), static_cast<const float*>(dirf),
       static_cast<const int32_t*>(action), static_cast<const float*>(old_logp),
       static_cast<const float*>(adv), static_cast<const float*>(target),
+      static_cast<const __nv_bfloat16*>(w_img), static_cast<const __nv_bfloat16*>(wd),
       static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
       static_cast<const __nv_bfloat16*>(wa), static_cast<const float*>(ba),
       static_cast<const __nv_bfloat16*>(wv), static_cast<const float*>(bv),
-      static_cast<__nv_bfloat16*>(dx1), static_cast<float*>(partial), b, f,
-      na, k);
+      static_cast<__nv_bfloat16*>(dx1), static_cast<float*>(partial), b, c, f, na, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = H * H + H + (f + 1) * H + Layout<H>::kTail;
@@ -455,7 +561,7 @@ extern "C" int mgt_ppo_loss_launch(
     const void* packed, const void* dirf, const void* action,
     const void* old_logp, const void* adv, const void* target,
     const void* w_img, const void* wd, const void* w1, const void* b1,
-    const void* wa, const void* ba, const void* wv, const void* bv, void* x1,
+    const void* wa, const void* ba, const void* wv, const void* bv,
     void* dx1, void* partial, void* out, int b, int c, int f, int na, int h,
     int blocks,
     float inv_b, float c_ent, float c_vf, float lo, float hi, void* stream) {
@@ -464,8 +570,8 @@ extern "C" int mgt_ppo_loss_launch(
 #define MGT_PPO_CASE(HH)                                                     \
   case HH:                                                                   \
     return launch<HH>(packed, dirf, action, old_logp, adv, target, w_img, wd, \
-                      w1, b1, wa, ba, wv, bv, x1, dx1, partial, out, b, c, f, \
-                      na, blocks, k, st);
+                      w1, b1, wa, ba, wv, bv, dx1, partial, out, b, c, f, na, \
+                      blocks, k, st);
   switch (h) {
     MGT_PPO_CASE(32)
     MGT_PPO_CASE(64)

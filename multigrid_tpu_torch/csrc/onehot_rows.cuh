@@ -1,6 +1,7 @@
-// The first layer's gather on packed observation cells, shared by the
-// kernels of fused_linear.cu (one_hot(packed) @ W), fused_ppo.cu (the PPO
-// loss's x1) and fused_policy.cu (the rollout's x1).
+// The first layer's gather on packed observation cells, for the rollout
+// policy kernel of fused_policy.cu (its x1), and the one-hot channel
+// constants that onehot_mma.cuh (the first-layer and loss kernels'
+// tensor-core product) shares.
 //
 // A packed cell t<<8|c<<4|s has exactly three ones in its 21 channels (type
 // t, color 11+c, state 17+s; a field out of its channel's range has none),

@@ -35,8 +35,9 @@ PAD_CELL = (0x7FF << 8) | (15 << 4) | 15
 launches = 0
 grad_launches = 0
 
-#: The kernels' range: the forward takes up to 8 columns a lane; the
-#: gradient kernel is built for these widths.
+#: The kernels' range: the forward takes any width up to 256 (64 x 128
+#: tiles, at most two column tiles); the gradient kernel is built for these
+#: widths.
 MAX_HIDDEN = 256
 GRAD_HIDDEN = (32, 64, 128, 256)
 #: Rows of cells one gradient block covers (6 cells: 126 of 128 rows).
@@ -120,6 +121,14 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def pad_columns(w: torch.Tensor, multiple: int = 8) -> torch.Tensor:
+    """``w`` with zero columns appended up to a multiple of ``multiple``:
+    the forward kernel stages W's rows in 16-byte pieces, so a bf16 row
+    must span a multiple of 8 columns. ``w`` itself where it already does."""
+    pad = -w.shape[-1] % multiple
+    return torch.nn.functional.pad(w, (0, pad)) if pad else w
+
+
 def onehot_linear_forward(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``one_hot(packed) @ w`` → (B, H) bf16: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
@@ -128,15 +137,18 @@ def onehot_linear_forward(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor
         return onehot_linear_plain(packed, w)
     h = w.shape[-1]
     b, c = _check_shapes(packed, h)
-    wb = w.detach().to(torch.bfloat16).contiguous()
+    wb = pad_columns(w.detach().to(torch.bfloat16)).contiguous()
+    if wb.data_ptr() % 16:
+        wb = wb.clone()
+    ldw = wb.shape[-1]
     ptrs = [check_cuda(packed, 'packed', (b, c), torch.int32),
-            check_cuda(wb, 'w', (c * NCH, h), torch.bfloat16)]
+            check_cuda(wb, 'w', (c * NCH, ldw), torch.bfloat16)]
     out = torch.empty((b, h), dtype=torch.bfloat16, device=packed.device)
     if b == 0:
         return out
     with torch.cuda.device(packed.device):
-        err = _lib_fn('mgt_onehot_linear_launch', 3, 3)(
-            *ptrs, out.data_ptr(), b, c, h, _stream(packed.device))
+        err = _lib_fn('mgt_onehot_linear_launch', 3, 4)(
+            *ptrs, out.data_ptr(), b, c, h, ldw, _stream(packed.device))
     if err != 0:
         raise RuntimeError(f'onehot_linear kernel launch failed: CUDA error {err}')
     launches += 1

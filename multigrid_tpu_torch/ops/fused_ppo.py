@@ -4,10 +4,10 @@ Counterpart of ``multigrid_tpu.ops.fused_ppo``: :func:`ppo_mlp_grads`
 computes, for the mlp ``ActorCritic`` on packed cells, every weight and
 bias gradient of the clipped-PPO loss and its metrics, in the kernel
 ``csrc/fused_ppo.cu`` (replacing ``_kernel``) on the card and in
-:func:`ppo_mlp_grads_plain` on the CPU. A launch is a first-layer pass
-(``x1``), the loss kernel, the sum of its per-block partials, and the
-gradient kernel of ``csrc/fused_linear.cu`` on the loss kernel's ``dx1``
-for the first layer's weights; it counts once, here.
+:func:`ppo_mlp_grads_plain` on the CPU. A launch is the loss kernel (the
+first layer computed in it, tile by tile), the sum of its per-block
+partials, and the gradient kernel of ``csrc/fused_linear.cu`` on the loss
+kernel's ``dx1`` for the first layer's weights; it counts once, here.
 
 Advantages arrive normalized; parameters and gradients are flax-named
 (``img_kernel``, ``Dense_i.kernel``, ``Dense_i.bias``).
@@ -31,6 +31,8 @@ launches = 0
 HIDDEN = (32, 64, 128)
 MAX_ACTIONS = 8
 MAX_FEATURES = 15
+#: Samples a block of the loss kernel takes at a time.
+TILE = 64
 
 _fns = {}
 
@@ -47,7 +49,7 @@ def _lib_fn():
         from ..utils import build
         lib = build.load(SOURCE)
         fn = lib.mgt_ppo_loss_launch
-        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns['launch'] = fn
@@ -155,7 +157,8 @@ def ppo_mlp_grads(params, packed, dirf, action, old_logp, adv, target, *,
     bf16, f32 = torch.bfloat16, torch.float32
 
     def w(name, dtype):
-        return params[name].detach().to(dtype).contiguous()
+        t = params[name].detach().to(dtype).contiguous()
+        return t.clone() if t.data_ptr() % 16 else t  # 16-byte rows in the kernel
 
     wd = torch.cat([params['Dense_0.kernel'], params['Dense_0.bias'][None]], 0)
     weights = [w('img_kernel', bf16), wd.detach().to(bf16).contiguous(),
@@ -175,15 +178,14 @@ def ppo_mlp_grads(params, packed, dirf, action, old_logp, adv, target, *,
     # (8), dbv and the three loss sums.
     sizes = [h * h, h, (f + 1) * h, 8 * h, h, 8, 1, 3]
     n = sum(sizes)
-    blocks = min(-(-b // 32), torch.cuda.get_device_properties(dev).multi_processor_count)
-    x1 = torch.empty((b, h), dtype=bf16, device=dev)
+    blocks = min(-(-b // TILE), torch.cuda.get_device_properties(dev).multi_processor_count)
     dx1 = torch.empty((b, h), dtype=bf16, device=dev)
     partial = torch.empty((blocks, n), dtype=f32, device=dev)
     sums = torch.empty((n,), dtype=f32, device=dev)
     inv_b = 1.0 / b
     with torch.cuda.device(dev):
         err = _lib_fn()(
-            *ptrs, x1.data_ptr(), dx1.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+            *ptrs, dx1.data_ptr(), partial.data_ptr(), sums.data_ptr(),
             b, c, f, num_actions, h, blocks,
             inv_b, ent_coef * inv_b, vf_coef * inv_b, 1.0 - clip_eps,
             1.0 + clip_eps, torch.cuda.current_stream(dev).cuda_stream)

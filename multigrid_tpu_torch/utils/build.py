@@ -36,15 +36,19 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+def _tool(name: str) -> str:
+    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if root and os.path.isfile(os.path.join(root, 'bin', name)):
+            return os.path.join(root, 'bin', name)
+    found = shutil.which(name)
+    if found is None:
+        raise RuntimeError(f'{name} not found: the CUDA kernels need the CUDA toolkit')
+    return found
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, ``PATH``."""
-    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
-        if root and os.path.isfile(os.path.join(root, 'bin', 'nvcc')):
-            return os.path.join(root, 'bin', 'nvcc')
-    found = shutil.which('nvcc')
-    if found is None:
-        raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA toolkit')
-    return found
+    return _tool('nvcc')
 
 
 def sources_of(source: str) -> list[str]:
@@ -105,6 +109,21 @@ def build_log(source: str) -> str:
     """The compiler output kept from building ``source`` ('' if none)."""
     log = library_path(source).parent / 'build.log'
     return log.read_text() if log.exists() else ''
+
+
+_SASS_FUNCTION = re.compile(r'Function : (\S+)')
+_TENSOR_OP = re.compile(r'\b(?:HGMMA|HMMA)\.[\w.]+')
+
+
+def tensor_core_ops(source: str) -> dict[str, set[str]]:
+    """``{kernel: tensor-core instructions (HMMA, HGMMA) in its SASS}`` for
+    every kernel of the library built from ``csrc/<source>``, read with
+    ``cuobjdump -sass``."""
+    lib = build([source])[source]
+    sass = subprocess.run([_tool('cuobjdump'), '-sass', str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    parts = _SASS_FUNCTION.split(sass)
+    return {name: set(_TENSOR_OP.findall(body)) for name, body in zip(parts[1::2], parts[2::2])}
 
 
 def load(source: str) -> ctypes.CDLL:

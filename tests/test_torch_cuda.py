@@ -98,8 +98,12 @@ def _rel_err(got, want):
     return float(((got - want).abs() / (want.abs() + 1)).max())
 
 
-@pytest.mark.parametrize('b,c,h,pad', [(16384, 49, 128, 0.0), (1001, 9, 128, 0.1),
-                                       (333, 25, 32, 0.0), (77, 169, 256, 0.2)])
+@pytest.mark.parametrize('b,c,h,pad', [
+    (16384, 49, 128, 0.0), (1001, 9, 128, 0.1), (333, 25, 32, 0.0), (77, 169, 256, 0.2),
+    # per-agent and critic shapes, every width, a ragged batch with pad cells
+    (4096, 49, 128, 0.0), (4096, 196, 128, 0.0), (4096, 49, 32, 0.0), (4096, 49, 64, 0.0),
+    (4096, 49, 100, 0.05), (4096, 49, 256, 0.0), (4096, 196, 100, 0.05), (1001, 49, 128, 0.1),
+    (1001, 49, 7, 0.1)])
 def test_onehot_linear_kernel_matches_plain(cuda_device, b, c, h, pad):
     from multigrid_tpu_torch.ops import fused_linear as fl
     rng = np.random.default_rng(b + c + h)
@@ -171,7 +175,8 @@ def ppo_inputs(rng, b, c, h, missions, device):
 
 
 @pytest.mark.parametrize('b,h,missions', [(256, 128, 0), (256, 128, 5), (1000, 32, 0),
-                                          (65536, 128, 0)])
+                                          (65536, 128, 0), (65536, 64, 0), (65536, 32, 0),
+                                          (1001, 128, 0), (1001, 64, 3), (4097, 32, 5)])
 def test_ppo_loss_kernel_matches_plain(cuda_device, b, h, missions):
     from multigrid_tpu_torch.ops import fused_ppo
     params, args = ppo_inputs(np.random.default_rng(b + missions), b, 49, h,
@@ -190,6 +195,24 @@ def test_ppo_loss_kernel_matches_plain(cuda_device, b, h, missions):
     for k in want_m:
         err = abs(float(metrics[k]) - float(want_m[k])) / (abs(float(want_m[k])) + 1e-6)
         assert err < 5e-2, (k, err)
+    # The same from run to run: per-block partials summed in a fixed order.
+    again, again_m = fused_ppo.ppo_mlp_grads(params, *args, **kw)
+    for k in grads:
+        assert torch.equal(grads[k], again[k]), k
+    for k in metrics:
+        assert torch.equal(metrics[k], again_m[k]), k
+
+
+def test_first_layer_and_loss_kernels_run_on_the_tensor_cores(cuda_device):
+    """The SASS of the first-layer kernel (B2) and of the loss kernel (B4),
+    every width built, holds tensor-core instructions."""
+    from multigrid_tpu_torch.utils import build
+    ops = {**build.tensor_core_ops('fused_linear.cu'), **build.tensor_core_ops('fused_ppo.cu')}
+    for kernel in ('onehot_linear_kernel', 'ppo_loss_kernel'):
+        names = [n for n in ops if kernel in n]
+        assert names, kernel
+        for n in names:
+            assert any(op.startswith(('HMMA', 'HGMMA')) for op in ops[n]), n
 
 
 def test_float32_nets_take_the_first_layer_kernel_on_the_card(cuda_device):

@@ -10,6 +10,7 @@ against the plain versions on the card (tests/test_torch_cuda.py).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from multigrid_tpu.learn.nets import one_hot_image
@@ -89,10 +90,12 @@ def test_autograd_function_on_the_cpu():
 def test_build_key_follows_included_headers(tmp_path, monkeypatch):
     """A library's key hashes the csrc headers its source includes, followed
     through the headers, so an edited header rebuilds every kernel that uses
-    it; the package's kernels share the first layer's gather."""
+    it; the first-layer and loss kernels share the tensor-core one-hot
+    product, which includes the gather header that the policy kernel uses."""
     from multigrid_tpu_torch.utils import build
-    for src in ('fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu'):
-        assert build.sources_of(src) == [src, 'onehot_rows.cuh']
+    for src in ('fused_linear.cu', 'fused_ppo.cu'):
+        assert build.sources_of(src) == [src, 'onehot_mma.cuh', 'onehot_rows.cuh']
+    assert build.sources_of('fused_policy.cu') == ['fused_policy.cu', 'onehot_rows.cuh']
     monkeypatch.setattr(build, 'CSRC_DIR', tmp_path)
     (tmp_path / 'k.cu').write_text('#include <stdint.h>\n#include "a.cuh"\n')
     (tmp_path / 'a.cuh').write_text('#pragma once\n #  include "b.cuh"\n')
@@ -102,3 +105,24 @@ def test_build_key_follows_included_headers(tmp_path, monkeypatch):
     (tmp_path / 'b.cuh').write_text('// b, edited\n')
     keys.append(build.library_path('k.cu'))
     assert keys[0] != keys[1] and keys[1] == build.library_path('k.cu')
+
+
+@pytest.mark.parametrize('h', [1, 7, 8, 100, 256])
+def test_pad_columns_keeps_the_product(h):
+    """The forward wrapper's zero columns (up to a multiple of 8, for the
+    kernel's 16-byte row pieces) leave the first H columns of the product
+    as they were, equal to the JAX kernel's (interpret mode)."""
+    cells, _, _ = _inputs(3)
+    rng = np.random.default_rng(h)
+    w = (rng.normal(size=(C * fl.NCH, h)) * 0.1).astype(np.float32)
+    wt = torch.as_tensor(w)
+    padded = fl.pad_columns(wt)
+    assert padded.shape == (C * fl.NCH, -(-h // 8) * 8)
+    assert torch.equal(padded[:, :h], wt) and not padded[:, h:].any()
+    assert (padded is wt) == (h % 8 == 0)
+    got = fl.onehot_linear_plain(torch.as_tensor(cells), padded)
+    assert not got[:, h:].float().any()
+    assert torch.equal(got[:, :h], fl.onehot_linear_plain(torch.as_tensor(cells), wt))
+    want = np.asarray(jax_fl.onehot_linear_packed(jnp.asarray(cells), jnp.asarray(w),
+                                                  interpret=True), np.float32)
+    np.testing.assert_allclose(got[:, :h].float().numpy(), want, rtol=2e-2, atol=2e-2)

@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
 2. build    — builds the four CUDA sources of ``multigrid_tpu_torch/csrc``
                (one nvcc each, in parallel), prints registers and spills,
                and the tensor-core instructions in each kernel's SASS
-               (cuobjdump; B2 and B4 must have some).
+               (cuobjdump; B2, B3 and B4 must have some).
 3. kernels  — each kernel against its plain PyTorch version on the card.
                The observation kernel, ``torch.equal``, on seeded states
                stepped a few times: the flagship shape (E=4096, N=4, 16x16,
@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero:
                bf16, each with its tolerance: the first layer (B=16384,
                C=49, H=128; the per-agent (4096, 49) and critic (4096, 196)
                shapes; C 9/25/169, H 32/100/256, a ragged batch, pad
-               cells), its weight gradient (B=262144 and small shapes), the
+               cells), its weight gradient (B=262144, the critic's
+               (65536, 196) and small shapes; equal from run to run), the
                PPO loss (B=262144 and 65536, B=256 with 0 and 5 missions, a
                ragged B=1001; equal from run to run), and
                the fused rollout policy (B=16384; C 9/25, H 32/256, F 2/14,
@@ -34,9 +35,11 @@ Phases, in order; any failure exits non-zero:
                state, and two recorded reference traces
                (``tests/golden``) replayed bit-exactly on the card.
 6. timing   — agent-steps/s by length differencing (median of short/long
-               rollout pairs, synchronized), the kernel's time per launch
-               from CUDA events, its bound (bytes over 3.35 TB/s), and the
-               plain version's time.
+               rollout pairs, synchronized), and the obs kernel at the
+               flagship as images and as packed cells: its launches alone
+               (CUDA events), the profiler's kernel time and the wrapper's
+               whole call, each against its bound (bytes over 3.35 TB/s),
+               and the plain version's time.
 7. breakdown — each layer's time in a step (step, reset and merge, obs),
                and the device's busy share and kernels per step from
                ``torch.profiler``.
@@ -54,8 +57,8 @@ Phases, in order; any failure exits non-zero:
                path's shapes on a rollout's data beside its bound (the
                one-hot part the lesser of the sparse adds and the dense
                product, both printed), its plain version and a library
-               call; B2 also at the per-agent and critic shapes, B4 also at
-               65,536 samples, and B4's stages apart (torch.profiler).
+               call; B2 and B3 also at the per-agent and critic shapes, B4
+               also at 65,536 samples, and B4's stages apart (torch.profiler).
 10. train breakdown — one update under ``torch.profiler``: the device's
                busy share and the kernels that take its time.
 11. variants — the same flagship through each learner variant, launch
@@ -72,8 +75,9 @@ Phases, in order; any failure exits non-zero:
                beside its bound and plain version.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
-B2, B4 (with its stages) and B5 on seeded inputs, for comparing two trees
-in turns within one call (copy the script into the other tree).
+B1 (images and packed), B2, B3 (flagship, per-agent and critic shapes), B4
+(with its stages) and B5 on seeded inputs, for comparing two trees in
+turns within one call (copy the script into the other tree).
 
 Products in float32 run in full float32 (TF32 off) for the plain versions.
 The line before the last is the kernels' JSON record; the last line is
@@ -100,6 +104,8 @@ STEPS = 256
 #: The trained flagship: mlp 128 on packed cells, T 16 (scripts/measure_train.py:25-36).
 TRAIN_T, HIDDEN, C = 16, 128, VS * VS
 SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu')
+#: B3's kernels in the profiler: the product and the sum of its partials.
+GRAD_KERNELS = ('onehot_grad_kernel', 'sum_partials_kernel')
 
 
 def fail(msg: str) -> None:
@@ -234,9 +240,65 @@ def onehot_launch_ms(packed, w, reps=200):
     return event_ms(launch, reps)
 
 
+def obs_launch_ms(state, vs, stw, packed, reps=200):
+    """CUDA-event time of the observation kernel's launches alone, without
+    the wrapper's checks and allocation, as for B2."""
+    import torch
+
+    from multigrid_tpu_torch.ops import obs_cuda
+    e, w, h, _ = state.grid.shape
+    n = state.agent_dir.shape[-1]
+    out = torch.empty((e, n, vs * vs) if packed else (e, n, vs, vs, 3), dtype=torch.int32,
+                      device=state.grid.device)
+    fn = obs_cuda._launch_fn()
+    args = (state.grid.data_ptr(), state.agent_pos.data_ptr(), state.agent_dir.data_ptr(),
+            state.agent_color.data_ptr(), state.agent_terminated.data_ptr(),
+            state.agent_carrying.data_ptr(), out.data_ptr(), e, n, w, h, vs, int(stw),
+            int(packed), torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        if fn(*args):
+            fail('obs kernel launch failed')
+    return event_ms(launch, reps)
+
+
+def obs_bound(state, vs, packed):
+    """(bound_ms, bound_by, bytes, ops) of the observation kernel: its
+    inputs read once and its output (4-byte packed cells, or 3 int32 a
+    cell) written once, against about 28 integer operations an output cell
+    (crop, rotation, mask, two fill passes) and 4 a grid cell (packing)."""
+    e, n = state.agent_dir.shape
+    n_cells = e * n * vs * vs
+    read = (state.grid.numel() * 4 + state.agent_pos.numel() * 4
+            + state.agent_dir.numel() * 4 + state.agent_color.numel() * 4
+            + state.agent_terminated.numel() + state.agent_carrying.numel() * 4)
+    written = n_cells * (1 if packed else 3) * 4
+    ops = n_cells * (16 + 12) + state.grid.numel() // 3 * 4
+    return (*bound(read + written, vector_ops=ops), read + written, ops)
+
+
+def obs_times(state, label, packed, call_reps=200):
+    """The observation kernel at the flagship (view 7, see-through-walls
+    off): its launches alone (CUDA events), the profiler's kernel time and
+    the wrapper's whole call, beside its bound. Launch counts unchanged."""
+    from multigrid_tpu_torch.ops import obs_cuda
+    launches = obs_cuda.launches
+    ms = obs_launch_ms(state, VS, False, packed)
+    dev_ms = kernel_device_ms(lambda: obs_cuda.gen_obs_batched(state, VS, False, packed),
+                              'obs_kernel')
+    call_ms = event_ms(lambda: obs_cuda.gen_obs_batched(state, VS, False, packed), call_reps)
+    obs_cuda.launches = launches
+    bd, by, nbytes, ops = obs_bound(state, VS, packed)
+    print(f'obs kernel {label}: launches {ms:.6f} ms, the kernel {dev_ms} ms '
+          f'(torch.profiler), the wrapper\'s call {call_ms:.6f} ms; bound {bd:.6f} ms by {by} '
+          f'({nbytes} bytes, {ops} ops); {bd / ms:.4f} of the bound')
+    return dict(ms=ms, profiler_ms=dev_ms, call_ms=call_ms, bound_ms=bd, bound_by=by)
+
+
 def kernel_device_ms(fn, name, reps=20):
-    """Device time in ms of the kernels named ``name`` in one call of
-    ``fn``, from torch.profiler (None where it sees no device time)."""
+    """Device time in ms of the kernels whose names hold ``name`` (a string,
+    or a tuple of strings) in one call of ``fn``, from torch.profiler (None
+    where it sees no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -245,8 +307,10 @@ def kernel_device_ms(fn, name, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else name
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and any(n in e.name for n in names)]
     return sum(us) / 1e3 / reps if us else None
 
 
@@ -313,7 +377,7 @@ def build_kernels():
 
 def sass_tensor_ops():
     """{kernel: tensor-core instructions in the SASS of all its builds};
-    fails unless B2's and B4's loss kernel have some. Printed on one line."""
+    fails unless B2, B3 and B4's loss kernel have some. Printed on one line."""
     from multigrid_tpu_torch.utils import build
     names = {'obs.cu': [('obs', 'obs')],
              'fused_linear.cu': [('onehot_linear', 'onehot_linear'),
@@ -329,7 +393,7 @@ def sass_tensor_ops():
     found = {k: sorted(v) for k, v in found.items()}
     print('tensor-core instructions in the SASS (cuobjdump): ' + '; '.join(
         f'{k}: {" ".join(v) or "none"}' for k, v in found.items()))
-    for k in ('onehot_linear', 'ppo_loss'):
+    for k in ('onehot_linear', 'onehot_linear_grad', 'ppo_loss'):
         if not found[k]:
             fail(f'no tensor-core instruction in the SASS of the {k} kernel')
     return found
@@ -499,7 +563,6 @@ def breakdown(venv, state, steps=32):
 def timing(venv, state):
     import torch
 
-    from multigrid_tpu_torch.ops import obs_cuda
     from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
 
     short, long_ = STEPS // 4, STEPS
@@ -525,28 +588,13 @@ def timing(venv, state):
     print(f'agent-steps/s (median of 3, length-differenced {short}/{long_} steps): '
           f'{rate:.6e}  ({step_ms:.4f} ms/step)')
 
-    launches = obs_cuda.launches
-    ms = event_ms(lambda: obs_cuda.gen_obs_batched(state, VS, False), 200)
     plain_ms = event_ms(lambda: gen_obs_batched_plain(state, VS, False), 20)
-    obs_cuda.launches = launches  # timing launches are not main-path launches
-
-    n_cells = E * N * VS * VS
-    read = (state.grid.numel() * 4 + state.agent_pos.numel() * 4
-            + state.agent_dir.numel() * 4 + state.agent_color.numel() * 4
-            + state.agent_terminated.numel() + state.agent_carrying.numel() * 4)
-    written = n_cells * 3 * 4
-    # Integer operations: about 16 per output cell (crop, rotation, mask,
-    # unpack) and 12 per cell for the two fill passes.
-    ops = n_cells * (16 + 12) + state.grid.numel() // 3 * 4
-    bytes_ms = (read + written) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / VECTOR_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = 'bytes' if bytes_ms >= ops_ms else 'operations'
-    print(f'obs kernel: {ms:.6f} ms/launch; plain version {plain_ms:.6f} ms; '
-          f'bound {bound_ms:.6f} ms by {bound_by} ({read + written} bytes, '
-          f'{ops} ops); {bound_ms / ms:.4f} of the bound')
-    return dict(rate=rate, step_ms=step_ms, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    img = obs_times(state, f'images ({E}, {N}, {VS}, {VS}, 3)', False)
+    pk = obs_times(state, f'packed ({E}, {N}, {VS * VS})', True)
+    print(f'obs plain version {plain_ms:.6f} ms')
+    return dict(rate=rate, step_ms=step_ms, ms=img['ms'], plain_ms=plain_ms,
+                bound_ms=img['bound_ms'], bound_by=img['bound_by'],
+                call_ms=img['call_ms'], profiler_ms=img['profiler_ms'], packed=pk)
 
 
 # ------------------------------------------------------------ training
@@ -628,8 +676,9 @@ def train_kernel_cases(device):
         check('onehot_linear', f'B={b} C={c} H={h} pad={pad}', float(diff.max()), err, 2e-2)
     # B3: f32 sums of the same bf16 values in other orders, against the
     # largest entry; and the same result from run to run.
-    for b, c, h in [(E * N * TRAIN_T, C, HIDDEN), (E * N, C, HIDDEN), (1001, 9, 32),
-                    (3000, 25, 256), (500, 169, 64)]:
+    for b, c, h in [(E * N * TRAIN_T, C, HIDDEN), (E * TRAIN_T, N * C, HIDDEN),
+                    (E * N, C, HIDDEN), (1001, 9, 32), (3000, 25, 256), (500, 169, 64),
+                    (1, C, HIDDEN), (255, 196, 256)]:
         packed = random_cells(rng, b, c, device, 0.05)
         g = torch.as_tensor(rng.normal(size=(b, h)).astype(np.float32), device=device)
         got = fl.onehot_linear_grad_w(packed, g)
@@ -962,8 +1011,24 @@ def train_timing(venv, step, state):
     lib = event_ms(lambda: torch.autograd.grad(emb, wl, g32, retain_graph=True), 20)
     bd = bound(packed.numel() * 4 + g.numel() * 2 + w.numel() * 4,
                ops_ms=onehot_ms(nnz, samples, C, h, 'onehot_linear_grad'))
+    dev_ms = kernel_device_ms(lambda: fl.onehot_linear_grad_w(packed, g), GRAD_KERNELS)
+    print(f'onehot_linear_grad ({samples}, {C}) H={h}: {ms:.6f} ms a call (CUDA events), '
+          f'the kernel and its partial sum {dev_ms} ms (torch.profiler)')
+    # The per-agent (one agent's samples) and the critic's shapes (every
+    # agent's cells of an env, one sample an env and step).
+    shapes = {}
+    for label, px in [('per agent', packed[:samples // N]),
+                      ('critic', packed.reshape(-1, N * C))]:
+        px = px.contiguous()
+        gx = g[:px.shape[0]]
+        t = event_ms(lambda: fl.onehot_linear_grad_w(px, gx), 20)
+        bx = bound(px.numel() * 4 + gx.numel() * 2 + px.shape[1] * 21 * h * 4,
+                   ops_ms=onehot_ms(nonzeros(px), *px.shape, h, f'onehot_linear_grad {label}'))
+        shapes[label] = dict(shape=[*px.shape, h], ms=t, bound_ms=bx[0])
+        print(f'onehot_linear_grad {label} {tuple(px.shape)} H={h}: {t:.6f} ms a call; bound '
+              f'{bx[0]:.6f} ms by {bx[1]}')
     out['onehot_linear_grad'] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bd[0],
-                                     bound_by=bd[1])
+                                     bound_by=bd[1], profiler_ms=dev_ms, shapes=shapes)
 
     p = state.params
     ms = event_ms(lambda: fused_ppo.ppo_mlp_grads(p, *args, **kw), 10)
@@ -1208,8 +1273,10 @@ def variant_timing(steps):
 
 
 def kernel_times(device):
-    """``--kernel-times``: B2 at the rollout's three shapes, B4 at 262,144
-    and 65,536 samples with its stages, and B5 at 16,384, on seeded inputs:
+    """``--kernel-times``: B2 at the rollout's three shapes, B3 at the
+    learner's three (flagship, per agent, critic), B1 at the flagship as
+    images and packed (launches alone, profiler, call), B4 at 262,144 and
+    65,536 samples with its stages, and B5 at 16,384, on seeded inputs:
     CUDA-event times of the package beside this script, for comparing two
     trees in turns within one call. Prints one JSON line."""
     import numpy as np
@@ -1217,7 +1284,7 @@ def kernel_times(device):
 
     from multigrid_tpu_torch.ops import fused_linear as fl
     from multigrid_tpu_torch.ops import fused_policy as fp
-    from multigrid_tpu_torch.ops import fused_ppo
+    from multigrid_tpu_torch.ops import fused_ppo, obs_cuda
 
     rng = np.random.default_rng(40)
     res = {}
@@ -1231,6 +1298,23 @@ def kernel_times(device):
             lambda: fl.onehot_linear_forward(packed, w), 'onehot_linear_kernel')
         if hasattr(fl, 'pad_columns'):  # the launcher's signature of this tree
             res[key + ' launches'] = onehot_launch_ms(packed, w)
+    for label, b, c in [('flagship', E * N * TRAIN_T, C), ('per agent', E * TRAIN_T, C),
+                        ('critic', E * TRAIN_T, N * C)]:
+        packed = random_cells(rng, b, c, device, 0.05)
+        g = torch.as_tensor((rng.normal(size=(b, HIDDEN)) * 1e-3).astype(np.float32),
+                            device=device).to(torch.bfloat16)
+        key = f'onehot_linear_grad {label} ({b}, {c}, {HIDDEN})'
+        res[key + ' call'] = event_ms(lambda: fl.onehot_linear_grad_w(packed, g), 20)
+        res[key + ' kernel (profiler)'] = kernel_device_ms(
+            lambda: fl.onehot_linear_grad_w(packed, g), GRAD_KERNELS)
+    state = random_state(1, E, SIZE, SIZE, N, device)
+    for packed in (False, True):
+        key = f'obs {"packed" if packed else "images"} ({E}, {N}, {VS})'
+        res[key + ' launches'] = obs_launch_ms(state, VS, False, packed)
+        res[key + ' kernel (profiler)'] = kernel_device_ms(
+            lambda: obs_cuda.gen_obs_batched(state, VS, False, packed), 'obs_kernel')
+        res[key + ' call'] = event_ms(lambda: obs_cuda.gen_obs_batched(state, VS, False, packed),
+                                      200)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
     for b in (E * N * TRAIN_T, E * TRAIN_T):
         params, args = ppo_inputs(rng, b, C, HIDDEN, 0, device)
@@ -1303,7 +1387,8 @@ def main() -> None:
                     replaces='multigrid_tpu/ops/obs_pallas.py:176', launches=launches,
                     max_abs_err=obs_err, equal=obs_err == 0, ms=t['ms'],
                     plain_ms=t['plain_ms'], bound_ms=t['bound_ms'], bound_by=t['bound_by'],
-                    library_ms=None, sass_tensor_ops=sass['obs'])]
+                    library_ms=None, sass_tensor_ops=sass['obs'], call_ms=t['call_ms'],
+                    profiler_ms=t['profiler_ms'], packed=t['packed'])]
     for name, replaces, src, n in [
             ('onehot_linear', 'multigrid_tpu/ops/fused_linear.py:133', 'fused_linear.cu',
              counts['onehot_linear']),

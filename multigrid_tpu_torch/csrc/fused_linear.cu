@@ -26,13 +26,20 @@
 // flagship); mma.sync rather than wgmma, for the reasons that header
 // gives. The gradient, written as the dense product one_hot^T @ g, is
 // 2*B*C*21*H operations (69 GFLOP at B=262144), of which the sparse
-// one-hot needs only 3*C*H adds a sample; it too runs on the tensor cores:
-// the one-hot A tile is built in registers from the packed cells (it never
-// exists in memory), g is staged through shared memory, and mma.sync
-// m16n8k16 sums in f32. A block holds 6 cells' rows of dW in registers over
-// a chunk of the batch and writes them to a per-chunk partial (no atomics);
-// a second pass sums the partials in a fixed order, so dW is the same from
-// run to run.
+// one-hot needs only 3*C*H adds a sample; it too runs on the tensor cores,
+// the one-hot A tile built in registers from the cells' channel masks (it
+// never exists in memory). A block holds 12 cells' rows of dW in
+// registers (2 m-tiles a warp, so g is read 5 times at C = 49), streams
+// 128-sample stages of g in their row-major layout and the cells through
+// a 4-deep cp.async ring with one barrier a stage, reads the B fragments
+// with ldmatrix.trans, and builds A from channel masks made once a stage
+// (one load and three operations a register). Measured, its time is
+// mostly the stages' movement from L2 (g read 5 times is 0.34 GB at the
+// flagship), then the fragments' loads, then the products, so mma.sync
+// stays. The grid is one wave: the wrapper splits the batch into as many
+// chunks as fit beside the cell tiles on the SMs; each block writes its
+// chunk's partial (no atomics) and a second pass sums the partials in a
+// fixed order, so dW is the same from run to run.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (multigrid_tpu_torch/utils/build.py does this).
@@ -45,7 +52,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kFwdThreads = 128;  // forward: 4 warps of 16 samples
 constexpr int kFwdRows = 64;
 constexpr int kFwdStages = 3;     // W stages in the ring
@@ -91,121 +97,175 @@ __global__ void __launch_bounds__(kFwdThreads) onehot_linear_kernel(
   }
 }
 
-constexpr int kCellsPerTile = 6;   // a tile's 128 rows hold 6 cells (126 rows)
-constexpr int kKStep = 16;         // samples per mma k-step
-constexpr int kGStride = kKStep + 8;  // bf16 row stride of the g^T tile (no bank conflicts)
+// The gradient kernel's shape. A block holds 256 rows of dW (12 cells,
+// 252 rows, in flax's order) x BN columns in registers, 2 m-tiles of 16
+// rows a warp, so g is read ceil(C / 12) times (5 at C = 49). The batch
+// chunk streams through a ring of stages of 128 samples: g's rows as they
+// lie in memory and the block's 12 cells of each sample, by cp.async.
+constexpr int kGradWarps = 8;
+constexpr int kGradThreads = 32 * kGradWarps;
+constexpr int kGradMT = 2;                                   // m-tiles a warp
+constexpr int kGradCells = 16 * kGradMT * kGradWarps / kNch;  // 12 cells a block
+constexpr int kGradSamples = 128;                            // samples a stage
+constexpr int kGradStages = 4;                               // stages in the ring
+constexpr int kPairLd = kGradSamples / 2 + 4;  // words: a warp's mask rows in other banks
 
-// dW = one_hot(packed)^T @ g as a tensor-core product: block (row tile,
-// batch chunk) holds the f32 sums of 6 cells' 126 rows x H columns in
-// registers, 16 rows a warp. Each k-step stages 16 samples' g rows
-// (transposed, bf16) and packed cells in shared memory, double-buffered with
-// the next step's loads in flight, and each warp builds its one-hot A
-// fragment from the cells and runs H/8 mma.sync m16n8k16.
-template <int H>
-__global__ void __launch_bounds__(kThreads) onehot_grad_kernel(
+template <int BN>
+struct GradSmem {
+  __nv_bfloat16 g[kGradStages][kGradSamples][BN + 8];  // rows padded 16 bytes
+  int32_t raw[kGradStages][kGradSamples][kGradCells];  // the stage's packed cells
+  // Their channel masks by sample pair: [cell][half][pair] holds channels
+  // 16*half .. 16*half + 15 of samples 2*pair (low 16 bits) and 2*pair + 1.
+  uint32_t mask[2][kGradCells][2][kPairLd];
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// dW = one_hot(packed)^T @ g as a tensor-core product. Block (cell tile,
+// column tile, batch chunk) sums its 12 cells' rows x BN columns over the
+// chunk in f32 registers and writes them to the chunk's partial. A stage
+// takes one barrier: with stage q + 1 landed, the block turns its cells
+// into 21-bit channel masks (channel_bits) while the warps multiply stage
+// q. The A fragment of row cell*21 + ch is bit ch of the cells' masks,
+// kept by sample pair and 16-channel half so that one load, shift, mask
+// and multiply give a register; the B fragments come from the [sample][h]
+// tile by ldmatrix.trans; mma.sync m16n8k16 sums in f32. Samples past the
+// chunk read g as 0 and cells past C are never written.
+template <int BN>
+__global__ void __launch_bounds__(kGradThreads, 1) onehot_grad_kernel(
     const int32_t* __restrict__ packed,     // (B, C)
     const __nv_bfloat16* __restrict__ g,    // (B, H)
     float* __restrict__ out,                // (chunks, C*21, H) or (C*21, H)
-    int b, int c, int chunk) {
-  constexpr int kNT = H / 8;
-  constexpr int kWords = kKStep * H / 2 / kThreads;  // g words a thread stages
-  __shared__ __align__(16) uint16_t gs[2][H][kGStride];
-  __shared__ int32_t ps[2][kKStep][kCellsPerTile];
+    int b, int c, int h, int chunk) {
+  constexpr int kNT = BN / 8;
+  constexpr int kLd = BN + 8;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  GradSmem<BN>& sm = *reinterpret_cast<GradSmem<BN>*>(smem_bytes);
 
-  const int cell0 = blockIdx.x * kCellsPerTile;
-  const int ncell = min(kCellsPerTile, c - cell0);
-  const int s_begin = blockIdx.y * chunk;
+  const int cell0 = blockIdx.x * kGradCells;
+  const int ncell = min(kGradCells, c - cell0);
+  const int col0 = blockIdx.y * BN;
+  const int s_begin = blockIdx.z * chunk;
   const int s_end = min(b, s_begin + chunk);
+  const int stages = max(0, (s_end - s_begin + kGradSamples - 1) / kGradSamples);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
 
-  // The field test of this thread's two A rows, 16*warp + grp (+ 8).
-  int cl[2], shift[2], mask[2], val[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 16 * warp + grp + 8 * i;
-    const int cell = r / kNch, ch = r % kNch;
-    cl[i] = cell < ncell ? cell : 0;
-    if (cell >= ncell) {
-      shift[i] = 0; mask[i] = 0; val[i] = -1;  // matches nothing
-    } else if (ch < kTypes) {
-      shift[i] = 8; mask[i] = -1; val[i] = ch;
-    } else if (ch < kTypes + kColors) {
-      shift[i] = 4; mask[i] = 15; val[i] = ch - kTypes;
-    } else {
-      shift[i] = 0; mask[i] = 15; val[i] = ch - kTypes - kColors;
+  // Stage q's g rows (16-byte pieces, zero past the chunk) and cells (4
+  // bytes each: a sample's 12 cells are not 16-byte aligned, and staging
+  // the aligned pieces around them measured no faster), one group.
+  auto issue = [&](int q) {
+    if (q < stages) {
+      const int s0 = s_begin + q * kGradSamples, slot = q % kGradStages;
+      for (int i = threadIdx.x; i < kGradSamples * BN / 8; i += kGradThreads) {
+        const int k = i / (BN / 8), col = (i % (BN / 8)) * 8;
+        const bool valid = s0 + k < s_end && col0 + col < h;
+        cp_async16(&sm.g[slot][k][col],
+                   valid ? g + static_cast<size_t>(s0 + k) * h + col0 + col : g, valid);
+      }
+      for (int i = threadIdx.x; i < kGradSamples * kGradCells; i += kGradThreads) {
+        const int k = i / kGradCells, cc = i % kGradCells;
+        const bool valid = s0 + k < s_end && cc < ncell;
+        cp_async4(&sm.raw[slot][k][cc],
+                  valid ? packed + static_cast<size_t>(s0 + k) * c + cell0 + cc : packed, valid);
+      }
     }
-  }
-
-  float acc[kNT][4];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
-
-  const uint32_t* g32 = reinterpret_cast<const uint32_t*>(g);
-  uint32_t greg[kWords];
-  int preg = kPadCell;
-  auto load = [&](int s0) {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const int w = threadIdx.x + kThreads * i;
-      const int s = s0 + w / (H / 2);
-      greg[i] = s < s_end ? g32[static_cast<size_t>(s) * (H / 2) + w % (H / 2)] : 0u;
-    }
-    if (threadIdx.x < kKStep * kCellsPerTile) {
-      const int s = s0 + threadIdx.x / kCellsPerTile;
-      const int cc = threadIdx.x % kCellsPerTile;
-      preg = (s < s_end && cc < ncell)
-                 ? packed[static_cast<size_t>(s) * c + cell0 + cc] : kPadCell;
+    cp_async_commit();
+  };
+  // Stage q's cells into channel masks by sample pair, in buffer q & 1.
+  auto convert = [&](int q) {
+    const int s0 = s_begin + q * kGradSamples, slot = q % kGradStages;
+    for (int i = threadIdx.x; i < kGradSamples / 2 * kGradCells; i += kGradThreads) {
+      const int cc = i / (kGradSamples / 2), k = 2 * (i % (kGradSamples / 2));
+      const bool live = cc < ncell;
+      const uint32_t lo = live && s0 + k < s_end ? channel_bits(sm.raw[slot][k][cc]) : 0u;
+      const uint32_t hi = live && s0 + k + 1 < s_end ? channel_bits(sm.raw[slot][k + 1][cc]) : 0u;
+      sm.mask[q & 1][cc][0][k / 2] = (lo & 0xFFFFu) | (hi << 16);
+      sm.mask[q & 1][cc][1][k / 2] = (lo >> 16) | (hi & 0xFFFF0000u);
     }
   };
 
-  int buf = 0;
-  load(s_begin);
-  for (int s0 = s_begin; s0 < s_end; s0 += kKStep) {
+  // The thread's A rows: 16*(2*warp + mt) + grp (+ 8), row cell*21 + ch,
+  // as the offset of its mask row (cell, ch / 16) in a buffer, the shift
+  // ch % 16 and the two bits kept (none for a row past the block's cells).
+  int moff[kGradMT][2], msh[kGradMT][2];
+  uint32_t mkeep[kGradMT][2];
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const int w = threadIdx.x + kThreads * i;
-      const int k = w / (H / 2), n = 2 * (w % (H / 2));
-      gs[buf][n][k] = static_cast<uint16_t>(greg[i] & 0xFFFFu);
-      gs[buf][n + 1][k] = static_cast<uint16_t>(greg[i] >> 16);
+  for (int mt = 0; mt < kGradMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * (kGradMT * warp + mt) + grp + 8 * i;
+      const int cell = r / kNch, ch = r % kNch;
+      const bool live = cell < ncell;
+      moff[mt][i] = live ? (2 * cell + ch / 16) * kPairLd : 0;
+      msh[mt][i] = ch % 16;
+      mkeep[mt][i] = live ? 0x10001u : 0u;
     }
-    if (threadIdx.x < kKStep * kCellsPerTile)
-      ps[buf][threadIdx.x / kCellsPerTile][threadIdx.x % kCellsPerTile] = preg;
-    __syncthreads();
-    if (s0 + kKStep < s_end) load(s0 + kKStep);
 
-    // A fragment: a0 (row grp, k 2t..2t+1), a1 (row grp+8), a2/a3 (k + 8).
-    uint32_t a[4];
+  float acc[kGradMT][kNT][4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = q & 1;
-      const int k = 2 * tig + (q >> 1) * 8;
-      const int p0 = ps[buf][k][cl[i]], p1 = ps[buf][k + 1][cl[i]];
-      const uint32_t lo = ((p0 >> shift[i]) & mask[i]) == val[i] ? 0x3F80u : 0u;
-      const uint32_t hi = ((p1 >> shift[i]) & mask[i]) == val[i] ? 0x3F80u : 0u;
-      a[q] = lo | (hi << 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const uint16_t* col = &gs[buf][nt * 8 + grp][2 * tig];
-      mma_16816(acc[nt], a, *reinterpret_cast<const uint32_t*>(col),
-               *reinterpret_cast<const uint32_t*>(col + 8));
-    }
-    buf ^= 1;
-  }
-
-  float* o = out + static_cast<size_t>(blockIdx.y) * c * kNch * H;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 16 * warp + grp + 8 * i;
-    if (r / kNch >= ncell) continue;
-    float* row = o + static_cast<size_t>(cell0 * kNch + r) * H + 2 * tig;
+  for (int mt = 0; mt < kGradMT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
-      *reinterpret_cast<float2*>(row + nt * 8) = make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int q = 0; q < kGradStages - 1; ++q) issue(q);
+  cp_async_wait<kGradStages - 2>();  // stage 0 has landed
+  __syncthreads();
+  convert(0);
+
+  for (int q = 0; q < stages; ++q) {
+    cp_async_wait<kGradStages - 3>();  // stage q + 1 has landed
+    __syncthreads();  // ... for every thread; stage q's masks are written; q - 1's slot is free
+    issue(q + kGradStages - 1);
+    if (q + 1 < stages) convert(q + 1);
+    const __nv_bfloat16* st = &sm.g[q % kGradStages][0][0];
+    const uint32_t* msk = &sm.mask[q & 1][0][0][0];
+#pragma unroll
+    for (int k0 = 0; k0 < kGradSamples; k0 += 16) {
+      uint32_t a[kGradMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kGradMT; ++mt) {
+        // a0: row grp, samples 2t, 2t+1 (pair k0/2 + t); a1: row grp + 8;
+        // a2, a3: samples + 8 (pair + 4). Bit ch of both samples, as bf16 1s.
+        const int p = k0 / 2 + tig;
+        a[mt][0] = ((msk[moff[mt][0] + p] >> msh[mt][0]) & mkeep[mt][0]) * 0x3F80u;
+        a[mt][1] = ((msk[moff[mt][1] + p] >> msh[mt][1]) & mkeep[mt][1]) * 0x3F80u;
+        a[mt][2] = ((msk[moff[mt][0] + p + 4] >> msh[mt][0]) & mkeep[mt][0]) * 0x3F80u;
+        a[mt][3] = ((msk[moff[mt][1] + p + 4] >> msh[mt][1]) & mkeep[mt][1]) * 0x3F80u;
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bb[4];
+        load_b2(bb, st, kLd, k0, 16 * np, lane);
+#pragma unroll
+        for (int mt = 0; mt < kGradMT; ++mt) {
+          mma_16816(acc[mt][2 * np], a[mt], bb[0], bb[1]);
+          mma_16816(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
+        }
+      }
+    }
   }
+  cp_async_wait<0>();
+
+  float* o = out + static_cast<size_t>(blockIdx.z) * c * kNch * h;
+#pragma unroll
+  for (int mt = 0; mt < kGradMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * (kGradMT * warp + mt) + grp + 8 * i;
+      if (r / kNch >= ncell) continue;
+      float* row = o + static_cast<size_t>(cell0 * kNch + r) * h + col0 + 2 * tig;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        *reinterpret_cast<float2*>(row + nt * 8) =
+            make_float2(acc[mt][nt][2 * i], acc[mt][nt][2 * i + 1]);
+    }
 }
 
 // out[i] = sum over k of partial[k][i], k in order.
@@ -217,6 +277,25 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   float s = 0.f;
   for (int k = 0; k < chunks; ++k) s += partial[static_cast<size_t>(k) * n + i];
   out[i] = s;
+}
+
+template <int BN>
+int launch_grad(const void* packed, const void* g, float* dst, int b, int c, int h,
+                int chunks, int chunk, cudaStream_t st) {
+  static bool sized = false;  // the kernel's shared memory is past the 48 KB default
+  // (internal linkage: one flag for this library's kernel)
+  const int smem = static_cast<int>(sizeof(GradSmem<BN>));
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        onehot_grad_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid((c + kGradCells - 1) / kGradCells, (h + BN - 1) / BN, chunks);
+  onehot_grad_kernel<BN><<<grid, kGradThreads, smem, st>>>(
+      static_cast<const int32_t*>(packed), static_cast<const __nv_bfloat16*>(g), dst, b, c,
+      h, chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -247,31 +326,23 @@ extern "C" int mgt_onehot_linear_launch(const void* packed, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int H>
-int launch_grad(const void* packed, const void* g, float* dst, int b, int c,
-                int chunks, cudaStream_t st) {
-  const int chunk = ((b + chunks - 1) / chunks + kKStep - 1) / kKStep * kKStep;
-  dim3 grid((c + kCellsPerTile - 1) / kCellsPerTile, chunks);
-  onehot_grad_kernel<H><<<grid, kThreads, 0, st>>>(
-      static_cast<const int32_t*>(packed), static_cast<const __nv_bfloat16*>(g),
-      dst, b, c, chunk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dW into `out` (C*21, H) f32. With chunks > 1 the blocks write per-chunk
-// partials into `partial` (chunks, C*21, H) and a second pass sums them.
-// Returns -1 for a hidden width the kernel is not built for.
+// dW into `out` (C*21, H) f32, H one of 32, 64, 128, 256. Blocks take 12
+// cells x min(H, 128) columns x `chunk` samples (a multiple of 128; the
+// wrapper plans the chunks, ops/fused_linear.py::grad_plan). With chunks >
+// 1 the blocks write per-chunk partials into `partial` (chunks, C*21, H)
+// and a second pass sums them in chunk order. Returns -1 for a hidden
+// width the kernel is not built for.
 extern "C" int mgt_onehot_grad_launch(const void* packed, const void* g,
                                       void* partial, void* out, int b, int c,
-                                      int h, int chunks, void* stream) {
+                                      int h, int chunks, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dst = chunks > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
   int err;
   switch (h) {
-    case 32: err = launch_grad<32>(packed, g, dst, b, c, chunks, st); break;
-    case 64: err = launch_grad<64>(packed, g, dst, b, c, chunks, st); break;
-    case 128: err = launch_grad<128>(packed, g, dst, b, c, chunks, st); break;
-    case 256: err = launch_grad<256>(packed, g, dst, b, c, chunks, st); break;
+    case 32: err = launch_grad<32>(packed, g, dst, b, c, h, chunks, chunk, st); break;
+    case 64: err = launch_grad<64>(packed, g, dst, b, c, h, chunks, chunk, st); break;
+    case 128:
+    case 256: err = launch_grad<128>(packed, g, dst, b, c, h, chunks, chunk, st); break;
     default: return -1;
   }
   if (err != 0 || chunks == 1) return err;

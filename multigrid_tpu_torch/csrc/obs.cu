@@ -11,19 +11,37 @@
 //
 // What bounds it on this card: bytes. The work per output cell is a few
 // integer operations; the kernel has to read each env's grid (W*H*3 int32)
-// once and write its observations (N*vs*vs int32 packed, or x3 as images).
-// The design answers that by touching device memory once each way: one
-// block per env stages the env's grid, packed t<<8|c<<4|s into one int32 a
-// cell, in shared memory; the agent overlay, crop, rotation and visibility
-// all run out of shared memory; and every output cell is written once.
+// once and write its observations (N*vs*vs int32 packed, or x3 as images):
+// 22.7 MB at the flagship as images, 6.8 us at 3.35 TB/s. The work of an
+// env is small and serial (the flood fill is ~130 dependent steps an agent
+// when written as the reference's loops), so one warp takes one env,
+// several envs a block, with no block barrier (the warp's steps are
+// ordered by __syncwarp), and the serial parts become bit operations:
+//
+// - the grid is read as 16-byte vectors, three a lane for four cells, and
+//   packed t<<8|c<<4|s into one int32 a cell in shared memory;
+// - lanes 0..N-1 load one agent each; an agent is drawn unless terminated,
+//   off the grid, or on the cell of a later live agent (shuffles compare
+//   the positions), so the later agent wins with no serial thread;
+// - each lane crops and rotates view cells from the agent's view extents,
+//   kept once in shared memory;
+// - the visibility is bit-parallel: a column's see-through mask comes from
+//   one __ballot_sync over lanes (agent, row), and each column's forward
+//   and backward spreads and its spill into column j-1 are a few shifts and
+//   masks on a vs-bit word (an occluded fill, Kogge-Stone style; the same
+//   algebra is ops/obs.py::vis_column_bits, held against the loop form);
+// - outputs are written by consecutive lanes to consecutive words.
+//
 // The TPU kernel's roll chains, permutation matmuls and hi/lo byte split
-// have no counterpart here: a thread reads its rotated source cell directly.
+// have no counterpart here: a lane reads its rotated source cell directly.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (multigrid_tpu_torch/utils/build.py does this).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -33,13 +51,53 @@ constexpr int kTypeAgent = 10;
 constexpr int kStateOpen = 0;
 constexpr int kColorGrey = 5;
 constexpr int kWallPacked = (kTypeWall << 8) | (kColorGrey << 4);
-constexpr int kThreads = 128;
+constexpr int kMaxEnvsPerBlock = 4;  // warps a block, one env each
+constexpr int kMaxSmem = 232448;     // shared memory a block may use on Hopper
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int pack(int t, int c, int s) {
   return (t << 8) | (c << 4) | s;
 }
 
-__global__ void __launch_bounds__(kThreads) obs_kernel(
+__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// One env's shared memory, in int32 words: per agent (top-left x, y of its
+// view, rotation, carried object) as an int4, the packed grid, the views
+// and the visibility columns; every part starts 16-byte aligned.
+__host__ __device__ __forceinline__ int env_words(int n, int w, int h, int vs) {
+  return 4 * n + round4(w * h) + round4(n * vs * vs) + round4(n * vs);
+}
+
+// Forward then backward spread of one view column (bit i = row i; the
+// agent's row is vs/2) from its lit seeds `x` through its see-through cells
+// `see`; returns the column's visible cells and sets `next` to the cells of
+// column j-1 lit from it. This is the in-place sweep of the reference
+// (multigrid/utils/obs.py:235-273) as occluded fills: the forward pass
+// checks rows 0..vs-2 and lights i+1, the backward rows 1..vs-1 and lights
+// i-1, and a checked lit see-through row lights rows i and i±1 of column
+// j-1. Four doubling steps reach 15 rows, past the largest view (13).
+template <int VS>
+__device__ __forceinline__ uint32_t vis_column(uint32_t x, uint32_t see, uint32_t& next) {
+  const uint32_t sf = see & ((1u << (VS - 1)) - 1u);  // rows the forward pass checks
+  uint32_t q = x & sf, p = sf;
+  q |= p & (q << 1); p &= p << 1;
+  q |= p & (q << 2); p &= p << 2;
+  q |= p & (q << 4); p &= p << 4;
+  q |= p & (q << 8);
+  const uint32_t col = x | (q << 1);
+  const uint32_t sb = see & ~1u;  // rows the backward pass checks
+  uint32_t r = col & sb;
+  p = sb;
+  r |= p & (r >> 1); p &= p >> 1;
+  r |= p & (r >> 2); p &= p >> 2;
+  r |= p & (r >> 4); p &= p >> 4;
+  r |= p & (r >> 8);
+  next = q | (q << 1) | r | (r >> 1);
+  return col | (r >> 1);
+}
+
+template <int VS>
+__global__ void obs_kernel(
     const int32_t* __restrict__ grid,         // (E, W, H, 3)
     const int32_t* __restrict__ agent_pos,    // (E, N, 2)
     const int32_t* __restrict__ agent_dir,    // (E, N)
@@ -47,169 +105,190 @@ __global__ void __launch_bounds__(kThreads) obs_kernel(
     const uint8_t* __restrict__ agent_term,   // (E, N) bool
     const int32_t* __restrict__ carrying,     // (E, N, 3)
     int32_t* __restrict__ out,  // (E, N, vs*vs) packed or (E, N, vs*vs, 3)
-    int n, int w, int h, int vs, int see_through_walls, int packed) {
-  extern __shared__ int32_t smem[];
+    int num_envs, int n, int w, int h, int see_through_walls, int packed) {
+  constexpr int kV2 = VS * VS;
+  constexpr int kHalf = VS / 2;
+  constexpr int kR = VS - 1;
+  constexpr int kGroup = 32 / VS;  // agents a ballot covers
+  extern __shared__ __align__(16) int32_t smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int e = blockIdx.x * (blockDim.x / 32) + warp;
+  if (e >= num_envs) return;  // the whole warp: nothing below waits on other warps
   const int wh = w * h;
-  const int v2 = vs * vs;
-  int32_t* cells = smem;                                   // (W*H) packed
-  int32_t* view = cells + wh;                              // (N, vs*vs) packed
-  uint32_t* vis = reinterpret_cast<uint32_t*>(view + n * v2);  // (N, vs) bits
+  const int nv = n * kV2;
+  int4* ag = reinterpret_cast<int4*>(smem + warp * env_words(n, w, h, VS));
+  int32_t* cells = reinterpret_cast<int32_t*>(ag + n);  // (W*H) packed
+  int32_t* view = cells + round4(wh);                   // (N, vs*vs) packed
+  uint32_t* vis = reinterpret_cast<uint32_t*>(view + round4(nv));  // (N, vs) columns
 
-  const int e = blockIdx.x;
-  const int32_t* g = grid + static_cast<size_t>(e) * wh * 3;
-  for (int c = threadIdx.x; c < wh; c += blockDim.x) {
-    cells[c] = pack(g[3 * c], g[3 * c + 1], g[3 * c + 2]);
+  // Agents first, so their loads are in flight beside the grid's.
+  int ax = 0, ay = 0, ad = 0, acol = 0, aterm = 1, acarry = 0;
+  if (lane < n) {
+    const int idx = e * n + lane;
+    ax = agent_pos[2 * idx];
+    ay = agent_pos[2 * idx + 1];
+    ad = agent_dir[idx];
+    acol = agent_color[idx];
+    aterm = agent_term[idx];
+    acarry = pack(carrying[3 * idx], carrying[3 * idx + 1], carrying[3 * idx + 2]);
   }
-  __syncthreads();
+
+  // The grid: four cells (twelve int32) a lane as three 16-byte loads where
+  // the env's grid is 16-byte aligned, one cell a lane otherwise.
+  const int32_t* g = grid + static_cast<size_t>(e) * wh * 3;
+  if ((wh & 3) == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    const int4* g4 = reinterpret_cast<const int4*>(g);
+    for (int i = lane; i < wh / 4; i += 32) {
+      const int4 p = __ldg(g4 + 3 * i), q = __ldg(g4 + 3 * i + 1), r = __ldg(g4 + 3 * i + 2);
+      reinterpret_cast<int4*>(cells)[i] =
+          make_int4(pack(p.x, p.y, p.z), pack(p.w, q.x, q.y), pack(q.z, q.w, r.x),
+                    pack(r.y, r.z, r.w));
+    }
+  } else {
+    for (int c = lane; c < wh; c += 32) cells[c] = pack(g[3 * c], g[3 * c + 1], g[3 * c + 2]);
+  }
+
+  // Each agent's view extents (get_view_exts) and rotation k = (dir + 1) & 3.
+  if (lane < n) {
+    const int tx = ad == 0 ? ax : ad == 1 ? ax - kHalf : ad == 2 ? ax - kR : ax - kHalf;
+    const int ty = ad == 0 ? ay - kHalf : ad == 1 ? ay : ad == 2 ? ay - kHalf : ay - kR;
+    ag[lane] = make_int4(tx, ty, (ad + 1) & 3, acarry);
+  }
+  __syncwarp();
 
   // Agents in index order, so a later agent wins a shared cell; terminated
   // agents are not drawn. One agent sees no other, so N = 1 skips this.
-  if (n > 1 && threadIdx.x == 0) {
-    for (int a = 0; a < n; ++a) {
-      const int idx = e * n + a;
-      const int x = agent_pos[2 * idx], y = agent_pos[2 * idx + 1];
-      if (!agent_term[idx] && x >= 0 && x < w && y >= 0 && y < h) {
-        cells[x * h + y] = pack(kTypeAgent, agent_color[idx], agent_dir[idx]);
-      }
+  if (n > 1) {
+    const bool live = lane < n && !aterm && ax >= 0 && ax < w && ay >= 0 && ay < h;
+    const int key = live ? ax * h + ay : -1 - lane;
+    bool covered = false;
+#pragma unroll
+    for (int d = 1; d < 8; ++d) {
+      const int later = __shfl_down_sync(kFull, key, d);
+      covered |= lane + d < n && later == key;
     }
+    if (live && !covered) cells[key] = pack(kTypeAgent, acol, ad);
+    __syncwarp();
   }
-  __syncthreads();
 
-  // Crop, rotate and carried object: one thread per (agent, view cell).
-  const int half = vs / 2;
-  const int r = vs - 1;
-  const int own = half * vs + r;
-  for (int q = threadIdx.x; q < n * v2; q += blockDim.x) {
-    const int a = q / v2;
-    const int cell = q - a * v2;
-    const int idx = e * n + a;
+  // Crop and rotate: one lane a view cell, out = rot90(window, k=-k).
+  for (int q = lane; q < nv; q += 32) {
+    const int a = q / kV2, cell = q - a * kV2;
+    const int i = cell / VS, j = cell - i * VS;
+    const int4 x = ag[a];
     int val;
-    if (cell == own) {
-      const int32_t* cy = carrying + 3 * idx;
-      val = pack(cy[0], cy[1], cy[2]);
+    if (cell == kHalf * VS + kR) {
+      val = x.w;  // the carried object at the agent's own cell
     } else {
-      const int i = cell / vs;
-      const int j = cell - i * vs;
-      const int d = agent_dir[idx];
-      const int x = agent_pos[2 * idx], y = agent_pos[2 * idx + 1];
-      int tx, ty;  // top-left of the view (get_view_exts)
-      if (d == 0) {
-        tx = x;
-        ty = y - half;
-      } else if (d == 1) {
-        tx = x - half;
-        ty = y;
-      } else if (d == 2) {
-        tx = x - vs + 1;
-        ty = y - half;
-      } else {
-        tx = x - half;
-        ty = y - vs + 1;
-      }
-      // out = rot90(win, k=-k), k = (dir + 1) mod 4: the source window cell.
       int u, v;
-      switch ((d + 1) & 3) {
-        case 0: u = i;     v = j;     break;
-        case 1: u = r - j; v = i;     break;
-        case 2: u = r - i; v = r - j; break;
-        default: u = j;    v = r - i; break;
+      switch (x.z) {
+        case 0: u = i;      v = j;      break;
+        case 1: u = kR - j; v = i;      break;
+        case 2: u = kR - i; v = kR - j; break;
+        default: u = j;     v = kR - i; break;
       }
-      const int wx = tx + u, wy = ty + v;
-      val = (wx >= 0 && wx < w && wy >= 0 && wy < h) ? cells[wx * h + wy]
-                                                     : kWallPacked;
+      const int wx = x.x + u, wy = x.y + v;
+      val = (wx >= 0 && wx < w && wy >= 0 && wy < h) ? cells[wx * h + wy] : kWallPacked;
     }
     view[q] = val;
   }
-  __syncthreads();
+  __syncwarp();
 
-  // Flood fill, one thread per agent: vis[a*vs + j] holds column j's cells
-  // as bits i. Columns run from the agent's (vs-1) to 0; in each, a forward
-  // pass (i ascending) and a backward pass (i descending) spread visibility
-  // through see-through cells within the column and into column j-1.
   if (!see_through_walls) {
-    for (int a = threadIdx.x; a < n; a += blockDim.x) {
-      const int32_t* va = view + a * v2;
-      uint32_t* m = vis + a * vs;
-      for (int j = 0; j < vs; ++j) m[j] = 0u;
-      m[r] = 1u << half;
-      for (int j = r; j >= 0; --j) {
-        uint32_t see = 0u;
-        for (int i = 0; i < vs; ++i) {
-          const int c = va[i * vs + j];
-          const int t = c >> 8, s = c & 15;
-          const bool opaque =
-              t == kTypeWall || (t == kTypeDoor && s != kStateOpen);
-          if (!opaque) see |= 1u << i;
-        }
-        uint32_t col = m[j];
-        uint32_t next = 0u;
-        for (int i = 0; i < r; ++i) {
-          if ((col >> i) & (see >> i) & 1u) {
-            col |= 1u << (i + 1);
-            next |= 3u << i;  // (i, j-1) and (i+1, j-1)
-          }
-        }
-        for (int i = r; i >= 1; --i) {
-          if ((col >> i) & (see >> i) & 1u) {
-            col |= 1u << (i - 1);
-            next |= 3u << (i - 1);  // (i-1, j-1) and (i, j-1)
-          }
-        }
-        m[j] = col;
-        if (j > 0) m[j - 1] |= next;
+    // See-through masks: lane (agent a of a group, row i) tests cell (i, j)
+    // of every column j; lane a keeps its agent's columns.
+    uint32_t see[VS];
+#pragma unroll
+    for (int j = 0; j < VS; ++j) see[j] = 0u;
+    for (int a0 = 0; a0 < n; a0 += kGroup) {
+      const int a = a0 + lane / VS, i = lane % VS;
+      const bool row = lane < kGroup * VS && a < n;
+      const int32_t* va = view + (row ? a : 0) * kV2 + i * VS;
+#pragma unroll
+      for (int j = 0; j < VS; ++j) {
+        const int c = row ? va[j] : 0;
+        const int t = c >> 8, s = c & 15;
+        const bool clear = row && !(t == kTypeWall || (t == kTypeDoor && s != kStateOpen));
+        const uint32_t bits = __ballot_sync(kFull, clear);
+        if (lane >= a0 && lane < a0 + kGroup)
+          see[j] = (bits >> ((lane - a0) * VS)) & ((1u << VS) - 1u);
       }
     }
-    __syncthreads();
+    // Columns from the agent's (vs-1) to 0, lane a for agent a.
+    if (lane < n) {
+      uint32_t lit = 1u << kHalf;
+#pragma unroll
+      for (int j = kR; j >= 0; --j) {
+        uint32_t next;
+        vis[lane * VS + j] = vis_column<VS>(lit, see[j], next);
+        lit = next;
+      }
+    }
+    __syncwarp();
+    // Unseen cells read 0.
+    for (int q = lane; q < nv; q += 32) {
+      const int a = q / kV2, cell = q - a * kV2;
+      const int i = cell / VS, j = cell - i * VS;
+      if (!((vis[a * VS + j] >> i) & 1u)) view[q] = 0;
+    }
+    __syncwarp();
   }
 
-  const size_t per_env = static_cast<size_t>(n) * v2;
-  int32_t* o = out + static_cast<size_t>(e) * per_env * (packed ? 1 : 3);
-  for (int q = threadIdx.x; q < n * v2; q += blockDim.x) {
-    int val = view[q];
-    if (!see_through_walls) {
-      const int a = q / v2;
-      const int cell = q - a * v2;
-      const int i = cell / vs;
-      const int j = cell - i * vs;
-      if (!((vis[a * vs + j] >> i) & 1u)) val = 0;
-    }
-    if (packed) {
-      o[q] = val;
-    } else {
-      o[3 * q] = val >> 8;
-      o[3 * q + 1] = (val >> 4) & 15;
-      o[3 * q + 2] = val & 15;
+  if (packed) {
+    int32_t* o = out + static_cast<size_t>(e) * nv;
+    for (int q = lane; q < nv; q += 32) o[q] = view[q];
+  } else {
+    int32_t* o = out + static_cast<size_t>(e) * nv * 3;
+    for (int k = lane; k < 3 * nv; k += 32) {
+      const int q = k / 3, f = k - 3 * q;
+      const int val = view[q];
+      o[k] = f == 0 ? val >> 8 : f == 1 ? (val >> 4) & 15 : val & 15;
     }
   }
+}
+
+template <int VS>
+int launch(const void* grid, const void* agent_pos, const void* agent_dir,
+           const void* agent_color, const void* agent_term, const void* carrying, void* out,
+           int e, int n, int w, int h, int see_through_walls, int packed, cudaStream_t st) {
+  const int per_env = 4 * env_words(n, w, h, VS);
+  const int envs = std::max(1, std::min(kMaxEnvsPerBlock, kMaxSmem / per_env));
+  const int smem = envs * per_env;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(obs_kernel<VS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  obs_kernel<VS><<<(e + envs - 1) / envs, 32 * envs, smem, st>>>(
+      static_cast<const int32_t*>(grid), static_cast<const int32_t*>(agent_pos),
+      static_cast<const int32_t*>(agent_dir), static_cast<const int32_t*>(agent_color),
+      static_cast<const uint8_t*>(agent_term), static_cast<const int32_t*>(carrying),
+      static_cast<int32_t*>(out), e, n, w, h, see_through_walls, packed);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" size_t mgt_obs_smem_bytes(int n, int w, int h, int vs) {
-  return sizeof(int32_t) * (static_cast<size_t>(w) * h
-                            + static_cast<size_t>(n) * vs * vs
-                            + static_cast<size_t>(n) * vs);
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a view size the kernel is not built for.
 extern "C" int mgt_obs_launch(
     const void* grid, const void* agent_pos, const void* agent_dir,
     const void* agent_color, const void* agent_term, const void* carrying,
     void* out, int e, int n, int w, int h, int vs, int see_through_walls,
     int packed, void* stream) {
-  const size_t smem = mgt_obs_smem_bytes(n, w, h, vs);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        obs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MGT_OBS_CASE(V)                                                                    \
+  case V:                                                                                 \
+    return launch<V>(grid, agent_pos, agent_dir, agent_color, agent_term, carrying, out, e, \
+                     n, w, h, see_through_walls, packed, st);
+  switch (vs) {
+    MGT_OBS_CASE(3)
+    MGT_OBS_CASE(5)
+    MGT_OBS_CASE(7)
+    MGT_OBS_CASE(9)
+    MGT_OBS_CASE(11)
+    MGT_OBS_CASE(13)
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  obs_kernel<<<e, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(grid), static_cast<const int32_t*>(agent_pos),
-      static_cast<const int32_t*>(agent_dir),
-      static_cast<const int32_t*>(agent_color),
-      static_cast<const uint8_t*>(agent_term),
-      static_cast<const int32_t*>(carrying), static_cast<int32_t*>(out), n, w,
-      h, vs, see_through_walls, packed);
-  return static_cast<int>(cudaGetLastError());
+#undef MGT_OBS_CASE
 }

@@ -16,6 +16,8 @@ library is built from the package's sources at first use
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.constants import Color, State, Type
@@ -40,8 +42,12 @@ grad_launches = 0
 #: widths.
 MAX_HIDDEN = 256
 GRAD_HIDDEN = (32, 64, 128, 256)
-#: Rows of cells one gradient block covers (6 cells: 126 of 128 rows).
-GRAD_CELLS_PER_BLOCK = 6
+#: The gradient kernel's blocks: 12 cells (252 of 256 dW rows) x up to 128
+#: columns, over a chunk of the batch that is a multiple of 128 samples
+#: (its stage).
+GRAD_CELLS_PER_BLOCK = 12
+GRAD_COLS_PER_BLOCK = 128
+GRAD_STAGE = 128
 
 _fns = {}
 
@@ -155,6 +161,26 @@ def onehot_linear_forward(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, looked up once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def grad_plan(b: int, c: int, h: int, sms: int) -> tuple[int, int]:
+    """``(chunks, chunk)``: how the gradient kernel splits a batch of ``b``
+    samples. Chunk ``k`` takes samples ``[k·chunk, min(b, (k+1)·chunk))``;
+    ``chunk`` is a multiple of the 128-sample stage, no chunk is empty, and
+    the blocks (cell tiles × column tiles × chunks) fit on the ``sms`` SMs
+    in one wave, one block an SM, with chunks of at least 256 samples."""
+    tiles = -(-c // GRAD_CELLS_PER_BLOCK) * -(-h // GRAD_COLS_PER_BLOCK)
+    b = max(b, 1)
+    chunks = max(1, min(-(-b // 256), sms // tiles))
+    per_chunk = -(-b // chunks)
+    chunk = -(-per_chunk // GRAD_STAGE) * GRAD_STAGE
+    return -(-b // chunk), chunk
+
+
 def grad_w_cuda(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the gradient kernel on CUDA tensors (no count): (C·21, H) f32.
     ``g`` must be bf16 already."""
@@ -163,21 +189,19 @@ def grad_w_cuda(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if h not in GRAD_HIDDEN:
         raise ValueError(f'the gradient kernel takes {GRAD_HIDDEN} columns, got {h}')
     dev = packed.device
+    if g.data_ptr() % 16:  # the kernel stages g's rows in 16-byte pieces
+        g = g.clone()
     ptrs = [check_cuda(packed, 'packed', (b, c), torch.int32),
             check_cuda(g, 'g', (b, h), torch.bfloat16)]
-    out = torch.zeros((c * NCH, h), dtype=torch.float32, device=dev)
     if b == 0:
-        return out
-    # Split the batch so the blocks (row tiles x chunks) fill the card twice
-    # over, with chunks of at least 256 samples.
-    tiles = -(-c // GRAD_CELLS_PER_BLOCK)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunks = max(1, min(-(-b // 256), -(-2 * sms // tiles)))
+        return torch.zeros((c * NCH, h), dtype=torch.float32, device=dev)
+    out = torch.empty((c * NCH, h), dtype=torch.float32, device=dev)  # every entry written
+    chunks, chunk = grad_plan(b, c, h, sm_count(dev))
     partial = torch.empty((chunks if chunks > 1 else 0, c * NCH, h),
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib_fn('mgt_onehot_grad_launch', 4, 4)(
-            *ptrs, partial.data_ptr(), out.data_ptr(), b, c, h, chunks, _stream(dev))
+        err = _lib_fn('mgt_onehot_grad_launch', 4, 5)(
+            *ptrs, partial.data_ptr(), out.data_ptr(), b, c, h, chunks, chunk, _stream(dev))
     if err != 0:
         raise RuntimeError(f'onehot_linear gradient kernel launch failed: error {err}')
     return out

@@ -178,7 +178,7 @@ def ppo_mlp_grads(params, packed, dirf, action, old_logp, adv, target, *,
     # (8), dbv and the three loss sums.
     sizes = [h * h, h, (f + 1) * h, 8 * h, h, 8, 1, 3]
     n = sum(sizes)
-    blocks = min(-(-b // TILE), torch.cuda.get_device_properties(dev).multi_processor_count)
+    blocks = min(-(-b // TILE), fused_linear.sm_count(dev))
     dx1 = torch.empty((b, h), dtype=bf16, device=dev)
     partial = torch.empty((blocks, n), dtype=f32, device=dev)
     sums = torch.empty((n,), dtype=f32, device=dev)

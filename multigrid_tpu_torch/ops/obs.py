@@ -83,14 +83,52 @@ def _propagate(v: torch.Tensor, s: torch.Tensor, shift, steps: int) -> torch.Ten
     return v
 
 
+def vis_column(carry: torch.Tensor, s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One column of the flood fill, the loop form: from its lit cells
+    ``carry`` and see-through cells ``s`` (bool, (..., vs), row i on the last
+    axis), a forward pass (i ascending) and a backward pass (i descending)
+    spread visibility through see-through cells. Returns the column's
+    visible cells and the cells of column j-1 it lights (straight and
+    diagonal)."""
+    vs = s.shape[-1]
+    ii = torch.arange(vs, device=s.device)
+    f = _propagate(carry, s, _shift_up, vs - 1)
+    b = _propagate(f, s, _shift_down, vs - 1)
+    # Forward pass checks i in [0, vs-2], lighting (i, j-1), (i+1, j-1);
+    # backward pass checks i in [1, vs-1], lighting (i-1, j-1), (i, j-1).
+    cf = f & s & (ii != vs - 1)
+    cb = b & s & (ii != 0)
+    return b, cf | _shift_up(cf) | cb | _shift_down(cb)
+
+
+def vis_column_bits(lit, see, view_size: int):
+    """:func:`vis_column` as the CUDA kernel computes it (csrc/obs.cu,
+    ``vis_column``): columns as integers, bit i = row i; ``lit`` and ``see``
+    Python ints or integer tensors of any shape. Each pass is an occluded
+    fill by doubling (at most 15 rows); returns (visible, next column's
+    lit cells)."""
+    sf = see & ((1 << (view_size - 1)) - 1)  # rows the forward pass checks
+    q, p = lit & sf, sf
+    for k in (1, 2, 4):
+        q = q | (p & (q << k))
+        p = p & (p << k)
+    q = q | (p & (q << 8))
+    col = lit | (q << 1)
+    sb = see & ~1  # rows the backward pass checks
+    r, p = col & sb, sb
+    for k in (1, 2, 4):
+        r = r | (p & (r >> k))
+        p = p & (p >> k)
+    r = r | (p & (r >> 8))
+    return col | (r >> 1), q | (q << 1) | r | (r >> 1)
+
+
 def get_vis_mask(obs_grid: torch.Tensor) -> torch.Tensor:
     """Two-pass flood-fill visibility (obs.py:235-273).
 
     ``obs_grid`` is (..., vs, vs, 3) with the agent at ``(vs//2, vs-1)``
     facing up; returns (..., vs, vs) bool. Columns ``j`` are swept from
-    ``vs-1`` down to 0. In each, a forward pass (i ascending) and a backward
-    pass (i descending) spread visibility sideways through see-through cells
-    and into column ``j-1`` (straight and diagonal).
+    ``vs-1`` down to 0 (:func:`vis_column`), each lit by its neighbour.
     """
     vs = obs_grid.shape[-2]
     see = see_behind_mask(obs_grid)  # (..., vs_i, vs_j)
@@ -98,16 +136,7 @@ def get_vis_mask(obs_grid: torch.Tensor) -> torch.Tensor:
     cols = [None] * vs
     carry = (ii == vs // 2).expand(see[..., :, vs - 1].shape)
     for j in range(vs - 1, -1, -1):
-        s = see[..., :, j]
-        f = _propagate(carry, s, _shift_up, vs - 1)
-        b = _propagate(f, s, _shift_down, vs - 1)
-        cols[j] = b
-        if j > 0:
-            # Forward pass checks i in [0, vs-2], lighting (i, j-1), (i+1, j-1);
-            # backward pass checks i in [1, vs-1], lighting (i-1, j-1), (i, j-1).
-            cf = f & s & (ii != vs - 1)
-            cb = b & s & (ii != 0)
-            carry = cf | _shift_up(cf) | cb | _shift_down(cb)
+        cols[j], carry = vis_column(carry, see[..., :, j])
     return torch.stack(cols, dim=-1)
 
 

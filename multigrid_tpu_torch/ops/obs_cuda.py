@@ -48,9 +48,13 @@ def _launch_fn():
 
 
 def smem_bytes(num_agents: int, width: int, height: int, view_size: int) -> int:
-    """Shared memory one block asks for: packed grid, views, visibility bits."""
-    v = view_size
-    return 4 * (width * height + num_agents * v * v + num_agents * v)
+    """Shared memory one env takes in the kernel (a warp's share of its
+    block, ``csrc/obs.cu::env_words``): the agents' view extents, packed
+    grid, views and visibility columns, each rounded up to 16 bytes."""
+    def round4(x):
+        return -(-x // 4) * 4
+    n, v = num_agents, view_size
+    return 4 * (4 * n + round4(width * height) + round4(n * v * v) + round4(n * v))
 
 
 def check_supported(num_agents: int, width: int, height: int, view_size: int) -> None:

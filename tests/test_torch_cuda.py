@@ -46,6 +46,17 @@ def test_kernel_matches_plain(cuda_device, stw, packed):
         assert torch.equal(got.cpu(), want), (w, h, n, vs)
 
 
+@pytest.mark.parametrize('e,n', [(1, 4), (7, 1), (9, 8), (4097, 4), (1001, 8), (999, 1)])
+def test_kernel_matches_plain_at_any_env_count(cuda_device, e, n):
+    """Env counts that fill no whole block, one agent and eight, ≡ the
+    plain version bit for bit, as images and packed cells."""
+    state = to_torch(random_fields(e + n, e, 16, 16, n, has_boxes=False))
+    for packed in (False, True):
+        want = gen_obs_batched_plain(state, 7, False, packed)
+        got = obs_cuda.gen_obs_batched(_to(state, cuda_device), 7, False, packed)
+        assert torch.equal(got.cpu(), want), (e, n, packed)
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     state = _to(to_torch(random_fields(0, 4, 8, 8, 9, has_boxes=False)), cuda_device)
     with pytest.raises(ValueError):
@@ -119,7 +130,9 @@ def test_onehot_linear_kernel_matches_plain(cuda_device, b, c, h, pad):
 
 
 @pytest.mark.parametrize('b,c,h', [(262144, 49, 128), (5000, 49, 128), (100, 9, 32),
-                                   (300, 25, 256)])
+                                   (300, 25, 256),
+                                   # the centralized critic's shape, a single sample
+                                   (65536, 196, 128), (1, 49, 64)])
 def test_onehot_grad_kernel_matches_plain(cuda_device, b, c, h):
     from multigrid_tpu_torch.ops import fused_linear as fl
     rng = np.random.default_rng(b + h)
@@ -213,6 +226,17 @@ def test_first_layer_and_loss_kernels_run_on_the_tensor_cores(cuda_device):
         assert names, kernel
         for n in names:
             assert any(op.startswith(('HMMA', 'HGMMA')) for op in ops[n]), n
+
+
+def test_gradient_kernel_runs_on_the_tensor_cores(cuda_device):
+    """The SASS of the weight-gradient kernel (B3), every width built,
+    holds tensor-core instructions."""
+    from multigrid_tpu_torch.utils import build
+    ops = build.tensor_core_ops('fused_linear.cu')
+    names = [n for n in ops if 'onehot_grad_kernel' in n]
+    assert names
+    for n in names:
+        assert any(op.startswith(('HMMA', 'HGMMA')) for op in ops[n]), n
 
 
 def test_float32_nets_take_the_first_layer_kernel_on_the_card(cuda_device):

@@ -126,3 +126,27 @@ def test_pad_columns_keeps_the_product(h):
     want = np.asarray(jax_fl.onehot_linear_packed(jnp.asarray(cells), jnp.asarray(w),
                                                   interpret=True), np.float32)
     np.testing.assert_allclose(got[:, :h].float().numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize('c', [9, 49, 196])
+@pytest.mark.parametrize('b', [1, 255, 1001, 262144])
+def test_grad_plan_covers_every_sample_once(b, c):
+    """The gradient kernel's launch plan, on an H100's 132 SMs and on a
+    smaller card: chunks of whole stages that cover ``[0, b)``
+    exactly once, none empty, in one wave of blocks where the cell tiles
+    leave room, and one partial slab for every chunk a sample falls in."""
+    for h, sms in [(128, 132), (256, 132), (32, 20)]:
+        chunks, chunk = fl.grad_plan(b, c, h, sms)
+        assert chunks >= 1 and chunk % fl.GRAD_STAGE == 0
+        starts = np.arange(chunks) * chunk
+        ends = np.minimum(starts + chunk, b)
+        assert (ends > starts).all()  # no chunk is empty
+        covered = np.zeros(b, int)
+        for s, e in zip(starts, ends):
+            covered[s:e] += 1
+        assert (covered == 1).all()
+        tiles = -(-c // fl.GRAD_CELLS_PER_BLOCK) * -(-h // fl.GRAD_COLS_PER_BLOCK)
+        assert tiles * chunks <= max(sms, tiles)
+        # The wrapper sizes the partials by ``chunks``, one (C·21, H) slab
+        # a chunk: every sample's chunk index has its slab.
+        assert (np.arange(b) // chunk).max() == chunks - 1

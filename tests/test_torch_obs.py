@@ -23,7 +23,12 @@ from multigrid_tpu_torch.core.constants import (
 )
 from multigrid_tpu.ops.obs_pallas import gen_obs_batched_pallas
 from multigrid_tpu_torch.ops import obs_cuda
-from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain, get_vis_mask
+from multigrid_tpu_torch.ops.obs import (
+    gen_obs_batched_plain,
+    get_vis_mask,
+    vis_column,
+    vis_column_bits,
+)
 
 from .test_torch_states import random_fields, to_jax, to_torch
 
@@ -125,6 +130,35 @@ def test_vis_mask_matches_reference_sweep(vs):
     got = get_vis_mask(torch.as_tensor(obs)).numpy()
     for b in range(300):
         np.testing.assert_array_equal(got[b], reference_vis(see[b]), err_msg=str(b))
+
+
+def _bits_to_bool(x, vs):
+    return (x[..., None] >> torch.arange(vs)) & 1 == 1
+
+
+@pytest.mark.parametrize('vs', [3, 5, 7, 9, 11, 13])
+def test_vis_column_bits_match_the_loop_form(vs):
+    """The CUDA kernel's bit algebra for one column (occluded fills by
+    doubling) ≡ the loop form of :func:`vis_column`: for every (lit cells,
+    see-through cells) pair up to view 7, and 20,000 seeded pairs beyond."""
+    if vs <= 7:
+        lit, see = torch.meshgrid(torch.arange(1 << vs), torch.arange(1 << vs), indexing='ij')
+        lit, see = lit.flatten(), see.flatten()
+    else:
+        rng = np.random.default_rng(vs)
+        n = 20000
+        # Single lit cells and see-through columns with at most one opaque
+        # cell, where the spreads run longest, beside random pairs.
+        lit = torch.as_tensor(np.where(rng.random(n) < 0.5, 1 << rng.integers(0, vs, n),
+                                       rng.integers(0, 1 << vs, n)))
+        opaque = (1 << rng.integers(0, vs, n)) * (rng.random(n) < 0.5)
+        see = torch.as_tensor(np.where(rng.random(n) < 0.5, (1 << vs) - 1 - opaque,
+                                       rng.integers(0, 1 << vs, n)))
+    got_col, got_next = vis_column_bits(lit, see, vs)
+    want_col, want_next = vis_column(_bits_to_bool(lit, vs), _bits_to_bool(see, vs))
+    assert torch.equal(_bits_to_bool(got_col, vs), want_col)
+    assert torch.equal(_bits_to_bool(got_next, vs), want_next)
+    assert int((got_col | got_next).max()) < (1 << vs)  # no bit past the column
 
 
 @pytest.mark.parametrize('n,vs,w,h', [(9, 7, 8, 8), (2, 15, 8, 8), (2, 4, 8, 8),

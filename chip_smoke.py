@@ -7,14 +7,16 @@ Phases, in order; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    — builds the four CUDA sources of ``multigrid_tpu_torch/csrc``
-               (one nvcc each, in parallel), prints registers and spills,
-               and the tensor-core instructions in each kernel's SASS
-               (cuobjdump; B2, B3 and B4 must have some).
+               (one nvcc each, in parallel), prints each build's time,
+               registers and spills, and the tensor-core instructions in
+               each kernel's SASS (cuobjdump; B2, B3, B4 and B5 must have
+               some).
 3. kernels  — each kernel against its plain PyTorch version on the card.
                The observation kernel, ``torch.equal``, on seeded states
                stepped a few times: the flagship shape (E=4096, N=4, 16x16,
                view 7; see through walls off and on; packed and images),
-               view sizes 3-13, 1, 2 and 8 agents, a 13x25 grid, doors
+               view sizes 3-31, 1, 2, 8, 9, 16 and 33 agents (views 15 and
+               31 with 16 and 33), a 13x25 grid, doors
                (open, closed, locked), keys, balls, boxes, agents at the
                borders, terminated and carrying. The training kernels in
                bf16, each with its tolerance: the first layer (B=16384,
@@ -34,6 +36,11 @@ Phases, in order; any failure exits non-zero:
                kernel equal to the plain version on the rollout's final
                state, and two recorded reference traces
                (``tests/golden``) replayed bit-exactly on the card.
+   team     — ``VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=16),
+               4096)``: reset and 32 steps, the launch counts set to 0 just
+               before and read just after (one obs launch a call), every
+               step's observations equal to the plain version; the obs
+               kernel at N=16 timed by its launches alone beside its bound.
 6. timing   — agent-steps/s by length differencing (median of short/long
                rollout pairs, synchronized), and the obs kernel at the
                flagship as images and as packed cells: its launches alone
@@ -72,12 +79,15 @@ Phases, in order; any failure exits non-zero:
 12. variant timing — each variant's trained agent-steps/s beside the
                default path's, the rollout step's layers with and without the
                fused policy, and the fused policy's kernel time at B=16384
-               beside its bound and plain version.
+               (its launches alone, the profiler's kernel time and the
+               wrapper's call) beside its bound and plain version.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
-B1 (images and packed), B2, B3 (flagship, per-agent and critic shapes), B4
-(with its stages) and B5 on seeded inputs, for comparing two trees in
-turns within one call (copy the script into the other tree).
+B1 (images and packed, at the flagship and with 16 agents), B2, B3
+(flagship, per-agent and critic shapes), B4 (with its stages) and B5 (at
+the six shapes of its kernel cases) on seeded inputs, with digests of B1's
+and B4's outputs, for comparing two trees in turns within one call (copy
+the script into the other tree).
 
 Products in float32 run in full float32 (TF32 off) for the plain versions.
 The line before the last is the kernels' JSON record; the last line is
@@ -104,6 +114,10 @@ STEPS = 256
 #: The trained flagship: mlp 128 on packed cells, T 16 (scripts/measure_train.py:25-36).
 TRAIN_T, HIDDEN, C = 16, 128, VS * VS
 SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu')
+#: B5's cases (B, C, H, F, share of pad cells): the rollout's flagship shape
+#: first, then other cell counts, widths, feature counts and ragged batches.
+POLICY_SHAPES = [(E * N, C, HIDDEN, 2, 0.0), (4096, 9, 128, 2, 0.0), (4096, 25, 32, 14, 0.05),
+                 (2048, C, 256, 2, 0.0), (1001, 25, 256, 14, 0.1), (777, 9, 64, 5, 0.0)]
 #: B3's kernels in the profiler: the product and the sum of its partials.
 GRAD_KERNELS = ('onehot_grad_kernel', 'sum_partials_kernel')
 
@@ -262,6 +276,28 @@ def obs_launch_ms(state, vs, stw, packed, reps=200):
     return event_ms(launch, reps)
 
 
+def policy_launch_ms(w, packed, dirf, gumbel, reps=200):
+    """CUDA-event time of the fused-policy kernel's launches alone, without
+    the wrapper's checks and allocations, as for B2."""
+    import torch
+
+    from multigrid_tpu_torch.ops import fused_policy as fp
+    b, c = packed.shape
+    f, na = dirf.shape[1], gumbel.shape[1]
+    outs = [torch.empty((b,), dtype=dt, device=packed.device)
+            for dt in (torch.int32, torch.float32, torch.float32)]
+    fn = fp._lib_fn()
+    args = (packed.data_ptr(), dirf.data_ptr(), gumbel.data_ptr(),
+            *[w[k].data_ptr() for k in ('w_img', 'wd', 'w1', 'b1', 'wa', 'ba', 'wv', 'bv')],
+            *[o.data_ptr() for o in outs], b, c, f, na, w['w_img'].shape[-1],
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        if fn(*args):
+            fail('policy_sample kernel launch failed')
+    return event_ms(launch, reps)
+
+
 def obs_bound(state, vs, packed):
     """(bound_ms, bound_by, bytes, ops) of the observation kernel: its
     inputs read once and its output (4-byte packed cells, or 3 int32 a
@@ -371,13 +407,15 @@ def build_kernels():
         for line in build.build_log(src).splitlines():
             if 'Compiling entry' in line:
                 print('    ' + line.split("'")[1][:100])
-            elif 'registers' in line or 'spill' in line or 'error' in line.lower():
+            elif ('registers' in line or 'spill' in line or 'error' in line.lower()
+                  or line.startswith('nvcc took')):
                 print('      ' + line.strip())
 
 
 def sass_tensor_ops():
     """{kernel: tensor-core instructions in the SASS of all its builds};
-    fails unless B2, B3 and B4's loss kernel have some. Printed on one line."""
+    fails unless B2, B3, B4's loss kernel and B5 have some. Printed on one
+    line."""
     from multigrid_tpu_torch.utils import build
     names = {'obs.cu': [('obs', 'obs')],
              'fused_linear.cu': [('onehot_linear', 'onehot_linear'),
@@ -393,7 +431,7 @@ def sass_tensor_ops():
     found = {k: sorted(v) for k, v in found.items()}
     print('tensor-core instructions in the SASS (cuobjdump): ' + '; '.join(
         f'{k}: {" ".join(v) or "none"}' for k, v in found.items()))
-    for k in ('onehot_linear', 'onehot_linear_grad', 'ppo_loss'):
+    for k in ('onehot_linear', 'onehot_linear_grad', 'ppo_loss', 'policy_sample'):
         if not found[k]:
             fail(f'no tensor-core instruction in the SASS of the {k} kernel')
     return found
@@ -425,6 +463,18 @@ def obs_cases(device):
         cases.append((f'13x25 N=3 vs={vs}', tall, vs, False, False))
     tiny = random_state(21, 256, 5, 5, 4, device)
     cases.append(('5x5 N=4 vs=13 (view past every border)', tiny, 13, False, False))
+    # Views past 13 (past 15 the fill takes a fifth doubling step), teams
+    # past 8 agents (past 32 a second round of lanes).
+    for vs in (15, 17, 21, 31):
+        for stw in (False, True):
+            cases.append((f'vs={vs} stw={stw}', small, vs, stw, False))
+    cases.append(('13x25 N=3 vs=31', tall, 31, False, True))
+    for n in (9, 16, 33):
+        st = random_state(3 + n, 512, SIZE, SIZE, n, device)
+        cases.append((f'N={n}', st, VS, False, False))
+        cases.append((f'N={n} packed', st, VS, False, True))
+        for vs in (15, 31):
+            cases.append((f'N={n} vs={vs} packed', st, vs, False, True))
 
     max_err = 0
     for label, st, vs, stw, packed in cases:
@@ -439,6 +489,46 @@ def obs_cases(device):
             fail(f'kernel differs from plain version: {label}')
     print(f'{len(cases)} cases equal')
     return max_err
+
+
+def team_path(device=None, steps=32):
+    """A 16-agent team on the flagship env: reset and ``steps`` steps with
+    random actions, the launch counts set to 0 just before and read just
+    after (one obs launch a call, no other kernel), every step's
+    observations equal to the plain version on the same state (Empty
+    observes the merged state). Returns the launch count and the obs
+    kernel's time at N=16 (launches alone) beside its bound."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+
+    n = 16
+    venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=n, device=device), E)
+    if device is None and venv.device.type != 'cuda':
+        fail(f'default device is {venv.device}, not cuda')
+    _zero_counts()
+    obs, state = venv.reset(seed=0)
+    pairs = [(obs['image'], state)]
+    for _ in range(steps):
+        actions = torch.randint(0, 7, (E, n), generator=venv.generator, device=venv.device)
+        obs, state, *_ = venv.step(state, actions)
+        pairs.append((obs['image'], state))
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+    print(f'16-agent VectorEnv, reset + {steps} steps: launches {counts}')
+    if counts != want:
+        fail(f'16-agent VectorEnv: expected launches {want}, got {counts}')
+    for t, (image, st) in enumerate(pairs):
+        if not torch.equal(image, gen_obs_batched_plain(st, VS, False)):
+            fail(f'16-agent VectorEnv: observations differ from the plain version at call {t}')
+    print(f'16-agent VectorEnv: all {len(pairs)} observations equal to the plain version')
+    ms = obs_launch_ms(state, VS, False, False)
+    bd, by, nbytes, _ = obs_bound(state, VS, False)
+    print(f'obs kernel images ({E}, {n}, {VS}, {VS}, 3): launches {ms:.6f} ms; bound {bd:.6f} '
+          f'ms by {by} ({nbytes} bytes); {bd / ms:.4f} of the bound')
+    return dict(launches=counts['obs'], ms=ms, bound_ms=bd, bound_by=by)
 
 
 def main_path(device=None):
@@ -733,9 +823,7 @@ def policy_kernel_cases(device):
         gumbel = torch.as_tensor(rng.gumbel(size=(b, 7)).astype(np.float32), device=device)
         return fp.prepare(params), random_cells(rng, b, c, device, pad), args[1], gumbel
 
-    for b, c, h, f, pad in [(E * N, C, HIDDEN, 2, 0.0), (4096, 9, 128, 2, 0.0),
-                            (4096, 25, 32, 14, 0.05), (2048, C, 256, 2, 0.0),
-                            (1001, 25, 256, 14, 0.1), (777, 9, 64, 5, 0.0)]:
+    for b, c, h, f, pad in POLICY_SHAPES:
         w, packed, dirf, gumbel = inputs(b, c, h, f, pad)
         action, logp, value = fp.policy_sample_prepared(w, packed, dirf, gumbel)
         want_a, want_lp, want_v = fp.policy_sample_plain(w, packed, dirf, gumbel,
@@ -1256,7 +1344,10 @@ def variant_timing(steps):
     packed = obs['image'].reshape(b, C)
     dirf = direction_features(obs['direction']).float().reshape(b, 2)
     gumbel = -torch.log(-torch.log(torch.rand(b, 7, device=packed.device).clamp_min(1e-30)))
-    ms = event_ms(lambda: fp.policy_sample_prepared(w, packed, dirf, gumbel), 100)
+    ms = policy_launch_ms(w, packed, dirf, gumbel)
+    call_ms = event_ms(lambda: fp.policy_sample_prepared(w, packed, dirf, gumbel), 100)
+    dev_ms = kernel_device_ms(lambda: fp.policy_sample_prepared(w, packed, dirf, gumbel),
+                              'policy_sample_kernel')
     plain = event_ms(lambda: fp.policy_sample_plain(w, packed, dirf, gumbel,
                                                     compute_dtype=torch.bfloat16), 10)
     _set_counts(counts)
@@ -1265,20 +1356,28 @@ def variant_timing(steps):
     bd = bound(in_bytes + 12 * b,
                tensor_ops=2 * b * (HIDDEN * HIDDEN + 3 * HIDDEN + 8 * HIDDEN),
                ops_ms=onehot_ms(nnz, b, C, HIDDEN, 'policy_sample'))
-    print(f'policy_sample: {ms:.6f} ms/launch; plain {plain:.6f} ms; library none; '
-          f'bound {bd[0]:.6f} ms by {bd[1]} ({in_bytes + 12 * b} bytes); '
+    print(f'policy_sample: launches {ms:.6f} ms, the wrapper\'s call {call_ms:.6f} ms (CUDA '
+          f'events), the kernel {dev_ms} ms (torch.profiler); plain {plain:.6f} ms; library '
+          f'none; bound {bd[0]:.6f} ms by {bd[1]} ({in_bytes + 12 * b} bytes); '
           f'{bd[0] / ms:.4f} of the bound')
     return dict(rates=medians, kernel=dict(ms=ms, plain_ms=plain, library_ms=None,
-                                           bound_ms=bd[0], bound_by=bd[1]))
+                                           bound_ms=bd[0], bound_by=bd[1], call_ms=call_ms,
+                                           profiler_ms=dev_ms))
 
 
 def kernel_times(device):
     """``--kernel-times``: B2 at the rollout's three shapes, B3 at the
     learner's three (flagship, per agent, critic), B1 at the flagship as
-    images and packed (launches alone, profiler, call), B4 at 262,144 and
-    65,536 samples with its stages, and B5 at 16,384, on seeded inputs:
-    CUDA-event times of the package beside this script, for comparing two
-    trees in turns within one call. Prints one JSON line."""
+    images and packed (launches alone, profiler, call) and with 16 agents
+    (launches alone, where the tree's kernel takes 16), B4 at 262,144 and
+    65,536 samples with its stages, and B5 at the six shapes of its kernel
+    cases, on seeded inputs: CUDA-event times of the package beside this
+    script, for comparing two trees in turns within one call; and digests
+    of B1's flagship images and of B4's gradients at 262,144, which two
+    trees must share where the kernels compute the same bits. Prints one
+    JSON line."""
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -1307,7 +1406,13 @@ def kernel_times(device):
         res[key + ' call'] = event_ms(lambda: fl.onehot_linear_grad_w(packed, g), 20)
         res[key + ' kernel (profiler)'] = kernel_device_ms(
             lambda: fl.onehot_linear_grad_w(packed, g), GRAD_KERNELS)
+
+    def digest(tensors):
+        return hashlib.sha256(b''.join(t.contiguous().cpu().numpy().tobytes()
+                                       for t in tensors)).hexdigest()[:16]
+
     state = random_state(1, E, SIZE, SIZE, N, device)
+    res['obs images digest'] = digest([obs_cuda.gen_obs_batched(state, VS, False)])
     for packed in (False, True):
         key = f'obs {"packed" if packed else "images"} ({E}, {N}, {VS})'
         res[key + ' launches'] = obs_launch_ms(state, VS, False, packed)
@@ -1315,17 +1420,38 @@ def kernel_times(device):
             lambda: obs_cuda.gen_obs_batched(state, VS, False, packed), 'obs_kernel')
         res[key + ' call'] = event_ms(lambda: obs_cuda.gen_obs_batched(state, VS, False, packed),
                                       200)
+    team = random_state(5, E, SIZE, SIZE, 16, device)
+    try:
+        obs_cuda.check_supported(16, SIZE, SIZE, VS)
+    except ValueError as err:
+        print(f'obs with 16 agents: not timed ({err})')
+    else:
+        for packed in (False, True):
+            key = f'obs {"packed" if packed else "images"} ({E}, 16, {VS})'
+            res[key + ' launches'] = obs_launch_ms(team, VS, False, packed)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
     for b in (E * N * TRAIN_T, E * TRAIN_T):
         params, args = ppo_inputs(rng, b, C, HIDDEN, 0, device)
+        if b == E * N * TRAIN_T:
+            grads, metrics = fused_ppo.ppo_mlp_grads(params, *args, **kw)
+            res[f'ppo_loss B={b} digest'] = digest(
+                [grads[k] for k in sorted(grads)] + [metrics[k] for k in sorted(metrics)])
         res[f'ppo_loss B={b}'] = event_ms(lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw), 10)
         res[f'ppo_loss B={b} stages'] = ppo_stages(
             lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw))
-    params, args = ppo_inputs(rng, E * N, C, HIDDEN, 0, device)
-    w = fp.prepare(params)
-    gumbel = torch.as_tensor(rng.gumbel(size=(E * N, 7)).astype(np.float32), device=device)
-    res[f'policy_sample ({E * N}, {C}, {HIDDEN})'] = event_ms(
-        lambda: fp.policy_sample_prepared(w, args[0], args[1], gumbel), 100)
+    for b, c, h, f, pad in POLICY_SHAPES:
+        params, args = ppo_inputs(rng, b, c, h, f - 2, device)
+        w = fp.prepare(params)
+        packed = random_cells(rng, b, c, device, pad)
+        gumbel = torch.as_tensor(rng.gumbel(size=(b, 7)).astype(np.float32), device=device)
+        key = f'policy_sample ({b}, {c}, {h}, F {f})'
+        res[key + ' launches'] = policy_launch_ms(w, packed, args[1], gumbel)
+        res[key + ' call'] = event_ms(
+            lambda: fp.policy_sample_prepared(w, packed, args[1], gumbel), 100)
+        if b == E * N:
+            res[key + ' kernel (profiler)'] = kernel_device_ms(
+                lambda: fp.policy_sample_prepared(w, packed, args[1], gumbel),
+                'policy_sample_kernel')
     for k, v in res.items():
         print(f'{k}: {v}')
     print(json.dumps({'kernel_times_ms': res, 'tree': HERE}))
@@ -1367,6 +1493,8 @@ def main() -> None:
     venv, obs, state, summary, launches = main_path()
     phase('check')
     check_outputs(venv, obs, state, summary)
+    phase('team')
+    team = team_path()
     phase('timing')
     t = timing(venv, state)
     phase('breakdown')
@@ -1388,7 +1516,7 @@ def main() -> None:
                     max_abs_err=obs_err, equal=obs_err == 0, ms=t['ms'],
                     plain_ms=t['plain_ms'], bound_ms=t['bound_ms'], bound_by=t['bound_by'],
                     library_ms=None, sass_tensor_ops=sass['obs'], call_ms=t['call_ms'],
-                    profiler_ms=t['profiler_ms'], packed=t['packed'])]
+                    profiler_ms=t['profiler_ms'], packed=t['packed'], team=team)]
     for name, replaces, src, n in [
             ('onehot_linear', 'multigrid_tpu/ops/fused_linear.py:133', 'fused_linear.cu',
              counts['onehot_linear']),

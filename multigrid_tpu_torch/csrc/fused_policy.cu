@@ -11,24 +11,31 @@
 // follow the TPU kernel: bf16 matrix operands, f32 sums, f32 biases of the
 // trunk and heads.
 //
-// What bounds it on this card: operations. Per sample the first layer adds
-// 3*C weight rows of H (3.1e8 f32 adds at B = 16384, C = 49, H = 128: 4.6 us
-// on the CUDA cores), the dense products are 2*(H*H + (F+1)*H + 9*H) flops
-// (0.6 us on the tensor cores), and the compulsory bytes (packed cells,
-// features, noise, weights, 12 bytes out a sample) are about 4.3 MB (1.3
-// us). In practice the gather of 3*C rows of the 263 KB bf16 W_img from L2
-// (0.6 GB at the flagship) limits it, as it does the first-layer kernel of
-// csrc/fused_linear.cu. The design: one warp per sample, with the first
-// layer's gather of csrc/onehot_rows.cuh (lane l owning columns l, l+32,
-// ..., so each weight-row read is coalesced; the sample's cells read once,
-// 32 at a time, and broadcast with shuffles). W1,
-// [W0; b0] (bf16), Wa, wv and the biases (f32) sit in shared memory, loaded
-// once per block, and blocks sized to the card's occupancy walk the batch.
-// x1 goes through the warp's own row of shared memory; x2, the logits and the
-// value stay in registers: warp shuffles sum the heads, lane 0 takes the
-// arg-max and the log-sum-exp and writes 12 bytes. Nothing of (B, H) or
-// (B, A) reaches device memory. The trunk and heads are FMA loops on the
-// CUDA cores, not tensor cores: later work.
+// What bounds it on this card: operations. At B = 16384, C = 49, H = 128
+// the first layer is 3.1e8 adds as the embedding-bag it is (4.6 us on the
+// CUDA cores) or 4.3 GFLOP as the dense one-hot product (4.4 us on the
+// tensor cores); the trunk and heads are 2*(H*H + 16*H) flops a sample
+// (0.6 GFLOP, 0.6 us); the compulsory bytes (packed cells, features,
+// noise, weights, 12 bytes out a sample) are about 4.3 MB (1.3 us).
+//
+// Redesigned for Hopper's tensor cores: the forward is the routine of
+// mlp_forward.cuh, the one the PPO loss kernel (fused_ppo.cu) runs. A
+// block of 8 warps takes tiles of 64 samples; the first layer is the
+// one-hot product of onehot_mma.cuh (W_img streamed through a cp.async
+// ring of 3 stages of 7 channels, as in the loss kernel, the A fragments
+// built from the cells in registers, one more K step for the direction
+// features and the bias row), x2 = x1 @ W1 and [logits | value] = x2 @
+// [Wa | wv] are mma.sync m16n8k16 products on bf16 tiles in shared
+// memory, with W1 loaded once a block by cp.async beside the ring's first
+// stages. Then one thread a sample takes the masked Gumbel-max (the
+// largest perturbed logit first, then the lowest index that equals it),
+// the log-sum-exp and the value from the f32 [logits | value] tile, and
+// writes 12 bytes. Nothing of (B, H) or (B, A) reaches device memory. x2
+// overwrites x1's tile. At H 256, W1 alone takes 135 KB of shared memory,
+// so the ring holds one channel a stage. From H 128 a block takes an SM
+// (at H 128, two blocks an SM with 3-channel stages and at most 128
+// registers a thread spilled registers and were no faster in a scratch
+// comparison on the H100); at H 32 and 64 two blocks share one.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (multigrid_tpu_torch/utils/build.py does this).
@@ -37,25 +44,35 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "onehot_rows.cuh"
+#include "mlp_forward.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kA = 8;    // actions at most
-constexpr int kF1 = 16;  // direction features + the bias row, at most
-
-// Shared memory: bf16 W1 (H, H) and [W0; b0] (kF1, H); f32 Wa^T (kA, H), wv,
-// b1, ba (kA), bv (padded to 4) and one x1 row per warp.
-template <int H>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (H * H + kF1 * H) +
-         sizeof(float) * (kA * H + 2 * H + kA + 4 + kWarps * H);
-}
+constexpr int kMaxSmem = 232448;  // shared memory a block may use on Hopper
 
 template <int H>
-__global__ void __launch_bounds__(kThreads) policy_sample_kernel(
+struct Layout {
+  static constexpr int kLd = H + 8;                      // bf16 row stride of H-wide tiles
+  static constexpr int kStages = 3;                      // W_img stages in the ring
+  static constexpr int kGroup = H >= 256 ? 1 : 7;        // channels a stage
+  static constexpr int kBlocksPerSm = H >= 128 ? 1 : 2;  // at most 255 or 128 registers
+  // Byte offsets in shared memory.
+  static constexpr int kW1 = 0;                                   // (H, kLd) bf16
+  static constexpr int kWd = kW1 + align16(H * kLd * 2);          // (16, kLd) bf16
+  static constexpr int kRing = kWd + align16(16 * kLd * 2);       // kStages x (16 kGroup, kLd)
+  static constexpr int kX = kRing + align16(kStages * 16 * kGroup * kLd * 2);  // x1, then x2
+  static constexpr int kWh = kX + align16(kTM * kLd * 2);         // (H, kHeadLd) bf16
+  static constexpr int kLg = kWh + align16(H * kHeadLd * 2);      // (kTM, 16) f32
+  static constexpr int kDirs = kLg + kTM * 16 * 4;                // (kTM, kF1) f32
+  static constexpr int kGum = kDirs + kTM * kF1 * 4;              // (kTM, kA) f32
+  static constexpr int kB1 = kGum + kTM * kA * 4;                 // (H,) f32
+  static constexpr int kBa = kB1 + H * 4;                         // ba (kA), bv
+  static constexpr size_t kSmem = kBa + 16 * 4;
+  static_assert(kSmem <= kMaxSmem, "a block's shared memory");
+};
+
+template <int H>
+__global__ void __launch_bounds__(kThreads, Layout<H>::kBlocksPerSm) policy_sample_kernel(
     const int32_t* __restrict__ packed,       // (B, C)
     const float* __restrict__ dirf,           // (B, F)
     const float* __restrict__ gumbel,         // (B, A)
@@ -71,98 +88,67 @@ __global__ void __launch_bounds__(kThreads) policy_sample_kernel(
     float* __restrict__ logp_out,             // (B,)
     float* __restrict__ value_out,            // (B,)
     int b, int c, int f, int na) {
-  constexpr int kCols = H / 32;
+  using L = Layout<H>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* wds = w1s + H * H;
-  float* was = reinterpret_cast<float*>(wds + kF1 * H);  // (kA, H)
-  float* wvs = was + kA * H;
-  float* b1s = wvs + H;
-  float* bas = b1s + H;
-  float* bvs = bas + kA;
-  float* x1s = bvs + 4;  // (kWarps, H)
+  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kW1);
+  __nv_bfloat16* wds = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kWd);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kRing);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kX);
+  __nv_bfloat16* whs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kWh);  // [Wa | wv | 0]
+  float* lgs = reinterpret_cast<float*>(smem_raw + L::kLg);  // [logits | value]
+  float* dirs = reinterpret_cast<float*>(smem_raw + L::kDirs);  // bf16(dirf), 1, 0...
+  float* gums = reinterpret_cast<float*>(smem_raw + L::kGum);
+  float* b1s = reinterpret_cast<float*>(smem_raw + L::kB1);
+  float* bas = reinterpret_cast<float*>(smem_raw + L::kBa);  // ba, then bv at kA
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int f1 = f + 1;
-  for (int i = tid; i < H * H; i += kThreads) w1s[i] = w1[i];
-  for (int i = tid; i < f1 * H; i += kThreads) wds[i] = wd[i];
-  for (int i = tid; i < kA * H; i += kThreads) {
-    const int a = i / H, j = i % H;
-    was[i] = a < na ? __bfloat162float(wa[j * na + a]) : 0.f;
-  }
-  for (int i = tid; i < H; i += kThreads) {
-    wvs[i] = __bfloat162float(wv[i]);
-    b1s[i] = b1[i];
-  }
-  if (tid < kA) bas[tid] = tid < na ? ba[tid] : 0.f;
-  if (tid == 0) bvs[0] = bv[0];
-  __syncthreads();
+  const int tid = threadIdx.x;
+  mlp_load_weights<H>(w1, wd, b1, wa, ba, wv, bv, f + 1, na, w1s, wds, whs, b1s, bas);
+  const int ntiles = (b + kTM - 1) / kTM;
+  if (blockIdx.x < ntiles)
+    onehot_prime<H, kThreads, L::kStages, L::kGroup>(c, w_img, H, 0, H, ring);
 
-  float* x1w = x1s + warp * H;
-  for (int n = blockIdx.x * kWarps + warp; n < b; n += gridDim.x * kWarps) {
-    // x1, the first layer (onehot_rows.cuh), into the warp's row.
-    float x1[kCols];
-    first_layer_x1<H>(packed + static_cast<size_t>(n) * c, c, dirf + static_cast<size_t>(n) * f,
-                      f, w_img, wds, lane, x1);
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) x1w[lane + 32 * i] = x1[i];
-    __syncwarp();
-
-    // x2 = bf16(relu(x1 @ W1 + b1)), then each lane's share of the heads.
-    float acc2[kCols];
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) acc2[i] = 0.f;
-    for (int k = 0; k < H; ++k) {
-      const float x = x1w[k];
-      const __nv_bfloat16* wr = w1s + k * H + lane;
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) acc2[i] += x * __bfloat162float(wr[32 * i]);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int s0 = tile * kTM;
+    __syncthreads();  // the previous tile's readers are done
+    mlp_load_dirs(dirf, b, f, s0, dirs);
+    for (int i = tid; i < kTM * kA; i += kThreads) {
+      const int s = i / kA, a = i % kA;
+      gums[i] = s0 + s < b && a < na ? gumbel[static_cast<size_t>(s0 + s) * na + a] : 0.f;
     }
-    __syncwarp();  // every lane has read x1w before the next sample writes it
-    float lg[kA], pv = 0.f;
-#pragma unroll
-    for (int a = 0; a < kA; ++a) lg[a] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int j = lane + 32 * i;
-      const float x2 = bf(fmaxf(acc2[i] + b1s[j], 0.f));
-#pragma unroll
-      for (int a = 0; a < kA; ++a) lg[a] += x2 * was[a * H + j];
-      pv += x2 * wvs[j];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int a = 0; a < kA; ++a) lg[a] += __shfl_xor_sync(0xffffffffu, lg[a], off);
-      pv += __shfl_xor_sync(0xffffffffu, pv, off);
-    }
+    const int warp = tid / 32, lane = tid % 32, grp = lane >> 2, tig = lane & 3;
+    const int wm = warp & 3, r0 = 16 * wm + grp, n0 = (warp >> 2) * (H / 2);
+    mlp_forward<H, L::kStages, L::kGroup, true>(
+        packed, b, c, s0, tile + gridDim.x < ntiles, w_img, ring, wds, dirs, w1s, b1s, xs, xs,
+        whs, lgs, warp, lane, grp, tig, wm, r0, n0);
 
-    // Gumbel-max with the first index on ties, and the log-softmax.
-    if (lane == 0) {
+    // Gumbel-max with the first index on ties, the log-softmax and the
+    // value: one thread a sample.
+    if (tid < kTM && s0 + tid < b) {
+      const int s = tid, n = s0 + tid;
       const float neg_inf = __int_as_float(0xff800000);
-      float zbest = neg_inf, zmax = neg_inf;
-      int act = 0;
+      float lg[kA], z[kA], zmax = neg_inf, lmax = neg_inf;
 #pragma unroll
       for (int a = 0; a < kA; ++a) {
+        lg[a] = lgs[s * 16 + a] + bas[a];
+        z[a] = lg[a] + gums[s * kA + a];
         if (a < na) {
-          lg[a] += bas[a];
-          const float z = lg[a] + gumbel[static_cast<size_t>(n) * na + a];
-          if (z > zbest) {
-            zbest = z;
-            act = a;
-          }
-          zmax = fmaxf(zmax, lg[a]);
+          zmax = fmaxf(zmax, z[a]);
+          lmax = fmaxf(lmax, lg[a]);
         }
       }
+      int act = 0;
+#pragma unroll
+      for (int a = kA - 1; a >= 0; --a)
+        if (a < na && z[a] == zmax) act = a;
       float sez = 0.f, la = 0.f;
 #pragma unroll
       for (int a = 0; a < kA; ++a) {
-        if (a < na) sez += expf(lg[a] - zmax);
+        if (a < na) sez += expf(lg[a] - lmax);
         if (a == act) la = lg[a];
       }
       action_out[n] = act;
-      logp_out[n] = la - zmax - logf(sez);
-      value_out[n] = pv + bvs[0];
+      logp_out[n] = la - lmax - logf(sez);
+      value_out[n] = lgs[s * 16 + kA] + bas[kA];
     }
   }
 }
@@ -173,7 +159,7 @@ int launch(const void* packed, const void* dirf, const void* gumbel,
            const void* wa, const void* ba, const void* wv, const void* bv,
            void* action, void* logp, void* value, int b, int c, int f, int na,
            cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<H>();
+  constexpr size_t smem = Layout<H>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       policy_sample_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -185,9 +171,9 @@ int launch(const void* packed, const void* dirf, const void* gumbel,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, policy_sample_kernel<H>, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int wanted = (b + kWarps - 1) / kWarps;
+  const int tiles = (b + kTM - 1) / kTM;
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  const int blocks = wanted < resident ? wanted : resident;
+  const int blocks = tiles < resident ? tiles : resident;
   policy_sample_kernel<H><<<blocks, kThreads, smem, st>>>(
       static_cast<const int32_t*>(packed), static_cast<const float*>(dirf),
       static_cast<const float*>(gumbel),

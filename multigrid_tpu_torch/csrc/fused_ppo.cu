@@ -18,11 +18,13 @@
 // per-sample inputs (about 70 MB at the flagship) and dx1 out.
 //
 // Redesigned for Hopper's tensor cores. A block of 8 warps walks tiles of
-// 64 samples and keeps every (sample, H) activation on chip: the first
-// layer is the one-hot product of onehot_mma.cuh (W_img streamed through a
-// cp.async ring, the A fragments built from the cells in registers) plus
-// one more K step for [bf16(dirf), 1] @ [W0; b0]; x2 = x1 @ W1, dx1 = dx2
-// @ W1^T, dW1 += x1^T dx2, the heads [logits | value] = x2 @ [Wa | wv]
+// 64 samples and keeps every (sample, H) activation on chip. The forward
+// is the routine of mlp_forward.cuh, shared with the rollout policy kernel
+// (fused_policy.cu): the first layer is the one-hot product of
+// onehot_mma.cuh (W_img streamed through a cp.async ring, the A fragments
+// built from the cells in registers) plus one more K step for
+// [bf16(dirf), 1] @ [W0; b0]; x2 = x1 @ W1, dx1 = dx2 @ W1^T, dW1 +=
+// x1^T dx2, the heads [logits | value] = x2 @ [Wa | wv]
 // and [dWa | dWv] += x2^T [dlogits | dv] are mma.sync m16n8k16 products on
 // bf16 tiles in shared memory (W1, rows padded by 16 bytes against bank
 // conflicts; the tile's x1, x2, dx2), with dW1 and dWa in registers across
@@ -45,26 +47,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "onehot_mma.cuh"
+#include "mlp_forward.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 64;      // samples per tile: 4 warp rows of 16
-constexpr int kA = 8;        // actions at most
-constexpr int kF1 = 16;      // direction features + the bias column, at most
 constexpr int kStages = 3;   // W_img stages in the ring
 constexpr int kGroup = 7;    // channels a stage: 112 W_img rows
-constexpr int kDlLd = 24;    // bf16 row stride of the 16-wide [Wa | wv] and [dlogits | dv]
-                             // tiles (no bank conflicts)
+constexpr int kDlLd = kHeadLd;  // bf16 row stride of the 16-wide [Wa | wv] and
+                                // [dlogits | dv] tiles
 constexpr int kTailWarp = 12;  // per-warp sums: dba (8), dbv, pg, vf, entropy
 
 struct Coefs {
   float inv_b, c_ent, c_vf, lo, hi;
 };
-
-constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
 
 template <int H>
 struct Layout {
@@ -95,19 +90,6 @@ struct Layout {
   static constexpr int kRed = kSmp + 4 * kTM * 4;                      // (kWarps, kTailWarp)
   static constexpr size_t kSmem = kRed + kWarps * kTailWarp * 4;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
-}
 
 // The whole loss, forward and backward, a tile of 64 samples at a time; a
 // block walks tiles tile = blockIdx.x, + gridDim.x, ... and writes its
@@ -155,21 +137,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = lane >> 2, tig = lane & 3;
   const int f1 = f + 1;
-  for (int i = tid; i < H * H / 8; i += kThreads) {
-    const int r = i / (H / 8), q = (i % (H / 8)) * 8;
-    *reinterpret_cast<uint4*>(w1s + r * kLd + q) = *reinterpret_cast<const uint4*>(w1 + r * H + q);
-  }
-  for (int i = tid; i < 16 * H; i += kThreads) {
-    const int r = i / H;
-    wds[r * kLd + i % H] = r < f1 ? wd[i] : __float2bfloat16(0.f);
-  }
-  for (int i = tid; i < H * kDlLd; i += kThreads) {
-    const int r = i / kDlLd, a = i % kDlLd;
-    whs[i] = a < na ? wa[r * na + a] : a == kA ? wv[r] : __float2bfloat16(0.f);
-  }
-  for (int i = tid; i < H; i += kThreads) b1s[i] = b1[i];
-  if (tid < kA) bas[tid] = tid < na ? ba[tid] : 0.f;
-  if (tid == kA) bas[kA] = bv[0];
+  mlp_load_weights<H>(w1, wd, b1, wa, ba, wv, bv, f1, na, w1s, wds, whs, b1s, bas);
   for (int i = tid; i < kTM * kDlLd; i += kThreads) dlv[i] = __float2bfloat16(0.f);
   const int ntiles = (b + kTM - 1) / kTM;
   if (blockIdx.x < ntiles) onehot_prime<H, kThreads, kStages, kGroup>(c, w_img, H, 0, H, ring);
@@ -197,15 +165,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int s0 = tile * kTM;
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kTM * kF1; i += kThreads) {
-      const int s = i / kF1, q = i % kF1;
-      float v = 0.f;
-      if (s0 + s < b) {
-        if (q < f) v = bf(dirf[static_cast<size_t>(s0 + s) * f + q]);
-        else if (q == f) v = 1.f;
-      }
-      dirs[i] = v;
-    }
+    mlp_load_dirs(dirf, b, f, s0, dirs);
     if (tid < kTM && s0 + tid < b) {
       const int n = s0 + tid;
       acts[tid] = action[n];
@@ -214,91 +174,11 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
       tgts[tid] = target[n];
     }
 
-    // h = one_hot(packed) @ W_img (its barriers also publish the tile's
-    // inputs), then one more K step for [bf16(dirf), 1] @ [W0; b0]; x1 =
-    // bf16(relu(h)). The ring, free again, is primed for the next tile.
-    float acc[L::kNT][4];
-    zero(acc);
-    onehot_mma_primed<H, L::kNT, kThreads, kStages, kGroup>(packed, b, c, s0, r0, w_img, H, 0, H,
-                                                            ring, n0, acc);
-    if (tile + gridDim.x < ntiles)
-      onehot_prime<H, kThreads, kStages, kGroup>(c, w_img, H, 0, H, ring);
-    {
-      uint32_t a[4];
-      const float* d0 = dirs + r0 * kF1 + 2 * tig;
-      const float* d1 = d0 + 8 * kF1;
-      a[0] = pack_bf16(d0[0], d0[1]);
-      a[1] = pack_bf16(d1[0], d1[1]);
-      a[2] = pack_bf16(d0[8], d0[9]);
-      a[3] = pack_bf16(d1[8], d1[9]);
-#pragma unroll
-      for (int np = 0; np < L::kNT / 2; ++np) {
-        uint32_t bb[4];
-        load_b2(bb, wds, kLd, 0, n0 + 16 * np, lane);
-        mma_16816(acc[2 * np], a, bb[0], bb[1]);
-        mma_16816(acc[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < L::kNT; ++nt) {
-      const int col = n0 + nt * 8 + 2 * tig;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(x1s + (r0 + 8 * i) * kLd + col) =
-            __floats2bfloat162_rn(fmaxf(acc[nt][2 * i], 0.f), fmaxf(acc[nt][2 * i + 1], 0.f));
-    }
-    __syncthreads();
-
-    // x2 = bf16(relu(x1 @ W1 + b1)); rows past the batch 0.
-    zero(acc);
-#pragma unroll
-    for (int kk = 0; kk < H / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, x1s, kLd, 16 * wm, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < L::kNT / 2; ++np) {
-        uint32_t bb[4];
-        load_b2(bb, w1s, kLd, 16 * kk, n0 + 16 * np, lane);
-        mma_16816(acc[2 * np], a, bb[0], bb[1]);
-        mma_16816(acc[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < L::kNT; ++nt) {
-      const int col = n0 + nt * 8 + 2 * tig;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const bool in = s0 + r0 + 8 * i < b;
-        *reinterpret_cast<__nv_bfloat162*>(x2s + (r0 + 8 * i) * kLd + col) =
-            __floats2bfloat162_rn(in ? fmaxf(acc[nt][2 * i] + b1s[col], 0.f) : 0.f,
-                                  in ? fmaxf(acc[nt][2 * i + 1] + b1s[col + 1], 0.f) : 0.f);
-      }
-    }
-    __syncthreads();
-
-    // The heads on the tensor cores, [logits | value] = x2 @ [Wa | wv]
-    // (f32 sums), warps 0-3 a 16-row tile each.
-    if (warp < 4) {
-      float hacc[2][4];
-      zero(hacc);
-#pragma unroll
-      for (int kk = 0; kk < H / 16; ++kk) {
-        uint32_t a[4], bb[4];
-        load_a(a, x2s, kLd, 16 * warp, 16 * kk, lane);
-        load_b2(bb, whs, kDlLd, 16 * kk, 0, lane);
-        mma_16816(hacc[0], a, bb[0], bb[1]);
-        mma_16816(hacc[1], a, bb[2], bb[3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float* row = lgs + (16 * warp + grp + 8 * i) * 16 + nt * 8 + 2 * tig;
-          row[0] = hacc[nt][2 * i];
-          row[1] = hacc[nt][2 * i + 1];
-        }
-    }
-    __syncthreads();
+    // The forward (mlp_forward.cuh): x1, x2 and [logits | value] of the
+    // tile in shared memory; the ring, free again, primed for the next tile.
+    mlp_forward<H, kStages, kGroup, false>(packed, b, c, s0, tile + gridDim.x < ntiles, w_img,
+                                          ring, wds, dirs, w1s, b1s, x1s, x2s, whs, lgs, warp, lane, grp, tig,
+                                          wm, r0, n0);
 
     // The loss and dlogits: one thread a sample.
     if (tid < kTM) {
@@ -402,6 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
     }
     // dx1 = dx2 @ W1^T, through the relu: bf16, into x2's tile once every
     // reader of x2 is done.
+    float acc[L::kNT][4];
     zero(acc);
 #pragma unroll
     for (int kk = 0; kk < H / 16; ++kk) {

@@ -20,9 +20,12 @@
 //
 // - the grid is read as 16-byte vectors, three a lane for four cells, and
 //   packed t<<8|c<<4|s into one int32 a cell in shared memory;
-// - lanes 0..N-1 load one agent each; an agent is drawn unless terminated,
-//   off the grid, or on the cell of a later live agent (shuffles compare
-//   the positions), so the later agent wins with no serial thread;
+// - agents go in rounds of 32, one a lane; an agent is drawn unless
+//   terminated, off the grid, or on the cell of a later live agent of its
+//   round (shuffles compare the positions), and the rounds draw in order,
+//   so the later agent wins with no serial thread, for any team size
+//   (teams of at most 8 take a kernel of one round and 7 unrolled
+//   shuffles, the form built for them alone);
 // - each lane crops and rotates view cells from the agent's view extents,
 //   kept once in shared memory;
 // - the visibility is bit-parallel: a column's see-through mask comes from
@@ -30,6 +33,7 @@
 //   and backward spreads and its spill into column j-1 are a few shifts and
 //   masks on a vs-bit word (an occluded fill, Kogge-Stone style; the same
 //   algebra is ops/obs.py::vis_column_bits, held against the loop form);
+//   a lane sweeps one agent's columns, 32 agents a round;
 // - outputs are written by consecutive lanes to consecutive words.
 //
 // The TPU kernel's roll chains, permutation matmuls and hi/lo byte split
@@ -75,7 +79,8 @@ __host__ __device__ __forceinline__ int env_words(int n, int w, int h, int vs) {
 // (multigrid/utils/obs.py:235-273) as occluded fills: the forward pass
 // checks rows 0..vs-2 and lights i+1, the backward rows 1..vs-1 and lights
 // i-1, and a checked lit see-through row lights rows i and i±1 of column
-// j-1. Four doubling steps reach 15 rows, past the largest view (13).
+// j-1. Four doubling steps reach 15 rows; views past 15 take a fifth,
+// which reaches 31, the largest view (a column is one 32-bit word).
 template <int VS>
 __device__ __forceinline__ uint32_t vis_column(uint32_t x, uint32_t see, uint32_t& next) {
   const uint32_t sf = see & ((1u << (VS - 1)) - 1u);  // rows the forward pass checks
@@ -84,6 +89,10 @@ __device__ __forceinline__ uint32_t vis_column(uint32_t x, uint32_t see, uint32_
   q |= p & (q << 2); p &= p << 2;
   q |= p & (q << 4); p &= p << 4;
   q |= p & (q << 8);
+  if (VS > 15) {
+    p &= p << 8;
+    q |= p & (q << 16);
+  }
   const uint32_t col = x | (q << 1);
   const uint32_t sb = see & ~1u;  // rows the backward pass checks
   uint32_t r = col & sb;
@@ -92,11 +101,17 @@ __device__ __forceinline__ uint32_t vis_column(uint32_t x, uint32_t see, uint32_
   r |= p & (r >> 2); p &= p >> 2;
   r |= p & (r >> 4); p &= p >> 4;
   r |= p & (r >> 8);
+  if (VS > 15) {
+    p &= p >> 8;
+    r |= p & (r >> 16);
+  }
   next = q | (q << 1) | r | (r >> 1);
   return col | (r >> 1);
 }
 
-template <int VS>
+// kFew: at most 8 agents, one round whose overlay takes 7 unrolled
+// shuffles (the time of the kernel built for 1..8 agents only).
+template <int VS, bool kFew>
 __global__ void obs_kernel(
     const int32_t* __restrict__ grid,         // (E, W, H, 3)
     const int32_t* __restrict__ agent_pos,    // (E, N, 2)
@@ -121,7 +136,9 @@ __global__ void obs_kernel(
   int32_t* view = cells + round4(wh);                   // (N, vs*vs) packed
   uint32_t* vis = reinterpret_cast<uint32_t*>(view + round4(nv));  // (N, vs) columns
 
-  // Agents first, so their loads are in flight beside the grid's.
+  // The first 32 agents first, so their loads are in flight beside the
+  // grid's (later rounds load theirs below; written out twice, as a
+  // lambda this cost the few-agent kernel time).
   int ax = 0, ay = 0, ad = 0, acol = 0, aterm = 1, acarry = 0;
   if (lane < n) {
     const int idx = e * n + lane;
@@ -148,28 +165,50 @@ __global__ void obs_kernel(
     for (int c = lane; c < wh; c += 32) cells[c] = pack(g[3 * c], g[3 * c + 1], g[3 * c + 2]);
   }
 
-  // Each agent's view extents (get_view_exts) and rotation k = (dir + 1) & 3.
-  if (lane < n) {
-    const int tx = ad == 0 ? ax : ad == 1 ? ax - kHalf : ad == 2 ? ax - kR : ax - kHalf;
-    const int ty = ad == 0 ? ay - kHalf : ad == 1 ? ay : ad == 2 ? ay - kHalf : ay - kR;
-    ag[lane] = make_int4(tx, ty, (ad + 1) & 3, acarry);
+  // Agents in rounds of 32, lane l taking agent a0 + l: its view extents
+  // (get_view_exts) and rotation k = (dir + 1) & 3, then the overlay. The
+  // rounds draw in index order, and within a round an agent on the cell of
+  // a later live agent is not drawn, so a later agent wins a shared cell;
+  // terminated agents are not drawn. One agent sees no other, so N = 1
+  // skips the overlay.
+  const int nr = kFew ? 1 : n;  // a0 < nr: one round, or a round for every 32 agents
+  for (int a0 = 0; a0 < nr; a0 += 32) {
+    const int rn = kFew ? n : min(32, n - a0);
+    if (a0 > 0 && lane < rn) {
+      const int idx = e * n + a0 + lane;
+      ax = agent_pos[2 * idx];
+      ay = agent_pos[2 * idx + 1];
+      ad = agent_dir[idx];
+      acol = agent_color[idx];
+      aterm = agent_term[idx];
+      acarry = pack(carrying[3 * idx], carrying[3 * idx + 1], carrying[3 * idx + 2]);
+    }
+    if (lane < rn) {
+      const int tx = ad == 0 ? ax : ad == 1 ? ax - kHalf : ad == 2 ? ax - kR : ax - kHalf;
+      const int ty = ad == 0 ? ay - kHalf : ad == 1 ? ay : ad == 2 ? ay - kHalf : ay - kR;
+      ag[a0 + lane] = make_int4(tx, ty, (ad + 1) & 3, acarry);
+    }
+    __syncwarp();  // the grid (and the previous round's agents) are in place
+    if (n > 1) {
+      const bool live = lane < rn && !aterm && ax >= 0 && ax < w && ay >= 0 && ay < h;
+      const int key = live ? ax * h + ay : -1 - lane;
+      bool covered = false;
+      if (kFew) {
+#pragma unroll
+        for (int d = 1; d < 8; ++d) {
+          const int later = __shfl_down_sync(kFull, key, d);
+          covered |= lane + d < rn && later == key;
+        }
+      } else {
+        for (int d = 1; d < rn; ++d) {
+          const int later = __shfl_down_sync(kFull, key, d);
+          covered |= lane + d < rn && later == key;
+        }
+      }
+      if (live && !covered) cells[key] = pack(kTypeAgent, acol, ad);
+    }
   }
   __syncwarp();
-
-  // Agents in index order, so a later agent wins a shared cell; terminated
-  // agents are not drawn. One agent sees no other, so N = 1 skips this.
-  if (n > 1) {
-    const bool live = lane < n && !aterm && ax >= 0 && ax < w && ay >= 0 && ay < h;
-    const int key = live ? ax * h + ay : -1 - lane;
-    bool covered = false;
-#pragma unroll
-    for (int d = 1; d < 8; ++d) {
-      const int later = __shfl_down_sync(kFull, key, d);
-      covered |= lane + d < n && later == key;
-    }
-    if (live && !covered) cells[key] = pack(kTypeAgent, acol, ad);
-    __syncwarp();
-  }
 
   // Crop and rotate: one lane a view cell, out = rot90(window, k=-k).
   for (int q = lane; q < nv; q += 32) {
@@ -195,33 +234,37 @@ __global__ void obs_kernel(
   __syncwarp();
 
   if (!see_through_walls) {
-    // See-through masks: lane (agent a of a group, row i) tests cell (i, j)
-    // of every column j; lane a keeps its agent's columns.
-    uint32_t see[VS];
+    // In rounds of 32 agents: see-through masks, lane (agent a of a group,
+    // row i) testing cell (i, j) of every column j, lane a keeping agent
+    // a0 + a's columns; then columns from the agent's (vs-1) to 0, lane a
+    // sweeping agent a0 + a.
+    for (int a0 = 0; a0 < nr; a0 += 32) {
+      const int rn = kFew ? n : min(32, n - a0);
+      uint32_t see[VS];
 #pragma unroll
-    for (int j = 0; j < VS; ++j) see[j] = 0u;
-    for (int a0 = 0; a0 < n; a0 += kGroup) {
-      const int a = a0 + lane / VS, i = lane % VS;
-      const bool row = lane < kGroup * VS && a < n;
-      const int32_t* va = view + (row ? a : 0) * kV2 + i * VS;
+      for (int j = 0; j < VS; ++j) see[j] = 0u;
+      for (int g0 = 0; g0 < rn; g0 += kGroup) {
+        const int a = g0 + lane / VS, i = lane % VS;
+        const bool row = lane < kGroup * VS && a < rn;
+        const int32_t* va = view + (row ? a0 + a : 0) * kV2 + i * VS;
 #pragma unroll
-      for (int j = 0; j < VS; ++j) {
-        const int c = row ? va[j] : 0;
-        const int t = c >> 8, s = c & 15;
-        const bool clear = row && !(t == kTypeWall || (t == kTypeDoor && s != kStateOpen));
-        const uint32_t bits = __ballot_sync(kFull, clear);
-        if (lane >= a0 && lane < a0 + kGroup)
-          see[j] = (bits >> ((lane - a0) * VS)) & ((1u << VS) - 1u);
+        for (int j = 0; j < VS; ++j) {
+          const int c = row ? va[j] : 0;
+          const int t = c >> 8, s = c & 15;
+          const bool clear = row && !(t == kTypeWall || (t == kTypeDoor && s != kStateOpen));
+          const uint32_t bits = __ballot_sync(kFull, clear);
+          if (lane >= g0 && lane < g0 + kGroup)
+            see[j] = (bits >> ((lane - g0) * VS)) & ((1u << VS) - 1u);
+        }
       }
-    }
-    // Columns from the agent's (vs-1) to 0, lane a for agent a.
-    if (lane < n) {
-      uint32_t lit = 1u << kHalf;
+      if (lane < rn) {
+        uint32_t lit = 1u << kHalf;
 #pragma unroll
-      for (int j = kR; j >= 0; --j) {
-        uint32_t next;
-        vis[lane * VS + j] = vis_column<VS>(lit, see[j], next);
-        lit = next;
+        for (int j = kR; j >= 0; --j) {
+          uint32_t next;
+          vis[(a0 + lane) * VS + j] = vis_column<VS>(lit, see[j], next);
+          lit = next;
+        }
       }
     }
     __syncwarp();
@@ -254,12 +297,13 @@ int launch(const void* grid, const void* agent_pos, const void* agent_dir,
   const int per_env = 4 * env_words(n, w, h, VS);
   const int envs = std::max(1, std::min(kMaxEnvsPerBlock, kMaxSmem / per_env));
   const int smem = envs * per_env;
+  auto kernel = n <= 8 ? obs_kernel<VS, true> : obs_kernel<VS, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(obs_kernel<VS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  obs_kernel<VS><<<(e + envs - 1) / envs, 32 * envs, smem, st>>>(
+  kernel<<<(e + envs - 1) / envs, 32 * envs, smem, st>>>(
       static_cast<const int32_t*>(grid), static_cast<const int32_t*>(agent_pos),
       static_cast<const int32_t*>(agent_dir), static_cast<const int32_t*>(agent_color),
       static_cast<const uint8_t*>(agent_term), static_cast<const int32_t*>(carrying),
@@ -288,6 +332,15 @@ extern "C" int mgt_obs_launch(
     MGT_OBS_CASE(9)
     MGT_OBS_CASE(11)
     MGT_OBS_CASE(13)
+    MGT_OBS_CASE(15)
+    MGT_OBS_CASE(17)
+    MGT_OBS_CASE(19)
+    MGT_OBS_CASE(21)
+    MGT_OBS_CASE(23)
+    MGT_OBS_CASE(25)
+    MGT_OBS_CASE(27)
+    MGT_OBS_CASE(29)
+    MGT_OBS_CASE(31)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MGT_OBS_CASE

@@ -1,7 +1,12 @@
 // one_hot(packed) @ W on the tensor cores, the one-hot never in memory:
 // the routine shared by the first-layer kernel (fused_linear.cu, replacing
-// the TPU kernel multigrid_tpu/ops/fused_linear.py::_kernel) and the PPO
-// loss kernel's first layer (fused_ppo.cu).
+// the TPU kernel multigrid_tpu/ops/fused_linear.py::_kernel) and the mlp
+// forward of the PPO loss and rollout policy kernels (mlp_forward.cuh, for
+// fused_ppo.cu and fused_policy.cu).
+//
+// A packed cell t<<8|c<<4|s has exactly three ones in its 21 channels (type
+// t, color 11+c, state 17+s; a field out of its channel's range has none);
+// W is the flax layout (C*21, H) with feature index cell*21 + ch.
 //
 // A block owns a tile of samples, 16 rows a warp, and walks K, the C*21
 // one-hot features, in 16-deep steps in channel-major order (as the TPU
@@ -23,20 +28,22 @@
 // Why mma.sync and not wgmma: the A operand is built in registers from the
 // cells at every step, and B3 (fused_linear.cu) already runs this fragment
 // layout; mma.sync needs no warpgroup-wide descriptors or fences, so one
-// routine serves both callers' warp layouts (B2: 4 warps of 16 rows x the
-// block's columns; B4: 4 x 2 warps over 64 rows x H). Measured on the
-// H100, B2 runs its padded product at about a sixth of the tensor cores'
-// dense rate, so the instruction is not what bounds it.
+// routine serves every caller's warp layout (B2: 4 warps of 16 rows x the
+// block's columns; the mlp forward: 4 x 2 warps over 64 rows x H).
+// Measured on the H100, B2 runs its padded product at about a sixth of the
+// tensor cores' dense rate, so the instruction is not what bounds it.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "onehot_rows.cuh"
-
 namespace {
 
+constexpr int kNch = 21;  // one-hot channels: 11 types, 6 colors, 4 states
+constexpr int kTypes = 11;
+constexpr int kColors = 6;
+constexpr int kStates = 4;
 constexpr int kCellBlock = 16;  // cells per K step (one channel each)
 constexpr int kPadCell = (0x7FF << 8) | (15 << 4) | 15;  // a cell matching no channel
 

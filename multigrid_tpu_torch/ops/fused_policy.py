@@ -62,11 +62,14 @@ def prepare(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The kernel's weight operands from flax-named ``ActorCritic`` params:
     ``w_img``, ``wd`` = ``[W0; b0]``, ``w1``, ``wa``, ``wv`` in bf16 on the
     card (the kernel's operand type) and float32 on the CPU (the plain
-    version's), ``b1``, ``ba``, ``bv`` float32; all contiguous."""
+    version's), ``b1``, ``ba``, ``bv`` float32; all contiguous, and the
+    matrices 16-byte aligned (the kernel copies W_img and W1 in 16-byte
+    pieces)."""
     mat = torch.bfloat16 if params['img_kernel'].device.type == 'cuda' else torch.float32
 
     def m(x):
-        return x.detach().to(mat).contiguous()
+        t = x.detach().to(mat).contiguous()
+        return t.clone() if t.data_ptr() % 16 else t
 
     def v(x):
         return x.detach().float().contiguous()
@@ -133,6 +136,9 @@ def policy_sample_prepared(w, packed, dirf, gumbel, *, num_actions: int = 7):
             check_cuda(dirf, 'dirf', (b, f), f32),
             check_cuda(gumbel, 'gumbel', (b, num_actions), f32)]
     ptrs += [check_cuda(w[k], k, s, dt) for k, (s, dt) in shapes.items()]
+    if w['w_img'].data_ptr() % 16 or w['w1'].data_ptr() % 16:
+        raise ValueError('policy_sample kernel needs w_img and w1 16-byte aligned '
+                         '(prepare() makes them so)')
     dev = packed.device
     action = torch.empty((b,), dtype=torch.int32, device=dev)
     log_prob = torch.empty((b,), dtype=f32, device=dev)

@@ -105,21 +105,20 @@ def vis_column_bits(lit, see, view_size: int):
     """:func:`vis_column` as the CUDA kernel computes it (csrc/obs.cu,
     ``vis_column``): columns as integers, bit i = row i; ``lit`` and ``see``
     Python ints or integer tensors of any shape. Each pass is an occluded
-    fill by doubling (at most 15 rows); returns (visible, next column's
-    lit cells)."""
+    fill by doubling (at most 31 rows: four steps reach 15, a fifth 31);
+    returns (visible, next column's lit cells)."""
+    steps = (1, 2, 4, 8, 16) if view_size > 15 else (1, 2, 4, 8)
     sf = see & ((1 << (view_size - 1)) - 1)  # rows the forward pass checks
     q, p = lit & sf, sf
-    for k in (1, 2, 4):
+    for k in steps:
         q = q | (p & (q << k))
         p = p & (p << k)
-    q = q | (p & (q << 8))
     col = lit | (q << 1)
     sb = see & ~1  # rows the backward pass checks
     r, p = col & sb, sb
-    for k in (1, 2, 4):
+    for k in steps:
         r = r | (p & (r >> k))
         p = p & (p >> k)
-    r = r | (p & (r >> 8))
     return col | (r >> 1), q | (q << 1) | r | (r >> 1)
 
 

@@ -24,9 +24,10 @@ SOURCE = 'obs.cu'
 #: Kernel launches since the count was last set to 0; nothing else adds to it.
 launches = 0
 
-#: The range the kernel takes (the JAX kernel's range).
-MAX_AGENTS = 8
-VIEW_SIZES = (3, 5, 7, 9, 11, 13)
+#: The view sizes the kernel takes: every odd size whose view column fits
+#: one 32-bit word. Any team size is taken, as far as one env fits a block's
+#: shared memory.
+VIEW_SIZES = tuple(range(3, 33, 2))
 #: Shared memory a block may use on Hopper.
 MAX_SMEM_BYTES = 232448
 
@@ -58,18 +59,21 @@ def smem_bytes(num_agents: int, width: int, height: int, view_size: int) -> int:
 
 
 def check_supported(num_agents: int, width: int, height: int, view_size: int) -> None:
-    """Raise ValueError for a shape the kernel does not take."""
-    if not 1 <= num_agents <= MAX_AGENTS:
-        raise ValueError(f'obs kernel takes 1..{MAX_AGENTS} agents, got {num_agents}')
+    """Raise ValueError for a shape the kernel does not take: a view size
+    that is not odd in 3..31 (a view column is one 32-bit word), or an env
+    whose grid, views and visibility columns need more shared memory than a
+    block can have."""
     if view_size not in VIEW_SIZES:
-        raise ValueError(f'obs kernel takes view sizes {VIEW_SIZES}, got {view_size}')
+        raise ValueError(f'obs kernel takes odd view sizes 3..31 (a view column is one '
+                         f'32-bit word), got {view_size}')
     if len(Color) > 16 or len(State) > 16:
         raise ValueError('obs kernel packs colors and states into 4 bits each')
     need = smem_bytes(num_agents, width, height, view_size)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
-            f'{width}x{height} grid needs {need} bytes of shared memory, '
-            f'more than the {MAX_SMEM_BYTES} a block can have')
+            f'one env of {num_agents} agents with view {view_size} on a {width}x{height} '
+            f'grid needs {need} bytes of shared memory, more than the {MAX_SMEM_BYTES} a '
+            f'block can have')
 
 
 def _checked(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype):

@@ -20,6 +20,8 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -76,33 +78,36 @@ def build(sources: list[str]) -> dict[str, Path]:
     """Build every source whose library is missing, all in parallel.
 
     Returns ``{source: library path}``. The compiler's output (registers,
-    shared memory and spills from ``-Xptxas -v``) is kept beside each
-    library as ``build.log``. Raises if any build fails.
+    shared memory and spills from ``-Xptxas -v``) and the seconds nvcc took
+    are kept beside each library as ``build.log``. Raises if any build
+    fails.
     """
     paths = {s: library_path(s) for s in sources}
-    running = []
-    for src, lib in paths.items():
-        if lib.exists():
-            continue
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=lib.parent)
-        os.close(fd)
-        log = open(lib.parent / 'build.log', 'w')
-        cmd = [nvcc(), *NVCC_FLAGS, '-o', tmp, str(CSRC_DIR / src)]
-        running.append((src, lib, tmp, log,
-                        subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for src, lib, tmp, log, proc in running:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, lib)
-        else:
-            os.unlink(tmp)
-            failed.append(f'{src}:\n' + (lib.parent / 'build.log').read_text())
-    if failed:
-        raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
+    todo = [(s, lib) for s, lib in paths.items() if not lib.exists()]
+    if todo:
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            failed = [f for f in pool.map(lambda t: _compile(*t), todo) if f]
+        if failed:
+            raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
     return paths
+
+
+def _compile(source: str, lib: Path) -> str:
+    """One nvcc run from ``csrc/<source>`` to ``lib``; returns '' or, if it
+    failed, the source's name and the compiler's output."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=lib.parent)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, '-o', tmp, str(CSRC_DIR / source)],
+                          capture_output=True, text=True)
+    log = f'{proc.stdout}{proc.stderr}nvcc took {time.perf_counter() - t0:.2f} s\n'
+    (lib.parent / 'build.log').write_text(log)
+    if proc.returncode:
+        os.unlink(tmp)
+        return f'{source}:\n{log}'
+    os.replace(tmp, lib)
+    return ''
 
 
 def build_log(source: str) -> str:

@@ -57,13 +57,50 @@ def test_kernel_matches_plain_at_any_env_count(cuda_device, e, n):
         assert torch.equal(got.cpu(), want), (e, n, packed)
 
 
+@pytest.mark.parametrize('n', [9, 16, 33])
+@pytest.mark.parametrize('vs', [7, 15, 31])
+def test_kernel_matches_plain_for_any_team_and_view(cuda_device, n, vs):
+    """Teams past 8 agents (past 32: a second round of lanes) and views past
+    13 (past 15: a fifth doubling step of the fill) ≡ the plain version bit
+    for bit, see-through walls on and off, as images and packed cells."""
+    state = to_torch(random_fields(100 * n + vs, 64, 16, 16, n, has_boxes=False))
+    for stw in (False, True):
+        for packed in (False, True):
+            want = gen_obs_batched_plain(state, vs, stw, packed)
+            launches = obs_cuda.launches
+            got = obs_cuda.gen_obs_batched(_to(state, cuda_device), vs, stw, packed)
+            assert obs_cuda.launches == launches + 1
+            assert torch.equal(got.cpu(), want), (n, vs, stw, packed)
+
+
+def test_sixteen_agents_step_through_the_kernel(cuda_device):
+    """A 16-agent Empty-16x16 VectorEnv on the card resets and steps through
+    the obs kernel (one launch a call), its observations equal to the plain
+    version on the same states (Empty observes the merged state)."""
+    venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=16, device=cuda_device), 64)
+    launches = obs_cuda.launches
+    obs, state = venv.reset(seed=0)
+    assert obs['image'].shape == (64, 16, 7, 7, 3)
+    assert torch.equal(obs['image'], gen_obs_batched_plain(state, 7, False))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for t in range(24):
+        actions = torch.randint(0, 7, (64, 16), generator=g, device=cuda_device)
+        obs, state, *_ = venv.step(state, actions)
+        assert torch.equal(obs['image'], gen_obs_batched_plain(state, 7, False)), t
+    assert obs_cuda.launches == launches + 25
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
-    state = _to(to_torch(random_fields(0, 4, 8, 8, 9, has_boxes=False)), cuda_device)
-    with pytest.raises(ValueError):
-        obs_cuda.gen_obs_batched(state, 7, False)
     state = _to(to_torch(random_fields(0, 4, 8, 8, 2, has_boxes=False)), cuda_device)
+    for vs in (8, 33):  # an even view; a view column past one 32-bit word
+        with pytest.raises(ValueError):
+            obs_cuda.gen_obs_batched(state, vs, False)
     with pytest.raises(ValueError):
         obs_cuda.gen_obs_batched(state.replace(grid=state.grid.to(torch.int64)), 7, False)
+    # One env's grid and 64 views of 31 need more shared memory than a block has.
+    state = _to(to_torch(random_fields(0, 2, 32, 32, 64, has_boxes=False)), cuda_device)
+    with pytest.raises(ValueError):
+        obs_cuda.gen_obs_batched(state, 31, False)
 
 
 def test_vector_env_on_the_card_matches_the_cpu(cuda_device):
@@ -235,6 +272,17 @@ def test_gradient_kernel_runs_on_the_tensor_cores(cuda_device):
     ops = build.tensor_core_ops('fused_linear.cu')
     names = [n for n in ops if 'onehot_grad_kernel' in n]
     assert names
+    for n in names:
+        assert any(op.startswith(('HMMA', 'HGMMA')) for op in ops[n]), n
+
+
+def test_policy_kernel_runs_on_the_tensor_cores(cuda_device):
+    """The SASS of the fused rollout-policy kernel (B5), every width built,
+    holds tensor-core instructions."""
+    from multigrid_tpu_torch.utils import build
+    ops = build.tensor_core_ops('fused_policy.cu')
+    names = [n for n in ops if 'policy_sample_kernel' in n]
+    assert len(names) == 4
     for n in names:
         assert any(op.startswith(('HMMA', 'HGMMA')) for op in ops[n]), n
 

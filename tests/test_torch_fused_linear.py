@@ -90,12 +90,12 @@ def test_autograd_function_on_the_cpu():
 def test_build_key_follows_included_headers(tmp_path, monkeypatch):
     """A library's key hashes the csrc headers its source includes, followed
     through the headers, so an edited header rebuilds every kernel that uses
-    it; the first-layer and loss kernels share the tensor-core one-hot
-    product, which includes the gather header that the policy kernel uses."""
+    it; the loss and policy kernels share the mlp forward, which includes
+    the tensor-core one-hot product that the first-layer kernels use."""
     from multigrid_tpu_torch.utils import build
-    for src in ('fused_linear.cu', 'fused_ppo.cu'):
-        assert build.sources_of(src) == [src, 'onehot_mma.cuh', 'onehot_rows.cuh']
-    assert build.sources_of('fused_policy.cu') == ['fused_policy.cu', 'onehot_rows.cuh']
+    assert build.sources_of('fused_linear.cu') == ['fused_linear.cu', 'onehot_mma.cuh']
+    for src in ('fused_ppo.cu', 'fused_policy.cu'):
+        assert build.sources_of(src) == [src, 'mlp_forward.cuh', 'onehot_mma.cuh']
     monkeypatch.setattr(build, 'CSRC_DIR', tmp_path)
     (tmp_path / 'k.cu').write_text('#include <stdint.h>\n#include "a.cuh"\n')
     (tmp_path / 'a.cuh').write_text('#pragma once\n #  include "b.cuh"\n')

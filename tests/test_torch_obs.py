@@ -45,6 +45,8 @@ CASES = (
     # (width, height, agents, view_size)
     [(8, 8, 2, vs) for vs in (3, 5, 9, 11, 13)]
     + [(13, 25, 2, 7), (8, 8, 1, 7), (8, 8, 3, 7), (8, 8, 4, 7)]
+    # teams past 8 agents and views past 13, which the CUDA kernel takes too
+    + [(8, 8, 9, 7), (16, 16, 16, 7), (8, 8, 2, 15), (8, 8, 2, 31)]
 )
 
 
@@ -136,11 +138,12 @@ def _bits_to_bool(x, vs):
     return (x[..., None] >> torch.arange(vs)) & 1 == 1
 
 
-@pytest.mark.parametrize('vs', [3, 5, 7, 9, 11, 13])
+@pytest.mark.parametrize('vs', range(3, 33, 2))
 def test_vis_column_bits_match_the_loop_form(vs):
     """The CUDA kernel's bit algebra for one column (occluded fills by
     doubling) ≡ the loop form of :func:`vis_column`: for every (lit cells,
-    see-through cells) pair up to view 7, and 20,000 seeded pairs beyond."""
+    see-through cells) pair up to view 7, and 20,000 seeded pairs beyond,
+    up to the largest view the kernel takes (31)."""
     if vs <= 7:
         lit, see = torch.meshgrid(torch.arange(1 << vs), torch.arange(1 << vs), indexing='ij')
         lit, see = lit.flatten(), see.flatten()
@@ -161,15 +164,21 @@ def test_vis_column_bits_match_the_loop_form(vs):
     assert int((got_col | got_next).max()) < (1 << vs)  # no bit past the column
 
 
-@pytest.mark.parametrize('n,vs,w,h', [(9, 7, 8, 8), (2, 15, 8, 8), (2, 4, 8, 8),
-                                      (4, 7, 250, 250)])
+@pytest.mark.parametrize('n,vs,w,h', [(2, 4, 8, 8), (2, 32, 8, 8), (2, 33, 8, 8),
+                                      (4, 7, 250, 250), (64, 31, 32, 32)])
 def test_kernel_rejects_unsupported_shapes(n, vs, w, h):
+    """Even views, views past 31 (a view column is one 32-bit word), and
+    envs whose grid and views do not fit a block's shared memory."""
     with pytest.raises(ValueError):
         obs_cuda.check_supported(n, w, h, vs)
 
 
 def test_kernel_takes_its_supported_range():
-    for vs in (3, 5, 7, 9, 11, 13):
-        for n in (1, 2, 8):
+    """Every odd view from 3 to 31 and any team size, as far as one env
+    fits a block's shared memory."""
+    for vs in range(3, 33, 2):
+        for n in (1, 2, 8, 9, 16, 33):
             obs_cuda.check_supported(n, 32, 32, vs)
     obs_cuda.check_supported(4, 13, 25, 7)
+    obs_cuda.check_supported(9, 8, 8, 7)
+    obs_cuda.check_supported(2, 8, 8, 15)

@@ -12,6 +12,12 @@ Phases, in order; any failure exits non-zero:
                each kernel's SASS (cuobjdump; B2, B3, B4 and B5 must have
                some).
 3. kernels  — each kernel against its plain PyTorch version on the card.
+               The observation kernel also on states of every procedural
+               family (BUP N 1/2, RedBlueDoors 6x6/8x8, LockedHallway 2/4/6
+               rooms, Playground N 1/2/10; doors in every state, carried
+               keys and boxes), and the general obs kernel on views 33, 35
+               and 63, a 250x250 grid and 64 agents with view 31, and
+               against obs_kernel on a shape both take.
                The observation kernel, ``torch.equal``, on seeded states
                stepped a few times: the flagship shape (E=4096, N=4, 16x16,
                view 7; see through walls off and on; packed and images),
@@ -25,9 +31,10 @@ Phases, in order; any failure exits non-zero:
                cells), its weight gradient (B=262144, the critic's
                (65536, 196) and small shapes; equal from run to run), the
                PPO loss (B=262144 and 65536, B=256 with 0 and 5 missions, a
-               ragged B=1001; equal from run to run), and
-               the fused rollout policy (B=16384; C 9/25, H 32/256, F 2/14,
-               a ragged batch; a constructed tie takes the first index).
+               ragged B=1001, B=262144 with 12 missions (F 14); equal from
+               run to run), and the fused rollout policy (B=16384; C 9/25,
+               H 32/256, F 2/14, a ragged batch, B=8192 at F 14; a
+               constructed tie takes the first index).
 4. main     — ``VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4), 4096)``
                on the default device: reset, then ``rollout_random`` for 256
                steps, with the kernel's launch count set to 0 just before and
@@ -81,13 +88,35 @@ Phases, in order; any failure exits non-zero:
                fused policy, and the fused policy's kernel time at B=16384
                (its launches alone, the profiler's kernel time and the
                wrapper's call) beside its bound and plain version.
+13. wide view — views past 31 through the entry points (Empty-16x16, 2
+               agents, view 33, 1024 envs): reset and 8 steps on the general
+               obs kernel, launch counts exact, observations equal to the
+               plain version.
+14. zoo     — each of the 13 configurations, 2 agents, 4096 envs: reset and
+               32 random steps with max_steps 16 (every env resets twice),
+               launch counts exact, every call's observations equal to the
+               plain version, every finished env holding its fresh layout's
+               extras; each configuration's step layers and reset share at
+               its registered max_steps; one golden trace per procedural
+               family replayed on the card.
+15. bup train — the JAX package's production recipe: BlockedUnlockPickup,
+               2 agents, 4096 envs, mlp 128 with 12 missions, T 128, 2 epochs
+               x 4 minibatches: 3 updates with exact launch counts (B1 128,
+               B2 129, B4 8 an update), parameters moving, metrics finite;
+               one fused-policy update (B5 at F 14) tracking the default's.
+16. bup timing — its trained agent-steps/s, a rollout step's layers (policy,
+               step, reset and merge, obs) with and without the fused policy,
+               and B1, B2, B4 (F 14) and B5 (F 14) at its shapes beside their
+               bounds, plain versions and library calls.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
-B1 (images and packed, at the flagship and with 16 agents), B2, B3
-(flagship, per-agent and critic shapes), B4 (with its stages) and B5 (at
-the six shapes of its kernel cases) on seeded inputs, with digests of B1's
-and B4's outputs, for comparing two trees in turns within one call (copy
-the script into the other tree).
+B1 (images and packed, at the flagship, with 16 agents and at the BUP
+shape), the general obs kernel (view 33, launches alone), B2, B3 (flagship,
+per-agent and critic shapes), B4 (with its stages; and at F 14) and B5 (at
+the seven shapes of its kernel cases) on seeded inputs, with digests of
+B1's and B4's outputs, for comparing two trees in turns within one call
+(copy the script into the other tree, which must have this tree's
+launchers).
 
 Products in float32 run in full float32 (TF32 off) for the plain versions.
 The line before the last is the kernels' JSON record; the last line is
@@ -117,7 +146,16 @@ SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu')
 #: B5's cases (B, C, H, F, share of pad cells): the rollout's flagship shape
 #: first, then other cell counts, widths, feature counts and ragged batches.
 POLICY_SHAPES = [(E * N, C, HIDDEN, 2, 0.0), (4096, 9, 128, 2, 0.0), (4096, 25, 32, 14, 0.05),
-                 (2048, C, 256, 2, 0.0), (1001, 25, 256, 14, 0.1), (777, 9, 64, 5, 0.0)]
+                 (2048, C, 256, 2, 0.0), (1001, 25, 256, 14, 0.1), (777, 9, 64, 5, 0.0),
+                 (E * 2, C, HIDDEN, 14, 0.0)]
+#: The JAX package's production training recipe (docs/PERFORMANCE.md:259-268):
+#: BlockedUnlockPickup (11x6, view 7, 12 missions), 2 agents, 4096 envs,
+#: mlp 128 bf16 on packed cells, T 128, 2 epochs x 4 minibatches.
+BUP, BUP_N, BUP_T, BUP_EPOCHS, BUP_MB = 'MultiGrid-BlockedUnlockPickup-v0', 2, 128, 2, 4
+BUP_F = 2 + 12  # direction features and the mission one-hot
+#: One golden trace per procedural family, replayed on the card.
+ZOO_GOLDEN = [('MultiGrid-BlockedUnlockPickup-v0', 0, 2), ('MultiGrid-RedBlueDoors-6x6-v0', 0, 3),
+              ('MultiGrid-LockedHallway-2Rooms-v0', 0, 2), ('MultiGrid-Playground-v0', 0, 2)]
 #: B3's kernels in the profiler: the product and the sum of its partials.
 GRAD_KERNELS = ('onehot_grad_kernel', 'sum_partials_kernel')
 
@@ -255,24 +293,33 @@ def onehot_launch_ms(packed, w, reps=200):
 
 
 def obs_launch_ms(state, vs, stw, packed, reps=200):
-    """CUDA-event time of the observation kernel's launches alone, without
-    the wrapper's checks and allocation, as for B2."""
+    """CUDA-event time of the observation kernel's launches alone (the
+    kernel ``check_supported`` names for this shape), without the wrapper's
+    checks and allocations, as for B2."""
     import torch
 
     from multigrid_tpu_torch.ops import obs_cuda
     e, w, h, _ = state.grid.shape
     n = state.agent_dir.shape[-1]
+    dev = state.grid.device
     out = torch.empty((e, n, vs * vs) if packed else (e, n, vs, vs, 3), dtype=torch.int32,
-                      device=state.grid.device)
-    fn = obs_cuda._launch_fn()
-    args = (state.grid.data_ptr(), state.agent_pos.data_ptr(), state.agent_dir.data_ptr(),
+                      device=dev)
+    ptrs = (state.grid.data_ptr(), state.agent_pos.data_ptr(), state.agent_dir.data_ptr(),
             state.agent_color.data_ptr(), state.agent_terminated.data_ptr(),
-            state.agent_carrying.data_ptr(), out.data_ptr(), e, n, w, h, vs, int(stw),
-            int(packed), torch.cuda.current_stream().cuda_stream)
+            state.agent_carrying.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel = obs_cuda.check_supported(n, w, h, vs)
+    if kernel == 'obs':
+        args = (*ptrs, e, n, w, h, vs, int(stw), int(packed), stream)
+    else:
+        slots = obs_cuda.table_size(n)
+        table = torch.empty((e, slots if n > 1 else 0, 2), dtype=torch.int32, device=dev)
+        args = (*ptrs, table.data_ptr(), slots, e, n, w, h, vs, int(stw), int(packed), stream)
+    fn = obs_cuda._lib_fn(kernel)
 
     def launch():
         if fn(*args):
-            fail('obs kernel launch failed')
+            fail(f'{kernel} kernel launch failed')
     return event_ms(launch, reps)
 
 
@@ -310,6 +357,38 @@ def obs_bound(state, vs, packed):
             + state.agent_terminated.numel() + state.agent_carrying.numel() * 4)
     written = n_cells * (1 if packed else 3) * 4
     ops = n_cells * (16 + 12) + state.grid.numel() // 3 * 4
+    return (*bound(read + written, vector_ops=ops), read + written, ops)
+
+
+def general_bound(state, vs, packed):
+    """(bound_ms, bound_by, bytes, ops) of the general obs kernel: what
+    gen_obs needs of this state, each read once — the grid cells inside
+    some agent's view (12 bytes each, the union of the views clipped to the
+    grid), the agents' positions, directions, colors, terminations and
+    carried objects — and its output written once, against the same 28
+    integer operations an output cell as :func:`obs_bound`."""
+    import torch
+
+    e, w, h, _ = state.grid.shape
+    n = state.agent_dir.shape[-1]
+    half, kr = vs // 2, vs - 1
+    x, y, d = state.agent_pos[..., 0], state.agent_pos[..., 1], state.agent_dir
+    tx = torch.where(d == 0, x, torch.where(d == 2, x - kr, x - half))
+    ty = torch.where(d == 1, y, torch.where(d == 3, y - kr, y - half))
+    xs = torch.arange(w, device=x.device)
+    ys = torch.arange(h, device=x.device)
+    in_x = (xs >= tx[..., None]) & (xs < tx[..., None] + vs)           # (E, N, W)
+    in_y = (ys >= ty[..., None]) & (ys < ty[..., None] + vs)           # (E, N, H)
+    seen = torch.zeros((e, w, h), dtype=torch.bool, device=x.device)
+    for a in range(n):
+        seen |= in_x[:, a, :, None] & in_y[:, a, None, :]
+    cells = int(seen.sum())
+    n_cells = e * n * vs * vs
+    read = (cells * 12 + state.agent_pos.numel() * 4 + state.agent_dir.numel() * 4
+            + state.agent_color.numel() * 4 + state.agent_terminated.numel()
+            + state.agent_carrying.numel() * 4)
+    written = n_cells * (1 if packed else 3) * 4
+    ops = n_cells * (16 + 12)
     return (*bound(read + written, vector_ops=ops), read + written, ops)
 
 
@@ -559,8 +638,6 @@ def check_outputs(venv, obs, state, summary, device=None):
     import numpy as np
     import torch
 
-    from multigrid_tpu_torch.envs import make
-    from multigrid_tpu_torch.envs.parity import ParityRunner
     from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
 
     if tuple(obs['image'].shape) != (E, N, VS, VS, 3):
@@ -577,22 +654,34 @@ def check_outputs(venv, obs, state, summary, device=None):
     if not torch.equal(final, gen_obs_batched_plain(state, VS, False)):
         fail('kernel differs from plain version on the rollout state')
     # Recorded reference trajectories, replayed through the kernel on the card.
-    golden = os.path.join(HERE, 'tests', 'golden')
     for env_id, seed, n in [('MultiGrid-Empty-16x16-v0', 3, 2),
                             ('MultiGrid-Empty-Random-5x5-v0', 42, 4)]:
-        data = np.load(os.path.join(golden, f'{env_id}-s{seed}-n{n}.npz'))
-        runner = ParityRunner(make(env_id, agents=n, device=device), seed)
-        obs0 = runner.reset()
-        images = [np.stack([obs0[i]['image'] for i in range(n)])]
-        acts = np.random.default_rng(seed + 1000)
-        for t in range(len(data['rewards'])):
-            o, r, te, tr, _ = runner.step({i: int(acts.integers(0, 7)) for i in range(n)})
-            images.append(np.stack([o[i]['image'] for i in range(n)]))
-            if not all(te[i] == bool(data['terms'][t, i]) for i in range(n)):
-                fail(f'{env_id} s{seed}: terminations differ at step {t}')
-        if not np.array_equal(np.stack(images), data['images'].astype(np.int32)):
-            fail(f'{env_id} s{seed}: observations differ from the golden trace')
-        print(f'golden {env_id} s{seed} n{n}: {len(images) - 1} steps equal on the card')
+        replay_golden(env_id, seed, n, device)
+
+
+def replay_golden(env_id, seed, n, device=None):
+    """A recorded reference trajectory (tests/golden) through the parity
+    runner on the card: observations, terminations and truncations equal,
+    rewards to float32 rounding."""
+    import numpy as np
+
+    from multigrid_tpu_torch.envs import make
+    from multigrid_tpu_torch.envs.parity import ParityRunner
+
+    data = np.load(os.path.join(HERE, 'tests', 'golden', f'{env_id}-s{seed}-n{n}.npz'))
+    runner = ParityRunner(make(env_id, agents=n, device=device), seed)
+    obs0 = runner.reset()
+    images = [np.stack([obs0[i]['image'] for i in range(n)])]
+    acts = np.random.default_rng(seed + 1000)
+    for t in range(len(data['rewards'])):
+        o, r, te, tr, _ = runner.step({i: int(acts.integers(0, 7)) for i in range(n)})
+        images.append(np.stack([o[i]['image'] for i in range(n)]))
+        if not all(te[i] == bool(data['terms'][t, i]) and tr[i] == bool(data['truncs'][t, i])
+                   and abs(r[i] - float(data['rewards'][t, i])) <= 1e-5 for i in range(n)):
+            fail(f'{env_id} s{seed}: rewards, terminations or truncations differ at step {t}')
+    if not np.array_equal(np.stack(images), data['images'].astype(np.int32)):
+        fail(f'{env_id} s{seed}: observations differ from the golden trace')
+    print(f'golden {env_id} s{seed} n{n}: {len(images) - 1} steps equal on the card')
 
 
 def breakdown(venv, state, steps=32):
@@ -601,31 +690,9 @@ def breakdown(venv, state, steps=32):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from multigrid_tpu_torch.core.state import where_state
-    from multigrid_tpu_torch.ops.step import sample_order
-
-    env, g = venv.env, venv.generator
-    layers = {'step': 0.0, 'reset+merge': 0.0, 'obs': 0.0}
-    for _ in range(steps):
-        actions = torch.randint(0, 7, (E, N), generator=g, device=venv.device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        order = sample_order(g, E, N, venv.device)
-        _, new_state, _, term, trunc = env.step_core(state, actions, order)
-        done = term.all(-1) | trunc.any(-1)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state = where_state(done, env.reset_core(E, g), new_state)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        venv.observe(state)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        layers['step'] += t1 - t0
-        layers['reset+merge'] += t2 - t1
-        layers['obs'] += t3 - t2
+    state, _, layers = env_layers(venv, state, steps)
     print('per-step host time by layer (synchronized): ' + ', '.join(
-        f'{k} {v / steps * 1e3:.4f} ms' for k, v in layers.items()))
+        f'{k} {v:.4f} ms' for k, v in layers.items()))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -783,7 +850,8 @@ def train_kernel_cases(device):
     # B4: per leaf max|g - r| / (max|r| + 1e-6) < 5e-2 (bench.py:85-90),
     # and the metrics likewise.
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
-    for b, missions in [(E * N * TRAIN_T, 0), (E * TRAIN_T, 0), (256, 0), (256, 5), (1001, 3)]:
+    for b, missions in [(E * N * TRAIN_T, 0), (E * TRAIN_T, 0), (256, 0), (256, 5), (1001, 3),
+                        (E * BUP_N * BUP_T // BUP_MB, BUP_F - 2)]:
         params, args = ppo_inputs(rng, b, C, HIDDEN, missions, device)
         grads, metrics = fused_ppo.ppo_mlp_grads(params, *args, **kw)
         want_g, want_m = fused_ppo.ppo_mlp_grads_plain(
@@ -863,20 +931,23 @@ def policy_kernel_cases(device):
 
 def _counts():
     from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
-    return {'obs': obs_cuda.launches, 'onehot_linear': fused_linear.launches,
+    return {'obs': obs_cuda.launches, 'obs_general': obs_cuda.general_launches,
+            'onehot_linear': fused_linear.launches,
             'onehot_linear_grad': fused_linear.grad_launches, 'ppo_loss': fused_ppo.launches,
             'policy_sample': fused_policy.launches}
 
 
 def _zero_counts():
     from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
-    obs_cuda.launches = fused_linear.launches = fused_linear.grad_launches = 0
+    obs_cuda.launches = obs_cuda.general_launches = 0
+    fused_linear.launches = fused_linear.grad_launches = 0
     fused_ppo.launches = fused_policy.launches = 0
 
 
 def _set_counts(counts):
     from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
     obs_cuda.launches, fused_linear.launches = counts['obs'], counts['onehot_linear']
+    obs_cuda.general_launches = counts['obs_general']
     fused_linear.grad_launches, fused_ppo.launches = (counts['onehot_linear_grad'],
                                                       counts['ppo_loss'])
     fused_policy.launches = counts['policy_sample']
@@ -916,13 +987,13 @@ def _restore(step, snap):
 
 def _counted(step, snap, updates, label, **want):
     """``updates`` updates from ``snap``, the launch counts set to 0 just
-    before and checked exactly just after against ``want`` (16 obs launches
-    an update, 0 of any kernel not named)."""
+    before and checked exactly just after against ``want`` (one obs launch
+    a rollout step, 0 of any kernel not named)."""
     state = _restore(step, snap)
     _zero_counts()
     state, rows = _run(step, state, updates)
     counts = _counts()
-    want = {**{k: 0 for k in counts}, 'obs': TRAIN_T * updates, **want}
+    want = {**{k: 0 for k in counts}, 'obs': step.config.rollout_steps * updates, **want}
     print(f'{label}, {updates} updates: launches {counts}')
     if counts != want:
         fail(f'{label}: expected launches {want}, got {counts}')
@@ -1152,38 +1223,37 @@ def train_timing(venv, step, state):
 
 
 def rollout_layers(step, state, steps=8):
-    """Where a rollout step's host time goes, each layer synchronized: the
-    policy step (noise, forward and sampling, through ``step.policy_step``:
-    the fused-policy kernel where the step takes it) and the env step."""
+    """Where a rollout step's host time goes, each layer synchronized (see
+    :func:`env_layers`): the policy step (noise, forward and sampling,
+    through ``step.policy_step``: the fused-policy kernel where the step
+    takes it), then the env step's layers. Returns ``(state, layers)``."""
     import torch
 
-    venv, params, obs, env_state = step.venv, state.params, state.last_obs, state.env_state
+    params = state.params
     prepped = step.prepare_policy(params)
-    layers = {'policy step': 0.0, 'env step': 0.0}
+
+    def policy(obs):
+        return step.policy_step(params, prepped, obs, state.generator)[0]
     with torch.no_grad():
-        for _ in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            action = step.policy_step(params, prepped, obs, state.generator)[0]
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            obs, env_state, *_ = venv.step(env_state, action)
-            torch.cuda.synchronize()
-            layers['policy step'] += t1 - t0
-            layers['env step'] += time.perf_counter() - t1
+        env_state, obs, layers = env_layers(step.venv, state.env_state, steps, policy)
     label = 'fused policy' if prepped is not None else 'default path'
     print(f'per-rollout-step host time by layer, {label} (synchronized): ' + ', '.join(
-        f'{k} {v / steps * 1e3:.4f} ms' for k, v in layers.items()))
-    return state.replace(last_obs=obs, env_state=env_state)
+        f'{k} {v:.4f} ms' for k, v in layers.items()))
+    return state.replace(last_obs=obs, env_state=env_state), layers
 
 
 def train_breakdown(step, state, steps=8):
     """Where a rollout step's host time goes (each layer synchronized), then
     where an update's device time goes, from torch.profiler."""
+    state, _ = rollout_layers(step, state, steps)
+    return profile_update(step, state)
+
+
+def profile_update(step, state, label='update'):
+    """One update under torch.profiler: the device's busy share of the
+    wall time and the kernels that take its time. Returns the state."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    state = rollout_layers(step, state, steps)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1196,7 +1266,7 @@ def train_breakdown(step, state, steps=8):
         print('device busy share: not measured (the profiler saw no device time)')
         return state
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f'profiled update: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms '
+    print(f'profiled {label}: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms '
           f'({busy_ms / wall_ms:.4f} of the wall time), {len(kernels)} device kernels')
     by_name = {}
     for e in kernels:
@@ -1365,6 +1435,476 @@ def variant_timing(steps):
                                            profiler_ms=dev_ms))
 
 
+# ------------------------------------------------------ the procedural zoo
+
+def zoo_states(device, e=1024):
+    """Seeded states of each procedural family on the card: fresh layouts
+    stepped 6 times with random actions, then agents given carried keys and
+    boxes, and doors set open, closed or locked at random. Returns
+    ``[(label, state, view)]``."""
+    import torch
+
+    from multigrid_tpu_torch.core.constants import (
+        STATE_LOCKED, TYPE_BOX, TYPE_DOOR, TYPE_EMPTY, TYPE_KEY)
+    from multigrid_tpu_torch.envs import make
+
+    out = []
+    for env_id, ns in [(BUP, (1, 2)), ('MultiGrid-RedBlueDoors-6x6-v0', (2,)),
+                       ('MultiGrid-RedBlueDoors-8x8-v0', (2,)),
+                       ('MultiGrid-LockedHallway-2Rooms-v0', (2,)),
+                       ('MultiGrid-LockedHallway-4Rooms-v0', (2,)),
+                       ('MultiGrid-LockedHallway-6Rooms-v0', (2,)),
+                       ('MultiGrid-Playground-v0', (1, 2, 10))]:
+        for n in ns:
+            env = make(env_id, agents=n, device=device)
+            g = torch.Generator(device=env.device).manual_seed(n)
+            state = env.reset_core(e, g).clone()
+            for _ in range(6):
+                state = env.step(state, torch.randint(0, 7, (e, n), generator=g,
+                                                      device=env.device), g)[1]
+            kind = torch.randint(0, 3, (e, n), generator=g, device=env.device)
+            color = torch.randint(0, 6, (e, n), generator=g, device=env.device,
+                                  dtype=torch.int32)
+            carry = torch.stack([torch.tensor([TYPE_EMPTY, TYPE_KEY, TYPE_BOX],
+                                              device=env.device, dtype=torch.int32)[kind],
+                                 torch.where(kind == 0, 0, color), torch.zeros_like(color)], -1)
+            grid = state.grid.clone()
+            door = grid[..., 0] == TYPE_DOOR
+            grid[..., 2] = torch.where(door, torch.randint(
+                0, STATE_LOCKED + 1, door.shape, generator=g, device=env.device,
+                dtype=torch.int32), grid[..., 2])
+            state = state.replace(grid=grid, agent_carrying=carry)
+            if not bool(door.flatten(1).any(-1).all()):
+                fail(f'{env_id}: a layout without a door')
+            out.append((f'{env_id[10:]} N={n}', state, env.cfg.view_size))
+    return out
+
+
+def zoo_obs_cases(device):
+    """B1 ≡ its plain version on every procedural family's states (doors in
+    every state, carried keys and boxes), images and packed, see-through
+    walls off and on. Returns the largest abs difference."""
+    import torch
+
+    from multigrid_tpu_torch.ops import obs_cuda
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+
+    max_err, cases = 0, 0
+    for label, st, vs in zoo_states(device):
+        for stw, packed in ((False, False), (False, True), (True, False)):
+            got = obs_cuda.gen_obs_batched(st, vs, stw, packed)
+            want = gen_obs_batched_plain(st, vs, stw, packed)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err, cases = max(max_err, err), cases + 1
+            ok = torch.equal(got, want)
+            print(f'  {"ok  " if ok else "FAIL"} {label} stw={stw} packed={packed} '
+                  f'shape={tuple(got.shape)} max_abs_err={err}')
+            if not ok:
+                fail(f'obs kernel differs from plain version: {label}')
+    print(f'{cases} zoo cases equal')
+    return max_err
+
+
+def general_cases(device):
+    """The general obs kernel ≡ the plain version on the shapes obs_kernel
+    does not take (views 33, 35 and 63; a 250x250 grid; 64 agents with view
+    31), and ≡ obs_kernel on a shape both take; then its time at two shapes
+    beside its bound and the plain version's. Launch counts are restored."""
+    import torch
+
+    from multigrid_tpu_torch.ops import obs_cuda
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+
+    counts = _counts()
+    max_err, n_cases = 0, 0
+    shapes = [(32, 32, 2, 33, 256), (32, 32, 2, 35, 256), (64, 64, 1, 63, 64),
+              (250, 250, 2, 7, 64), (32, 32, 64, 31, 16)]
+    states = {}
+    for w, h, n, vs, e in shapes:
+        if obs_cuda.check_supported(n, w, h, vs) != 'general':
+            fail(f'{w}x{h} N={n} view {vs} does not go to the general kernel')
+        st = states[(w, h, n, vs)] = random_state(50 + vs + n, e, w, h, n, device)
+        for stw in (False, True):
+            for packed in (False, True):
+                before = obs_cuda.general_launches
+                got = obs_cuda.gen_obs_batched(st, vs, stw, packed)
+                want = gen_obs_batched_plain(st, vs, stw, packed)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                max_err, n_cases = max(max_err, err), n_cases + 1
+                ok = torch.equal(got, want) and obs_cuda.general_launches == before + 1
+                print(f'  {"ok  " if ok else "FAIL"} general {w}x{h} N={n} vs={vs} E={e} '
+                      f'stw={stw} packed={packed} max_abs_err={err}')
+                if not ok:
+                    fail(f'general obs kernel differs from plain version: {w}x{h} N={n} vs={vs}')
+    # A shape both take: the general kernel, forced, against obs_kernel.
+    st = random_state(60, 1024, SIZE, SIZE, 9, device)
+    route = obs_cuda.check_supported
+    for packed in (False, True):
+        want = obs_cuda.gen_obs_batched(st, VS, False, packed)
+        obs_cuda.check_supported = lambda *a: 'general'
+        try:
+            got = obs_cuda.gen_obs_batched(st, VS, False, packed)
+        finally:
+            obs_cuda.check_supported = route
+        torch.cuda.synchronize()
+        n_cases += 1
+        print(f'  {"ok  " if torch.equal(got, want) else "FAIL"} general = obs_kernel at '
+              f'16x16 N=9 vs=7 E=1024 packed={packed}')
+        if not torch.equal(got, want):
+            fail('general obs kernel differs from obs_kernel at a shape both take')
+    print(f'{n_cases} general-kernel cases equal')
+    times = {}
+    for key in [(250, 250, 2, 7), (32, 32, 2, 33)]:
+        st, vs = states[key], key[3]
+        ms = obs_launch_ms(st, vs, False, True, reps=50)
+        call = event_ms(lambda: obs_cuda.gen_obs_batched(st, vs, False, True), 20)
+        plain = event_ms(lambda: gen_obs_batched_plain(st, vs, False, True), 3)
+        bd, by, nbytes, ops = general_bound(st, vs, True)
+        label = f'{key[0]}x{key[1]} N={key[2]} vs={vs} E={st.num_envs} packed'
+        times[label] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bd, bound_by=by)
+        print(f'general obs kernel {label}: launches {ms:.6f} ms (CUDA events), the '
+              f'wrapper\'s call {call:.6f} ms; plain {plain:.6f} ms; bound {bd:.6f} ms by {by} '
+              f'({nbytes} bytes, {ops} ops); {bd / ms:.4f} of the bound')
+    _set_counts(counts)
+    return dict(max_abs_err=max_err, cases=n_cases, times=times)
+
+
+def wide_view_path(device=None, e=1024, steps=8):
+    """Views past 31 through the entry points: ``VectorEnv(make(
+    'MultiGrid-Empty-16x16-v0', agents=2, agent_view_size=33), 1024)``,
+    reset and ``steps`` steps, the launch counts set to 0 just before and
+    read just after (one general-kernel launch a call, no obs_kernel), each
+    call's observations equal to the plain version."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+
+    venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=2, agent_view_size=33,
+                          device=device), e)
+    _zero_counts()
+    obs, state = venv.reset(seed=0)
+    pairs = [(obs['image'], state)]
+    for _ in range(steps):
+        actions = torch.randint(0, 7, (e, 2), generator=venv.generator, device=venv.device)
+        obs, state, *_ = venv.step(state, actions)
+        pairs.append((obs['image'], state))
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**{k: 0 for k in counts}, 'obs_general': steps + 1}
+    print(f'view-33 VectorEnv, reset + {steps} steps: launches {counts}')
+    if counts != want:
+        fail(f'view-33 VectorEnv: expected launches {want}, got {counts}')
+    for t, (image, st) in enumerate(pairs):
+        if not torch.equal(image, gen_obs_batched_plain(st, 33, False)):
+            fail(f'view-33 VectorEnv: observations differ from the plain version at call {t}')
+    print(f'view-33 VectorEnv: all {len(pairs)} observations equal to the plain version')
+    return counts['obs_general']
+
+
+def fresh_extras_ok(state, fresh):
+    """Whether the envs in ``fresh`` (E,) hold extras of their own layout:
+    the mission color is the box's, the doors' cells hold the red and blue
+    doors, no door is counted unlocked, the step count is 0."""
+    import torch
+
+    from multigrid_tpu_torch.core.constants import STATE_CLOSED, TYPE_BOX, TYPE_DOOR
+
+    ok = state.step_count == 0
+    ex, grid = state.extras, state.grid
+    env = torch.arange(state.num_envs, device=grid.device)
+    if 'mission_color' in ex:
+        box = grid[..., 0] == TYPE_BOX
+        ok &= torch.where(box, grid[..., 1], 0).flatten(1).sum(-1) == ex['mission_color']
+        ok &= box.flatten(1).sum(-1) == 1
+    for key, color in (('red_pos', 0), ('blue_pos', 2)):
+        if key in ex:
+            p = ex[key].long()
+            cell = grid[env, p[:, 0], p[:, 1]]
+            ok &= (cell[:, 0] == TYPE_DOOR) & (cell[:, 1] == color) & (cell[:, 2] == STATE_CLOSED)
+    if 'door_unlocked' in ex:
+        ok &= ~ex['door_unlocked'].any(-1)
+    return bool((ok | ~fresh).all())
+
+
+def env_layers(venv, state, steps=8, policy=None):
+    """Where a step's host time goes, each layer synchronized: the policy
+    (where ``policy(obs) -> actions`` is given, else uniform-random
+    actions), then the stages of ``VectorEnv.step`` itself: the env step
+    (``step_dynamics``: orders, dynamics, hook, done and success), the
+    reset and merge (``auto_reset``) and the observations (``observe``).
+    Returns ``(state, obs, {layer: ms a step})``."""
+    import torch
+
+    g, e, n = venv.generator, venv.num_envs, venv.num_agents
+    layers = {'policy': 0.0, 'step': 0.0, 'reset+merge': 0.0, 'obs': 0.0}
+    obs = venv.observe(state)
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        actions = policy(obs) if policy is not None else torch.randint(
+            0, 7, (e, n), generator=g, device=venv.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        obs_state, state, *_, done, _ = venv.step_dynamics(state, actions)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        obs_state, state = venv.auto_reset(done, obs_state, state)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        obs = venv.observe(obs_state)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, a, b in (('policy', t0, t1), ('step', t1, t2), ('reset+merge', t2, t3),
+                        ('obs', t3, t4)):
+            layers[k] += b - a
+    out = {k: v / steps * 1e3 for k, v in layers.items() if policy is not None or k != 'policy'}
+    return state, obs, out
+
+
+def zoo(device=None, steps=32):
+    """Each of the 13 configurations, 2 agents, 4096 envs on the card:
+
+    - correctness with ``max_steps=16``, so that every env resets twice in
+      ``steps`` random steps: the launch counts set to 0 just before the
+      reset and read just after the last step (one obs launch a call), each
+      call's observations equal to the plain version on the state it
+      observed, and every env that finished holding its fresh layout's
+      extras;
+    - at the registered ``max_steps``, where a step's host time goes
+      (step, reset and merge, obs) and the reset's share of it;
+    - one golden trace per procedural family replayed on the card.
+    """
+    import torch
+
+    from multigrid_tpu_torch import CONFIGURATIONS, VectorEnv, make
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+    from multigrid_tpu_torch.parallel import vector
+
+    kernel = vector.gen_obs_batched
+    mismatches = []
+
+    def checked(state, view_size, see_through_walls, packed=False):
+        got = kernel(state, view_size, see_through_walls, packed)
+        if not torch.equal(got, gen_obs_batched_plain(state, view_size, see_through_walls,
+                                                       packed)):
+            mismatches.append(state.num_envs)
+        return got
+
+    shares, launches = {}, 0
+    for env_id in sorted(CONFIGURATIONS):
+        venv = VectorEnv(make(env_id, agents=2, max_steps=16, device=device), E)
+        if venv.device.type != 'cuda':
+            fail(f'default device is {venv.device}, not cuda')
+        vector.gen_obs_batched = checked
+        try:
+            _zero_counts()
+            obs, state = venv.reset(seed=0)
+            dones = 0
+            for t in range(steps):
+                actions = torch.randint(0, 7, (E, 2), generator=venv.generator,
+                                        device=venv.device)
+                obs, state, _, _, _, done, _ = venv.step(state, actions)
+                dones += int(done.sum())
+                if not fresh_extras_ok(state, done):
+                    fail(f'{env_id}: an env that finished at step {t} holds stale extras')
+            torch.cuda.synchronize()
+        finally:
+            vector.gen_obs_batched = kernel
+        counts = _counts()
+        want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+        if counts != want:
+            fail(f'{env_id}: expected launches {want}, got {counts}')
+        if mismatches:
+            fail(f'{env_id}: observations differ from the plain version')
+        if dones < 2 * E:
+            fail(f'{env_id}: {dones} episodes ended in {steps} steps, fewer than {2 * E}')
+        if 'mission' in obs and not torch.equal(
+                obs['mission'][:, 0], state.extras['mission_color'] * 2):
+            fail(f'{env_id}: the observed missions are not the episodes\'')
+        launches += counts['obs']
+
+        venv = VectorEnv(make(env_id, agents=2, device=device), E)
+        _, state = venv.reset(seed=1)
+        env_layers(venv, state, 2)  # warm-up
+        _, _, layers = env_layers(venv, state, 8)
+        total = sum(layers.values())
+        shares[env_id] = dict(**layers, reset_share=layers['reset+merge'] / total)
+        print(f'{env_id}: reset + {steps} steps (max_steps 16, {dones} episodes ended): '
+              f'launches {counts}, observations equal to the plain version, fresh extras ok; '
+              f'per-step host time (registered max_steps): ' + ', '.join(
+                  f'{k} {v:.4f} ms' for k, v in layers.items())
+              + f'; reset share {layers["reset+merge"] / total:.4f}')
+    for env_id, seed, n in ZOO_GOLDEN:
+        replay_golden(env_id, seed, n, device)
+    return dict(launches=launches, reset_share=shares)
+
+
+# ------------------------------------------------ BlockedUnlockPickup recipe
+
+def bup_train(device=None):
+    """The JAX package's production recipe on the card: BlockedUnlockPickup,
+    2 agents, 4096 envs, mlp 128 bf16 with 12 missions, T 128, 2 epochs x 4
+    minibatches. Three updates with the launch counts set to 0 just before
+    and checked exactly just after (128 obs launches, 129 first-layer
+    launches and 8 loss-kernel launches an update, no gradient kernel);
+    metrics finite and every parameter group moving; then one update from
+    the same state on the fused-policy variant (128 policy launches, F 14),
+    whose metrics track the default path's first update."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+
+    venv = VectorEnv(make(BUP, agents=BUP_N, device=device), E, packed_obs=True)
+    if venv.device.type != 'cuda':
+        fail(f'default device is {venv.device}, not cuda')
+    cfg = PPOConfig(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)
+    state, net, cfg, tx = ppo_init(venv, 0, config=cfg, hidden=HIDDEN)
+    if net.num_missions != 12 or state.params['Dense_0.kernel'].shape[0] != BUP_F:
+        fail(f'BUP net has {net.num_missions} missions, not 12')
+    step = make_train_step(venv, net, cfg, tx)
+    snap = _snapshot(step, state)
+    sgd = BUP_EPOCHS * BUP_MB
+    after, rows = _counted(step, snap, 3, 'BUP recipe', onehot_linear=3 * (BUP_T + 1),
+                           ppo_loss=3 * sgd)
+    counts = _counts()
+    moved = [k for k in snap[0].params if not torch.equal(snap[0].params[k], after.params[k])]
+    print(f'  {len(moved)} of {len(snap[0].params)} parameters moved; metrics of the last '
+          'update: ' + json.dumps(rows[-1]))
+    if len(moved) != len(snap[0].params):
+        fail(f'BUP recipe: parameters that did not move: '
+             f'{sorted(set(snap[0].params) - set(moved))}')
+    os.environ['MULTIGRID_FUSED_POLICY'] = '1'
+    try:
+        fused = make_train_step(venv, net, cfg, tx)
+    finally:
+        del os.environ['MULTIGRID_FUSED_POLICY']
+    if not fused.fused_policy:
+        fail('MULTIGRID_FUSED_POLICY does not select the fused policy on the BUP recipe')
+    _, rows_f = _counted(fused, snap, 1, 'BUP recipe, fused policy (F 14)', onehot_linear=1,
+                         ppo_loss=sgd, policy_sample=BUP_T)
+    counts_fused = _counts()
+    _track(rows_f, rows[:1], 'BUP fused policy vs default path')
+    return venv, step, fused, after, counts, counts_fused
+
+
+def bup_timing(venv, step, fused, state):
+    """The BUP recipe's trained agent-steps/s (median of 3 length-differenced
+    pairs of 1 and 3 updates), a rollout step's layers (policy, step, reset
+    and merge, obs) with and without the fused policy, and each kernel at
+    the recipe's shapes on a rollout's data beside its bound, its plain
+    version and a library call: B1 (4096, 2, 11x6, view 7, packed), B2
+    (8192, 49, 128), B4 (262,144, F 14; B3 inside it) and B5 (8192, F 14).
+    Launch counts are restored."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from multigrid_tpu_torch.learn import ppo
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    from multigrid_tpu_torch.ops import fused_policy as fp
+    from multigrid_tpu_torch.ops import fused_ppo
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+
+    counts = _counts()
+    samples = E * BUP_N * BUP_T
+    short, long_ = 1, 3
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = _run(step, state, short)
+        t1 = time.perf_counter()
+        state, _ = _run(step, state, long_)
+        t2 = time.perf_counter()
+        rates.append(samples * (long_ - short) / ((t2 - t1) - (t1 - t0)))
+    rate = statistics.median(rates)
+    print(f'BUP recipe trained agent-steps/s (median of 3, length-differenced {short}/{long_} '
+          f'updates): {rate:.6e} ({samples / rate * 1e3:.4f} ms/update; pairs '
+          + ', '.join(f'{r:.6e}' for r in rates) + ')')
+
+    layers = {}
+    for label, s in (('default path', step), ('fused policy', fused),
+                     ('fused policy', fused), ('default path', step)):
+        state, lay = rollout_layers(s, state, 8)
+        layers.setdefault(label, []).append(lay)
+        env_ms = sum(lay.values()) - lay['policy']
+        print(f'  BUP reset share of the env step, {label}: {lay["reset+merge"] / env_ms:.4f}')
+
+    state = profile_update(step, state, 'BUP recipe update')
+
+    # The kernels at the recipe's shapes, on a rollout's data.
+    with torch.no_grad():
+        state, traj, last_value, _ = step.rollout_phase(state)
+        adv, tg = step.compute_gae(traj, last_value)
+    env_state = state.env_state
+    out = {}
+    ms = obs_launch_ms(env_state, VS, False, True)
+    plain = event_ms(lambda: gen_obs_batched_plain(env_state, VS, False, True), 10)
+    bd, by, nbytes, _ = obs_bound(env_state, VS, True)
+    out['obs'] = dict(shape=[E, BUP_N, 11, 6, VS], ms=ms, plain_ms=plain, bound_ms=bd,
+                      bound_by=by, library_ms=None)
+    b8 = E * BUP_N
+    w = state.params['img_kernel']
+    packed8 = traj.image[0].reshape(b8, C).contiguous()
+    rows = (torch.stack([packed8 >> 8, 11 + ((packed8 >> 4) & 15), 17 + (packed8 & 15)], -1)
+            + 21 * torch.arange(C, device=w.device)[:, None]).reshape(b8, -1).long()
+    ms = onehot_launch_ms(packed8, w)
+    plain = event_ms(lambda: fl.onehot_linear_plain(packed8, w), 10)
+    lib = event_ms(lambda: F.embedding_bag(rows, w, mode='sum'), 100)
+    bd = bound(packed8.numel() * 4 + w.numel() * 4 + b8 * HIDDEN * 2,
+               ops_ms=onehot_ms(nonzeros(packed8), b8, C, HIDDEN, 'BUP onehot_linear'))
+    out['onehot_linear'] = dict(shape=[b8, C, HIDDEN], ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=bd[0], bound_by=bd[1])
+    perm = torch.randperm(BUP_T, device=w.device)
+    tr, a, t = next(ppo.minibatches((traj, adv, tg), BUP_MB, perm, 0))
+    args = step.kernel_inputs(tr, a, t)
+    b = args[0].shape[0]
+    if b != samples // BUP_MB or args[1].shape[1] != BUP_F:
+        fail(f'BUP minibatch kernel inputs {tuple(args[0].shape)}, {tuple(args[1].shape)}')
+    p = state.params
+    kw = dict(clip_eps=step.config.clip_eps, vf_coef=step.config.vf_coef,
+              ent_coef=step.config.ent_coef, num_actions=7)
+    ms = event_ms(lambda: fused_ppo.ppo_mlp_grads(p, *args, **kw), 10)
+    plain = event_ms(lambda: fused_ppo.ppo_mlp_grads_plain(
+        p, *args, compute_dtype=torch.bfloat16, **kw), 3)
+    stages = ppo_stages(lambda: fused_ppo.ppo_mlp_grads(p, *args, **kw))
+    param_bytes = sum(v.numel() * 4 for v in p.values())
+    f1 = BUP_F + 1
+    nnz = nonzeros(args[0])
+    bd = bound(sum(x.numel() * x.element_size() for x in args) + 2 * param_bytes,
+               tensor_ops=2 * b * (2 * f1 * HIDDEN + 3 * HIDDEN * HIDDEN + 3 * HIDDEN * 8),
+               ops_ms=2 * onehot_ms(nnz, b, C, HIDDEN, 'BUP ppo_loss (h and dW_img, each)'))
+    print(f'BUP ppo_loss B={b} F={BUP_F} stages (torch.profiler, ms): '
+          + ', '.join(f'{k} {v:.6f}' for k, v in stages.items()))
+    out['ppo_loss'] = dict(shape=[b, C, HIDDEN, BUP_F], ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=bd[0], bound_by=bd[1], stages=stages)
+    wp = fp.prepare(p)
+    obs = state.last_obs
+    dirf = step.dir_features(obs['direction'], obs['mission']).reshape(b8, BUP_F)
+    gumbel = -torch.log(-torch.log(torch.rand(b8, 7, device=w.device).clamp_min(1e-30)))
+    ms = policy_launch_ms(wp, packed8, dirf, gumbel)
+    plain = event_ms(lambda: fp.policy_sample_plain(wp, packed8, dirf, gumbel,
+                                                    compute_dtype=torch.bfloat16), 10)
+    in_bytes = sum(x.numel() * x.element_size() for x in [packed8, dirf, gumbel, *wp.values()])
+    bd = bound(in_bytes + 12 * b8,
+               tensor_ops=2 * b8 * (HIDDEN * HIDDEN + (BUP_F + 1) * HIDDEN + 8 * HIDDEN),
+               ops_ms=onehot_ms(nonzeros(packed8), b8, C, HIDDEN, 'BUP policy_sample'))
+    out['policy_sample'] = dict(shape=[b8, C, HIDDEN, BUP_F], ms=ms, plain_ms=plain,
+                                library_ms=None, bound_ms=bd[0], bound_by=bd[1])
+    _set_counts(counts)
+    for name, r in out.items():
+        lib = 'none' if r['library_ms'] is None else f'{r["library_ms"]:.6f} ms'
+        print(f'BUP {name} {r["shape"]}: {r["ms"]:.6f} ms/launch; plain {r["plain_ms"]:.6f} ms; '
+              f'library {lib}; bound {r["bound_ms"]:.6f} ms by {r["bound_by"]}; '
+              f'{r["bound_ms"] / r["ms"]:.4f} of the bound')
+    return dict(rate=rate, layers=layers, kernels=out)
+
+
 def kernel_times(device):
     """``--kernel-times``: B2 at the rollout's three shapes, B3 at the
     learner's three (flagship, per agent, critic), B1 at the flagship as
@@ -1395,8 +1935,7 @@ def kernel_times(device):
         res[key + ' call'] = event_ms(lambda: fl.onehot_linear_forward(packed, w), 100)
         res[key + ' kernel (profiler)'] = kernel_device_ms(
             lambda: fl.onehot_linear_forward(packed, w), 'onehot_linear_kernel')
-        if hasattr(fl, 'pad_columns'):  # the launcher's signature of this tree
-            res[key + ' launches'] = onehot_launch_ms(packed, w)
+        res[key + ' launches'] = onehot_launch_ms(packed, w)
     for label, b, c in [('flagship', E * N * TRAIN_T, C), ('per agent', E * TRAIN_T, C),
                         ('critic', E * TRAIN_T, N * C)]:
         packed = random_cells(rng, b, c, device, 0.05)
@@ -1421,14 +1960,14 @@ def kernel_times(device):
         res[key + ' call'] = event_ms(lambda: obs_cuda.gen_obs_batched(state, VS, False, packed),
                                       200)
     team = random_state(5, E, SIZE, SIZE, 16, device)
-    try:
-        obs_cuda.check_supported(16, SIZE, SIZE, VS)
-    except ValueError as err:
-        print(f'obs with 16 agents: not timed ({err})')
-    else:
-        for packed in (False, True):
-            key = f'obs {"packed" if packed else "images"} ({E}, 16, {VS})'
-            res[key + ' launches'] = obs_launch_ms(team, VS, False, packed)
+    for packed in (False, True):
+        key = f'obs {"packed" if packed else "images"} ({E}, 16, {VS})'
+        res[key + ' launches'] = obs_launch_ms(team, VS, False, packed)
+    bup = random_state(6, E, 11, 6, BUP_N, device)
+    key = f'obs packed BUP shape ({E}, {BUP_N}, 11x6, {VS})'
+    res[key + ' launches'] = obs_launch_ms(bup, VS, False, True)
+    wide = random_state(7, 256, 32, 32, 2, device)
+    res['obs_general packed (256, 2, 32x32, 33) launches'] = obs_launch_ms(wide, 33, False, True)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
     for b in (E * N * TRAIN_T, E * TRAIN_T):
         params, args = ppo_inputs(rng, b, C, HIDDEN, 0, device)
@@ -1439,6 +1978,9 @@ def kernel_times(device):
         res[f'ppo_loss B={b}'] = event_ms(lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw), 10)
         res[f'ppo_loss B={b} stages'] = ppo_stages(
             lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw))
+    params, args = ppo_inputs(rng, E * N * TRAIN_T, C, HIDDEN, BUP_F - 2, device)
+    res[f'ppo_loss B={E * N * TRAIN_T} F={BUP_F}'] = event_ms(
+        lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw), 10)
     for b, c, h, f, pad in POLICY_SHAPES:
         params, args = ppo_inputs(rng, b, c, h, f - 2, device)
         w = fp.prepare(params)
@@ -1486,7 +2028,8 @@ def main() -> None:
         return
     sass = sass_tensor_ops()
     phase('kernels')
-    obs_err = obs_cases(device)
+    obs_err = max(obs_cases(device), zoo_obs_cases(device))
+    general = general_cases(device)
     errs = train_kernel_cases(device)
     policy_err = policy_kernel_cases(device)
     phase('main')
@@ -1509,6 +2052,14 @@ def main() -> None:
     steps, counts_fused = variants()
     phase('variant timing')
     vt = variant_timing(steps)
+    phase('wide view')
+    wide_launches = wide_view_path()
+    phase('zoo')
+    zoo_res = zoo()
+    phase('bup train')
+    bvenv, bstep, bfused, bstate, bcounts, bcounts_fused = bup_train()
+    phase('bup timing')
+    bt = bup_timing(bvenv, bstep, bfused, bstate)
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
@@ -1516,7 +2067,9 @@ def main() -> None:
                     max_abs_err=obs_err, equal=obs_err == 0, ms=t['ms'],
                     plain_ms=t['plain_ms'], bound_ms=t['bound_ms'], bound_by=t['bound_by'],
                     library_ms=None, sass_tensor_ops=sass['obs'], call_ms=t['call_ms'],
-                    profiler_ms=t['profiler_ms'], packed=t['packed'], team=team)]
+                    profiler_ms=t['profiler_ms'], packed=t['packed'], team=team,
+                    launches_zoo=zoo_res['launches'], launches_bup_train=bcounts['obs'],
+                    bup=bt['kernels']['obs'])]
     for name, replaces, src, n in [
             ('onehot_linear', 'multigrid_tpu/ops/fused_linear.py:133', 'fused_linear.cu',
              counts['onehot_linear']),
@@ -1529,15 +2082,37 @@ def main() -> None:
                             max_rel_err=errs[name][1], sass_tensor_ops=sass[name],
                             **tt['kernels'][name]))
     kernels[2]['launches_path'] = 'train, learner gate off (autograd)'
+    for k in kernels[1:4]:
+        k['launches_bup_train'] = bcounts[k['name']]
+        if k['name'] in bt['kernels']:
+            k['bup'] = bt['kernels'][k['name']]
     kernels.append(dict(name='policy_sample', route='cuda',
                         source='multigrid_tpu_torch/csrc/fused_policy.cu',
                         replaces='multigrid_tpu/ops/fused_policy.py:62',
                         launches=counts_fused['policy_sample'],
                         launches_path='train, MULTIGRID_FUSED_POLICY set',
                         max_abs_err=policy_err[0], max_rel_err=policy_err[1],
-                        sass_tensor_ops=sass['policy_sample'], **vt['kernel']))
+                        sass_tensor_ops=sass['policy_sample'], **vt['kernel'],
+                        launches_bup_fused=bcounts_fused['policy_sample'],
+                        bup=bt['kernels']['policy_sample']))
+    gen_t = general['times']['250x250 N=2 vs=7 E=64 packed']
+    kernels.append(dict(name='obs_general', route='cuda',
+                        source='multigrid_tpu_torch/csrc/obs.cu',
+                        replaces='multigrid_tpu/ops/obs_pallas.py:176',
+                        serves='the shapes the JAX package serves through its XLA path '
+                               '(multigrid_tpu/parallel/vector.py:113-147)',
+                        launches=wide_launches,
+                        launches_path='view-33 VectorEnv, reset + 8 steps',
+                        max_abs_err=general['max_abs_err'], equal=general['max_abs_err'] == 0,
+                        ms=gen_t['ms'], call_ms=gen_t['call_ms'], plain_ms=gen_t['plain_ms'],
+                        bound_ms=gen_t['bound_ms'], bound_by=gen_t['bound_by'],
+                        library_ms=None, shape='250x250 N=2 vs=7 E=64 packed',
+                        times=general['times']))
     print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate'],
-                      'variants_trained_agent_steps_per_s': vt['rates']}))
+                      'variants_trained_agent_steps_per_s': vt['rates'],
+                      'bup_trained_agent_steps_per_s': bt['rate'],
+                      'bup_rollout_layers_ms': bt['layers'],
+                      'zoo_reset_share': zoo_res['reset_share']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

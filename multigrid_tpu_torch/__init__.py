@@ -3,9 +3,11 @@
 The gridworld lives as dense integer tensors with a leading env axis, the
 multi-agent step is plain PyTorch on batched tensors, observations come from
 a hand-written CUDA kernel (with a plain PyTorch version for the CPU), and
-thousands of environments run in lockstep on one card. ``learn`` trains PPO
-policies on them (shared or per agent, optionally with a centralized
-critic), with the policy's first layer, its weight gradient, the whole PPO
+thousands of environments run in lockstep on one card: the 13
+configurations of the env zoo, procedural layouts drawn on the device.
+``learn`` trains PPO policies on them (shared or per agent, optionally with
+a centralized critic, conditioned on the mission where the env has one),
+with the policy's first layer, its weight gradient, the whole PPO
 loss and the fused rollout policy step in hand-written CUDA kernels
 (``python -m multigrid_tpu_torch.train``). Entry points run on the card
 unless the caller passes ``device='cpu'``.

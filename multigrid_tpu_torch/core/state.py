@@ -52,8 +52,10 @@ class MultiGridState:
     agent_carrying: torch.Tensor
     agent_carrying_contents: torch.Tensor
     step_count: torch.Tensor
-    #: Env-specific extra state (door flags, target encodings, mission index).
-    extras: dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: Env-specific extra state (door flags, target encodings, mission
+    #: color): tensors with the leading env axis, merged per env like the
+    #: fields above.
+    extras: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_envs(self) -> int:
@@ -81,20 +83,23 @@ class MultiGridState:
     def expand(self, num_envs: int) -> 'MultiGridState':
         """Broadcast an ``E = 1`` state to ``num_envs`` envs without copying.
 
-        The result's tensors are read-only views; :meth:`clone` materializes
-        them.
+        The result's tensors (extras included) are read-only views;
+        :meth:`clone` materializes them.
         """
         assert self.num_envs == 1, 'expand takes a single-env state'
-        return self.replace(**{
-            f: getattr(self, f).expand((num_envs,) + getattr(self, f).shape[1:])
-            for f in FIELDS})
+
+        def ex(t):
+            return t.expand((num_envs,) + t.shape[1:])
+        return self.replace(**{f: ex(getattr(self, f)) for f in FIELDS},
+                            extras={k: ex(v) for k, v in self.extras.items()})
 
     def clone(self) -> 'MultiGridState':
-        """Deep copy with every tensor materialized (contiguous)."""
-        return self.replace(
-            **{f: getattr(self, f).clone(memory_format=torch.contiguous_format)
-               for f in FIELDS},
-            extras=dict(self.extras))
+        """Deep copy with every tensor materialized (contiguous), the
+        extras' tensors too, so no write to the copy reaches the original."""
+        def cp(t):
+            return t.clone(memory_format=torch.contiguous_format)
+        return self.replace(**{f: cp(getattr(self, f)) for f in FIELDS},
+                            extras={k: cp(v) for k, v in self.extras.items()})
 
 
 def init_state(
@@ -141,7 +146,8 @@ def state_from_numpy(
     """Build an ``E = 1`` state from one environment's host-side layout.
 
     Used by the parity-mode reset, where layouts are generated on the host
-    with numpy streams that match the reference.
+    with numpy streams that match the reference. ``extras`` holds one env's
+    numpy values (no env axis).
     """
     grid = np.asarray(grid, dtype=np.int32)
     w, h, _ = grid.shape
@@ -175,20 +181,26 @@ def state_from_arrays(
 
     Carries state across from the JAX package: pass the fields of a
     ``jax.device_get``-ed ``MultiGridState``, batched (leading ``E`` axis)
-    or single (no env axis, giving ``E = 1``). Keys outside :data:`FIELDS`
-    (the JAX ``rng`` and ``extras``) are ignored.
+    or single (no env axis, giving ``E = 1``), and its ``extras`` the same
+    way: each extra is converted per env, integer extras to int32 and
+    boolean ones kept bool. Other keys of ``fields`` (the JAX ``rng``) are
+    ignored.
     """
     single = np.ndim(fields['grid']) == 3
 
-    def conv(name):
-        a = np.asarray(fields[name])
-        a = a.astype(bool if name == 'agent_terminated' else np.int32)
+    def conv(a, dtype):
+        a = np.asarray(a).astype(dtype)
         if single:
             a = a[None]
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    return MultiGridState(**{f: conv(f) for f in FIELDS},
-                          extras=dict(extras or {}))
+    def kind(a):
+        return bool if np.asarray(a).dtype == bool else np.int32
+
+    return MultiGridState(
+        **{f: conv(fields[f], bool if f == 'agent_terminated' else np.int32)
+           for f in FIELDS},
+        extras={k: conv(v, kind(v)) for k, v in (extras or {}).items()})
 
 
 def state_to_numpy(state: MultiGridState) -> dict[str, np.ndarray]:
@@ -199,8 +211,14 @@ def state_to_numpy(state: MultiGridState) -> dict[str, np.ndarray]:
 def where_state(
     cond: torch.Tensor, a: MultiGridState, b: MultiGridState
 ) -> MultiGridState:
-    """Per-env select: ``a`` where ``cond`` (shape ``(E,)``), else ``b``."""
+    """Per-env select: ``a`` where ``cond`` (shape ``(E,)``), else ``b``,
+    for every field and every extra (the extras of a fresh episode are part
+    of its state: its mission, its doors' positions)."""
     def sel(x, y):
         return torch.where(cond.view((-1,) + (1,) * (x.dim() - 1)), x, y)
-    return b.replace(**{f: sel(getattr(a, f), getattr(b, f)) for f in FIELDS})
+
+    if a.extras.keys() != b.extras.keys():
+        raise ValueError(f'extras differ: {sorted(a.extras)} and {sorted(b.extras)}')
+    return b.replace(**{f: sel(getattr(a, f), getattr(b, f)) for f in FIELDS},
+                     extras={k: sel(a.extras[k], v) for k, v in b.extras.items()})
 

@@ -39,6 +39,10 @@
 // The TPU kernel's roll chains, permutation matmuls and hi/lo byte split
 // have no counterpart here: a lane reads its rotated source cell directly.
 //
+// obs_general_kernel (below) computes the same function for the shapes
+// obs_kernel does not take: views of 33 and more, and envs whose grid and
+// views do not fit a block's shared memory.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (multigrid_tpu_torch/utils/build.py does this).
 
@@ -311,6 +315,213 @@ int launch(const void* grid, const void* agent_pos, const void* agent_dir,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// obs_general_kernel: the same function for every shape obs_kernel does not
+// take: any odd view (a view column of any number of 32-bit words) and any
+// grid and team, with no part of the env staged in shared memory.
+//
+// One block an env, a warp an agent at a time. The grid is read from global
+// memory (L2 holds it; each view cell is read twice, for the see-through
+// mask and for the output). The overlay is an open-addressing hash table in
+// global scratch, (E, T) slots of (cell, agent), T a power of two >= 2N:
+// the block clears its env's slots, then every live agent claims its
+// cell's slot (atomicCAS) and raises the slot's agent to its own index
+// (atomicMax), so the last live agent in index order wins a shared cell, as
+// the reference's in-order drawing gives. Visibility is the reference's
+// column sweep on columns of ceil(vs/32) words: the lanes ballot a column's
+// see-through mask, one lane runs the forward and the backward spread word
+// by word (the doubling fill of vis_column within a word, a carry between
+// words), and the lanes write the column, unseen cells as 0. A warp's
+// shared memory is four columns: see-through (then visible), lit, and the
+// two spreads.
+
+constexpr int kGeneralWarps = 4;
+
+// Bytes of shared memory obs_general_kernel takes for `warps` warps at view
+// `vs`: four columns of ceil(vs/32) words a warp.
+int general_smem(int vs, int warps) { return warps * 16 * ((vs + 31) / 32); }
+
+__device__ __forceinline__ unsigned hash_slot(int key, int mask) {
+  return (static_cast<unsigned>(key) * 2654435761u) & static_cast<unsigned>(mask);
+}
+
+struct View {
+  int tx, ty, k, carry;
+};
+
+struct EnvRef {
+  const int32_t* grid;  // this env's (W, H, 3)
+  const int2* table;    // this env's slots, or null without the overlay
+  const int32_t* color; // this env's (N,) agent colors
+  const int32_t* dir;   // this env's (N,) agent directions
+  int mask, w, h;
+};
+
+__device__ __forceinline__ int cell_at(const EnvRef& r, int x, int y) {
+  if (x < 0 || x >= r.w || y < 0 || y >= r.h) return kWallPacked;
+  const int c = x * r.h + y;
+  if (r.table != nullptr) {
+    for (unsigned s = hash_slot(c, r.mask);; s = (s + 1) & static_cast<unsigned>(r.mask)) {
+      const int2 t = __ldcg(r.table + s);
+      if (t.x == c) return pack(kTypeAgent, r.color[t.y], r.dir[t.y]);
+      if (t.x == -1) break;
+    }
+  }
+  const int32_t* g = r.grid + 3 * c;
+  return pack(g[0], g[1], g[2]);
+}
+
+// Cell (i, j) of an agent's view: rot90(window, k=-k), and the carried
+// object at the agent's own cell.
+__device__ __forceinline__ int view_cell(const EnvRef& r, const View& v, int vs, int i, int j) {
+  const int kr = vs - 1;
+  if (i == vs / 2 && j == kr) return v.carry;
+  int u, w;
+  switch (v.k) {
+    case 0: u = i;      w = j;      break;
+    case 1: u = kr - j; w = i;      break;
+    case 2: u = kr - i; w = kr - j; break;
+    default: u = j;     w = kr - i; break;
+  }
+  return cell_at(r, v.tx + u, v.ty + w);
+}
+
+__device__ __forceinline__ uint32_t rows_below(int limit, int word) {
+  const int lo = 32 * word;
+  return limit <= lo ? 0u : limit >= lo + 32 ? ~0u : (1u << (limit - lo)) - 1u;
+}
+
+// One column's spreads on nw words (bit i of word w = row 32w + i), by one
+// lane: from `see` (see-through rows) and `lit` (its lit rows) to the
+// column's visible rows, left in `see`, and the next column's lit rows,
+// left in `lit`. `q` and `r` hold the forward and backward spreads.
+__device__ void vis_column_words(uint32_t* see, uint32_t* lit, uint32_t* q, uint32_t* r,
+                                 int nw, int vs) {
+  uint32_t carry = 0;  // the forward spread crossing into the next word
+  for (int w = 0; w < nw; ++w) {
+    const uint32_t sf = see[w] & rows_below(vs - 1, w);  // rows the forward pass checks
+    uint32_t x = (lit[w] | carry) & sf, p = sf;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      x |= p & (x << k);
+      p &= p << k;
+    }
+    q[w] = x;
+    carry = x >> 31;
+  }
+  carry = 0;  // the backward spread crossing into the word below
+  for (int w = nw - 1; w >= 0; --w) {
+    const uint32_t sb = see[w] & rows_below(vs, w) & (w == 0 ? ~1u : ~0u);
+    const uint32_t col = lit[w] | (q[w] << 1) | (w > 0 ? q[w - 1] >> 31 : 0u);
+    uint32_t x = (col | (carry << 31)) & sb, p = sb;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      x |= p & (x >> k);
+      p &= p >> k;
+    }
+    r[w] = x;
+    carry = x & 1u;
+  }
+  for (int w = 0; w < nw; ++w) {
+    const uint32_t up = w > 0 ? q[w - 1] >> 31 : 0u;
+    const uint32_t down = w + 1 < nw ? r[w + 1] << 31 : 0u;
+    see[w] = lit[w] | (q[w] << 1) | up | (r[w] >> 1) | down;
+  }
+  for (int w = 0; w < nw; ++w) {
+    const uint32_t up = w > 0 ? q[w - 1] >> 31 : 0u;
+    const uint32_t down = w + 1 < nw ? r[w + 1] << 31 : 0u;
+    lit[w] = q[w] | (q[w] << 1) | up | r[w] | (r[w] >> 1) | down;
+  }
+}
+
+__device__ __forceinline__ void put(int32_t* o, int q, int val, int packed) {
+  if (packed) {
+    o[q] = val;
+  } else {
+    o[3 * q] = val >> 8;
+    o[3 * q + 1] = (val >> 4) & 15;
+    o[3 * q + 2] = val & 15;
+  }
+}
+
+__global__ void obs_general_kernel(
+    const int32_t* __restrict__ grid, const int32_t* __restrict__ agent_pos,
+    const int32_t* __restrict__ agent_dir, const int32_t* __restrict__ agent_color,
+    const uint8_t* __restrict__ agent_term, const int32_t* __restrict__ carrying,
+    int32_t* __restrict__ out, int2* table, int table_size, int n, int w, int h, int vs,
+    int see_through_walls, int packed) {
+  extern __shared__ __align__(16) uint32_t gsm[];
+  const int e = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = (vs + 31) / 32;
+  int2* tab = n > 1 ? table + static_cast<size_t>(e) * table_size : nullptr;
+
+  if (tab != nullptr) {
+    for (int s = threadIdx.x; s < table_size; s += blockDim.x) tab[s] = make_int2(-1, -1);
+    __syncthreads();
+    for (int a = threadIdx.x; a < n; a += blockDim.x) {
+      const int idx = e * n + a;
+      const int x = agent_pos[2 * idx], y = agent_pos[2 * idx + 1];
+      if (agent_term[idx] || x < 0 || x >= w || y < 0 || y >= h) continue;
+      const int key = x * h + y;
+      for (unsigned s = hash_slot(key, table_size - 1);;
+           s = (s + 1) & static_cast<unsigned>(table_size - 1)) {
+        const int prev = atomicCAS(&tab[s].x, -1, key);
+        if (prev == -1 || prev == key) {
+          atomicMax(&tab[s].y, a);
+          break;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const EnvRef env{grid + static_cast<size_t>(e) * w * h * 3, tab, agent_color + e * n,
+                   agent_dir + e * n, table_size - 1, w, h};
+  uint32_t* see = gsm + warp * 4 * nw;
+  uint32_t* lit = see + nw;
+  uint32_t* q = lit + nw;
+  uint32_t* r = q + nw;
+  const int half = vs / 2, kr = vs - 1;
+  const size_t cells = static_cast<size_t>(vs) * vs;
+  for (int a = warp; a < n; a += blockDim.x / 32) {
+    const int idx = e * n + a;
+    const int ax = agent_pos[2 * idx], ay = agent_pos[2 * idx + 1], ad = agent_dir[idx];
+    View v;
+    v.tx = ad == 0 ? ax : ad == 1 ? ax - half : ad == 2 ? ax - kr : ax - half;
+    v.ty = ad == 0 ? ay - half : ad == 1 ? ay : ad == 2 ? ay - half : ay - kr;
+    v.k = (ad + 1) & 3;
+    v.carry = pack(carrying[3 * idx], carrying[3 * idx + 1], carrying[3 * idx + 2]);
+    int32_t* o = out + static_cast<size_t>(idx) * cells * (packed ? 1 : 3);
+    if (see_through_walls) {
+      for (int c = lane; c < vs * vs; c += 32) put(o, c, view_cell(env, v, vs, c / vs, c % vs), packed);
+      continue;
+    }
+    for (int k = lane; k < nw; k += 32) lit[k] = k == half / 32 ? 1u << (half % 32) : 0u;
+    for (int j = kr; j >= 0; --j) {
+      for (int i0 = 0; i0 < vs; i0 += 32) {
+        const int i = i0 + lane;
+        bool clear = false;
+        if (i < vs) {
+          const int c = view_cell(env, v, vs, i, j);
+          const int t = c >> 8, s = c & 15;
+          clear = !(t == kTypeWall || (t == kTypeDoor && s != kStateOpen));
+        }
+        const uint32_t bits = __ballot_sync(kFull, clear);
+        if (lane == 0) see[i0 / 32] = bits;
+      }
+      __syncwarp();
+      if (lane == 0) vis_column_words(see, lit, q, r, nw, vs);
+      __syncwarp();
+      for (int i = lane; i < vs; i += 32) {
+        const bool visible = (see[i / 32] >> (i % 32)) & 1u;
+        put(o, i * vs + j, visible ? view_cell(env, v, vs, i, j) : 0, packed);
+      }
+      __syncwarp();
+    }
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
@@ -344,4 +555,30 @@ extern "C" int mgt_obs_launch(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MGT_OBS_CASE
+}
+
+// Launches obs_general_kernel on `stream`, one block an env, and returns
+// cudaGetLastError() (0 on success). `table` is (E, table_size) int2
+// scratch (table_size a power of two >= 2N; unused for N = 1).
+extern "C" int mgt_obs_general_launch(
+    const void* grid, const void* agent_pos, const void* agent_dir,
+    const void* agent_color, const void* agent_term, const void* carrying,
+    void* out, void* table, int table_size, int e, int n, int w, int h, int vs,
+    int see_through_walls, int packed, void* stream) {
+  int warps = std::min(kGeneralWarps, std::max(1, n));
+  while (warps > 1 && general_smem(vs, warps) > kMaxSmem) --warps;
+  const int smem = general_smem(vs, warps);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        obs_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  obs_general_kernel<<<e, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(grid), static_cast<const int32_t*>(agent_pos),
+      static_cast<const int32_t*>(agent_dir), static_cast<const int32_t*>(agent_color),
+      static_cast<const uint8_t*>(agent_term), static_cast<const int32_t*>(carrying),
+      static_cast<int32_t*>(out), static_cast<int2*>(table), table_size, n, w, h, vs,
+      see_through_walls, packed);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,15 @@ from ..utils.device import resolve_device
 class MultiGridEnv(abc.ABC):
     """Base class for batched multi-agent gridworld environments."""
 
-    #: Mission string.
+    #: Mission string template; environments with placeholder arguments
+    #: override :meth:`mission_of` and :attr:`mission_space` instead.
     mission: str = "maximize reward"
+
+    #: True where ``_gen_grid`` does procedural generation (the RoomGrid
+    #: families and RedBlueDoors). The JAX package amortizes their
+    #: auto-resets through a reserve pool; the port resets exactly every
+    #: step, and chip_smoke.py measures that reset's share of a step.
+    procedural_reset: bool = False
 
     #: Whether this environment's layouts can ever contain a Box; Box-free
     #: environments carry a zero-sized ``box_contents`` table.
@@ -90,8 +97,22 @@ class MultiGridEnv(abc.ABC):
         """Fresh layouts for ``num_envs`` envs. The tensors may be broadcast
         views: callers copy before writing."""
 
+    def mission_of(self, state: MultiGridState, env: int = 0) -> str | None:
+        """Host-side mission string of env ``env`` of a state."""
+        return self.mission
+
+    @property
+    def mission_space(self):
+        """Space of mission strings (reference core/mission.py:45-136);
+        environments with placeholder-parameterized missions override it."""
+        from ..core.mission import MissionSpace
+        return MissionSpace.from_string(self.mission)
+
     def mission_index(self, state: MultiGridState) -> torch.Tensor | None:
-        """(E,) mission index, or None when the mission is static."""
+        """(E,) index into :attr:`mission_space` of each env's episode, or
+        None when the mission is static. Mission-parameterized environments
+        override it so that training can condition on the mission (the
+        reference's obs carry the mission, base.py:368-376)."""
         return None
 
     def attach_mission(self, obs, state: MultiGridState):
@@ -106,7 +127,10 @@ class MultiGridEnv(abc.ABC):
     def success(self, state: MultiGridState) -> torch.Tensor:
         """(E,) bool — whether each episode's *task* is complete: any agent
         terminated, which is exact where agents terminate only on success
-        (Empty's goal cell, reference base.py:478-507)."""
+        (Empty's goal cell, reference base.py:478-507; BlockedUnlockPickup's
+        box pickup). Environments with failure terminations or terminations
+        that bypass agent state override it with a predicate on the state
+        and its extras."""
         return state.agent_terminated.any(dim=-1)
 
     def post_step(
@@ -120,7 +144,9 @@ class MultiGridEnv(abc.ABC):
     ) -> tuple[MultiGridState, torch.Tensor, torch.Tensor]:
         """Env-specific post-step hook; runs *after* the observation state is
         taken (the reference's subclass ``step()`` bodies post-process the
-        base class result)."""
+        base class result). It reads and returns the state's extras, and
+        writes no tensor in place. ``action_mask`` None means every agent
+        acted."""
         return state, rewards, terminations
 
     # -------------------------------------------------------------- core fns

@@ -12,8 +12,9 @@ flax's layout and numerics so that the JAX package's weights carry across
   parameters (flax's ``dtype``, bfloat16 by default; float32 nets exist for
   tests); the heads' small outputs are promoted to float32;
 - the direction enters as ``cos``/``sin`` of a bfloat16 ``theta``
-  (nets.py:106-107) through ``Dense_0`` with a bias, added to the first
-  layer's output (W·[x; d] == W_x·x + W_d·d).
+  (nets.py:106-107), with the mission's one-hot concatenated after it where
+  the net has ``num_missions`` (nets.py:108-112), through ``Dense_0`` with a
+  bias, added to the first layer's output (W·[x; d] == W_x·x + W_d·d).
 
 On packed observations the first layer is ``one_hot(packed) @ W`` through
 :func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear`: on the card a
@@ -39,7 +40,8 @@ from ..ops.fused_linear import NCH, OBS_CHANNELS, one_hot_image, onehot_linear
 DTYPE = torch.bfloat16
 
 __all__ = ['OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic', 'direction_features',
-           'make_centralized_critic', 'one_hot_image', 'params_from_flax', 'params_to_flax']
+           'dir_mission_features', 'make_centralized_critic', 'one_hot_image',
+           'params_from_flax', 'params_to_flax']
 
 
 def direction_features(direction: torch.Tensor, dtype=DTYPE) -> torch.Tensor:
@@ -50,6 +52,18 @@ def direction_features(direction: torch.Tensor, dtype=DTYPE) -> torch.Tensor:
     # scalar makes no host-to-device copy.
     theta = direction.to(dtype) * (math.pi / 2)
     return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+
+
+def dir_mission_features(direction: torch.Tensor, mission: torch.Tensor | None,
+                         num_missions: int, dtype=DTYPE) -> torch.Tensor:
+    """(…, 2 + M) direction features followed by the mission's one-hot
+    (exact 0/1) where ``num_missions`` M is not 0 and a mission is given,
+    else the (…, 2) direction features (nets.py:106-112)."""
+    dirf = direction_features(direction, dtype)
+    if num_missions and mission is not None:
+        one_hot = torch.nn.functional.one_hot(mission.long(), num_missions).to(dtype)
+        dirf = torch.cat([dirf, one_hot], dim=-1)
+    return dirf
 
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -79,33 +93,40 @@ class ActorCritic(nn.Module):
     """mlp encoder + categorical actor + value critic.
 
     ``image`` is (..., C) packed cells with ``packed_obs=True``, else (...,
-    vs, vs, 3) triples (C = vs·vs); ``direction`` is (...). Returns float32
-    ``(logits (..., num_actions), value (...))``. Parameters are made on the
-    CPU from ``seed`` (the same weights on any device); move the module with
-    ``.to(device)``. ``dtype`` is the compute type (flax's ``dtype``).
+    vs, vs, 3) triples (C = vs·vs); ``direction`` is (...), and ``mission``
+    (...) the episode's mission index, which a net with ``num_missions``
+    (the size of the env's mission space; 0 turns conditioning off) takes.
+    Returns float32 ``(logits (..., num_actions), value (...))``. Parameters
+    are made on the CPU from ``seed`` (the same weights on any device); move
+    the module with ``.to(device)``. ``dtype`` is the compute type (flax's
+    ``dtype``).
     """
 
     def __init__(self, num_cells: int, *, num_actions: int = 7, hidden: int = 128,
-                 packed_obs: bool = False, seed: int = 0, dtype=DTYPE):
+                 packed_obs: bool = False, seed: int = 0, dtype=DTYPE,
+                 num_missions: int = 0):
         super().__init__()
         self.num_cells = num_cells
         self.num_actions = num_actions
         self.hidden = hidden
         self.packed_obs = packed_obs
         self.dtype = dtype
+        self.num_missions = num_missions
         g = torch.Generator().manual_seed(seed)
         self.img_kernel = nn.Parameter(
             lecun_normal_(torch.empty(num_cells * NCH, hidden), g))
-        self.Dense_0 = Dense(2, hidden, g, dtype)
+        self.Dense_0 = Dense(2 + num_missions, hidden, g, dtype)
         self.Dense_1 = Dense(hidden, hidden, g, dtype)
         self.Dense_2 = Dense(hidden, num_actions, g, dtype)
         self.Dense_3 = Dense(hidden, 1, g, dtype)
 
-    def forward(self, image: torch.Tensor, direction: torch.Tensor):
+    def forward(self, image: torch.Tensor, direction: torch.Tensor,
+                mission: torch.Tensor | None = None):
         lead = image.shape[:-1] if self.packed_obs else image.shape[:-3]
         h = _first_layer(image, self.img_kernel, self.num_cells, lead, self.packed_obs,
                          self.dtype)
-        x = torch.relu(h + self.Dense_0(direction_features(direction, self.dtype)))
+        d = dir_mission_features(direction, mission, self.num_missions, self.dtype)
+        x = torch.relu(h + self.Dense_0(d))
         x = torch.relu(self.Dense_1(x))
         logits = self.Dense_2(x).float()
         value = self.Dense_3(x).float()
@@ -128,33 +149,42 @@ class CentralizedCritic(nn.Module):
     V(o_1..o_N) from every agent's observation and direction (the actors
     stay partial). Counterpart of flax ``CentralizedCritic`` (nets.py:172),
     with its parameter names: ``Dense_0`` (N·C·21, H) with a bias over the
-    joint one-hot, ``Dense_1`` (2N, H) without one over the direction
-    features, ``Dense_2`` the trunk, ``Dense_3`` the value.
+    joint one-hot, ``Dense_1`` (2N + M, H) without one over the direction
+    features and the mission's one-hot (M = ``num_missions``), ``Dense_2``
+    the trunk, ``Dense_3`` the value.
 
     ``images`` (..., N, C) packed or (..., N, vs, vs, 3) triples,
-    ``directions`` (..., N); returns the float32 value (...). The first
+    ``directions`` (..., N), ``missions`` (..., N) (agent 0's is used: an
+    episode has one); returns the float32 value (...). The first
     layer takes the one-hot over all N·C cells as one row of cells, so a
     bf16 critic on packed cells runs the first-layer kernel (and its weight
     gradient) on (..., N·C).
     """
 
     def __init__(self, num_cells: int, num_agents: int, *, hidden: int = 128,
-                 packed_obs: bool = False, seed: int = 0, dtype=DTYPE):
+                 packed_obs: bool = False, seed: int = 0, dtype=DTYPE,
+                 num_missions: int = 0):
         super().__init__()
         self.num_cells, self.num_agents = num_cells, num_agents
         self.hidden, self.packed_obs, self.dtype = hidden, packed_obs, dtype
+        self.num_missions = num_missions
         g = torch.Generator().manual_seed(seed)
         self.Dense_0 = Dense(num_agents * num_cells * NCH, hidden, g, dtype)
-        self.Dense_1 = Dense(2 * num_agents, hidden, g, dtype, use_bias=False)
+        self.Dense_1 = Dense(2 * num_agents + num_missions, hidden, g, dtype,
+                             use_bias=False)
         self.Dense_2 = Dense(hidden, hidden, g, dtype)
         self.Dense_3 = Dense(hidden, 1, g, dtype)
 
-    def forward(self, images: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, directions: torch.Tensor,
+                missions: torch.Tensor | None = None) -> torch.Tensor:
         n = self.num_agents
         lead = directions.shape[:-1]
         h = _first_layer(images, self.Dense_0.kernel, n * self.num_cells, lead,
                          self.packed_obs, self.dtype) + self.Dense_0.bias.to(self.dtype)
         d = direction_features(directions, self.dtype).reshape(lead + (2 * n,))
+        if self.num_missions and missions is not None:
+            d = torch.cat([d, torch.nn.functional.one_hot(
+                missions[..., 0].long(), self.num_missions).to(self.dtype)], dim=-1)
         x = torch.relu(h + self.Dense_1(d))
         x = torch.relu(self.Dense_2(x))
         return self.Dense_3(x).float().squeeze(-1)
@@ -163,7 +193,8 @@ class CentralizedCritic(nn.Module):
 def make_centralized_critic(net: ActorCritic, num_agents: int, seed: int = 0):
     """The joint-observation critic matched to an actor net's attributes."""
     return CentralizedCritic(net.num_cells, num_agents, hidden=net.hidden,
-                             packed_obs=net.packed_obs, seed=seed, dtype=net.dtype)
+                             packed_obs=net.packed_obs, seed=seed, dtype=net.dtype,
+                             num_missions=net.num_missions)
 
 
 #: flax's parameter names of the mlp ``ActorCritic``, as state-dict keys.

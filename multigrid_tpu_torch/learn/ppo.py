@@ -10,7 +10,10 @@ with actions sampled from the policy, computes GAE, and takes ``epochs`` ×
 ``minibatches`` SGD steps. On the card the rollout's first layer is the
 ``onehot_linear`` kernel (once per agent with per-agent policies), or, with
 ``MULTIGRID_FUSED_POLICY`` set for a shared policy without the critic, the
-whole policy step is the fused-policy kernel. The learner is the fused
+whole policy step is the fused-policy kernel. Envs with missions
+(BlockedUnlockPickup) give the nets the episode's mission, sized from the
+env's mission space, as a one-hot after the direction features: the
+kernels' direction-feature operand (F = 2 + missions). The learner is the fused
 PPO-loss kernel (once per agent with per-agent policies) where
 :func:`~multigrid_tpu_torch.ops.fused_ppo.supports` holds and there is no
 centralized critic, else autograd of :meth:`TrainStep.loss_fn` (whose first
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Any
 
 import numpy as np
@@ -38,7 +42,7 @@ from torch.func import functional_call
 from ..core.state import MultiGridState
 from ..ops import fused_policy, fused_ppo
 from ..parallel.vector import VectorEnv
-from .nets import ACTOR, CRITIC, ActorCritic, direction_features, make_centralized_critic
+from .nets import ACTOR, CRITIC, ActorCritic, dir_mission_features, make_centralized_critic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +159,8 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class Rollout:
-    """(T, E, N, ...) trajectory slices."""
+    """(T, E, N, ...) trajectory slices; ``mission`` is None for envs
+    without missions."""
     image: torch.Tensor
     direction: torch.Tensor
     action: torch.Tensor
@@ -163,9 +168,11 @@ class Rollout:
     value: torch.Tensor
     reward: torch.Tensor
     done: torch.Tensor
+    mission: torch.Tensor | None = None
 
     def map(self, fn) -> 'Rollout':
-        return Rollout(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
+        return Rollout(*(None if (x := getattr(self, f.name)) is None else fn(x)
+                         for f in dataclasses.fields(self)))
 
 
 def _select_log_prob(logits: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
@@ -187,26 +194,41 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
-             hidden: int = 128, dtype=torch.bfloat16):
+             hidden: int = 128, dtype=torch.bfloat16, net: ActorCritic | None = None):
     """``(train_state, net, config, optimizer)`` for training on ``venv``.
 
     The env, the net's weights, the train state's generator and the critic
     get independent seeds derived from ``seed``; per-agent policies get one
     net each, from seeds derived from the net's. ``dtype`` is the nets'
-    compute type. With the centralized critic the parameters are keyed
-    ``actor.*`` and ``critic.*``.
+    compute type. The net conditions on the mission where the env has
+    missions, with ``num_missions`` the size of the env's mission space
+    (ppo.py:170-201). A ``net`` passed in is taken as it is (its weights
+    start the training; ``hidden`` and ``dtype`` are its own), with a
+    warning where the env has missions and the net none. With the
+    centralized critic the parameters are keyed ``actor.*`` and
+    ``critic.*``.
     """
     config = config or PPOConfig()
     env_seed, net_seed, train_seed, critic_seed = (
         int(s) for s in np.random.SeedSequence(seed).generate_state(4))
     obs, env_state = venv.reset(seed=env_seed)
-    if 'mission' in obs:
-        raise NotImplementedError(
-            'mission-conditioned envs are not ported yet: the net has no '
-            'mission input')
+    num_missions = len(venv.env.mission_space) if 'mission' in obs else 0
     vs = venv.env.cfg.view_size
-    kw = dict(hidden=hidden, packed_obs=venv.packed_obs, dtype=dtype)
-    net = ActorCritic(vs * vs, seed=net_seed, **kw).to(venv.device)
+    if net is None:
+        kw = dict(hidden=hidden, packed_obs=venv.packed_obs, dtype=dtype,
+                  num_missions=num_missions)
+        net = ActorCritic(vs * vs, seed=net_seed, **kw).to(venv.device)
+    else:
+        if num_missions and net.num_missions == 0:
+            warnings.warn(
+                f'{type(venv.env).__name__} surfaces a mission index but the '
+                'supplied net has num_missions=0: mission conditioning is OFF. '
+                'Let ppo_init build the net to size it.', stacklevel=2)
+        if net.packed_obs != venv.packed_obs:
+            raise ValueError(f'net.packed_obs={net.packed_obs} does not match '
+                             f'VectorEnv(packed_obs={venv.packed_obs})')
+        kw = dict(hidden=net.hidden, packed_obs=net.packed_obs, dtype=net.dtype,
+                  num_missions=net.num_missions)
     if config.per_agent_policies:
         seeds = np.random.SeedSequence(net_seed).generate_state(venv.num_agents)
         nets = [ActorCritic(vs * vs, seed=int(s), **kw).state_dict() for s in seeds]
@@ -260,37 +282,47 @@ class TrainStep:
             return params
         return {k[len(ACTOR):]: v for k, v in params.items() if k.startswith(ACTOR)}
 
-    def actor(self, params, image, direction):
+    def actor(self, params, image, direction, mission=None):
         """The actor's ``(logits, value)`` for (..., N, ...) observations.
         Per-agent policies apply agent i's parameter slice to agent i's
         observations: one first-layer launch per agent, each on that agent's
         cells, copied once into a contiguous batch."""
         ap = self.actor_params(params)
         if not self.config.per_agent_policies:
-            return functional_call(self.net, ap, (image, direction))
+            return functional_call(self.net, ap, (image, direction, mission))
         # Agent axis first, copied once, so each agent's rows are contiguous
         # (a strided slice of (E, N, C) may reshape to a non-contiguous view).
         image = image.movedim(image.dim() - (2 if self.net.packed_obs else 4), 0).contiguous()
         outs = [functional_call(self.net, {k: v[i] for k, v in ap.items()},
-                                (image[i], direction[..., i]))
+                                (image[i], direction[..., i],
+                                 None if mission is None else mission[..., i]))
                 for i in range(direction.shape[-1])]
         return (torch.stack([o[0] for o in outs], -2),
                 torch.stack([o[1] for o in outs], -1))
 
-    def central_value(self, params, image, direction):
+    def central_value(self, params, image, direction, mission=None):
         """The centralized critic's value of the joint observation,
         broadcast to every agent: (..., N)."""
         cp = {k[len(CRITIC):]: v for k, v in params.items() if k.startswith(CRITIC)}
-        value = functional_call(self.critic, cp, (image, direction))
+        value = functional_call(self.critic, cp, (image, direction, mission))
         return value[..., None].expand(direction.shape)
 
     def policy(self, params, obs):
-        """``(logits, value)`` for (E, N, ...) observations; the value is the
-        centralized critic's where there is one."""
-        logits, value = self.actor(params, obs['image'], obs['direction'])
+        """``(logits, value)`` for (E, N, ...) observations (a dict with
+        ``image``, ``direction`` and, for envs with missions, ``mission``);
+        the value is the centralized critic's where there is one."""
+        args = (obs['image'], obs['direction'], obs.get('mission'))
+        logits, value = self.actor(params, *args)
         if self.critic is not None:
-            value = self.central_value(params, obs['image'], obs['direction'])
+            value = self.central_value(params, *args)
         return logits, value
+
+    def dir_features(self, direction, mission):
+        """The kernels' float32 direction features: ``[cos, sin]`` of the
+        direction, then the mission's one-hot where the net has missions
+        (ppo.py:351-372)."""
+        return dir_mission_features(direction, mission, self.net.num_missions,
+                                    self.net.dtype).float()
 
     def prepare_policy(self, params):
         """The fused-policy kernel's weight operands
@@ -310,7 +342,7 @@ class TrainStep:
             action = sample_actions(logits, gumbel)
             return action, _select_log_prob(logits, action), value
         b = obs['direction'].numel()
-        dirf = direction_features(obs['direction'], self.net.dtype).float()
+        dirf = self.dir_features(obs['direction'], obs.get('mission'))
         out = fused_policy.policy_sample_prepared(
             prepped, obs['image'].reshape(b, -1), dirf.reshape(b, -1),
             gumbel.reshape(b, a), num_actions=a)
@@ -338,9 +370,10 @@ class TrainStep:
             ep_suc = ep_suc + (done & success).sum()
             ep_acc = torch.where(done, 0.0, ep_acc)
             steps.append(Rollout(obs['image'], obs['direction'], action, log_prob,
-                                 value, reward, done[:, None] | term))
+                                 value, reward, done[:, None] | term, obs.get('mission')))
             obs = next_obs
-        traj = Rollout(*(torch.stack([getattr(s, f.name) for s in steps])
+        traj = Rollout(*(None if getattr(steps[0], f.name) is None
+                         else torch.stack([getattr(s, f.name) for s in steps])
                          for f in dataclasses.fields(Rollout)))
         last_value = self.policy(params, obs)[1]
         state = state.replace(env_state=env_state, last_obs=obs, ep_return_acc=ep_acc)
@@ -369,7 +402,8 @@ class TrainStep:
         """``(loss, metrics)`` of the clipped-PPO objective through the net."""
         cfg = self.config
         logits, value = self.policy(params, {'image': traj.image,
-                                             'direction': traj.direction})
+                                             'direction': traj.direction,
+                                             'mission': traj.mission})
         log_probs = torch.log_softmax(logits, dim=-1)
         ratio = torch.exp(_select_log_prob(logits, traj.action) - traj.log_prob)
         if cfg.per_agent_policies:
@@ -397,7 +431,7 @@ class TrainStep:
         flattened to B rows; per-agent policies' to (N, T·E) rows, each
         agent's contiguous, with advantages normalized per agent
         (ppo.py:540-565)."""
-        dirf = direction_features(traj.direction, self.net.dtype).float()
+        dirf = self.dir_features(traj.direction, traj.mission)
         if not self.config.per_agent_policies:
             b = traj.direction.numel()
 

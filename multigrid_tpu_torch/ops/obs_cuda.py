@@ -1,10 +1,17 @@
 """Observation generation through the hand-written CUDA kernel.
 
-Counterpart of ``multigrid_tpu.ops.obs_pallas``: the kernel in
-``csrc/obs.cu`` computes, per (env, agent), the same partial view as the
+Counterpart of ``multigrid_tpu.ops.obs_pallas``: the kernels in
+``csrc/obs.cu`` compute, per (env, agent), the same partial view as the
 plain version in :mod:`.obs`, bit for bit. :func:`gen_obs_batched` is the
 one entry point. It takes the plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches a kernel or raises:
+
+- ``obs_kernel``, which stages each env in shared memory, for every odd view
+  of 3..31 (a view column is one 32-bit word) where one env's grid, views
+  and visibility columns fit a block's shared memory;
+- ``obs_general_kernel`` for every other odd view and grid and team (views
+  of 33 and more, large grids, large teams of wide views), as the JAX
+  package serves them through its XLA path.
 
 The library is built from the package's sources at first use (see
 :mod:`multigrid_tpu_torch.utils.build`); this module imports without a CUDA
@@ -21,31 +28,38 @@ from .obs import gen_obs_batched_plain
 
 SOURCE = 'obs.cu'
 
-#: Kernel launches since the count was last set to 0; nothing else adds to it.
+#: Launches of ``obs_kernel`` since the count was last set to 0; nothing
+#: else adds to it.
 launches = 0
+#: Launches of ``obs_general_kernel`` since the count was last set to 0.
+general_launches = 0
 
-#: The view sizes the kernel takes: every odd size whose view column fits
-#: one 32-bit word. Any team size is taken, as far as one env fits a block's
-#: shared memory.
+#: The view sizes ``obs_kernel`` takes: every odd size whose view column
+#: fits one 32-bit word. Any team size is taken, as far as one env fits a
+#: block's shared memory.
 VIEW_SIZES = tuple(range(3, 33, 2))
 #: Shared memory a block may use on Hopper.
 MAX_SMEM_BYTES = 232448
 
-_fn = None
+_fns = {}
 
 
-def _launch_fn():
-    global _fn
-    if _fn is None:
+def _lib_fn(name):
+    if name not in _fns:
         import ctypes
 
         from ..utils import build
         lib = build.load(SOURCE)
-        fn = lib.mgt_obs_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        if name == 'obs':
+            fn = lib.mgt_obs_launch
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        else:
+            fn = lib.mgt_obs_general_launch
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def smem_bytes(num_agents: int, width: int, height: int, view_size: int) -> int:
@@ -58,22 +72,33 @@ def smem_bytes(num_agents: int, width: int, height: int, view_size: int) -> int:
     return 4 * (4 * n + round4(width * height) + round4(n * v * v) + round4(n * v))
 
 
-def check_supported(num_agents: int, width: int, height: int, view_size: int) -> None:
-    """Raise ValueError for a shape the kernel does not take: a view size
-    that is not odd in 3..31 (a view column is one 32-bit word), or an env
-    whose grid, views and visibility columns need more shared memory than a
-    block can have."""
-    if view_size not in VIEW_SIZES:
-        raise ValueError(f'obs kernel takes odd view sizes 3..31 (a view column is one '
-                         f'32-bit word), got {view_size}')
+def general_smem_bytes(view_size: int) -> int:
+    """Shared memory one warp takes in ``obs_general_kernel``: four view
+    columns of ceil(vs/32) words (``csrc/obs.cu::general_smem``)."""
+    return 16 * -(-view_size // 32)
+
+
+def check_supported(num_agents: int, width: int, height: int, view_size: int) -> str:
+    """The kernel that takes this shape, ``'obs'`` (``obs_kernel``) or
+    ``'general'`` (``obs_general_kernel``); ValueError for a view size that
+    is even or under 3 (no config of either package takes one), or more
+    colors or states than the packed cells' 4 bits hold."""
+    if view_size < 3 or view_size % 2 == 0:
+        raise ValueError(f'obs kernels take odd view sizes of at least 3, got {view_size}')
     if len(Color) > 16 or len(State) > 16:
-        raise ValueError('obs kernel packs colors and states into 4 bits each')
-    need = smem_bytes(num_agents, width, height, view_size)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f'one env of {num_agents} agents with view {view_size} on a {width}x{height} '
-            f'grid needs {need} bytes of shared memory, more than the {MAX_SMEM_BYTES} a '
-            f'block can have')
+        raise ValueError('obs kernels pack colors and states into 4 bits each')
+    if general_smem_bytes(view_size) > MAX_SMEM_BYTES:
+        raise ValueError(f'a view column of {view_size} cells passes a block\'s shared memory')
+    if view_size in VIEW_SIZES and \
+            smem_bytes(num_agents, width, height, view_size) <= MAX_SMEM_BYTES:
+        return 'obs'
+    return 'general'
+
+
+def table_size(num_agents: int) -> int:
+    """Slots of the general kernel's overlay hash table for one env: the
+    least power of two of at least 2N."""
+    return 1 << max(1, (2 * num_agents - 1).bit_length())
 
 
 def _checked(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype):
@@ -95,9 +120,10 @@ def gen_obs_batched(
     """Observation images (E, N, vs, vs, 3) int32, or packed cells
     (E, N, vs·vs) int32 ``t<<8 | c<<4 | s`` with ``packed=True``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel that
+    :func:`check_supported` names.
     """
-    global launches
+    global launches, general_launches
     dev = state.grid.device
     if dev.type == 'cpu':
         return gen_obs_batched_plain(state, view_size, see_through_walls, packed)
@@ -106,7 +132,7 @@ def gen_obs_batched(
     e, w, h, _ = state.grid.shape
     n = state.agent_dir.shape[-1]
     vs = view_size
-    check_supported(n, w, h, vs)
+    kernel = check_supported(n, w, h, vs)
     out_shape = (e, n, vs * vs) if packed else (e, n, vs, vs, 3)
     out = torch.empty(out_shape, dtype=torch.int32, device=dev)
     if e == 0:
@@ -121,9 +147,18 @@ def gen_obs_batched(
     ]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launch_fn()(*ptrs, out.data_ptr(), e, n, w, h, vs,
-                           int(see_through_walls), int(packed), stream)
+        if kernel == 'obs':
+            err = _lib_fn('obs')(*ptrs, out.data_ptr(), e, n, w, h, vs,
+                                 int(see_through_walls), int(packed), stream)
+        else:
+            slots = table_size(n)
+            table = torch.empty((e, slots if n > 1 else 0, 2), dtype=torch.int32, device=dev)
+            err = _lib_fn('general')(*ptrs, out.data_ptr(), table.data_ptr(), slots, e, n,
+                                     w, h, vs, int(see_through_walls), int(packed), stream)
     if err != 0:
         raise RuntimeError(f'obs kernel launch failed: CUDA error {err}')
-    launches += 1
+    if kernel == 'obs':
+        launches += 1
+    else:
+        general_launches += 1
     return out

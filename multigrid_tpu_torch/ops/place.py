@@ -7,6 +7,9 @@ what :func:`uniform_position` makes: one fixed-cost draw per env, no loop.
 The draws come from a ``torch.Generator`` and cannot match ``jax.random``;
 bit-exact parity with the reference's numpy draws is the job of the host
 generators in :mod:`multigrid_tpu_torch.envs.parity`.
+
+A rectangle's ``top`` and ``size`` are Python pairs (the same for every env)
+or ``(E, 2)`` integer tensors (one rectangle per env).
 """
 
 from __future__ import annotations
@@ -27,6 +30,22 @@ def agent_occupancy(agent_pos: torch.Tensor, width: int, height: int) -> torch.T
     return ((cx == x) & (cy == y)).any(-1)
 
 
+def _coord(v, k: int) -> torch.Tensor | int:
+    """Coordinate ``k`` of a pair, broadcastable against (E, W, H)."""
+    if isinstance(v, torch.Tensor):
+        return v[:, k, None, None]
+    return int(v[k])
+
+
+def rect_mask(width: int, height: int, top, size, device) -> torch.Tensor:
+    """(E or 1, W, H) bool mask of the cells inside ``[top, top + size)``."""
+    xs = torch.arange(width, device=device)[None, :, None]
+    ys = torch.arange(height, device=device)[None, None, :]
+    tx, ty = _coord(top, 0), _coord(top, 1)
+    return ((xs >= tx) & (xs < tx + _coord(size, 0))
+            & (ys >= ty) & (ys < ty + _coord(size, 1)))
+
+
 def uniform_position(
     generator: torch.Generator | None, valid: torch.Tensor
 ) -> torch.Tensor:
@@ -34,15 +53,42 @@ def uniform_position(
     (W, H) mask. An env with no valid cell gets cell (0, 0); callers must
     guarantee a valid cell, as the reference does by looping forever."""
     e, w, h = valid.shape
-    u = torch.rand((e, w * h), generator=generator, device=valid.device)
-    # Valid cells score in [1, 2), invalid ones 0: the argmax is valid.
-    score = torch.where(valid.reshape(e, -1), u + 1.0, 0.0)
-    flat = score.argmax(dim=-1)
+    flat = uniform_index(generator, valid.reshape(e, w * h))
     return torch.stack([flat // h, flat % h], dim=-1).to(torch.int32)
 
 
-def place_obj_mask(grid: torch.Tensor, agent_pos: torch.Tensor) -> torch.Tensor:
-    """(E, W, H) validity mask for ``place_obj`` over the whole grid
-    (base.py:604-662): cell empty and no agent on it."""
+def uniform_index(generator: torch.Generator | None, valid: torch.Tensor) -> torch.Tensor:
+    """(E,) int64 index drawn uniformly from the True entries of each row
+    of an (E, K) mask (index 0 for a row with none)."""
+    u = torch.rand(valid.shape, generator=generator, device=valid.device)
+    # Valid entries score in [1, 2), invalid ones 0: the argmax is valid.
+    return torch.where(valid, u + 1.0, 0.0).argmax(dim=-1)
+
+
+def set_cell(grid: torch.Tensor, pos: torch.Tensor, enc) -> torch.Tensor:
+    """A copy of the (E, W, H, 3) grid with cell ``pos`` (E, 2) of each env
+    set to ``enc`` ((3,) or (E, 3))."""
+    e = grid.shape[0]
+    enc = torch.as_tensor(enc, dtype=grid.dtype, device=grid.device).expand(e, 3)
+    grid = grid.clone(memory_format=torch.contiguous_format)
+    env = torch.arange(e, device=grid.device)
+    grid[env, pos[:, 0].long(), pos[:, 1].long()] = enc
+    return grid
+
+
+def place_obj_mask(grid: torch.Tensor, agent_pos: torch.Tensor, top=None,
+                   size=None) -> torch.Tensor:
+    """(E, W, H) validity mask for ``place_obj`` (base.py:604-662): cell
+    empty, no agent on it, inside the target rectangle (its top clamped at
+    0, as the reference clamps it)."""
     _, w, h, _ = grid.shape
-    return (grid[..., 0] == TYPE_EMPTY) & ~agent_occupancy(agent_pos, w, h)
+    valid = (grid[..., 0] == TYPE_EMPTY) & ~agent_occupancy(agent_pos, w, h)
+    if top is not None or size is not None:
+        if top is None:
+            top = (0, 0)
+        elif isinstance(top, torch.Tensor):
+            top = top.clamp_min(0)
+        else:
+            top = (max(top[0], 0), max(top[1], 0))
+        valid = valid & rect_mask(w, h, top, (w, h) if size is None else size, grid.device)
+    return valid

@@ -94,6 +94,16 @@ class VectorEnv:
         Returns ``(obs, state, rewards, terminations, truncations, done,
         success)``.
         """
+        obs_state, new_state, rew, term, trunc, done, success = self.step_dynamics(
+            state, actions, order=order)
+        obs_state, new_state = self.auto_reset(done, obs_state, new_state)
+        return self.observe(obs_state), new_state, rew, term, trunc, done, success
+
+    def step_dynamics(self, state: MultiGridState, actions, *, order=None):
+        """The first stage of :meth:`step`: the agents' orders, the env's
+        dynamics and hook, and each env's ``done`` and ``success``.
+        Returns ``(obs_state, new_state, rewards, terminations,
+        truncations, done, success)``."""
         e, n = self.num_envs, self.num_agents
         if order is None:
             order = sample_order(self.generator, e, n, self.device)
@@ -102,16 +112,23 @@ class VectorEnv:
         done = term.all(dim=-1) | trunc.any(dim=-1)
         # Task completion on the final state, before the reset erases it.
         success = self.env.success(new_state)
-        # One exact reset for every env each step, kept where done.
-        reset_state = self.env.reset_core(e, self.generator)
+        return obs_state, new_state, rew, term, trunc, done, success
+
+    def auto_reset(self, done: torch.Tensor, obs_state: MultiGridState,
+                   new_state: MultiGridState):
+        """The second stage of :meth:`step`: one exact reset for every env,
+        kept where ``done`` (the JAX package's ``reset_pool=False``), so the
+        fresh layout's extras (its mission, its doors) come with it.
+        Returns ``(obs_state, state)``."""
+        reset_state = self.env.reset_core(self.num_envs, self.generator)
         merged = where_state(done, reset_state, new_state)
         obs_state = merged if obs_state is new_state \
             else where_state(done, reset_state, obs_state)
-        new_state = merged
-        return self.observe(obs_state), new_state, rew, term, trunc, done, success
+        return obs_state, merged
 
     def observe(self, state: MultiGridState):
-        """Observations of a batched state, through the kernel wrapper."""
+        """Observations of a batched state, through the kernel wrapper, with
+        each env's mission index (E, N) where the env has missions."""
         cfg = self.env.cfg
         image = gen_obs_batched(state, cfg.view_size, cfg.see_through_walls,
                                 self.packed_obs)

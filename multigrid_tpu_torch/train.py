@@ -8,6 +8,12 @@ centralized critic (``--critic centralized``):
     python -m multigrid_tpu_torch.train --env MultiGrid-Empty-16x16-v0 \\
         --num-agents 4 --num-envs 4096 --num-timesteps 10000000
 
+Any registered environment trains; on one with missions
+(``MultiGrid-BlockedUnlockPickup-v0``) the net conditions on the mission,
+sized from the env's mission space. The JAX package's production recipe
+there is ``--num-agents 2 --num-envs 4096 --rollout-steps 128 --epochs 2
+--minibatches 4``.
+
 Every ``--log-interval`` updates (and after the last) it prints one JSON row
 of metrics, and appends it to ``--log-jsonl`` when given. ``--device cpu``
 runs on the CPU with the kernels' plain versions. With

@@ -91,16 +91,37 @@ def test_sixteen_agents_step_through_the_kernel(cuda_device):
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
+    """An even view (no config takes one) and a grid of the wrong dtype."""
     state = _to(to_torch(random_fields(0, 4, 8, 8, 2, has_boxes=False)), cuda_device)
-    for vs in (8, 33):  # an even view; a view column past one 32-bit word
+    for vs in (8, 32):
         with pytest.raises(ValueError):
             obs_cuda.gen_obs_batched(state, vs, False)
     with pytest.raises(ValueError):
         obs_cuda.gen_obs_batched(state.replace(grid=state.grid.to(torch.int64)), 7, False)
-    # One env's grid and 64 views of 31 need more shared memory than a block has.
-    state = _to(to_torch(random_fields(0, 2, 32, 32, 64, has_boxes=False)), cuda_device)
-    with pytest.raises(ValueError):
-        obs_cuda.gen_obs_batched(state, 31, False)
+
+
+@pytest.mark.parametrize('stw', [False, True])
+@pytest.mark.parametrize('packed', [False, True])
+def test_general_kernel_takes_the_other_shapes(cuda_device, stw, packed, monkeypatch):
+    """A view column past one 32-bit word (33, 35, 63) and envs whose grid
+    and views pass a block's shared memory (64 views of 31 on 32x32, a
+    250x250 grid) go to the general kernel, which ≡ the plain version; a
+    shape both kernels take gives both the same bits."""
+    for w, h, n, vs, e in [(8, 8, 2, 33, 16), (32, 32, 2, 35, 8), (64, 64, 1, 63, 4),
+                           (32, 32, 64, 31, 2), (250, 250, 2, 7, 3), (16, 16, 9, 7, 32)]:
+        state = to_torch(random_fields(w + n + vs, e, w, h, n, has_boxes=False))
+        want = gen_obs_batched_plain(state, vs, stw, packed)
+        kernel = obs_cuda.check_supported(n, w, h, vs)
+        counts = obs_cuda.launches, obs_cuda.general_launches
+        got = obs_cuda.gen_obs_batched(_to(state, cuda_device), vs, stw, packed)
+        assert torch.equal(got.cpu(), want), (w, h, n, vs)
+        if kernel == 'general':
+            assert (obs_cuda.launches, obs_cuda.general_launches) == (counts[0], counts[1] + 1)
+        else:  # the last case: the general kernel, called directly, agrees
+            assert (w, h, n, vs) == (16, 16, 9, 7)
+            monkeypatch.setattr(obs_cuda, 'check_supported', lambda *a: 'general')
+            assert torch.equal(
+                obs_cuda.gen_obs_batched(_to(state, cuda_device), vs, stw, packed), got)
 
 
 def test_vector_env_on_the_card_matches_the_cpu(cuda_device):

@@ -1,6 +1,8 @@
 """The port's environments: golden reference traces and speed-mode resets.
 
-Every recorded ``tests/golden/MultiGrid-Empty-*.npz`` trace replays
+Every recorded ``tests/golden/*.npz`` trace (the Empty family and the
+procedural zoo: BlockedUnlockPickup, RedBlueDoors, LockedHallway,
+Playground) replays
 bit-exactly through the port's ``ParityRunner`` on the CPU (images,
 directions, terminations, truncations; rewards to float32 rounding as in
 tests/test_parity_empty.py). The speed-mode reset draws from a
@@ -21,8 +23,9 @@ from .ref_loader import GoldenReference
 
 torch.set_num_threads(1)
 
-# (env_id, seed, agents, steps, kwargs): the Empty cases of
-# tests/test_parity_empty.py, one per golden trace.
+# (env_id, seed, agents, steps, kwargs): the cases of
+# tests/test_parity_empty.py and tests/test_parity_envs.py, one per golden
+# trace.
 GOLDEN = (
     [('MultiGrid-Empty-8x8-v0', s, n, 120, {})
      for s in (0, 7, 123) for n in (1, 2, 3)]
@@ -33,6 +36,18 @@ GOLDEN = (
         {'allow_agent_overlap': False}),
        ('MultiGrid-Empty-Random-6x6-v0', 9, 2, 150,
         {'joint_reward': True, 'success_termination_mode': 'all'})]
+    + [('MultiGrid-BlockedUnlockPickup-v0', s, n, 150, {})
+       for s in (0, 7, 123, 2024) for n in (1, 2)]
+    + [('MultiGrid-RedBlueDoors-6x6-v0', s, n, 150, {})
+       for s in (0, 7, 99) for n in (1, 3)]
+    + [('MultiGrid-RedBlueDoors-8x8-v0', s, 2, 150, {}) for s in (0, 5)]
+    + [('MultiGrid-LockedHallway-2Rooms-v0', s, 2, 150, {}) for s in (0, 11, 77)]
+    + [('MultiGrid-LockedHallway-4Rooms-v0', s, 2, 120, {}) for s in (0, 3)]
+    + [('MultiGrid-LockedHallway-6Rooms-v0', 0, 4, 100, {})]
+    + [('MultiGrid-Playground-v0', s, n, 100, {})
+       for s in (0, 13, 55) for n in (1, 2)]
+    + [('MultiGrid-Playground-v0', 21, 6, 100, {}),
+       ('MultiGrid-Playground-v0', 3, 10, 60, {})]
 )
 
 
@@ -66,8 +81,16 @@ def test_golden_replay(env_id, seed, n, steps, kwargs):
 
 
 def test_registry_holds_the_empty_family():
-    assert len(CONFIGURATIONS) == 6
-    assert all(k.startswith('MultiGrid-Empty-') for k in CONFIGURATIONS)
+    """The Empty family, within the registry of all 13 configurations of
+    the JAX package."""
+    from multigrid_tpu.envs import CONFIGURATIONS as JAX_CONFIGURATIONS
+    empty = [k for k in CONFIGURATIONS if k.startswith('MultiGrid-Empty-')]
+    assert len(empty) == 6
+    assert len(CONFIGURATIONS) == 13
+    assert set(CONFIGURATIONS) == set(JAX_CONFIGURATIONS)
+    for k, (cls, kwargs) in CONFIGURATIONS.items():
+        jcls, jkwargs = JAX_CONFIGURATIONS[k]
+        assert cls.__name__ == jcls.__name__ and kwargs == jkwargs, k
 
 
 @pytest.mark.parametrize('env_id,agents', [

@@ -28,6 +28,7 @@ from multigrid_tpu_torch.ops.obs import (
     get_vis_mask,
     vis_column,
     vis_column_bits,
+    vis_column_words,
 )
 
 from .test_torch_states import random_fields, to_jax, to_torch
@@ -47,6 +48,9 @@ CASES = (
     + [(13, 25, 2, 7), (8, 8, 1, 7), (8, 8, 3, 7), (8, 8, 4, 7)]
     # teams past 8 agents and views past 13, which the CUDA kernel takes too
     + [(8, 8, 9, 7), (16, 16, 16, 7), (8, 8, 2, 15), (8, 8, 2, 31)]
+    # the shapes of the general kernel: views past 31 (a view column of two
+    # words) and a grid past a block's shared memory
+    + [(8, 8, 2, 33), (12, 9, 2, 35), (250, 250, 2, 7)]
 )
 
 
@@ -164,21 +168,69 @@ def test_vis_column_bits_match_the_loop_form(vs):
     assert int((got_col | got_next).max()) < (1 << vs)  # no bit past the column
 
 
-@pytest.mark.parametrize('n,vs,w,h', [(2, 4, 8, 8), (2, 32, 8, 8), (2, 33, 8, 8),
-                                      (4, 7, 250, 250), (64, 31, 32, 32)])
+@pytest.mark.parametrize('vs', [3, 31, 33, 35, 63, 65, 99])
+def test_vis_column_words_match_the_loop_form(vs):
+    """The general kernel's bit algebra for one column of any length (words
+    of 32 rows, carries between words) ≡ the loop form of
+    :func:`vis_column`, on 3,000 seeded (lit, see-through) pairs, single
+    lit rows and see-through columns with one opaque cell among them."""
+    rng = np.random.default_rng(vs)
+    nw = -(-vs // 32)
+    n = 3000
+    lit = [int(1 << int(rng.integers(vs))) if rng.random() < 0.5
+           else int(rng.integers(0, 1 << 62)) & ((1 << vs) - 1) for _ in range(n)]
+    see = []
+    for _ in range(n):
+        if rng.random() < 0.5:  # all see-through, or all but one cell
+            hole = 1 << int(rng.integers(vs)) if rng.random() < 0.5 else 0
+            see.append(((1 << vs) - 1) ^ hole)
+        else:
+            see.append(sum(int(b) << i for i, b in enumerate(rng.random(vs) < 0.7)))
+
+    def words(x):
+        return [(x >> (32 * w)) & 0xFFFFFFFF for w in range(nw)]
+
+    def join(ws):
+        return sum(x << (32 * w) for w, x in enumerate(ws))
+
+    got = [tuple(join(x) for x in vis_column_words(words(a), words(b), vs))
+           for a, b in zip(lit, see)]
+    want_col, want_next = vis_column(_big_bits(lit, vs), _big_bits(see, vs))
+    for k, (col, nxt) in enumerate(got):
+        assert _big_bits([col], vs)[0].tolist() == want_col[k].tolist(), k
+        assert _big_bits([nxt], vs)[0].tolist() == want_next[k].tolist(), k
+        assert col < (1 << vs) and nxt < (1 << vs)
+
+
+def _big_bits(xs, vs):
+    """(len(xs), vs) bool rows of Python ints of any size."""
+    return torch.tensor([[(x >> i) & 1 == 1 for i in range(vs)] for x in xs])
+
+
+@pytest.mark.parametrize('n,vs,w,h', [(2, 4, 8, 8), (2, 32, 8, 8), (2, 1, 8, 8)])
 def test_kernel_rejects_unsupported_shapes(n, vs, w, h):
-    """Even views, views past 31 (a view column is one 32-bit word), and
-    envs whose grid and views do not fit a block's shared memory."""
+    """Even views and views under 3: no config of either package takes one."""
     with pytest.raises(ValueError):
         obs_cuda.check_supported(n, w, h, vs)
 
 
+@pytest.mark.parametrize('n,vs,w,h', [(2, 33, 8, 8), (4, 7, 250, 250), (64, 31, 32, 32),
+                                      (2, 63, 64, 64)])
+def test_general_kernel_takes_the_other_shapes(n, vs, w, h):
+    """Views past 31 (a view column is one 32-bit word in obs_kernel), and
+    envs whose grid and views do not fit a block's shared memory, go to the
+    general kernel; the JAX package serves them all."""
+    assert obs_cuda.check_supported(n, w, h, vs) == 'general'
+    assert obs_cuda.table_size(n) >= 2 * n
+
+
 def test_kernel_takes_its_supported_range():
     """Every odd view from 3 to 31 and any team size, as far as one env
-    fits a block's shared memory."""
+    fits a block's shared memory, go to obs_kernel."""
     for vs in range(3, 33, 2):
         for n in (1, 2, 8, 9, 16, 33):
-            obs_cuda.check_supported(n, 32, 32, vs)
-    obs_cuda.check_supported(4, 13, 25, 7)
-    obs_cuda.check_supported(9, 8, 8, 7)
-    obs_cuda.check_supported(2, 8, 8, 15)
+            assert obs_cuda.check_supported(n, 32, 32, vs) == 'obs'
+    assert obs_cuda.check_supported(4, 13, 25, 7) == 'obs'
+    assert obs_cuda.check_supported(9, 8, 8, 7) == 'obs'
+    assert obs_cuda.check_supported(2, 8, 8, 15) == 'obs'
+    assert obs_cuda.check_supported(10, 19, 19, 7) == 'obs'  # Playground, 10 agents

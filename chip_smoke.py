@@ -92,7 +92,8 @@ Phases, in order; any failure exits non-zero:
                agents, view 33, 1024 envs): reset and 8 steps on the general
                obs kernel, launch counts exact, observations equal to the
                plain version.
-14. zoo     — each of the 13 configurations, 2 agents, 4096 envs: reset and
+14. zoo     — each of the 13 configurations, 2 agents, 4096 envs, on the
+               exact reset (reset_pool=False): reset and
                32 random steps with max_steps 16 (every env resets twice),
                launch counts exact, every call's observations equal to the
                plain version, every finished env holding its fresh layout's
@@ -101,13 +102,40 @@ Phases, in order; any failure exits non-zero:
                family replayed on the card.
 15. bup train — the JAX package's production recipe: BlockedUnlockPickup,
                2 agents, 4096 envs, mlp 128 with 12 missions, T 128, 2 epochs
-               x 4 minibatches: 3 updates with exact launch counts (B1 128,
+               x 4 minibatches, on the reserve pool as the JAX CLI runs it
+               (one refresh_pool(128) a rollout): 3 updates with exact launch counts (B1 128,
                B2 129, B4 8 an update), parameters moving, metrics finite;
                one fused-policy update (B5 at F 14) tracking the default's.
 16. bup timing — its trained agent-steps/s, a rollout step's layers (policy,
-               step, reset and merge, obs) with and without the fused policy,
-               and B1, B2, B4 (F 14) and B5 (F 14) at its shapes beside their
-               bounds, plain versions and library calls.
+               step, reset and merge, the pool's refresh amortized over the
+               rollout, obs) with and without the fused policy, and B1, B2,
+               B4 (F 14) and B5 (F 14) at its shapes beside their bounds,
+               plain versions and library calls.
+17. pool    — the reserve pool (the default on procedural envs) on BUP,
+               RedBlueDoors-8x8, LockedHallway 2 and 6 rooms and Playground,
+               2 agents, 4096 envs, max_steps 16: 48 random steps in chunks
+               of 16 with refresh_pool(16), launch counts exact, every
+               finished env holding reserve slot (i + g) mod E (fields and
+               extras), no env replaying its layout, each refresh rewriting
+               only its slots and every slot within the period, every
+               observation equal to the plain version; each family's step
+               layers and reset share with the pool.
+18. pool timing — BUP at 4096 envs, with the pool and with
+               reset_pool=False in turns: the env step's layers and reset
+               share, and the BUP recipe's trained agent-steps/s.
+19. cnn train — the cnn encoder at the JAX CLI's defaults (Empty-8x8, 2
+               agents, 1024 envs, hidden 128, T 16) and at the flagship: 3
+               updates each with exact launch counts (the obs kernel only),
+               parameters moving, the card within bf16 tolerance of the CPU's
+               float32 net (outputs and gradients), trained agent-steps/s and
+               the device's busy share.
+20. resume  — 2 updates, a checkpoint, 1 update, then a restore into fresh
+               objects and 1 update, bit-equal to 3 straight, on the mlp
+               default path and on the cnn (cuDNN deterministic).
+21. cli     — python -m multigrid_tpu_torch.train on BUP with the JAX CLI's
+               defaults (saving every 2 updates), again with --load-dir, then
+               python -m multigrid_tpu_torch.evaluate --load-dir: each exits 0
+               and prints JSON rows that parse.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 B1 (images and packed, at the flagship, with 16 agents and at the BUP
@@ -125,10 +153,12 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1226,7 +1256,9 @@ def rollout_layers(step, state, steps=8):
     """Where a rollout step's host time goes, each layer synchronized (see
     :func:`env_layers`): the policy step (noise, forward and sampling,
     through ``step.policy_step``: the fused-policy kernel where the step
-    takes it), then the env step's layers. Returns ``(state, layers)``."""
+    takes it), then the env step's layers, the pool's refresh amortized
+    over the rollout's length as the rollout amortizes it. Returns
+    ``(state, layers)``."""
     import torch
 
     params = state.params
@@ -1235,7 +1267,8 @@ def rollout_layers(step, state, steps=8):
     def policy(obs):
         return step.policy_step(params, prepped, obs, state.generator)[0]
     with torch.no_grad():
-        env_state, obs, layers = env_layers(step.venv, state.env_state, steps, policy)
+        env_state, obs, layers = env_layers(step.venv, state.env_state, steps, policy,
+                                            step.config.rollout_steps)
     label = 'fused policy' if prepped is not None else 'default path'
     print(f'per-rollout-step host time by layer, {label} (synchronized): ' + ', '.join(
         f'{k} {v:.4f} ms' for k, v in layers.items()))
@@ -1629,12 +1662,17 @@ def fresh_extras_ok(state, fresh):
     return bool((ok | ~fresh).all())
 
 
-def env_layers(venv, state, steps=8, policy=None):
+def env_layers(venv, state, steps=8, policy=None, chunk=None):
     """Where a step's host time goes, each layer synchronized: the policy
     (where ``policy(obs) -> actions`` is given, else uniform-random
     actions), then the stages of ``VectorEnv.step`` itself: the env step
     (``step_dynamics``: orders, dynamics, hook, done and success), the
-    reset and merge (``auto_reset``) and the observations (``observe``).
+    reset and merge (``reset_done``: an exact reset of every env, or with
+    the reserve pool the consumption of its slots and the merge) and the
+    observations (``observe``). With the pool the steps run with
+    ``refresh=False`` (``next_pool``), as rollout loops run them, and one
+    ``refresh_pool(chunk)`` follows (``chunk`` None: ``steps``), its time
+    divided by ``chunk``: the amortized refresh, ``refresh``.
     Returns ``(state, obs, {layer: ms a step})``."""
     import torch
 
@@ -1642,6 +1680,7 @@ def env_layers(venv, state, steps=8, policy=None):
     layers = {'policy': 0.0, 'step': 0.0, 'reset+merge': 0.0, 'obs': 0.0}
     obs = venv.observe(state)
     for _ in range(steps):
+        pool = state.pool
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         actions = policy(obs) if policy is not None else torch.randint(
@@ -1651,21 +1690,65 @@ def env_layers(venv, state, steps=8, policy=None):
         obs_state, state, *_, done, _ = venv.step_dynamics(state, actions)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        obs_state, state = venv.auto_reset(done, obs_state, state)
+        obs_state, state = venv.reset_done(done, obs_state, state, pool)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         obs = venv.observe(obs_state)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
+        if pool is not None:
+            state = state.replace(pool=venv.next_pool(pool, refresh=False))
         for k, a, b in (('policy', t0, t1), ('step', t1, t2), ('reset+merge', t2, t3),
                         ('obs', t3, t4)):
             layers[k] += b - a
     out = {k: v / steps * 1e3 for k, v in layers.items() if policy is not None or k != 'policy'}
+    if state.pool is not None:
+        chunk = chunk or steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = venv.refresh_pool(state, chunk)
+        torch.cuda.synchronize()
+        out['refresh'] = (time.perf_counter() - t0) / chunk * 1e3
     return state, obs, out
 
 
+def reset_share(layers):
+    """The reset's share of the env step's host time: reset and merge (and
+    the amortized refresh of the pool) over step, reset, refresh and obs."""
+    reset = layers['reset+merge'] + layers.get('refresh', 0.0)
+    return reset / (sum(layers.values()) - layers.get('policy', 0.0))
+
+
+@contextlib.contextmanager
+def obs_checked():
+    """Inside, every observation a ``VectorEnv`` makes through the kernel
+    is also made by the plain version on the same state; yields the list
+    to which each call that differs adds its env count."""
+    import torch
+
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+    from multigrid_tpu_torch.parallel import vector
+
+    kernel = vector.gen_obs_batched
+    mismatches = []
+
+    def checked(state, view_size, see_through_walls, packed=False):
+        got = kernel(state, view_size, see_through_walls, packed)
+        if not torch.equal(got, gen_obs_batched_plain(state, view_size, see_through_walls,
+                                                       packed)):
+            mismatches.append(state.num_envs)
+        return got
+
+    vector.gen_obs_batched = checked
+    try:
+        yield mismatches
+    finally:
+        vector.gen_obs_batched = kernel
+
+
 def zoo(device=None, steps=32):
-    """Each of the 13 configurations, 2 agents, 4096 envs on the card:
+    """Each of the 13 configurations, 2 agents, 4096 envs on the card, with
+    the exact reset (``reset_pool=False``; the pool phase covers the pool):
 
     - correctness with ``max_steps=16``, so that every env resets twice in
       ``steps`` random steps: the launch counts set to 0 just before the
@@ -1680,26 +1763,14 @@ def zoo(device=None, steps=32):
     import torch
 
     from multigrid_tpu_torch import CONFIGURATIONS, VectorEnv, make
-    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
-    from multigrid_tpu_torch.parallel import vector
-
-    kernel = vector.gen_obs_batched
-    mismatches = []
-
-    def checked(state, view_size, see_through_walls, packed=False):
-        got = kernel(state, view_size, see_through_walls, packed)
-        if not torch.equal(got, gen_obs_batched_plain(state, view_size, see_through_walls,
-                                                       packed)):
-            mismatches.append(state.num_envs)
-        return got
 
     shares, launches = {}, 0
     for env_id in sorted(CONFIGURATIONS):
-        venv = VectorEnv(make(env_id, agents=2, max_steps=16, device=device), E)
+        venv = VectorEnv(make(env_id, agents=2, max_steps=16, device=device), E,
+                         reset_pool=False)
         if venv.device.type != 'cuda':
             fail(f'default device is {venv.device}, not cuda')
-        vector.gen_obs_batched = checked
-        try:
+        with obs_checked() as mismatches:
             _zero_counts()
             obs, state = venv.reset(seed=0)
             dones = 0
@@ -1711,8 +1782,6 @@ def zoo(device=None, steps=32):
                 if not fresh_extras_ok(state, done):
                     fail(f'{env_id}: an env that finished at step {t} holds stale extras')
             torch.cuda.synchronize()
-        finally:
-            vector.gen_obs_batched = kernel
         counts = _counts()
         want = {**{k: 0 for k in counts}, 'obs': steps + 1}
         if counts != want:
@@ -1726,17 +1795,16 @@ def zoo(device=None, steps=32):
             fail(f'{env_id}: the observed missions are not the episodes\'')
         launches += counts['obs']
 
-        venv = VectorEnv(make(env_id, agents=2, device=device), E)
+        venv = VectorEnv(make(env_id, agents=2, device=device), E, reset_pool=False)
         _, state = venv.reset(seed=1)
         env_layers(venv, state, 2)  # warm-up
         _, _, layers = env_layers(venv, state, 8)
-        total = sum(layers.values())
-        shares[env_id] = dict(**layers, reset_share=layers['reset+merge'] / total)
+        shares[env_id] = dict(**layers, reset_share=reset_share(layers))
         print(f'{env_id}: reset + {steps} steps (max_steps 16, {dones} episodes ended): '
               f'launches {counts}, observations equal to the plain version, fresh extras ok; '
               f'per-step host time (registered max_steps): ' + ', '.join(
                   f'{k} {v:.4f} ms' for k, v in layers.items())
-              + f'; reset share {layers["reset+merge"] / total:.4f}')
+              + f'; reset share {reset_share(layers):.4f}')
     for env_id, seed, n in ZOO_GOLDEN:
         replay_golden(env_id, seed, n, device)
     return dict(launches=launches, reset_share=shares)
@@ -1832,8 +1900,7 @@ def bup_timing(venv, step, fused, state):
                      ('fused policy', fused), ('default path', step)):
         state, lay = rollout_layers(s, state, 8)
         layers.setdefault(label, []).append(lay)
-        env_ms = sum(lay.values()) - lay['policy']
-        print(f'  BUP reset share of the env step, {label}: {lay["reset+merge"] / env_ms:.4f}')
+        print(f'  BUP reset share of the env step, {label}: {reset_share(lay):.4f}')
 
     state = profile_update(step, state, 'BUP recipe update')
 
@@ -1903,6 +1970,373 @@ def bup_timing(venv, step, fused, state):
               f'library {lib}; bound {r["bound_ms"]:.6f} ms by {r["bound_by"]}; '
               f'{r["bound_ms"] / r["ms"]:.4f} of the bound')
     return dict(rate=rate, layers=layers, kernels=out)
+
+
+# ------------------------------------------------------- the reserve pool
+
+#: The procedural families the pool phases drive (each family's layouts).
+POOL_FAMILIES = ('MultiGrid-BlockedUnlockPickup-v0', 'MultiGrid-RedBlueDoors-8x8-v0',
+                 'MultiGrid-LockedHallway-2Rooms-v0', 'MultiGrid-LockedHallway-6Rooms-v0',
+                 'MultiGrid-Playground-v0')
+
+
+def pool_path(device=None, e=E, steps=48):
+    """The reserve pool on each procedural family, 2 agents, ``e`` envs,
+    ``max_steps`` 16 (period 16), ``steps`` random steps with
+    ``refresh=False`` in chunks of 16, each followed by ``refresh_pool(16)``
+    (the JAX package's ``rollout_random``), the launch counts set to 0 just
+    before the reset and read just after (one obs launch a call, no other
+    kernel). Checks that every env that finished holds reserve slot ``(i +
+    g) mod E`` as read just before its step, fields and extras; that no
+    env takes the layout it just played (the slot and that slot's last
+    refresh differ from its previous layout's: grids alone may repeat by
+    chance, RedBlueDoors-8x8 has 36 door layouts); that each refresh
+    rewrites only the slots ``refresh_slots`` names and every slot is
+    regenerated within the period; and that every call's observations
+    equal the plain version. Then each family's step layers with the pool at its
+    registered ``max_steps`` (16 steps and one ``refresh_pool(16)``) and
+    the reset share. Returns ``{'launches', 'layers'}``."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.core.state import FIELDS
+
+    chunk = VectorEnv.REFRESH_CHUNK
+    launches, out = 0, {}
+    for env_id in POOL_FAMILIES:
+        venv = VectorEnv(make(env_id, agents=2, max_steps=16, device=device), e)
+        if device is None and venv.device.type != 'cuda':
+            fail(f'default device is {venv.device}, not cuda')
+        if not venv.reset_pool or venv.reset_pool_period != 16:
+            fail(f'{env_id}: pool {venv.reset_pool}, period {venv.reset_pool_period}')
+        with obs_checked() as mismatches:
+            _zero_counts()
+            _, state = venv.reset(seed=0)
+            env_i = torch.arange(e, device=venv.device)
+            # Each slot's last refresh (the step it was made at), and where
+            # each env's layout came from: (slot, that refresh), (-1, -1)
+            # for the reset's own.
+            regenerated = torch.zeros(e, dtype=torch.int64, device=venv.device)
+            origin = torch.full((e, 2), -1, dtype=torch.int64, device=venv.device)
+            dones = 0
+            for t in range(steps):
+                slots = venv.consume(state.pool)
+                slot = (env_i + state.pool.step) % e
+                actions = torch.randint(0, 7, (e, 2), generator=venv.generator,
+                                        device=venv.device)
+                _, state, *_, done, _ = venv.step(state, actions, refresh=False)
+                dones += int(done.sum())
+                if not all(torch.equal(getattr(state, f)[done], getattr(slots, f)[done])
+                           for f in FIELDS) or not all(
+                        torch.equal(v[done], slots.extras[k][done])
+                        for k, v in state.extras.items()):
+                    fail(f'{env_id}: a finished env at step {t} does not hold its slot')
+                taken = torch.stack([slot, regenerated[slot]], -1)
+                if ((taken == origin).all(-1) & done).any():
+                    fail(f'{env_id}: an env replayed its layout at step {t}')
+                origin = torch.where(done[:, None], taken, origin)
+                if (t + 1) % chunk == 0:
+                    before = state.pool.reserve
+                    start, count = venv.refresh_slots(state.pool.step, chunk)
+                    state = venv.refresh_pool(state, chunk)
+                    kept = torch.ones(e, dtype=torch.bool, device=venv.device)
+                    kept[start:start + count] = False
+                    if not all(torch.equal(getattr(state.pool.reserve, f)[kept],
+                                           getattr(before, f)[kept]) for f in FIELDS):
+                        fail(f'{env_id}: a refresh rewrote slots outside {start}:{start + count}')
+                    regenerated[start:start + count] = state.pool.step
+                stale = state.pool.step - int(regenerated.min())
+                if stale > venv.reset_pool_period:
+                    fail(f'{env_id}: a slot went {stale} steps without a refresh')
+            torch.cuda.synchronize()
+        counts = _counts()
+        want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+        if counts != want:
+            fail(f'{env_id}: expected launches {want}, got {counts}')
+        if mismatches:
+            fail(f'{env_id}: observations differ from the plain version')
+        if dones < 2 * e:
+            fail(f'{env_id}: {dones} episodes ended in {steps} steps, fewer than {2 * e}')
+        launches += counts['obs']
+
+        venv = VectorEnv(make(env_id, agents=2, device=device), e)
+        _, state = venv.reset(seed=1)
+        state, _, _ = env_layers(venv, state, 2)  # warm-up
+        _, _, layers = env_layers(venv, state, chunk)
+        out[env_id] = dict(**layers, reset_share=reset_share(layers))
+        print(f'{env_id}, pool: reset + {steps} steps (max_steps 16, {dones} episodes ended): '
+              f'launches {counts}, every finished env holds its slot, no replay, refreshes '
+              'within the period, observations equal to the plain version; per-step host '
+              f'time (registered max_steps {venv.env.cfg.max_steps}, period '
+              f'{venv.reset_pool_period}): ' + ', '.join(
+                  f'{k} {v:.4f} ms' for k, v in layers.items())
+              + f'; reset share {reset_share(layers):.4f}')
+    return dict(launches=launches, layers=out)
+
+
+def pool_timing(device=None, pairs=2):
+    """BlockedUnlockPickup at 4096 envs and its registered ``max_steps``,
+    with the pool and with ``reset_pool=False``, in turns (pool, exact,
+    exact, pool): the env step's layers (step, reset or consume and merge,
+    the amortized refresh over a chunk of 16, obs) and the reset share;
+    then the BUP recipe's trained agent-steps/s on each, ``pairs``
+    length-differenced pairs of 1 and 2 updates each, in turns, each turn
+    after one untimed update (the other path ran last)."""
+    import statistics
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+
+    order = ['pool', 'exact', 'exact', 'pool'] * (pairs // 2)
+    venvs = {label: VectorEnv(make(BUP, agents=BUP_N, device=device), E,
+                              reset_pool=None if label == 'pool' else False)
+             for label in ('pool', 'exact')}
+    states = {}
+    for label, venv in venvs.items():
+        _, state = venv.reset(seed=1)
+        states[label], _, _ = env_layers(venv, state, 2)  # warm-up
+    layers = {'pool': [], 'exact': []}
+    for label in order:
+        states[label], _, lay = env_layers(venvs[label], states[label], VectorEnv.REFRESH_CHUNK)
+        layers[label].append(dict(**lay, reset_share=reset_share(lay)))
+        print(f'BUP env step, {label}: ' + ', '.join(f'{k} {v:.4f} ms' for k, v in lay.items())
+              + f'; reset share {reset_share(lay):.4f}')
+
+    samples = E * BUP_N * BUP_T
+    runs = {}
+    for label in ('pool', 'exact'):
+        venv = VectorEnv(make(BUP, agents=BUP_N, device=device), E, packed_obs=True,
+                         reset_pool=None if label == 'pool' else False)
+        cfg = PPOConfig(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)
+        state, net, cfg, tx = ppo_init(venv, 0, config=cfg, hidden=HIDDEN)
+        step = make_train_step(venv, net, cfg, tx)
+        state, _ = _run(step, state, 1)  # warm-up
+        runs[label] = [step, state]
+    rates = {'pool': [], 'exact': []}
+    for label in order:
+        step, state = runs[label]
+        state, _ = _run(step, state, 1)
+        t0 = time.perf_counter()
+        state, _ = _run(step, state, 1)
+        t1 = time.perf_counter()
+        state, _ = _run(step, state, 2)
+        t2 = time.perf_counter()
+        runs[label][1] = state
+        rates[label].append(samples / ((t2 - t1) - (t1 - t0)))
+        print(f'  BUP recipe, {label}: 1 update {t1 - t0:.6f} s, 2 updates {t2 - t1:.6f} s')
+    for label, r in rates.items():
+        print(f'BUP recipe trained agent-steps/s, {label} (length-differenced 1/2 updates, in '
+              f'turns): median {statistics.median(r):.6e}; pairs '
+              + ', '.join(f'{x:.6e}' for x in r))
+    return dict(layers=layers, rates=rates)
+
+
+# ------------------------------------------------------------ the cnn
+
+def cnn_vs_cpu(net, params, obs, label, samples=2048):
+    """The cnn on the card (bf16, cuDNN) against the float32 net on the CPU
+    with the same weights, on ``samples`` of the observations: logits and
+    values within ``max|Δ|/(|want|+1) < 2e-2`` (B2's tolerance); each
+    parameter's gradient of ``Σ logits·u + Σ value`` within ``‖Δ‖/‖want‖ <
+    0.1``: bf16 rounds the activations and the gradients at each of the
+    five layers the backward passes to reach ``Conv_0`` (the CPU's own bf16
+    net read 3.1e-2 there on 2048 random samples, 6.8e-2 on 256)."""
+    import torch
+
+    from multigrid_tpu_torch.learn.nets import ActorCritic
+
+    cells = obs['image'].reshape(-1, obs['image'].shape[-1])[:samples]
+    direction = obs['direction'].reshape(-1)[:samples]
+    mission = obs.get('mission')
+    mission = None if mission is None else mission.reshape(-1)[:samples]
+    u = torch.randn(len(cells), net.num_actions, generator=torch.Generator().manual_seed(0))
+    outs = []
+    for dev, dtype in ((torch.device('cpu'), torch.float32), (cells.device, torch.bfloat16)):
+        m = ActorCritic(net.num_cells, hidden=net.hidden, packed_obs=True, dtype=dtype,
+                        num_missions=net.num_missions, encoder='cnn').to(dev)
+        m.load_state_dict({k: v.to(dev) for k, v in params.items()})
+        logits, value = m(cells.to(dev), direction.to(dev),
+                          None if mission is None else mission.to(dev))
+        ((logits * u.to(dev)).sum() + value.sum()).backward()
+        outs.append(dict(logits=logits.detach().float().cpu(), value=value.detach().cpu(),
+                         **{k: p.grad.cpu() for k, p in m.named_parameters()}))
+    want, got = outs
+    err_out = max(float(((got[k] - want[k]).abs() / (want[k].abs() + 1)).max())
+                  for k in ('logits', 'value'))
+    err_grad = max(float((got[k] - want[k]).norm() / (want[k].norm() + 1e-12))
+                   for k in want if k not in ('logits', 'value'))
+    print(f'cnn {label}: card (bf16) vs CPU (float32) on {len(cells)} samples: outputs '
+          f'{err_out:.3e} (< 2e-2), gradients {err_grad:.3e} of each leaf\'s norm (< 0.1)')
+    if err_out >= 2e-2 or err_grad >= 0.1:
+        fail(f'cnn {label}: the card differs from the CPU float32 version')
+    return err_out, err_grad
+
+
+def cnn_train(device=None):
+    """PPO with the cnn encoder through the entry points: the JAX CLI's
+    defaults (Empty-8x8, 2 agents, 1024 envs, cnn, hidden 128, T 16) and
+    the flagship (Empty-16x16, 4 agents, 4096 envs). Each: 3 updates with
+    the launch counts set to 0 just before and checked exactly after (the
+    obs kernel once a step, no first-layer, loss or policy kernel: the cnn
+    runs through autograd and conv2d), every parameter moving, metrics
+    finite; the card against the CPU's float32 net (:func:`cnn_vs_cpu`);
+    trained agent-steps/s (median of 3 pairs of 1 and 3 updates) and the
+    device's busy share in one profiled update."""
+    import statistics
+
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+
+    out = {}
+    for label, env_id, n, e in (('CLI defaults', 'MultiGrid-Empty-8x8-v0', 2, 1024),
+                                ('flagship', 'MultiGrid-Empty-16x16-v0', N, E)):
+        venv = VectorEnv(make(env_id, agents=n, device=device), e, packed_obs=True)
+        if device is None and venv.device.type != 'cuda':
+            fail(f'default device is {venv.device}, not cuda')
+        state, net, cfg, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=TRAIN_T),
+                                       net_kwargs=dict(hidden=HIDDEN, encoder='cnn'))
+        step = make_train_step(venv, net, cfg, tx)
+        snap = _snapshot(step, state)
+        after, rows = _counted(step, snap, 3, f'cnn {label}')
+        counts = _counts()
+        moved = [k for k in snap[0].params
+                 if not torch.equal(snap[0].params[k], after.params[k])]
+        if len(moved) != len(snap[0].params):
+            fail(f'cnn {label}: parameters that did not move: '
+                 f'{sorted(set(snap[0].params) - set(moved))}')
+        print(f'  metrics of the last update: ' + json.dumps(rows[-1]))
+        errs = cnn_vs_cpu(net, after.params, after.last_obs, label)
+        samples = e * n * TRAIN_T
+        rates = []
+        state = after
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = _run(step, state, 1)
+            t1 = time.perf_counter()
+            state, _ = _run(step, state, 3)
+            t2 = time.perf_counter()
+            rates.append(samples * 2 / ((t2 - t1) - (t1 - t0)))
+        rate = statistics.median(rates)
+        print(f'cnn {label} trained agent-steps/s (median of 3, length-differenced 1/3 '
+              f'updates): {rate:.6e} ({samples / rate * 1e3:.4f} ms/update; pairs '
+              + ', '.join(f'{r:.6e}' for r in rates) + ')')
+        profile_update(step, state, f'cnn {label} update')
+        out[label] = dict(rate=rate, launches=counts, errors=errs)
+    return out
+
+
+# ---------------------------------------------------------- checkpoints
+
+def resume_path(device=None):
+    """Exact resume at the flagship (Empty-16x16, 4 agents, 4096 envs,
+    packed cells, hidden 128, T 16) through ``utils/checkpoint.py``: 2
+    updates, a checkpoint, 1 more update; then freshly built objects
+    restored from the checkpoint and 1 update. Parameters, optimizer state,
+    env state, last observations and both generators must equal the
+    uninterrupted run's bit for bit: on the mlp default path (B2, B4; B3
+    and B4 are equal from run to run) and on the cnn with
+    ``torch.backends.cudnn.deterministic`` set."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.core.state import FIELDS
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    def build(encoder):
+        venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=N, device=device), E,
+                         packed_obs=True)
+        state, net, cfg, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=TRAIN_T),
+                                       net_kwargs=dict(hidden=HIDDEN, encoder=encoder))
+        return venv, state, make_train_step(venv, net, cfg, tx)
+
+    def differing(a, b, venv_a, venv_b):
+        pairs = [(f'params.{k}', a.params[k], b.params[k]) for k in a.params]
+        pairs += [(f'opt_state.mu.{k}', a.opt_state.mu[k], b.opt_state.mu[k])
+                  for k in a.opt_state.mu]
+        pairs += [(f'opt_state.nu.{k}', a.opt_state.nu[k], b.opt_state.nu[k])
+                  for k in a.opt_state.nu]
+        pairs += [(f'env_state.{f}', getattr(a.env_state, f), getattr(b.env_state, f))
+                  for f in FIELDS]
+        pairs += [(f'last_obs.{k}', a.last_obs[k], b.last_obs[k]) for k in a.last_obs]
+        pairs += [('ep_return_acc', a.ep_return_acc, b.ep_return_acc),
+                  ('generator', a.generator.get_state(), b.generator.get_state()),
+                  ('env generator', venv_a.generator.get_state(), venv_b.generator.get_state())]
+        bad = [name for name, x, y in pairs if not torch.equal(x, y)]
+        if (a.opt_state.count, a.update_count) != (b.opt_state.count, b.update_count):
+            bad.append('counts')
+        return bad, len(pairs)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for encoder in ('mlp', 'cnn'):
+            torch.backends.cudnn.deterministic = encoder == 'cnn'
+            try:
+                venv, state, step = build(encoder)
+                state, _ = _run(step, state, 2)
+                path = save_checkpoint(os.path.join(tmp, f'{encoder}_step_2'), state, venv)
+                straight, _ = _run(step, state, 1)
+                venv2, fresh, step2 = build(encoder)
+                resumed = restore_checkpoint(path, fresh, venv2)
+                resumed, _ = _run(step2, resumed, 1)
+                bad, total = differing(resumed, straight, venv2, venv)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            size = os.path.getsize(path)
+            print(f'resume, {encoder}: 2 updates, checkpoint ({size} bytes), restore into '
+                  f'fresh objects, 1 update vs 3 straight: '
+                  + (f'all {total} tensors and both generators bit-equal' if not bad
+                     else f'differ in {bad}'))
+            if bad:
+                fail(f'resume on the {encoder} is not exact: {bad}')
+            out[encoder] = dict(equal=True, checkpoint_bytes=size)
+    return out
+
+
+def cli_path(updates=4):
+    """The entry points as a user runs them, each its own process on the
+    card: ``python -m multigrid_tpu_torch.train`` on BlockedUnlockPickup
+    with the JAX CLI's defaults (cnn, packed cells, the pool; 1024 envs,
+    T 16) for ``updates // 2`` updates, saving every 2; again with
+    ``--load-dir`` to ``updates``; then ``python -m
+    multigrid_tpu_torch.evaluate --load-dir`` for one 256-step iteration
+    on episodes of at most 64 steps (``--env-config``; the registered 576
+    would end none). Each must exit 0 and print JSON rows that parse."""
+    def run(args, label):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, '-m'] + args, cwd=HERE, capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f'cli {label}: exit {res.returncode}: {res.stderr[-3000:]}')
+        lines = res.stdout.splitlines()
+        rows = [json.loads(line) for line in lines if line.startswith('{')]
+        if not rows:
+            fail(f'cli {label}: no JSON row in {res.stdout[-2000:]}')
+        print(f'cli {label} ({time.perf_counter() - t0:.1f} s): {lines[0]}; last row '
+              f'{json.dumps(rows[-1])}' + (f'; {lines[-1]}' if lines[-1].startswith('timing')
+                                           else ''))
+        return lines, rows
+
+    e, n, t = 1024, 2, 16
+    with tempfile.TemporaryDirectory() as tmp:
+        train = ['multigrid_tpu_torch.train', '--env', BUP, '--num-agents', str(n),
+                 '--num-envs', str(e), '--rollout-steps', str(t), '--save-dir', tmp,
+                 '--save-interval', '2', '--log-interval', '1']
+        run(train + ['--num-timesteps', str(updates // 2 * e * n * t)], 'train')
+        lines, rows = run(train + ['--num-timesteps', str(updates * e * n * t), '--load-dir',
+                                   tmp], 'resume')
+        if not lines[0].startswith(f'resumed from {os.path.join(tmp, "step_")}') or \
+                rows[-1]['update'] != updates:
+            fail(f'cli resume: {lines[0]}, last update {rows[-1]["update"]}')
+        _, rows = run(['multigrid_tpu_torch.evaluate', '--env', BUP, '--num-agents', str(n),
+                       '--num-envs', str(e), '--num-steps', str(256 * e * n), '--load-dir',
+                       tmp, '--env-config', '{"max_steps": 64}'], 'evaluate')
+        if rows[-1]['agent_steps'] != 256 * e * n or rows[-1]['episodes'] < e:
+            fail(f'cli evaluate: {rows[-1]}')
+    return rows[-1]
 
 
 def kernel_times(device):
@@ -2060,6 +2494,16 @@ def main() -> None:
     bvenv, bstep, bfused, bstate, bcounts, bcounts_fused = bup_train()
     phase('bup timing')
     bt = bup_timing(bvenv, bstep, bfused, bstate)
+    phase('pool')
+    pool = pool_path()
+    phase('pool timing')
+    pt = pool_timing()
+    phase('cnn train')
+    cnn = cnn_train()
+    phase('resume')
+    resumed = resume_path()
+    phase('cli')
+    cli_row = cli_path()
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
@@ -2069,6 +2513,8 @@ def main() -> None:
                     library_ms=None, sass_tensor_ops=sass['obs'], call_ms=t['call_ms'],
                     profiler_ms=t['profiler_ms'], packed=t['packed'], team=team,
                     launches_zoo=zoo_res['launches'], launches_bup_train=bcounts['obs'],
+                    launches_pool=pool['launches'],
+                    launches_cnn_train={k: v['launches']['obs'] for k, v in cnn.items()},
                     bup=bt['kernels']['obs'])]
     for name, replaces, src, n in [
             ('onehot_linear', 'multigrid_tpu/ops/fused_linear.py:133', 'fused_linear.cu',
@@ -2112,7 +2558,10 @@ def main() -> None:
                       'variants_trained_agent_steps_per_s': vt['rates'],
                       'bup_trained_agent_steps_per_s': bt['rate'],
                       'bup_rollout_layers_ms': bt['layers'],
-                      'zoo_reset_share': zoo_res['reset_share']}))
+                      'zoo_reset_share': zoo_res['reset_share'],
+                      'pool_layers_ms': pool['layers'], 'bup_pool_timing': pt,
+                      'cnn_trained_agent_steps_per_s': {k: v['rate'] for k, v in cnn.items()},
+                      'resume': resumed, 'cli_evaluate': cli_row}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,7 @@ from .constants import Color, Direction, State, Type, TILE_PIXELS
 from .mission import Mission, MissionSpace
 from .state import (
     MultiGridState,
+    ResetPool,
     init_state,
     state_from_arrays,
     state_from_numpy,
@@ -14,6 +15,6 @@ from .state import (
 
 __all__ = [
     'Action', 'Color', 'Direction', 'EnvConfig', 'Mission', 'MissionSpace',
-    'MultiGridState', 'State', 'TILE_PIXELS', 'Type', 'init_state',
+    'MultiGridState', 'ResetPool', 'State', 'TILE_PIXELS', 'Type', 'init_state',
     'state_from_arrays', 'state_from_numpy', 'state_to_numpy',
 ]

@@ -19,6 +19,10 @@ Layouts and dtypes (the same as the JAX package's, with the ``E`` axis):
 There is no per-env ``rng`` field. Randomness (agent order, random starts)
 comes from a ``torch.Generator`` that the caller passes to the function that
 draws, so a state is plain data.
+
+A :class:`~multigrid_tpu_torch.parallel.VectorEnv` with a reserve pool
+carries it in ``pool`` (:class:`ResetPool`): batch-level state, never
+selected per env.
 """
 
 from __future__ import annotations
@@ -40,6 +44,17 @@ FIELDS = (
 
 
 @dataclasses.dataclass
+class ResetPool:
+    """A VectorEnv's reserve pool (multigrid_tpu/parallel/vector.py:243-263):
+    ``reserve`` holds one pregenerated layout a slot, extras included, and
+    ``step`` is the global step ``g`` (env ``i`` consumes slot ``(i + g) mod
+    E``)."""
+
+    reserve: 'MultiGridState'
+    step: int = 0
+
+
+@dataclasses.dataclass
 class MultiGridState:
     """State of ``E`` MultiGrid environments (leading env axis everywhere)."""
 
@@ -56,6 +71,9 @@ class MultiGridState:
     #: color): tensors with the leading env axis, merged per env like the
     #: fields above.
     extras: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    #: The VectorEnv's reserve pool, where it has one; the per-env code
+    #: paths never see it (``VectorEnv.step`` takes it off first).
+    pool: ResetPool | None = None
 
     @property
     def num_envs(self) -> int:
@@ -95,11 +113,13 @@ class MultiGridState:
 
     def clone(self) -> 'MultiGridState':
         """Deep copy with every tensor materialized (contiguous), the
-        extras' tensors too, so no write to the copy reaches the original."""
+        extras' and the pool's tensors too, so no write to the copy reaches
+        the original."""
         def cp(t):
             return t.clone(memory_format=torch.contiguous_format)
+        pool = None if self.pool is None else ResetPool(self.pool.reserve.clone(), self.pool.step)
         return self.replace(**{f: cp(getattr(self, f)) for f in FIELDS},
-                            extras={k: cp(v) for k, v in self.extras.items()})
+                            extras={k: cp(v) for k, v in self.extras.items()}, pool=pool)
 
 
 def init_state(
@@ -203,9 +223,15 @@ def state_from_arrays(
         extras={k: conv(v, kind(v)) for k, v in (extras or {}).items()})
 
 
-def state_to_numpy(state: MultiGridState) -> dict[str, np.ndarray]:
-    """Batched numpy copies of the state's tensor fields."""
-    return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+def state_to_numpy(state: MultiGridState) -> dict[str, Any]:
+    """Batched numpy copies of the state's tensor fields, with its
+    ``extras`` (a dict of arrays) and its ``pool`` (None, or the reserve's
+    own ``state_to_numpy`` and the step)."""
+    out: dict[str, Any] = {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+    out['extras'] = {k: v.cpu().numpy() for k, v in state.extras.items()}
+    out['pool'] = None if state.pool is None else {
+        'reserve': state_to_numpy(state.pool.reserve), 'step': state.pool.step}
+    return out
 
 
 def where_state(
@@ -213,7 +239,8 @@ def where_state(
 ) -> MultiGridState:
     """Per-env select: ``a`` where ``cond`` (shape ``(E,)``), else ``b``,
     for every field and every extra (the extras of a fresh episode are part
-    of its state: its mission, its doors' positions)."""
+    of its state: its mission, its doors' positions). The result keeps
+    ``b``'s pool: a pool belongs to the batch, not to an env."""
     def sel(x, y):
         return torch.where(cond.view((-1,) + (1,) * (x.dim() - 1)), x, y)
 

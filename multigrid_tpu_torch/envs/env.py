@@ -35,9 +35,9 @@ class MultiGridEnv(abc.ABC):
     mission: str = "maximize reward"
 
     #: True where ``_gen_grid`` does procedural generation (the RoomGrid
-    #: families and RedBlueDoors). The JAX package amortizes their
-    #: auto-resets through a reserve pool; the port resets exactly every
-    #: step, and chip_smoke.py measures that reset's share of a step.
+    #: families and RedBlueDoors): a ``VectorEnv`` then amortizes their
+    #: auto-resets through its reserve pool by default, as the JAX package
+    #: does (multigrid_tpu/parallel/vector.py:88-94).
     procedural_reset: bool = False
 
     #: Whether this environment's layouts can ever contain a Box; Box-free

@@ -249,8 +249,8 @@ def encodings(kind, color, state=0) -> torch.Tensor:
 class RoomGrid(MultiGridEnv):
     """Base class for environments built on a room lattice."""
 
-    #: Layouts are generated procedurally: an exact every-step reset costs
-    #: a share of the step that chip_smoke.py measures for each family.
+    #: Layouts are generated procedurally, so a ``VectorEnv`` resets them
+    #: through its reserve pool by default.
     procedural_reset = True
 
     def __init__(

@@ -1,5 +1,5 @@
-"""PPO training: the mlp ``ActorCritic``, the centralized critic, and the
-learner for shared or per-agent policies."""
+"""PPO training: the ``ActorCritic`` (mlp or cnn encoder), the centralized
+critic, and the learner for shared or per-agent policies."""
 
 from .nets import (
     OBS_CHANNELS,
@@ -15,6 +15,7 @@ from .ppo import (
     PPOConfig,
     Rollout,
     TrainState,
+    linear_schedule,
     make_train_loop,
     make_train_step,
     ppo_init,
@@ -22,6 +23,7 @@ from .ppo import (
 
 __all__ = [
     'OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic', 'Optimizer', 'PPOConfig',
-    'Rollout', 'TrainState', 'make_centralized_critic', 'make_train_loop',
-    'make_train_step', 'one_hot_image', 'params_from_flax', 'params_to_flax', 'ppo_init',
+    'Rollout', 'TrainState', 'linear_schedule', 'make_centralized_critic',
+    'make_train_loop', 'make_train_step', 'one_hot_image', 'params_from_flax',
+    'params_to_flax', 'ppo_init',
 ]

@@ -1,28 +1,34 @@
-"""Policy/value networks for gridworld observations (the mlp encoder).
+"""Policy/value networks for gridworld observations.
 
-Counterpart of ``multigrid_tpu.learn.nets`` for ``encoder='mlp'``: the
-``ActorCritic`` and the MAPPO ``CentralizedCritic``. The modules keep
-flax's layout and numerics so that the JAX package's weights carry across
-(:func:`params_from_flax`, :func:`params_to_flax`):
+Counterpart of ``multigrid_tpu.learn.nets``: the ``ActorCritic`` with the
+mlp or the cnn encoder, and the MAPPO ``CentralizedCritic``. The modules
+keep flax's numerics and parameter names, so that the JAX package's
+weights carry across (:func:`params_from_flax`, :func:`params_to_flax`):
 
 - parameters are float32 and stored as flax stores them: ``img_kernel``
   (C·21, H) over the flattened one-hot features (feature ``cell·21 + ch``)
-  and ``Dense_i.kernel`` (in, out), ``Dense_i.bias`` (out,);
+  and ``Dense_i.kernel`` (in, out), ``Dense_i.bias`` (out,); only the cnn's
+  ``Conv_i.kernel`` is kept in torch's (out, in, 3, 3) layout, flax's
+  (3, 3, in, out) permuted on the way in and out;
 - the trunk and heads compute in the module's ``dtype`` from those
   parameters (flax's ``dtype``, bfloat16 by default; float32 nets exist for
   tests); the heads' small outputs are promoted to float32;
 - the direction enters as ``cos``/``sin`` of a bfloat16 ``theta``
   (nets.py:106-107), with the mission's one-hot concatenated after it where
-  the net has ``num_missions`` (nets.py:108-112), through ``Dense_0`` with a
-  bias, added to the first layer's output (W·[x; d] == W_x·x + W_d·d).
+  the net has ``num_missions`` (nets.py:108-112), through ``Dense_0``,
+  added to the first layer's output (W·[x; d] == W_x·x + W_d·d): with a
+  bias over the mlp's hidden units, without one over the cnn's first 16
+  channels, broadcast over the image (nets.py:120-124).
 
-On packed observations the first layer is ``one_hot(packed) @ W`` through
-:func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear`: on the card a
-CUDA kernel (with a kernel for its weight gradient) whatever the net's
-``dtype``, as the JAX package's fused path takes its kernel; on the CPU the
-kernel's plain version for a bf16 net, and for a float32 net (which exists
-for the tests) the one-hot product in float32, as flax computes it outside
-the kernel.
+On packed observations the mlp's first layer is ``one_hot(packed) @ W``
+through :func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear`: on the
+card a CUDA kernel (with a kernel for its weight gradient) whatever the
+net's ``dtype``, as the JAX package's fused path takes its kernel; on the
+CPU the kernel's plain version for a bf16 net, and for a float32 net (which
+exists for the tests) the one-hot product in float32, as flax computes it
+outside the kernel. The cnn runs its three VALID 3x3 convolutions through
+``torch.nn.functional.conv2d`` (the JAX package computes them in XLA, not
+in a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_linear import NCH, OBS_CHANNELS, one_hot_image, onehot_linear
@@ -39,9 +46,9 @@ from ..ops.fused_linear import NCH, OBS_CHANNELS, one_hot_image, onehot_linear
 #: The compute type of the trunk and heads (flax's ``dtype``).
 DTYPE = torch.bfloat16
 
-__all__ = ['OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic', 'direction_features',
-           'dir_mission_features', 'make_centralized_critic', 'one_hot_image',
-           'params_from_flax', 'params_to_flax']
+__all__ = ['CNN_MIN_VIEW', 'OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic',
+           'direction_features', 'dir_mission_features', 'make_centralized_critic',
+           'one_hot_image', 'params_from_flax', 'params_to_flax']
 
 
 def direction_features(direction: torch.Tensor, dtype=DTYPE) -> torch.Tensor:
@@ -66,9 +73,11 @@ def dir_mission_features(direction: torch.Tensor, mission: torch.Tensor | None,
     return dirf
 
 
-def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """flax's ``lecun_normal``: a normal truncated at ±2σ, variance 1/fan_in."""
-    std = math.sqrt(1.0 / t.shape[0]) / 0.87962566103423978
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator,
+                  fan_in: int | None = None) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at ±2σ, variance 1/fan_in
+    (by default the first dimension, the ``in`` of an (in, out) kernel)."""
+    std = math.sqrt(1.0 / (fan_in or t.shape[0])) / 0.87962566103423978
     return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
@@ -89,8 +98,38 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
+class Conv(nn.Module):
+    """flax ``nn.Conv(features, (3, 3), padding='VALID')`` on NCHW data: a
+    float32 ``kernel`` (features, in, 3, 3) and ``bias``, cast to ``dtype``;
+    the bias is added to the rounded product, as flax adds it."""
+
+    def __init__(self, in_channels: int, features: int, generator: torch.Generator,
+                 dtype=DTYPE):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(lecun_normal_(
+            torch.empty(features, in_channels, 3, 3), generator, 9 * in_channels))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.to(self.dtype), self.kernel.to(self.dtype))
+        return y + self.bias.to(self.dtype)[:, None, None]
+
+
+#: The smallest view the cnn takes: three VALID 3x3 convolutions leave
+#: (vs - 6)² positions.
+CNN_MIN_VIEW = 7
+
+
 class ActorCritic(nn.Module):
-    """mlp encoder + categorical actor + value critic.
+    """Encoder + categorical actor + value critic.
+
+    ``encoder='mlp'`` is the one-hot features through one wide dense layer
+    (``img_kernel``); ``encoder='cnn'`` the reference example's 3×Conv+ReLU
+    network over the one-hot planes (16, 32 and 64 channels, VALID), the
+    direction and mission features added to the first convolution's
+    channels, then ``Dense_1`` (hidden) over the flattened (h, w, c) map
+    (nets.py:120-133); it needs views of at least 7.
 
     ``image`` is (..., C) packed cells with ``packed_obs=True``, else (...,
     vs, vs, 3) triples (C = vs·vs); ``direction`` is (...), and ``mission``
@@ -104,33 +143,67 @@ class ActorCritic(nn.Module):
 
     def __init__(self, num_cells: int, *, num_actions: int = 7, hidden: int = 128,
                  packed_obs: bool = False, seed: int = 0, dtype=DTYPE,
-                 num_missions: int = 0):
+                 num_missions: int = 0, encoder: str = 'mlp'):
         super().__init__()
+        if encoder not in ('mlp', 'cnn'):
+            raise ValueError(f"encoder must be 'mlp' or 'cnn', not {encoder!r}")
         self.num_cells = num_cells
         self.num_actions = num_actions
         self.hidden = hidden
         self.packed_obs = packed_obs
         self.dtype = dtype
         self.num_missions = num_missions
+        self.encoder = encoder
+        self.view_size = math.isqrt(num_cells)
         g = torch.Generator().manual_seed(seed)
-        self.img_kernel = nn.Parameter(
-            lecun_normal_(torch.empty(num_cells * NCH, hidden), g))
-        self.Dense_0 = Dense(2 + num_missions, hidden, g, dtype)
-        self.Dense_1 = Dense(hidden, hidden, g, dtype)
+        features = 2 + num_missions
+        if encoder == 'mlp':
+            self.img_kernel = nn.Parameter(
+                lecun_normal_(torch.empty(num_cells * NCH, hidden), g))
+            self.Dense_0 = Dense(features, hidden, g, dtype)
+            self.Dense_1 = Dense(hidden, hidden, g, dtype)
+        else:
+            vs = self.view_size
+            if vs * vs != num_cells or vs < CNN_MIN_VIEW:
+                # The JAX package's flax init fails on such views with a
+                # ZeroDivisionError (a kernel of no input features).
+                raise ZeroDivisionError(
+                    f'the cnn encoder needs a square view of at least {CNN_MIN_VIEW}, '
+                    f'not {num_cells} cells: three VALID 3x3 convolutions leave nothing')
+            self.Conv_0 = Conv(NCH, 16, g, dtype)
+            self.Dense_0 = Dense(features, 16, g, dtype, use_bias=False)
+            self.Conv_1 = Conv(16, 32, g, dtype)
+            self.Conv_2 = Conv(32, 64, g, dtype)
+            self.Dense_1 = Dense((vs - 6) ** 2 * 64, hidden, g, dtype)
         self.Dense_2 = Dense(hidden, num_actions, g, dtype)
         self.Dense_3 = Dense(hidden, 1, g, dtype)
 
     def forward(self, image: torch.Tensor, direction: torch.Tensor,
                 mission: torch.Tensor | None = None):
         lead = image.shape[:-1] if self.packed_obs else image.shape[:-3]
-        h = _first_layer(image, self.img_kernel, self.num_cells, lead, self.packed_obs,
-                         self.dtype)
         d = dir_mission_features(direction, mission, self.num_missions, self.dtype)
-        x = torch.relu(h + self.Dense_0(d))
+        if self.encoder == 'mlp':
+            h = _first_layer(image, self.img_kernel, self.num_cells, lead, self.packed_obs,
+                             self.dtype)
+            x = torch.relu(h + self.Dense_0(d))
+        else:
+            x = self._cnn(image, d, lead)
         x = torch.relu(self.Dense_1(x))
         logits = self.Dense_2(x).float()
         value = self.Dense_3(x).float()
         return logits, value.squeeze(-1)
+
+    def _cnn(self, image, d, lead):
+        """The cnn's features (*lead, (vs-6)²·64) in flax's (h, w, c) order."""
+        vs = self.view_size
+        if self.packed_obs:
+            image = image.reshape(lead + (vs, vs))
+        x = one_hot_image(image, self.dtype, packed=self.packed_obs)
+        x = x.reshape((-1, vs, vs, NCH)).permute(0, 3, 1, 2)  # NHWC → NCHW
+        x = torch.relu(self.Conv_0(x) + self.Dense_0(d).reshape(-1, 16, 1, 1))
+        x = torch.relu(self.Conv_1(x))
+        x = torch.relu(self.Conv_2(x))
+        return x.permute(0, 2, 3, 1).reshape(lead + (-1,))
 
 
 def _first_layer(image, w, cells, lead, packed, dtype):
@@ -213,7 +286,8 @@ def params_from_flax(tree, device=None) -> dict[str, torch.Tensor]:
     (``{'params': {...}}`` or the inner dict, leaves as arrays), a stacked
     tree of per-agent policies (the leading agent axis stays), or
     ``{'actor': ..., 'critic': ...}`` (keys prefixed ``actor.`` and
-    ``critic.``)."""
+    ``critic.``). Conv kernels go from flax's (3, 3, in, out) to torch's
+    (out, in, 3, 3)."""
     if 'actor' in tree:
         return {prefix + k: v for prefix, part in ((ACTOR, 'actor'), (CRITIC, 'critic'))
                 for k, v in params_from_flax(tree[part], device).items()}
@@ -224,8 +298,11 @@ def params_from_flax(tree, device=None) -> dict[str, torch.Tensor]:
             if isinstance(leaf, Mapping):
                 walk(leaf, path + key + '.')
             else:
-                out[path + key] = torch.tensor(np.asarray(leaf), dtype=torch.float32,
-                                               device=device)
+                a = np.asarray(leaf)
+                if _is_conv_kernel(path + key):
+                    nd = a.ndim
+                    a = a.transpose(*range(nd - 4), nd - 1, nd - 2, nd - 4, nd - 3)
+                out[path + key] = torch.tensor(a, dtype=torch.float32, device=device)
 
     walk(tree.get('params', tree), '')
     return out
@@ -244,5 +321,15 @@ def params_to_flax(params: dict[str, torch.Tensor]) -> dict:
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = value.detach().cpu().numpy()
+        a = value.detach().cpu().numpy()
+        if _is_conv_kernel(name):
+            nd = a.ndim
+            a = a.transpose(*range(nd - 4), nd - 2, nd - 1, nd - 3, nd - 4)
+        node[leaf] = a
     return {'params': tree}
+
+
+def _is_conv_kernel(name: str) -> bool:
+    """Whether a parameter name is a cnn kernel (``Conv_i.kernel``)."""
+    *path, leaf = name.split('.')
+    return leaf == 'kernel' and bool(path) and path[-1].startswith('Conv_')

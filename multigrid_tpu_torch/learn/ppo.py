@@ -1,7 +1,7 @@
 """PPO: rollout, GAE and clipped-surrogate updates.
 
-Counterpart of ``multigrid_tpu.learn.ppo`` for the mlp ``ActorCritic``: one
-policy shared by all agents, or per-agent policies
+Counterpart of ``multigrid_tpu.learn.ppo`` for the ``ActorCritic`` with the
+mlp or the cnn encoder: one policy shared by all agents, or per-agent policies
 (``PPOConfig.per_agent_policies``, the reference's ``policy_{i}``: every
 parameter has a leading agent axis), each with an optional MAPPO
 centralized critic (``PPOConfig.centralized_critic``). An update
@@ -10,15 +10,19 @@ with actions sampled from the policy, computes GAE, and takes ``epochs`` ×
 ``minibatches`` SGD steps. On the card the rollout's first layer is the
 ``onehot_linear`` kernel (once per agent with per-agent policies), or, with
 ``MULTIGRID_FUSED_POLICY`` set for a shared policy without the critic, the
-whole policy step is the fused-policy kernel. Envs with missions
+whole policy step is the fused-policy kernel; a cnn actor runs through
+autograd and ``conv2d`` (the kernels are the mlp's). Envs with missions
 (BlockedUnlockPickup) give the nets the episode's mission, sized from the
 env's mission space, as a one-hot after the direction features: the
 kernels' direction-feature operand (F = 2 + missions). The learner is the fused
 PPO-loss kernel (once per agent with per-agent policies) where
 :func:`~multigrid_tpu_torch.ops.fused_ppo.supports` holds and there is no
-centralized critic, else autograd of :meth:`TrainStep.loss_fn` (whose first
-layers' weight gradients are the ``onehot_linear`` gradient kernel). On the
-CPU the same code takes the plain versions.
+centralized critic and the actor is the mlp, else autograd of
+:meth:`TrainStep.loss_fn` (whose mlp first layers' weight gradients are the
+``onehot_linear`` gradient kernel). On the CPU the same code takes the
+plain versions. Where the vector env has a reserve pool, the rollout steps
+with ``refresh=False`` and refreshes the pool once at its end
+(ppo.py:405, 439-442).
 
 Parameters and optimizer state are plain dicts of tensors, updated
 functionally: no tensor of a ``TrainState`` is written in place, so a caller
@@ -33,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import warnings
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
@@ -75,6 +80,26 @@ class OptState:
     count: int
     mu: dict[str, torch.Tensor]
     nu: dict[str, torch.Tensor]
+    #: The learning-rate schedule's own count (optax's
+    #: ``ScaleByScheduleState``), None for a constant rate.
+    schedule_count: int | None = None
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], float]:
+    """``optax.linear_schedule``: ``count -> init + (end - init) ·
+    min(count, N) / N``, computed in float32 as optax computes it
+    (``(init - end) · (1 - count / N) + end``, the difference rounded once)."""
+    diff, end = np.float32(init_value - end_value), np.float32(end_value)
+    n = np.float32(transition_steps)
+
+    def schedule(count: int) -> float:
+        if transition_steps <= 0:
+            return float(np.float32(init_value))
+        frac = np.float32(1) - np.float32(min(max(count, 0), transition_steps)) / n
+        return float(diff * frac + end)
+
+    return schedule
 
 
 class Optimizer:
@@ -92,19 +117,24 @@ class Optimizer:
       by its own global norm.
 
     Adam's ``eps`` is outside the square root of the bias-corrected second
-    moment. ``update`` returns the updates to add to the parameters.
+    moment. ``lr`` is a rate or a schedule (:func:`linear_schedule`), which
+    optax's ``adam(schedule)`` reads once per optimizer update, so once per
+    SGD minibatch step, from a count of its own that starts at 0 (Adam's
+    bias correction counts from 1). ``update`` returns the updates to add
+    to the parameters.
     """
 
-    def __init__(self, lr: float, max_grad_norm: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, *, per_agent: bool = False,
-                 critic: bool = False):
+    def __init__(self, lr: float | Callable[[int], float], max_grad_norm: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
+                 per_agent: bool = False, critic: bool = False):
         self.lr, self.max_grad_norm = lr, max_grad_norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.per_agent, self.critic = per_agent, critic
 
     def init(self, params: dict[str, torch.Tensor]) -> OptState:
         return OptState(0, {k: torch.zeros_like(v) for k, v in params.items()},
-                        {k: torch.zeros_like(v) for k, v in params.items()})
+                        {k: torch.zeros_like(v) for k, v in params.items()},
+                        0 if callable(self.lr) else None)
 
     def _clip_group(self, grads: dict[str, torch.Tensor], per_agent: bool):
         if per_agent:
@@ -135,9 +165,11 @@ class Optimizer:
         # the device).
         c1 = float(np.float32(1) - np.float32(self.b1) ** count)
         c2 = float(np.float32(1) - np.float32(self.b2) ** count)
-        updates = {k: -self.lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps))
+        sc = state.schedule_count
+        lr = self.lr if sc is None else self.lr(sc)
+        updates = {k: -lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps))
                    for k in grads}
-        return updates, OptState(count, mu, nu)
+        return updates, OptState(count, mu, nu, None if sc is None else sc + 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,19 +226,23 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
-             hidden: int = 128, dtype=torch.bfloat16, net: ActorCritic | None = None):
+             hidden: int = 128, dtype=torch.bfloat16, net: ActorCritic | None = None,
+             net_kwargs: dict | None = None,
+             lr_schedule: Callable[[int], float] | None = None):
     """``(train_state, net, config, optimizer)`` for training on ``venv``.
 
     The env, the net's weights, the train state's generator and the critic
     get independent seeds derived from ``seed``; per-agent policies get one
-    net each, from seeds derived from the net's. ``dtype`` is the nets'
-    compute type. The net conditions on the mission where the env has
-    missions, with ``num_missions`` the size of the env's mission space
-    (ppo.py:170-201). A ``net`` passed in is taken as it is (its weights
-    start the training; ``hidden`` and ``dtype`` are its own), with a
-    warning where the env has missions and the net none. With the
-    centralized critic the parameters are keyed ``actor.*`` and
-    ``critic.*``.
+    net each, from seeds derived from the net's. ``net_kwargs`` (``hidden``,
+    ``dtype``, ``encoder``: ``'mlp'``, the default, or ``'cnn'``) build the
+    net, over ``hidden`` and ``dtype`` (the nets' compute type). The net
+    conditions on the mission where the env has missions, with
+    ``num_missions`` the size of the env's mission space (ppo.py:170-201).
+    A ``net`` passed in is taken as it is (its weights start the training;
+    its attributes are its own), with a warning where the env has missions
+    and the net none. With the centralized critic (always the mlp) the
+    parameters are keyed ``actor.*`` and ``critic.*``. ``lr_schedule``
+    (:func:`linear_schedule`) replaces the constant ``config.lr``.
     """
     config = config or PPOConfig()
     env_seed, net_seed, train_seed, critic_seed = (
@@ -215,10 +251,12 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
     num_missions = len(venv.env.mission_space) if 'mission' in obs else 0
     vs = venv.env.cfg.view_size
     if net is None:
-        kw = dict(hidden=hidden, packed_obs=venv.packed_obs, dtype=dtype,
-                  num_missions=num_missions)
+        kw = {'hidden': hidden, 'dtype': dtype, **(net_kwargs or {}),
+              'packed_obs': venv.packed_obs, 'num_missions': num_missions}
         net = ActorCritic(vs * vs, seed=net_seed, **kw).to(venv.device)
     else:
+        if net_kwargs:
+            raise ValueError('pass either net or net_kwargs, not both')
         if num_missions and net.num_missions == 0:
             warnings.warn(
                 f'{type(venv.env).__name__} surfaces a mission index but the '
@@ -228,7 +266,7 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
             raise ValueError(f'net.packed_obs={net.packed_obs} does not match '
                              f'VectorEnv(packed_obs={venv.packed_obs})')
         kw = dict(hidden=net.hidden, packed_obs=net.packed_obs, dtype=net.dtype,
-                  num_missions=net.num_missions)
+                  num_missions=net.num_missions, encoder=net.encoder)
     if config.per_agent_policies:
         seeds = np.random.SeedSequence(net_seed).generate_state(venv.num_agents)
         nets = [ActorCritic(vs * vs, seed=int(s), **kw).state_dict() for s in seeds]
@@ -240,8 +278,8 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
         params = {**{ACTOR + k: v for k, v in params.items()},
                   **{CRITIC + k: v.detach().to(venv.device)
                      for k, v in critic.state_dict().items()}}
-    tx = Optimizer(config.lr, config.max_grad_norm, per_agent=config.per_agent_policies,
-                   critic=config.centralized_critic)
+    tx = Optimizer(config.lr if lr_schedule is None else lr_schedule, config.max_grad_norm,
+                   per_agent=config.per_agent_policies, critic=config.centralized_critic)
     state = TrainState(
         params=params, opt_state=tx.init(params), env_state=env_state,
         last_obs=obs,
@@ -268,10 +306,11 @@ class TrainStep:
         self.critic = (make_centralized_critic(net, venv.num_agents).to(venv.device)
                        if config.centralized_critic else None)
         #: Whether the rollout samples through the fused-policy kernel:
-        #: opt-in, for a shared policy without the centralized critic, whose
-        #: value the kernel does not compute (ppo.py:342-349).
+        #: opt-in, for a shared mlp policy without the centralized critic,
+        #: whose value the kernel does not compute (ppo.py:342-349).
         self.fused_policy = bool(
             os.environ.get('MULTIGRID_FUSED_POLICY') and net.packed_obs
+            and net.encoder == 'mlp'
             and not config.per_agent_policies and not config.centralized_critic
             and fused_policy.supports(venv.num_envs * venv.num_agents, net.hidden,
                                       net.num_actions))
@@ -362,8 +401,9 @@ class TrainStep:
         prepped = self.prepare_policy(params)
         for _ in range(self.config.rollout_steps):
             action, log_prob, value = self.policy_step(params, prepped, obs, state.generator)
+            # With the pool, its refresh runs once a rollout (below).
             next_obs, env_state, reward, term, _, done, success = venv.step(
-                env_state, action)
+                env_state, action, refresh=not venv.reset_pool)
             ep_acc = ep_acc + reward.sum(-1)
             ep_sum = ep_sum + torch.where(done, ep_acc, 0.0).sum()
             ep_cnt = ep_cnt + done.sum()
@@ -375,6 +415,7 @@ class TrainStep:
         traj = Rollout(*(None if getattr(steps[0], f.name) is None
                          else torch.stack([getattr(s, f.name) for s in steps])
                          for f in dataclasses.fields(Rollout)))
+        env_state = venv.refresh_pool(env_state, self.config.rollout_steps)
         last_value = self.policy(params, obs)[1]
         state = state.replace(env_state=env_state, last_obs=obs, ep_return_acc=ep_acc)
         return state, traj, last_value, (ep_sum, ep_cnt, ep_suc)
@@ -455,14 +496,15 @@ class TrainStep:
 
     def loss_grads(self, params, traj: Rollout, advantages, targets):
         """``(grads, metrics)``: the fused PPO-loss kernel where its gate
-        holds and there is no centralized critic (the kernel computes the
-        actor's own value head), once per agent with per-agent policies;
-        else autograd of :meth:`loss_fn` (ppo.py:583-637)."""
+        holds, the actor is the mlp and there is no centralized critic (the
+        kernel computes the actor's own value head), once per agent with
+        per-agent policies; else autograd of :meth:`loss_fn`
+        (ppo.py:583-637)."""
         cfg, net = self.config, self.net
         b, n = traj.direction.numel(), traj.direction.shape[-1]
         kw = dict(clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
                   num_actions=net.num_actions)
-        if net.packed_obs and self.critic is None:
+        if net.packed_obs and net.encoder == 'mlp' and self.critic is None:
             if cfg.per_agent_policies and self._loss_kernel_ok(
                     b // n, net.hidden, net.num_actions):
                 args = self.kernel_inputs(traj, advantages, targets)
@@ -581,5 +623,5 @@ def make_train_loop(venv: VectorEnv, net: ActorCritic, config: PPOConfig,
 
 
 __all__ = ['OptState', 'Optimizer', 'PPOConfig', 'Rollout', 'TrainState',
-           'TrainStep', 'gumbel_noise', 'make_train_loop', 'make_train_step',
-           'minibatches', 'ppo_init', 'sample_actions']
+           'TrainStep', 'gumbel_noise', 'linear_schedule', 'make_train_loop',
+           'make_train_step', 'minibatches', 'ppo_init', 'sample_actions']

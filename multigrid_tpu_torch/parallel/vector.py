@@ -6,9 +6,16 @@ device. Whenever an env is done (all agents terminated, or truncated —
 multigrid/base.py:534-539), a fresh layout is swapped in with a per-env
 select, so stepping never leaves the device.
 
-Randomness (agent orders, random actions, random starts) comes from the
-VectorEnv's own ``torch.Generator`` on the device, seeded by :meth:`reset`.
-The loop runs eagerly, one step per Python call.
+Procedurally generated layouts (``env.procedural_reset``: the RoomGrid
+families and RedBlueDoors) go through the reserve pool by default, as in
+the JAX package (multigrid_tpu/parallel/vector.py:199-470): each env slot
+holds one pregenerated layout, a finished env takes slot ``(i + g) mod E``
+at global step ``g``, and a rotating slice of slots is regenerated each
+step or, in rollout loops, once a chunk of steps.
+
+Randomness (agent orders, random actions, random starts, fresh reserve
+layouts) comes from the VectorEnv's own ``torch.Generator`` on the device,
+seeded by :meth:`reset`. The loop runs eagerly, one step per Python call.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import torch
 
 from ..core.actions import NUM_ACTIONS
 from ..core.constants import Color, State
-from ..core.state import MultiGridState, where_state
+from ..core.state import FIELDS, MultiGridState, ResetPool, where_state
 from ..envs.env import MultiGridEnv
 from ..ops.obs_cuda import gen_obs_batched
 from ..ops.step import sample_order
@@ -39,6 +46,12 @@ class VectorEnv:
     terminations are the ending episode's. ``success`` is ``(num_envs,)`` —
     :meth:`MultiGridEnv.success` on the final *pre-reset* state.
 
+    ``auto_reset=False`` leaves a finished env as it ended. ``reset_pool``
+    (None: ``env.procedural_reset``; only with ``auto_reset``) resets
+    finished envs from the reserve pool instead of an exact reset of every
+    env each step; ``reset_pool_period`` (None: ``min(128, max_steps)``) is
+    the number of steps in which every slot is regenerated.
+
     ``device=None`` takes the env's device (which itself defaults to the
     card); another device than the env's is an error.
 
@@ -48,13 +61,20 @@ class VectorEnv:
     JAX package's ``VectorEnv(packed_obs=True)``.
     """
 
+    #: Steps a rollout loop runs with ``refresh=False`` before one
+    #: :meth:`refresh_pool` (vector.py:529).
+    REFRESH_CHUNK = 16
+
     def __init__(
         self,
         env: MultiGridEnv,
         num_envs: int,
         *,
-        device: str | torch.device | None = None,
+        auto_reset: bool = True,
+        reset_pool: bool | None = None,
+        reset_pool_period: int | None = None,
         packed_obs: bool = False,
+        device: str | torch.device | None = None,
     ):
         if packed_obs:
             # Observation wrappers work on (vs, vs, 3) channel triples, so
@@ -67,64 +87,146 @@ class VectorEnv:
         if device is not None and resolve_device(device) != env.device:
             raise ValueError(
                 f'VectorEnv on {device} needs an env on it, not on {env.device}')
+        if reset_pool is None:
+            reset_pool = env.procedural_reset
+        if reset_pool_period is None:
+            # The longest period with no replay for episodes of at least
+            # ``period`` steps, capped so that early-terminating envs do
+            # not grow stale (vector.py:102-110).
+            reset_pool_period = min(128, max(1, env.cfg.max_steps))
+        if reset_pool_period < 1:
+            raise ValueError(f'reset_pool_period must be at least 1, not {reset_pool_period}')
         self.env = env
         self.num_envs = num_envs
         self.device = env.device
         self.packed_obs = packed_obs
+        self.auto_reset = auto_reset
+        self.reset_pool = bool(reset_pool) and auto_reset
+        self.reset_pool_period = reset_pool_period
         self.generator = torch.Generator(device=self.device)
+        # Slot indices twice over: env i's slot at offset o is ring[o + i].
+        self._ring = torch.arange(2 * num_envs, device=self.device) % num_envs
 
     @property
     def num_agents(self) -> int:
         return self.env.num_agents
 
     def reset(self, seed: int = 0):
-        """Seed the generator and reset all envs. Returns ``(obs, state)``."""
+        """Seed the generator and reset all envs (then draw the reserve,
+        where the pool is on). Returns ``(obs, state)``."""
         self.generator.manual_seed(seed)
         state = self.env.reset_core(self.num_envs, self.generator).clone()
+        if self.reset_pool:
+            reserve = self.env.reset_core(self.num_envs, self.generator).clone()
+            state = state.replace(pool=ResetPool(reserve, 0))
         return self.observe(state), state
 
-    def step(self, state: MultiGridState, actions, *, order=None):
+    def step(self, state: MultiGridState, actions, *, order=None, refresh: bool = True):
         """Step all envs; auto-reset finished episodes.
 
         ``order`` (E, N) fixes the agents' action order; by default it is
         drawn from the generator. Observations are made once, through the
         kernel, on the merged state: finished envs observe their fresh
         layout, running envs their post-action pre-hook state (base.py:337).
+        With the pool, ``refresh=False`` skips this step's regeneration of
+        reserve slots (the global step still advances); the caller then
+        owes one :meth:`refresh_pool` a chunk of such steps.
 
         Returns ``(obs, state, rewards, terminations, truncations, done,
         success)``.
         """
+        pool = state.pool
         obs_state, new_state, rew, term, trunc, done, success = self.step_dynamics(
             state, actions, order=order)
-        obs_state, new_state = self.auto_reset(done, obs_state, new_state)
-        return self.observe(obs_state), new_state, rew, term, trunc, done, success
+        if self.auto_reset:
+            obs_state, new_state = self.reset_done(done, obs_state, new_state, pool)
+        obs = self.observe(obs_state)
+        if pool is not None:
+            new_state = new_state.replace(pool=self.next_pool(pool, refresh))
+        return obs, new_state, rew, term, trunc, done, success
 
     def step_dynamics(self, state: MultiGridState, actions, *, order=None):
         """The first stage of :meth:`step`: the agents' orders, the env's
-        dynamics and hook, and each env's ``done`` and ``success``.
-        Returns ``(obs_state, new_state, rewards, terminations,
-        truncations, done, success)``."""
+        dynamics and hook, and each env's ``done`` and ``success``, on the
+        state without its pool. Returns ``(obs_state, new_state, rewards,
+        terminations, truncations, done, success)``."""
         e, n = self.num_envs, self.num_agents
         if order is None:
             order = sample_order(self.generator, e, n, self.device)
         obs_state, new_state, rew, term, trunc = self.env.step_core(
-            state, actions, order)
+            state.replace(pool=None), actions, order)
         done = term.all(dim=-1) | trunc.any(dim=-1)
         # Task completion on the final state, before the reset erases it.
         success = self.env.success(new_state)
         return obs_state, new_state, rew, term, trunc, done, success
 
-    def auto_reset(self, done: torch.Tensor, obs_state: MultiGridState,
-                   new_state: MultiGridState):
-        """The second stage of :meth:`step`: one exact reset for every env,
-        kept where ``done`` (the JAX package's ``reset_pool=False``), so the
-        fresh layout's extras (its mission, its doors) come with it.
+    def reset_done(self, done: torch.Tensor, obs_state: MultiGridState,
+                   new_state: MultiGridState, pool: ResetPool | None = None):
+        """The second stage of :meth:`step` (with ``auto_reset``): the fresh
+        layouts, kept where ``done``, with their extras (mission, doors).
+        From ``pool`` where there is one (:meth:`consume`), else one exact
+        reset for every env (the JAX package's ``reset_pool=False``).
         Returns ``(obs_state, state)``."""
-        reset_state = self.env.reset_core(self.num_envs, self.generator)
-        merged = where_state(done, reset_state, new_state)
+        fresh = (self.env.reset_core(self.num_envs, self.generator) if pool is None
+                 else self.consume(pool))
+        merged = where_state(done, fresh, new_state)
         obs_state = merged if obs_state is new_state \
-            else where_state(done, reset_state, obs_state)
+            else where_state(done, fresh, obs_state)
         return obs_state, merged
+
+    def consume(self, pool: ResetPool) -> MultiGridState:
+        """The reserve as the envs read it at the pool's step ``g``: env
+        ``i`` gets slot ``(i + g) mod E``, so an env never replays the
+        layout it just played (vector.py:392-405). One gather a tensor."""
+        e = self.num_envs
+        offset = pool.step % e
+        idx = self._ring[offset:offset + e]
+        r = pool.reserve
+        return r.replace(**{f: getattr(r, f)[idx] for f in FIELDS},
+                         extras={k: v[idx] for k, v in r.extras.items()})
+
+    def next_pool(self, pool: ResetPool, refresh: bool = True) -> ResetPool:
+        """The last stage of :meth:`step` with a pool: this step's slots
+        regenerated where ``refresh``, then the global step advanced."""
+        if refresh:
+            pool = self._refresh(pool, 1)
+        return ResetPool(pool.reserve, pool.step + 1)
+
+    def refresh_slots(self, step: int, chunk: int = 1) -> tuple[int, int]:
+        """``(start, count)`` of the slots a refresh at global step ``step``
+        regenerates: ``chunk`` steps' worth, ``min(E, ceil(E / period) ·
+        chunk)`` slots from cursor ``step // chunk`` (``step`` itself for
+        one step), the last slice clamped to end at ``E`` as
+        ``dynamic_slice`` clamps it (vector.py:307-316)."""
+        e = self.num_envs
+        count = min(e, -(-e // self.reset_pool_period) * chunk)
+        cursor = step if chunk == 1 else step // chunk
+        return min((cursor % -(-e // count)) * count, e - count), count
+
+    def _refresh(self, pool: ResetPool, chunk: int) -> ResetPool:
+        """The pool with ``chunk`` steps' worth of slots regenerated, drawn
+        from the generator; the tensors of ``pool`` are left as they are."""
+        start, count = self.refresh_slots(pool.step, chunk)
+        fresh = self.env.reset_core(count, self.generator)
+        if count == self.num_envs:
+            return ResetPool(fresh.clone(), pool.step)
+        r = pool.reserve
+
+        def put(old, new):
+            return torch.slice_scatter(old, new, dim=0, start=start, end=start + count)
+        reserve = r.replace(**{f: put(getattr(r, f), getattr(fresh, f)) for f in FIELDS},
+                            extras={k: put(v, fresh.extras[k]) for k, v in r.extras.items()})
+        return ResetPool(reserve, pool.step)
+
+    def refresh_pool(self, state: MultiGridState, chunk: int) -> MultiGridState:
+        """Regenerate ``chunk`` steps' worth of reserve slots in one burst,
+        leaving the global step alone (vector.py:330-344): after ``chunk``
+        steps with ``refresh=False`` it keeps the pool's contract (every
+        slot regenerated within ``reset_pool_period`` steps) at one reset
+        a chunk. A state without a pool is returned as it is."""
+        if state.pool is None:
+            return state
+        return state.replace(pool=self._refresh(state.pool, chunk))
 
     def observe(self, state: MultiGridState):
         """Observations of a batched state, through the kernel wrapper, with
@@ -138,20 +240,28 @@ class VectorEnv:
     def rollout_random(self, state: MultiGridState, steps: int):
         """Advance ``steps`` lockstep steps with uniform-random actions.
 
-        The throughput benchmark core. Returns ``(state, summary)``: the
-        reward sum (float32), the number of finished episodes (int32), and
-        an observation checksum that wraps to int32 as the JAX package's
+        The throughput benchmark core. With the pool, steps run in chunks
+        of :attr:`REFRESH_CHUNK` with ``refresh=False``, each followed by
+        one :meth:`refresh_pool`; the rest refresh every step
+        (vector.py:529-590). Returns ``(state, summary)``: the reward sum
+        (float32), the number of finished episodes (int32), and an
+        observation checksum that wraps to int32 as the JAX package's
         does. The summary stays on the device until read.
         """
         e, n = self.num_envs, self.num_agents
         rew_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         episodes = torch.zeros((), dtype=torch.int64, device=self.device)
         obs_sum = torch.zeros((), dtype=torch.int64, device=self.device)
-        for _ in range(steps):
+        chunk = self.REFRESH_CHUNK
+        chunks = steps // chunk if self.reset_pool else 0
+        for t in range(steps):
+            in_chunk = t < chunks * chunk
             actions = torch.randint(
                 0, NUM_ACTIONS, (e, n), generator=self.generator,
                 device=self.device, dtype=torch.int32)
-            obs, state, rew, _, _, done, _ = self.step(state, actions)
+            obs, state, rew, _, _, done, _ = self.step(state, actions, refresh=not in_chunk)
+            if in_chunk and (t + 1) % chunk == 0:
+                state = self.refresh_pool(state, chunk)
             rew_sum += rew.sum()
             episodes += done.sum()
             obs_sum += obs['image'].sum()

@@ -1,9 +1,10 @@
 """Train PPO policies on a MultiGrid environment, on the card.
 
-The counterpart of the JAX package's ``scripts/train.py`` for the mlp
-encoder on packed observations: one policy shared by all agents, or one per
-agent (``--per-agent-policies``), with each agent's own value head or a
-centralized critic (``--critic centralized``):
+The counterpart of the JAX package's ``scripts/train.py``, with its
+defaults: the cnn encoder, packed observations, the reserve pool on
+procedural envs, a checkpoint every 20 updates. One policy shared by all
+agents, or one per agent (``--per-agent-policies``), with each agent's own
+value head or a centralized critic (``--critic centralized``):
 
     python -m multigrid_tpu_torch.train --env MultiGrid-Empty-16x16-v0 \\
         --num-agents 4 --num-envs 4096 --num-timesteps 10000000
@@ -11,30 +12,53 @@ centralized critic (``--critic centralized``):
 Any registered environment trains; on one with missions
 (``MultiGrid-BlockedUnlockPickup-v0``) the net conditions on the mission,
 sized from the env's mission space. The JAX package's production recipe
-there is ``--num-agents 2 --num-envs 4096 --rollout-steps 128 --epochs 2
---minibatches 4``.
+there is ``--encoder mlp --num-agents 2 --num-envs 4096 --rollout-steps 128
+--epochs 2 --minibatches 4``.
+
+Checkpoints go to ``--save-dir`` (``step_<update>``, and ``best`` with
+``--save-best``); ``--load-dir`` resumes from the latest one, exactly: the
+parameters, the optimizer, the env batch with its pool and both
+generators. ``--lr-anneal`` decays the rate linearly to 0 over the run's
+updates, read once per SGD step as optax reads it (so with E epochs of M
+minibatches it reaches 0 after 1/(E·M) of the run, as in the JAX package);
+``--ent-anneal`` lowers the entropy bonus in 4 stages.
 
 Every ``--log-interval`` updates (and after the last) it prints one JSON row
-of metrics, and appends it to ``--log-jsonl`` when given. ``--device cpu``
-runs on the CPU with the kernels' plain versions. With
-``MULTIGRID_FUSED_POLICY`` set (a shared policy, local critic), the rollout
-samples through the fused-policy kernel.
+of metrics, and appends it to ``--log-jsonl`` when given; the last line is
+the phase timer's ``timing:``. ``--device cpu`` runs on the CPU with the
+kernels' plain versions. With ``MULTIGRID_FUSED_POLICY`` set (a shared mlp
+policy, local critic), the rollout samples through the fused-policy kernel.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import pickle
 import sys
 import time
 
 import torch
+
+#: The entropy anneal's stages (scripts/train.py:183-190).
+ENT_STAGES = 4
+
+
+def ent_coef_at(ent_coef: float, update: int, num_updates: int) -> float:
+    """The entropy bonus of ``update``'s stage under ``--ent-anneal``: the
+    run's updates split into :data:`ENT_STAGES` stages, stage ``s`` at
+    ``ent_coef · (1 - s / ENT_STAGES)`` (scripts/train.py:183-190)."""
+    stage = min(update * ENT_STAGES // max(num_updates, 1), ENT_STAGES - 1)
+    return ent_coef * (1.0 - stage / ENT_STAGES)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description='Train PPO policies on MultiGrid (PyTorch/CUDA).')
     p.add_argument('--env', default='MultiGrid-Empty-8x8-v0')
+    p.add_argument('--env-config', type=json.loads, default={},
+                   help='JSON dict of environment kwargs')
     p.add_argument('--num-agents', type=int, default=2)
     p.add_argument('--num-envs', type=int, default=1024,
                    help='lockstep parallel envs')
@@ -48,17 +72,40 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument('--gamma', type=float, default=0.99)
     p.add_argument('--ent-coef', type=float, default=0.01)
     p.add_argument('--hidden', type=int, default=128)
+    p.add_argument('--encoder', default='cnn', choices=['cnn', 'mlp'],
+                   help="'cnn' matches the reference example; 'mlp' is the one-hot "
+                        'features through one wide layer, on the first-layer kernels')
+    p.add_argument('--updates-per-call', type=int, default=1,
+                   help='PPO updates per call of the train loop (metrics are their means)')
     p.add_argument('--per-agent-policies', action='store_true',
-                   help="independent parameters per agent (the reference "
-                        "example's policy_{i}); default is shared self-play")
+                   help="independent parameters per agent (the reference example's "
+                        'policy_{i}); default is shared self-play')
     p.add_argument('--critic', default='local', choices=['local', 'centralized'],
-                   help="'centralized' = MAPPO-style joint-observation value "
-                        'function (actors stay partial)')
+                   help="'centralized' = MAPPO-style joint-observation value function "
+                        '(actors stay partial)')
+    p.add_argument('--lr-anneal', action='store_true',
+                   help='linearly decay lr to 0 over the run (read per SGD step)')
+    p.add_argument('--ent-anneal', action='store_true',
+                   help=f'decay the entropy bonus to 0 over the run in {ENT_STAGES} stages')
+    p.add_argument('--save-best', default=None, metavar='METRIC',
+                   help="also keep the best checkpoint by this logged metric (e.g. "
+                        "'success_rate') in <save-dir>/best")
+    p.add_argument('--save-best-min-episodes', type=int, default=256,
+                   help='ignore log windows with fewer finished episodes than this when '
+                        'comparing success_rate or episode_reward for --save-best')
     p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--save-dir', default='checkpoints',
+                   help='checkpoint directory (saved every --save-interval updates)')
+    p.add_argument('--save-interval', type=int, default=20)
+    p.add_argument('--load-dir', default=None,
+                   help='resume from the latest checkpoint in this directory')
     p.add_argument('--log-interval', type=int, default=10,
                    help='log metrics every N updates')
     p.add_argument('--log-jsonl', default=None,
                    help='append the logged metrics as JSON lines')
+    p.add_argument('--no-packed-obs', action='store_true',
+                   help='observations as (vs, vs, 3) channel triples instead of packed '
+                        'int32 cells')
     p.add_argument('--device', default=None,
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -66,21 +113,68 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def train(args: argparse.Namespace) -> None:
     from multigrid_tpu_torch.envs import make
-    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.learn import (
+        PPOConfig,
+        linear_schedule,
+        make_train_loop,
+        make_train_step,
+        ppo_init,
+    )
     from multigrid_tpu_torch.parallel import VectorEnv
+    from multigrid_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from multigrid_tpu_torch.utils.profiling import PhaseTimer
 
-    env = make(args.env, agents=args.num_agents, device=args.device)
-    venv = VectorEnv(env, args.num_envs, packed_obs=True)
+    env = make(args.env, agents=args.num_agents, device=args.device, **args.env_config)
+    venv = VectorEnv(env, args.num_envs, packed_obs=not args.no_packed_obs)
     config = PPOConfig(rollout_steps=args.rollout_steps, lr=args.lr,
                        gamma=args.gamma, ent_coef=args.ent_coef,
                        epochs=args.epochs, minibatches=args.minibatches,
                        per_agent_policies=args.per_agent_policies,
                        centralized_critic=args.critic == 'centralized')
-    state, net, config, tx = ppo_init(venv, args.seed, config=config,
-                                      hidden=args.hidden)
-    train_step = make_train_step(venv, net, config, tx)
-    steps_per_update = args.num_envs * args.num_agents * config.rollout_steps
+    lr_schedule = None
+    if args.lr_anneal:
+        total_updates = max(1, args.num_timesteps // (
+            args.num_envs * args.num_agents * args.rollout_steps))
+        lr_schedule = linear_schedule(args.lr, 0.0, total_updates)
+    state, net, config, tx = ppo_init(
+        venv, args.seed, config=config,
+        net_kwargs=dict(hidden=args.hidden, encoder=args.encoder), lr_schedule=lr_schedule)
+
+    if args.load_dir:
+        ckpt = latest_checkpoint(args.load_dir)
+        if ckpt:
+            try:
+                state = restore_checkpoint(ckpt, state, venv)
+            except (ValueError, RuntimeError, OSError, pickle.UnpicklingError) as exc:
+                raise SystemExit(
+                    f'failed to restore {ckpt}: {exc}\n'
+                    'Hint: --per-agent-policies, --hidden, --encoder, --num-agents and '
+                    '--num-envs must match the values the checkpoint was trained with.'
+                ) from exc
+            print(f'resumed from {ckpt} (update {state.update_count})', flush=True)
+
+    upc = max(1, args.updates_per_call)
+
+    def build_step(cfg):
+        if upc > 1:
+            return make_train_loop(venv, net, cfg, tx, upc)
+        return make_train_step(venv, net, cfg, tx)
+
+    steps_per_update = args.num_envs * args.num_agents * config.rollout_steps * upc
     num_updates = max(1, args.num_timesteps // steps_per_update)
+
+    def stage_config(update):
+        if not args.ent_anneal:
+            return config
+        return config.replace(ent_coef=ent_coef_at(args.ent_coef, update, num_updates))
+
+    train_step = build_step(stage_config(0))
+    current_ent = stage_config(0).ent_coef
+    timer = PhaseTimer()
     kind = (torch.cuda.get_device_name(venv.device) if venv.device.type == 'cuda'
             else 'cpu')
     print(f'training {args.env}: {args.num_agents} agents x {args.num_envs} envs, '
@@ -91,12 +185,28 @@ def train(args: argparse.Namespace) -> None:
     try:
         t_start = time.perf_counter()
         t_last, steps_last = t_start, 0
-        for update in range(num_updates):
-            state, metrics = train_step(state)
-            if (update + 1) % args.log_interval and update != num_updates - 1:
+        best_val = None
+        for update in range(state.update_count // upc, num_updates):
+            cfg = stage_config(update)
+            if cfg.ent_coef != current_ent:
+                current_ent = cfg.ent_coef
+                train_step = build_step(cfg)
+                print(f'ent-anneal stage: ent_coef -> {current_ent:g}', flush=True)
+            last = update == num_updates - 1
+            save = (update + 1) % args.save_interval == 0 or last
+            log = (update + 1) % args.log_interval == 0 or last
+            with timer.phase('update'):
+                state, metrics = train_step(state)
+                if save or log:
+                    # The only waits for the card, as in the JAX CLI: between
+                    # them the queue keeps it fed.
+                    timer.sync(metrics)
+            if save:
+                path = save_checkpoint(os.path.join(args.save_dir, f'step_{update + 1}'),
+                                       state, venv)
+                print(f'checkpoint -> {path}', flush=True)
+            if not log:
                 continue
-            # Reading the metrics waits for the device: the rates below are
-            # of finished work.
             values = {k: float(v) for k, v in metrics.items()}
             now = time.perf_counter()
             steps_done = (update + 1) * steps_per_update
@@ -118,9 +228,21 @@ def train(args: argparse.Namespace) -> None:
             if log_f:
                 log_f.write(json.dumps(row) + '\n')
                 log_f.flush()
+            if args.save_best:
+                val = row.get(args.save_best)
+                # Episode-rate metrics mean nothing on near-empty windows.
+                if args.save_best in ('success_rate', 'episode_reward') and \
+                        row['episodes_in_batch'] < args.save_best_min_episodes:
+                    val = None
+                # NaN-safe (success_rate is NaN where no episode ended).
+                if val is not None and val == val and (best_val is None or val > best_val):
+                    best_val = val
+                    path = save_checkpoint(os.path.join(args.save_dir, 'best'), state, venv)
+                    print(f'best {args.save_best}={val:.4f} -> {path}', flush=True)
     finally:
         if log_f:
             log_f.close()
+    print('timing:', json.dumps(timer.summary()), flush=True)
 
 
 def main(argv=None) -> None:

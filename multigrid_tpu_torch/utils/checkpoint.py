@@ -1,0 +1,165 @@
+"""Checkpoint and resume with ``torch.save``.
+
+Counterpart of ``multigrid_tpu.utils.checkpoint`` (which saves through
+orbax): one file holds the whole training state (parameters, the
+optimizer's count, moments and schedule count, the env batch with its
+extras and its reserve pool, the last observations, the running episode
+returns, the update count) and the states of both generators, the train
+state's (actions, shuffles) and the vector env's (orders, resets, reserve
+layouts), so a resumed run continues exactly where the saved one stood.
+A checkpoint written by the JAX package is not read here.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import Any
+
+import torch
+
+from ..core.state import FIELDS, MultiGridState, ResetPool
+from ..learn.ppo import OptState, TrainState
+from ..parallel.vector import VectorEnv
+
+
+def _state_tree(s: MultiGridState) -> dict[str, Any]:
+    return {**{f: getattr(s, f) for f in FIELDS}, 'extras': dict(s.extras),
+            'pool': None if s.pool is None else {'reserve': _state_tree(s.pool.reserve),
+                                                 'step': s.pool.step}}
+
+
+def _state_from_tree(t: dict[str, Any]) -> MultiGridState:
+    pool = t['pool']
+    return MultiGridState(
+        **{f: t[f] for f in FIELDS}, extras=t['extras'],
+        pool=None if pool is None else ResetPool(_state_from_tree(pool['reserve']),
+                                                 pool['step']))
+
+
+def _train_tree(state: TrainState) -> dict[str, Any]:
+    opt = state.opt_state
+    return {
+        'params': state.params,
+        'opt_state': {'count': opt.count, 'mu': opt.mu, 'nu': opt.nu,
+                      'schedule_count': opt.schedule_count},
+        'env_state': _state_tree(state.env_state),
+        'last_obs': dict(state.last_obs),
+        'ep_return_acc': state.ep_return_acc,
+        'update_count': state.update_count,
+        'generator': state.generator.get_state(),
+    }
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def _mismatch(where: str, stored, want) -> ValueError:
+    return ValueError(
+        f'checkpoint/env-config mismatch: stored leaf {where} is {stored} but the restore '
+        f'target expects {want}; the checkpoint was likely written under a different '
+        'environment configuration')
+
+
+def _place(target, stored, where: str):
+    """``stored`` laid out like ``target``: the same keys, tensors of the
+    same shapes (moved to the target's device and dtype), ints where it has
+    ints and None where it has None."""
+    if isinstance(target, torch.Tensor):
+        if not isinstance(stored, torch.Tensor) or stored.shape != target.shape:
+            raise _mismatch(where, getattr(stored, 'shape', stored), tuple(target.shape))
+        return stored.to(device=target.device, dtype=target.dtype)
+    if isinstance(target, dict):
+        if not isinstance(stored, dict) or set(stored) != set(target):
+            keys = sorted(stored) if isinstance(stored, dict) else stored
+            raise _mismatch(where, f'keys {keys}', f'keys {sorted(target)}')
+        return {k: _place(target[k], stored[k], f'{where}.{k}') for k in target}
+    if (target is None) != (stored is None) or \
+            isinstance(target, int) != isinstance(stored, int):
+        raise _mismatch(where, stored, target)
+    return stored
+
+
+def _load(path: str) -> dict[str, Any]:
+    raw = torch.load(path, map_location='cpu', weights_only=True)
+    if not isinstance(raw, dict) or 'train_state' not in raw:
+        keys = list(raw) if isinstance(raw, dict) else type(raw).__name__
+        raise ValueError(f'{path} does not look like a TrainState checkpoint '
+                         f'(top-level keys: {keys})')
+    return raw
+
+
+def save_checkpoint(path: str, state: TrainState, venv: VectorEnv) -> str:
+    """Atomically write ``state`` and ``venv``'s generator to the file
+    ``path`` (a temporary file in the same directory, then a rename).
+    Returns the absolute path."""
+    path = os.path.abspath(path)
+    directory = os.path.dirname(path)
+    os.makedirs(directory, exist_ok=True)
+    tree = {'train_state': _to_cpu(_train_tree(state)),
+            'env_generator': venv.generator.get_state()}
+    fd, tmp = tempfile.mkstemp(dir=directory, prefix=f'.{os.path.basename(path)}.')
+    try:
+        with os.fdopen(fd, 'wb') as f:
+            torch.save(tree, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return path
+
+
+def restore_checkpoint(path: str, target: TrainState, venv: VectorEnv) -> TrainState:
+    """The training state saved at ``path``, laid out like ``target`` (a
+    freshly initialized ``TrainState`` for the same configuration: its
+    tensors give the shapes, devices and dtypes), with the saved states set
+    into ``target.generator`` and ``venv.generator``. Any difference of
+    structure or shape raises ``ValueError`` (checkpoint/env-config
+    mismatch)."""
+    raw = _load(path)
+    tree = _place(_train_tree(target), raw['train_state'], 'train_state')
+    env_gen = _place(venv.generator.get_state(), raw['env_generator'], 'env_generator')
+    target.generator.set_state(tree['generator'])
+    venv.generator.set_state(env_gen)
+    opt = tree['opt_state']
+    return target.replace(
+        params=tree['params'],
+        opt_state=OptState(opt['count'], opt['mu'], opt['nu'], opt['schedule_count']),
+        env_state=_state_from_tree(tree['env_state']),
+        last_obs=tree['last_obs'],
+        ep_return_acc=tree['ep_return_acc'],
+        update_count=tree['update_count'])
+
+
+def restore_params(path: str, target_params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Only the parameters of a checkpoint, laid out like
+    ``target_params`` (evaluation needs no optimizer state, whose layout
+    depends on training flags such as ``--lr-anneal``)."""
+    stored = _load(path)['train_state']['params']
+    if set(stored) != set(target_params):
+        raise ValueError(f'checkpoint/model mismatch: stored parameters {sorted(stored)} '
+                         f'but the target has {sorted(target_params)}')
+    for k, t in target_params.items():
+        if stored[k].shape != t.shape:
+            raise ValueError(f'checkpoint/model mismatch: stored parameter {k} has shape '
+                             f'{tuple(stored[k].shape)} but the target expects {tuple(t.shape)}')
+    return {k: stored[k].to(device=t.device, dtype=t.dtype) for k, t in target_params.items()}
+
+
+def latest_checkpoint(directory: str) -> str | None:
+    """The ``step_*`` checkpoint of the highest step in ``directory``, or
+    None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = [d for d in os.listdir(directory)
+             if d.startswith('step_') and d.split('_')[-1].isdigit()]
+    if not steps:
+        return None
+    return os.path.join(directory, max(steps, key=lambda d: int(d.split('_')[-1])))

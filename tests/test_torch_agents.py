@@ -296,7 +296,8 @@ def test_cli_trains_per_agent_policies_with_the_centralized_critic(tmp_path, cap
     train_cli.main(['--device', 'cpu', '--env', ENV_ID, '--num-agents', '2',
                     '--num-envs', '8', '--rollout-steps', '4', '--num-timesteps', '128',
                     '--hidden', '32', '--per-agent-policies', '--critic', 'centralized',
-                    '--log-interval', '1', '--log-jsonl', str(log)])
+                    '--log-interval', '1', '--log-jsonl', str(log),
+                    '--save-dir', str(tmp_path / 'ckpt')])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith('training MultiGrid-Empty-5x5-v0: 2 agents x 8 envs, 2 updates')
     rows = [json.loads(line) for line in log.read_text().splitlines()]

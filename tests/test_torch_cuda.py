@@ -404,3 +404,99 @@ def test_policy_sample_kernel_takes_the_first_index_on_a_tie(cuda_device):
     gumbel[:, [2, 5]] = 0.25
     action, _, _ = fused_policy.policy_sample_prepared(w, packed, dirf, gumbel)
     assert (action == 2).all()
+
+
+def _state_to(state, device):
+    """A batched state, extras and pool included, on ``device``."""
+    from multigrid_tpu_torch.core.state import ResetPool
+    pool = state.pool and ResetPool(_state_to(state.pool.reserve, device), state.pool.step)
+    return state.replace(**{k: getattr(state, k).to(device) for k in FIELDS},
+                         extras={k: v.to(device) for k, v in state.extras.items()}, pool=pool)
+
+
+def test_pool_consumption_on_the_card_matches_the_cpu(cuda_device):
+    """BUP, 64 envs, episodes of 3 steps, from the same state and reserve
+    on both devices, the same actions and orders, ``refresh=False``: every
+    step's state (fields, extras, pool step) and observations equal the
+    CPU path's, three rounds of resets from the reserve included."""
+    from multigrid_tpu_torch.ops.step import sample_order
+    env_id, e = 'MultiGrid-BlockedUnlockPickup-v0', 64
+    cpu = VectorEnv(make(env_id, agents=2, max_steps=3, device='cpu'), e, packed_obs=True)
+    card = VectorEnv(make(env_id, agents=2, max_steps=3, device=cuda_device), e,
+                     packed_obs=True)
+    assert cpu.reset_pool and card.reset_pool
+    _, state = cpu.reset(seed=3)
+    gstate = _state_to(state, cuda_device)
+    g = torch.Generator().manual_seed(3)
+    dones = 0
+    for t in range(9):
+        actions = torch.randint(0, 7, (e, 2), generator=g)
+        order = sample_order(g, e, 2, 'cpu')
+        obs, state, *_, done, _ = cpu.step(state, actions, order=order, refresh=False)
+        gobs, gstate, *_, gdone, _ = card.step(gstate, actions.to(cuda_device),
+                                              order=order.to(cuda_device), refresh=False)
+        assert torch.equal(gdone.cpu(), done) and torch.equal(gobs['image'].cpu(), obs['image'])
+        for k in FIELDS:
+            assert torch.equal(getattr(gstate, k).cpu(), getattr(state, k)), (t, k)
+        for k, v in state.extras.items():
+            assert torch.equal(gstate.extras[k].cpu(), v), (t, k)
+        assert gstate.pool.step == state.pool.step == t + 1
+        dones += int(done.sum())
+    assert dones == 3 * e
+
+
+def test_cnn_on_the_card_matches_cpu_float32(cuda_device):
+    """The cnn (bf16 on the card, cuDNN convolutions) against the float32
+    net on the CPU with the same weights, on packed cells with 12 missions,
+    as chip_smoke.py's cnn check holds them: logits and values within
+    ``max|Δ|/(|want|+1) < 2e-2``, each parameter's gradient of a scalar of
+    them within ``‖Δ‖/‖want‖ < 0.1`` (bf16 rounds activations and
+    gradients at each of the five layers above ``Conv_0``; an element of a
+    gradient summed over many samples can cancel to near 0)."""
+    from multigrid_tpu_torch.learn.nets import ActorCritic
+    rng = np.random.default_rng(8)
+    b = 2048
+    image = _packed(rng, b, 81, 0.0)
+    direction = torch.as_tensor(rng.integers(0, 4, b))
+    mission = torch.as_tensor(rng.integers(0, 12, b))
+    u = torch.as_tensor(rng.normal(size=(b, 7)).astype(np.float32))
+    outs = []
+    for dev, dtype in ((torch.device('cpu'), torch.float32), (cuda_device, torch.bfloat16)):
+        net = ActorCritic(81, hidden=64, packed_obs=True, num_missions=12, dtype=dtype,
+                          encoder='cnn', seed=4).to(dev)
+        logits, value = net(image.to(dev), direction.to(dev), mission.to(dev))
+        ((logits * u.to(dev)).sum() + value.sum()).backward()
+        outs.append([logits.detach().cpu(), value.detach().cpu()]
+                    + [p.grad.cpu() for _, p in sorted(net.named_parameters())])
+    for g, w in zip(outs[1][:2], outs[0][:2]):
+        assert _rel_err(g, w) < 2e-2
+    for g, w in zip(outs[1][2:], outs[0][2:]):
+        assert float((g.float() - w).norm() / w.norm()) < 0.1
+
+
+def test_resume_on_the_card_is_exact(cuda_device, tmp_path):
+    """BUP on the card (mlp on B2 and B4, the pool): 2 updates straight ≡ 1
+    update, a checkpoint, a restore into freshly built objects and 1 more,
+    bit for bit (B3 and B4 are equal from run to run)."""
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    def setup(seed):
+        venv = VectorEnv(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, max_steps=5,
+                              device=cuda_device), 64, packed_obs=True)
+        state, net, config, tx = ppo_init(venv, seed, hidden=32, config=PPOConfig(
+            rollout_steps=4, epochs=2, minibatches=2))
+        return venv, state, make_train_step(venv, net, config, tx)
+
+    venv, state, step = setup(0)
+    state, _ = step(state)
+    path = save_checkpoint(str(tmp_path / 'step_1'), state, venv)
+    straight, _ = step(state)
+    venv2, fresh, step2 = setup(1)
+    resumed, _ = step2(restore_checkpoint(path, fresh, venv2))
+    for k in straight.params:
+        assert torch.equal(resumed.params[k], straight.params[k]), k
+    for k in FIELDS:
+        assert torch.equal(getattr(resumed.env_state, k), getattr(straight.env_state, k)), k
+    assert torch.equal(resumed.env_state.pool.reserve.grid, straight.env_state.pool.reserve.grid)
+    assert torch.equal(venv2.generator.get_state(), venv.generator.get_state())

@@ -146,7 +146,8 @@ def _compare_sgd_step(setup, critic, fused, monkeypatch, grad_tol, metric_tol,
     if not fused:
         monkeypatch.setattr(fused_ppo, 'supports', lambda *a: False)
     pconfig = ppo.PPOConfig(centralized_critic=critic, **CONFIG)
-    venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), E, packed_obs=True)
+    venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), E, packed_obs=True,
+                     reset_pool=False)
     step = ppo.make_train_step(
         venv, ActorCritic(49, hidden=H, packed_obs=True, num_missions=M, dtype=dtype), pconfig,
         ppo.Optimizer(pconfig.lr, pconfig.max_grad_norm, critic=critic))

@@ -312,15 +312,19 @@ def test_cli_trains_at_a_tiny_size(tmp_path, capsys):
     log = tmp_path / 'log.jsonl'
     train_cli.main(['--device', 'cpu', '--env', ENV_ID, '--num-agents', '2',
                     '--num-envs', '8', '--rollout-steps', '4', '--num-timesteps', '192',
-                    '--hidden', '32', '--log-interval', '2', '--log-jsonl', str(log)])
+                    '--hidden', '32', '--log-interval', '2', '--log-jsonl', str(log),
+                    '--save-dir', str(tmp_path / 'ckpt')])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith('training MultiGrid-Empty-5x5-v0: 2 agents x 8 envs, 3 updates')
     rows = [json.loads(line) for line in log.read_text().splitlines()]
     assert [r['update'] for r in rows] == [2, 3]
-    assert [json.loads(line) for line in out[1:]] == rows
+    # Besides the rows: the last update's checkpoint and the timing line.
+    assert [json.loads(line) for line in out[1:] if line.startswith('{')] == rows
+    assert f'checkpoint -> {tmp_path / "ckpt" / "step_3"}' in out
+    assert out[-1].startswith('timing: ')
     assert set(rows[0]) == {'update', 'agent_steps', 'agent_steps_per_sec',
                             'steps_per_sec_window', 'reward_per_step', 'loss', 'entropy',
                             'episode_reward', 'episodes_in_batch', 'success_rate'}
     assert rows[-1]['agent_steps'] == 192 and np.isfinite(rows[-1]['loss'])
     with pytest.raises(SystemExit):
-        train_cli.parse_args(['--encoder', 'cnn'])  # no flag it would ignore
+        train_cli.parse_args(['--mesh'])  # no flag it would ignore

@@ -445,7 +445,8 @@ def test_bup_success_is_termination():
 def test_vectorenv_success_uses_pre_reset_state():
     """An agent that holds the target box ends its episode with success,
     read on the final state, not the fresh one the env resets to."""
-    venv = VectorEnv(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device='cpu'), 4)
+    venv = VectorEnv(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device='cpu'), 4,
+                     reset_pool=False)
     _, state = venv.reset(seed=1)
     carry = state.agent_carrying.clone()
     carry[0, 1] = state.extras['target_enc'][0]
@@ -467,8 +468,9 @@ def test_done_env_takes_the_fresh_layouts_extras(env_id):
     """Agents that only take the done action truncate at step 3 and reset;
     each env's extras must be those of its new layout (mission color = the
     box's color, door positions = the doors' cells, no door counted), not
-    its old episode's."""
-    venv = VectorEnv(make(env_id, agents=2, max_steps=3, device='cpu'), 32)
+    its old episode's: the exact reset here, the reserve pool's in
+    tests/test_torch_pool.py."""
+    venv = VectorEnv(make(env_id, agents=2, max_steps=3, device='cpu'), 32, reset_pool=False)
     obs, state = venv.reset(seed=4)
     for t in range(6):
         obs, state, _, _, _, done, _ = venv.step(state, torch.full((32, 2), int(Action.done)))

@@ -132,10 +132,38 @@ Phases, in order; any failure exits non-zero:
 20. resume  — 2 updates, a checkpoint, 1 update, then a restore into fresh
                objects and 1 update, bit-equal to 3 straight, on the mlp
                default path and on the cnn (cuDNN deterministic).
-21. cli     — python -m multigrid_tpu_torch.train on BUP with the JAX CLI's
+21. wrappers — each observation wrapper (FullyObs, ImgObs, OneHot) over
+               the flagship VectorEnv, and OneHot over BUP (2 agents, 4096
+               envs) on its reserve pool: reset and 32 steps with launch
+               counts exact (one obs launch a call), every call's raw
+               observations equal to the plain version, the wrapped
+               observations equal to the wrapper chain on the plain
+               version's, with the wrapper's shape and dtype.
+22. wrapper timing — ms a VectorEnv.step unwrapped and under each wrapper
+               in turns: the flagship, and BUP on the pool with OneHot.
+23. render  — render_state at the flagship (16x16, tile 32, highlight on)
+               on the main run's state: each env's view-cone highlight equal
+               to the cells the obs kernel shows its agents, no kernel
+               launched, ms a frame with the tile cache warm.
+24. adapters — a GymAdapter over BUP on the card (partial action dicts,
+               every observation equal to the plain version, one obs launch
+               a reset and a step), a 256-step episode loop's steps/s and
+               the device's busy share; PettingZoo's live agents, RLlib's
+               __all__ and the MiniGrid facade's DoorKey solve (an
+               imperative MiniGridCompatEnv), launches exact. The parts
+               that need gymnasium, pettingzoo or pygame run where they are
+               installed; the absent packages and what did not run are
+               printed.
+25. cli     — python -m multigrid_tpu_torch.train on BUP with the JAX CLI's
                defaults (saving every 2 updates), again with --load-dir, then
                python -m multigrid_tpu_torch.evaluate --load-dir: each exits 0
                and prints JSON rows that parse.
+26. visualize — python -m multigrid_tpu_torch.visualize's entry point in
+               this process on the cli phase's cnn checkpoint (BUP, 2
+               episodes, a GIF) and with --encoder mlp on an mlp checkpoint
+               (B2): launches exact (obs one at ppo_init and one a frame, B2
+               one a step), observations and B2 outputs held to their plain
+               versions, frames of BUP's size.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 B1 (images and packed, at the flagship, with 16 agents and at the BUP
@@ -1721,11 +1749,13 @@ def reset_share(layers):
 
 @contextlib.contextmanager
 def obs_checked():
-    """Inside, every observation a ``VectorEnv`` makes through the kernel
+    """Inside, every observation a ``VectorEnv`` or an env's own ``reset``,
+    ``step`` and ``observe`` (the adapters' path) make through the kernel
     is also made by the plain version on the same state; yields the list
     to which each call that differs adds its env count."""
     import torch
 
+    from multigrid_tpu_torch.envs import env as env_module
     from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
     from multigrid_tpu_torch.parallel import vector
 
@@ -1739,11 +1769,11 @@ def obs_checked():
             mismatches.append(state.num_envs)
         return got
 
-    vector.gen_obs_batched = checked
+    vector.gen_obs_batched = env_module.gen_obs_batched = checked
     try:
         yield mismatches
     finally:
-        vector.gen_obs_batched = kernel
+        vector.gen_obs_batched = env_module.gen_obs_batched = kernel
 
 
 def zoo(device=None, steps=32):
@@ -2296,12 +2326,12 @@ def resume_path(device=None):
     return out
 
 
-def cli_path(updates=4):
+def cli_path(tmp, updates=4):
     """The entry points as a user runs them, each its own process on the
     card: ``python -m multigrid_tpu_torch.train`` on BlockedUnlockPickup
     with the JAX CLI's defaults (cnn, packed cells, the pool; 1024 envs,
-    T 16) for ``updates // 2`` updates, saving every 2; again with
-    ``--load-dir`` to ``updates``; then ``python -m
+    T 16) for ``updates // 2`` updates, saving every 2 into the directory
+    ``tmp``; again with ``--load-dir`` to ``updates``; then ``python -m
     multigrid_tpu_torch.evaluate --load-dir`` for one 256-step iteration
     on episodes of at most 64 steps (``--env-config``; the registered 576
     would end none). Each must exit 0 and print JSON rows that parse."""
@@ -2321,22 +2351,424 @@ def cli_path(updates=4):
         return lines, rows
 
     e, n, t = 1024, 2, 16
-    with tempfile.TemporaryDirectory() as tmp:
-        train = ['multigrid_tpu_torch.train', '--env', BUP, '--num-agents', str(n),
-                 '--num-envs', str(e), '--rollout-steps', str(t), '--save-dir', tmp,
-                 '--save-interval', '2', '--log-interval', '1']
-        run(train + ['--num-timesteps', str(updates // 2 * e * n * t)], 'train')
-        lines, rows = run(train + ['--num-timesteps', str(updates * e * n * t), '--load-dir',
-                                   tmp], 'resume')
-        if not lines[0].startswith(f'resumed from {os.path.join(tmp, "step_")}') or \
-                rows[-1]['update'] != updates:
-            fail(f'cli resume: {lines[0]}, last update {rows[-1]["update"]}')
-        _, rows = run(['multigrid_tpu_torch.evaluate', '--env', BUP, '--num-agents', str(n),
-                       '--num-envs', str(e), '--num-steps', str(256 * e * n), '--load-dir',
-                       tmp, '--env-config', '{"max_steps": 64}'], 'evaluate')
-        if rows[-1]['agent_steps'] != 256 * e * n or rows[-1]['episodes'] < e:
-            fail(f'cli evaluate: {rows[-1]}')
+    train = ['multigrid_tpu_torch.train', '--env', BUP, '--num-agents', str(n),
+             '--num-envs', str(e), '--rollout-steps', str(t), '--save-dir', tmp,
+             '--save-interval', '2', '--log-interval', '1']
+    run(train + ['--num-timesteps', str(updates // 2 * e * n * t)], 'train')
+    lines, rows = run(train + ['--num-timesteps', str(updates * e * n * t), '--load-dir',
+                               tmp], 'resume')
+    if not lines[0].startswith(f'resumed from {os.path.join(tmp, "step_")}') or \
+            rows[-1]['update'] != updates:
+        fail(f'cli resume: {lines[0]}, last update {rows[-1]["update"]}')
+    _, rows = run(['multigrid_tpu_torch.evaluate', '--env', BUP, '--num-agents', str(n),
+                   '--num-envs', str(e), '--num-steps', str(256 * e * n), '--load-dir',
+                   tmp, '--env-config', '{"max_steps": 64}'], 'evaluate')
+    if rows[-1]['agent_steps'] != 256 * e * n or rows[-1]['episodes'] < e:
+        fail(f'cli evaluate: {rows[-1]}')
     return rows[-1]
+
+
+# ------------------------------------------------ the user-facing surface
+
+WRAPPERS = ('FullyObsWrapper', 'ImgObsWrapper', 'OneHotObsWrapper')
+#: What each wrapper makes of the flagship's (view 7, 16x16) images.
+WRAPPED_IMAGES = {'FullyObsWrapper': ((SIZE, SIZE, 3), 'torch.int32'),
+                  'ImgObsWrapper': ((VS, VS, 3), 'torch.uint8'),
+                  'OneHotObsWrapper': ((VS, VS, 21), 'torch.uint8')}
+
+
+def obs_equal(a, b):
+    """Observation trees equal: the same keys, dtypes and values."""
+    import torch
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            obs_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def wrapped_plain(venv, state):
+    """The wrapped observations of ``state`` from the plain observation
+    version: raw images, missions, then the env's wrapper chain."""
+    from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
+    cfg = venv.env.cfg
+    raw = gen_obs_batched_plain(state, cfg.view_size, cfg.see_through_walls, venv.packed_obs)
+    obs = venv.env.attach_mission({'image': raw, 'direction': state.agent_dir}, state)
+    return venv.env.transform_obs(obs, state)
+
+
+def wrappers_path(device=None, steps=32):
+    """Each observation wrapper over the flagship ``VectorEnv`` (Empty-16x16,
+    4 agents, 4096 envs), and OneHot over BUP (2 agents, 4096 envs) on its
+    reserve pool: reset and ``steps`` random steps, the launch counts set to
+    0 just before and read just after (one obs launch a call, no other
+    kernel), every call's raw observations equal to the plain version, and
+    the wrapped observations of the last state equal to the wrapper chain
+    on the plain version's, with the wrapper's shape and dtype. Returns
+    the obs launches."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make, wrappers
+
+    launches = 0
+    cases = [(w, 'MultiGrid-Empty-16x16-v0', N) for w in WRAPPERS] + \
+        [('OneHotObsWrapper', BUP, BUP_N)]
+    for name, env_id, n in cases:
+        venv = VectorEnv(getattr(wrappers, name)(make(env_id, agents=n, device=device)), E)
+        if device is None and venv.device.type != 'cuda':
+            fail(f'default device is {venv.device}, not cuda')
+        with obs_checked() as mismatches:
+            _zero_counts()
+            obs, state = venv.reset(seed=0)
+            for _ in range(steps):
+                actions = torch.randint(0, 7, (E, n), generator=venv.generator,
+                                        device=venv.device)
+                obs, state, *_ = venv.step(state, actions)
+            torch.cuda.synchronize()
+        counts = _counts()
+        want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+        if counts != want:
+            fail(f'{name} on {env_id}: expected launches {want}, got {counts}')
+        if mismatches:
+            fail(f'{name} on {env_id}: observations differ from the plain version')
+        image = obs if name == 'ImgObsWrapper' else obs['image']
+        if env_id != BUP and (tuple(image.shape[2:]), str(image.dtype)) != WRAPPED_IMAGES[name]:
+            fail(f'{name}: images {tuple(image.shape)} {image.dtype}')
+        if env_id == BUP and not torch.equal(obs['mission'][:, 0],
+                                             state.extras['mission_color'] * 2):
+            fail(f'{name} on {env_id}: the observed missions are not the episodes\'')
+        if not obs_equal(venv.observe(state), wrapped_plain(venv, state)):
+            fail(f'{name} on {env_id}: wrapped observations differ from the plain version\'s')
+        launches += counts['obs']
+        print(f'{name} over {env_id} ({n} agents, {E} envs, pool {venv.reset_pool}): reset + '
+              f'{steps} steps, launches {counts}, images {tuple(image.shape)} {image.dtype}, '
+              'equal to the plain version')
+    return launches
+
+
+def _step_ms(venv, state, steps):
+    """Synchronized host ms a ``VectorEnv.step`` with random actions."""
+    import torch
+    e, n = venv.num_envs, venv.num_agents
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        actions = torch.randint(0, 7, (e, n), generator=venv.generator, device=venv.device)
+        _, state, *_ = venv.step(state, actions)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) / steps * 1e3
+
+
+def wrapper_timing(device=None, rounds=4, steps=16):
+    """ms a ``VectorEnv.step`` unwrapped and under each wrapper, in turns
+    (the order reversed every other round), median of ``rounds``: the
+    flagship (Empty-16x16, 4 agents, 4096 envs) and BUP (2 agents, 4096
+    envs, on the pool) unwrapped and under OneHot."""
+    import statistics
+
+    from multigrid_tpu_torch import VectorEnv, make, wrappers
+
+    out = {}
+    for env_id, n, names in [('MultiGrid-Empty-16x16-v0', N, WRAPPERS),
+                             (BUP, BUP_N, ('OneHotObsWrapper',))]:
+        venvs, states, times = {}, {}, {}
+        for name in (None,) + names:
+            env = make(env_id, agents=n, device=device)
+            venv = VectorEnv(env if name is None else getattr(wrappers, name)(env), E)
+            _, state = venv.reset(seed=0)
+            state, _ = _step_ms(venv, state, 2)  # warm-up
+            key = name or 'unwrapped'
+            venvs[key], states[key], times[key] = venv, state, []
+        for r in range(rounds):
+            for key in (list(venvs) if r % 2 == 0 else list(venvs)[::-1]):
+                states[key], ms = _step_ms(venvs[key], states[key], steps)
+                times[key].append(ms)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        out[env_id] = {k: dict(ms=med[k], runs=times[k], over_unwrapped=med[k] / med['unwrapped'])
+                       for k in med}
+        print(f'{env_id} ({n} agents, {E} envs), ms a VectorEnv.step (median of {rounds}, '
+              f'{steps} steps each, in turns): ' + ', '.join(
+                  f'{k} {med[k]:.4f} ({med[k] / med["unwrapped"]:.4f}x)' for k in med))
+    return out
+
+
+def render_path(venv, state, frames=16):
+    """``render_state`` at the flagship (16x16, 4 agents, tile 32, highlight
+    on) on the main run's final state: the view-cone highlight of env i
+    against the cells the obs kernel shows its live agents (``visible_world_mask``
+    takes the plain visibility on the host), frames of the right shape,
+    no kernel launched while rendering, and ms a frame with the tile cache
+    warm (median over ``frames`` envs)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from multigrid_tpu_torch import render
+    from multigrid_tpu_torch.core.constants import TYPE_UNSEEN
+    from multigrid_tpu_torch.ops.obs import get_view_exts
+
+    image = venv.observe(state)['image'][:frames].cpu().numpy()
+    tx, ty = (t[:frames].cpu().numpy() for t in get_view_exts(state.agent_dir, state.agent_pos, VS))
+    dirs = state.agent_dir[:frames].cpu().numpy()
+    dead = state.agent_terminated[:frames].cpu().numpy()
+    for i in range(frames):
+        want = np.zeros((SIZE, SIZE), bool)
+        for a in range(N):
+            if dead[i, a]:
+                continue
+            ii, jj = np.nonzero(np.rot90(image[i, a, ..., 0] != TYPE_UNSEEN, k=(dirs[i, a] + 1) % 4))
+            x, y = tx[i, a] + ii, ty[i, a] + jj
+            inside = (x >= 0) & (x < SIZE) & (y >= 0) & (y < SIZE)
+            want[x[inside], y[inside]] = True
+        if not np.array_equal(render.visible_world_mask(venv.env, state, index=i), want):
+            fail(f'render: the highlight of env {i} is not the cells its agents observe')
+    _zero_counts()
+    for i in range(frames):  # warm the tile cache
+        render.render_state(venv.env, state, index=i)
+    ms = []
+    for i in range(frames):
+        t0 = time.perf_counter()
+        frame = render.render_state(venv.env, state, index=i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if frame.shape != (SIZE * 32, SIZE * 32, 3) or frame.dtype != np.uint8:
+            fail(f'render: frame {frame.shape} {frame.dtype}')
+    torch.cuda.synchronize()
+    if any(_counts().values()):
+        fail(f'render launched kernels: {_counts()}')
+    med = statistics.median(ms)
+    print(f'render_state 16x16, tile 32, highlight on: {med:.4f} ms a frame (median of '
+          f'{frames}, cache warm, {len(render._TILE_CACHE)} tiles cached); highlights equal '
+          'the cells the obs kernel shows')
+    return med
+
+
+def _doorkey_env(device):
+    """Farama minigrid's DoorKeyEnv, imports swapped: the imperative
+    authoring path (``utils/minigrid_builder.py``)."""
+    from multigrid_tpu_torch.utils.minigrid_builder import (
+        Door, Goal, Grid, Key, MiniGridCompatEnv)
+
+    class DoorKeyEnv(MiniGridCompatEnv):
+        mission = 'use the key to open the door and then get to the goal'
+
+        def _gen_grid(self, width, height):
+            self.grid = Grid(width, height)
+            self.grid.wall_rect(0, 0, width, height)
+            self.put_obj(Goal(), width - 2, height - 2)
+            split = self._rand_int(2, width - 2)
+            self.grid.vert_wall(split, 0)
+            self.place_agent(size=(split, height))
+            self.put_obj(Door('yellow', is_locked=True), split, self._rand_int(1, width - 2))
+            self.place_obj(obj=Key('yellow'), top=(0, 0), size=(split, height))
+
+    return DoorKeyEnv(grid_size=6, max_steps=360, device=device)
+
+
+def adapters_path(device=None, steps=256, checked=32):
+    """The adapters on the card: a ``GymAdapter`` over BUP (2 agents) for
+    ``checked`` steps with partial action dicts, every observation equal to
+    the plain version and one obs launch a reset and a step; then a
+    ``steps``-step episode loop (resetting where an episode ends) timed,
+    its launches counted, and 64 of its steps under torch.profiler for the
+    device's busy share; PettingZoo's live agents, RLlib's ``__all__``, the
+    MiniGrid facade's DoorKey solve (``MiniGridCompatEnv``), each with exact
+    launches. Phases that need gymnasium, pettingzoo or pygame run where
+    they are installed, and the absent ones are named. Returns the launches,
+    steps/s, launches a step and busy share."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multigrid_tpu_torch import make
+    from multigrid_tpu_torch.adapters import GymAdapter, PettingZooWrapper, RLlibWrapper
+    from multigrid_tpu_torch.core.constants import STATE_OPEN, TYPE_DOOR, TYPE_EMPTY, TYPE_KEY
+    from multigrid_tpu_torch.utils.minigrid_interface import MiniGridInterface
+
+    absent = [m for m in ('gymnasium', 'pettingzoo', 'pygame')
+              if importlib.util.find_spec(m) is None]
+    rng = np.random.default_rng(9)
+    ad = GymAdapter(make(BUP, agents=BUP_N, device=device))
+
+    def expect(label, want_obs):
+        counts = _counts()
+        want = {**{k: 0 for k in counts}, 'obs': want_obs}
+        if counts != want:
+            fail(f'adapters {label}: expected launches {want}, got {counts}')
+
+    with obs_checked() as mismatches:
+        _zero_counts()
+        obs, _ = ad.reset(seed=0)
+        calls = 1
+        for t in range(checked):
+            actions = {i: int(rng.integers(7)) for i in range(BUP_N) if rng.random() < 0.8}
+            obs, rew, term, trunc, _ = ad.step(actions)
+            calls += 1
+            if all(term.values()) or any(trunc.values()):
+                obs, _ = ad.reset()
+                calls += 1
+        torch.cuda.synchronize()
+    expect('gym checked', calls)
+    if mismatches or (device is None and ad._state.device.type != 'cuda'):
+        fail(f'adapters: {len(mismatches)} observations differ from the plain version '
+             f'(state on {ad._state.device})')
+    if obs[0]['image'].shape != (VS, VS, 3) or obs[0]['mission'] != ad.env.mission_of(ad._state):
+        fail(f'adapters: obs {obs[0]["image"].shape}, mission {obs[0]["mission"]!r}')
+
+    acts = rng.integers(0, 7, (steps, BUP_N))
+    ad.reset(seed=1)
+    _zero_counts()
+    resets = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        _, _, term, trunc, _ = ad.step({0: int(acts[t, 0]), 1: int(acts[t, 1])})
+        if all(term.values()) or any(trunc.values()):
+            ad.reset()
+            resets += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect('gym loop', steps + resets)
+    rate = steps / wall
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(64):
+            ad.step({0: int(acts[t % steps, 0]), 1: int(acts[t % steps, 1])})
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / pwall) if kernels else None
+    print(f'GymAdapter over {BUP} ({BUP_N} agents): {steps}-step loop {rate:.2f} steps/s '
+          f'({wall * 1e3 / steps:.4f} ms a step, {resets} resets), obs launches one a '
+          f'call ({steps + resets} in all); profiled 64 steps: wall {pwall:.4f} ms, device busy '
+          + (f'{busy:.4f} of it, {len(kernels) / 64:.1f} device kernels a step' if busy is not None
+             else 'not measured (the profiler saw no device time)'))
+
+    pz = PettingZooWrapper(make('MultiGrid-Empty-5x5-v0', agents=2, device=device))
+    _zero_counts()
+    pz.reset(seed=0)
+    for t, a in enumerate([2, 2, 1, 2, 2]):
+        _, rewards, terms, _, _ = pz.step({'agent_0': a, 'agent_1': 6})
+    expect('pettingzoo', 6)
+    if pz.agents != [] or not terms['agent_0'] or rewards['agent_0'] <= 0:
+        fail(f'pettingzoo: live agents {pz.agents} after the goal, rewards {rewards}')
+    rl = RLlibWrapper(make('MultiGrid-Empty-5x5-v0', agents=2, device=device))
+    rl.reset(seed=0)
+    _, _, terms, truncs, _ = rl.step({0: 2, 1: 1})
+    if terms.get('__all__') is not False or '__all__' not in truncs:
+        fail(f'rllib: {terms} {truncs}')
+
+    mg = MiniGridInterface(_doorkey_env(device))
+    with obs_checked() as mismatches:
+        _zero_counts()
+        mg.reset(seed=3)
+        grid = mg._state.grid[0].cpu().numpy()
+        (kx, ky), (dx, dy) = (tuple(int(v[0]) for v in np.nonzero(grid[..., 0] == t))
+                              for t in (TYPE_KEY, TYPE_DOOR))
+        # An empty cell beside the key, facing it.
+        mg.agent_pos, mg.agent_dir = next(
+            (p, d) for p, d in [((kx - 1, ky), 0), ((kx, ky - 1), 1), ((kx + 1, ky), 2),
+                                ((kx, ky + 1), 3)] if grid[p[0], p[1], 0] == TYPE_EMPTY)
+        mg.step(3)  # pickup
+        mg.agent_pos, mg.agent_dir = (dx - 1, dy), 0
+        mg.step(5)  # toggle: the key opens the door
+        mg.step(2)
+        mg.agent_pos, mg.agent_dir = (4, 3), 1
+        _, reward, term, _, _ = mg.step(2)
+        torch.cuda.synchronize()
+    expect('minigrid', 5)
+    if mismatches or not term or reward <= 0 or int(mg._state.grid[0, dx, dy, 2]) != STATE_OPEN:
+        fail(f'minigrid DoorKey: term {term}, reward {reward}, {len(mismatches)} mismatches')
+    print('PettingZoo (live agents drop at the goal), RLlib (__all__) and the MiniGrid facade '
+          '(DoorKey solved by the imperative MiniGridCompatEnv) on the card: launches exact, '
+          'observations equal to the plain version')
+
+    if 'gymnasium' not in absent:
+        import gymnasium
+
+        from multigrid_tpu_torch.adapters import register_gymnasium_envs
+        if not ad.observation_space[0].contains(ad.step({0: 2})[0][0]):
+            fail('adapters: an observation outside the declared space')
+        register_gymnasium_envs()
+        genv = gymnasium.make('MultiGrid-Empty-5x5-v0', agents=2, device=device,
+                              disable_env_checker=True)
+        genv.reset(seed=0)
+    if 'pettingzoo' not in absent:
+        from pettingzoo.test import parallel_api_test
+        parallel_api_test(PettingZooWrapper(make('MultiGrid-Empty-5x5-v0', agents=2,
+                                                 device=device)), num_cycles=30)
+    not_run = {'gymnasium': 'the spaces and register_gymnasium_envs',
+               'pettingzoo': "pettingzoo's parallel_api_test",
+               'pygame': "render_mode='human'"}
+    print('adapters: ' + ('; '.join(f'{m} absent, so {not_run[m]} did not run' for m in absent)
+                          if absent else 'gymnasium, pettingzoo and pygame present: all ran'))
+    return dict(launches=calls + steps + resets + 6 + 5, steps_per_s=rate,
+                ms_a_step=wall * 1e3 / steps, obs_launches_a_call=1, device_busy=busy,
+                absent=absent)
+
+
+def visualize_path(ckdir, device=None):
+    """``python -m multigrid_tpu_torch.visualize``, in this process so that
+    its launches count: on the cnn checkpoint the cli phase wrote into
+    ``ckdir`` (BUP, 2 agents, 2 episodes of at most 64 steps, a GIF), and
+    with ``--encoder mlp`` on an mlp checkpoint written here (B2 on packed
+    cells), the launch counts set to 0 just before and read just after
+    each (obs: one at ``ppo_init``, one a frame; B2: one a step with the
+    mlp), every observation and every B2 output held against its plain
+    version, frames of BUP's size. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make, visualize
+    from multigrid_tpu_torch.learn import nets, ppo_init
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    from multigrid_tpu_torch.utils.checkpoint import save_checkpoint
+
+    kernel, b2_err = nets.onehot_linear, [0.0]
+
+    def b2_checked(packed, w):
+        got = kernel(packed, w)
+        want = fl.onehot_linear_plain(packed, w)
+        b2_err[0] = max(b2_err[0], float(((got.float() - want.float()).abs()
+                                          / (want.float().abs() + 1)).max()))
+        return got
+
+    mlp_dir = os.path.join(ckdir, 'mlp')
+    venv = VectorEnv(make(BUP, agents=BUP_N, device=device), 64, packed_obs=True)
+    state, *_ = ppo_init(venv, 0, net_kwargs=dict(encoder='mlp'))
+    save_checkpoint(os.path.join(mlp_dir, 'step_0'), state, venv)
+    out = {}
+    for label, args in [('cnn', ['--load-dir', ckdir, '--gif', os.path.join(ckdir, 'bup.gif')]),
+                        ('mlp', ['--load-dir', mlp_dir, '--encoder', 'mlp'])]:
+        nets.onehot_linear = b2_checked
+        try:
+            with obs_checked() as mismatches:
+                _zero_counts()
+                frames = visualize.main(
+                    ['--env', BUP, '--num-agents', str(BUP_N), '--num-episodes', '2',
+                     '--max-steps', '64'] + args + ([] if device is None else ['--device', device]))
+                torch.cuda.synchronize()
+        finally:
+            nets.onehot_linear = kernel
+        counts = _counts()
+        policy_steps = len(frames) - 2
+        want = {**{k: 0 for k in counts}, 'obs': 1 + len(frames),
+                'onehot_linear': policy_steps if label == 'mlp' else 0}
+        if counts != want:
+            fail(f'visualize {label}: expected launches {want}, got {counts}')
+        if mismatches or not b2_err[0] < 2e-2:
+            fail(f'visualize {label}: {len(mismatches)} observations differ, B2 error '
+                 f'{b2_err[0]:.3e}')
+        if any(f.shape != (6 * 32, 11 * 32, 3) or f.dtype != np.uint8 for f in frames):
+            fail(f'visualize {label}: frames {frames[0].shape} {frames[0].dtype}')
+        out[label] = counts
+        print(f'visualize {label}: {len(frames)} frames, launches {counts}, observations equal '
+              f'to the plain version' + (f', B2 err {b2_err[0]:.3e} (< 2e-2)' if label == 'mlp'
+                                         else f', GIF {os.path.getsize(args[-1])} bytes'))
+    return dict(launches=out['cnn']['obs'] + out['mlp']['obs'],
+                launches_b2=out['mlp']['onehot_linear'], b2_err=b2_err[0])
 
 
 def kernel_times(device):
@@ -2502,8 +2934,19 @@ def main() -> None:
     cnn = cnn_train()
     phase('resume')
     resumed = resume_path()
-    phase('cli')
-    cli_row = cli_path()
+    phase('wrappers')
+    wrapper_launches = wrappers_path()
+    phase('wrapper timing')
+    wt = wrapper_timing()
+    phase('render')
+    render_ms = render_path(venv, state)
+    phase('adapters')
+    adapters = adapters_path()
+    with tempfile.TemporaryDirectory() as ckdir:
+        phase('cli')
+        cli_row = cli_path(ckdir)
+        phase('visualize')
+        vis = visualize_path(ckdir)
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
@@ -2515,7 +2958,8 @@ def main() -> None:
                     launches_zoo=zoo_res['launches'], launches_bup_train=bcounts['obs'],
                     launches_pool=pool['launches'],
                     launches_cnn_train={k: v['launches']['obs'] for k, v in cnn.items()},
-                    bup=bt['kernels']['obs'])]
+                    launches_wrappers=wrapper_launches, launches_adapters=adapters['launches'],
+                    launches_visualize=vis['launches'], bup=bt['kernels']['obs'])]
     for name, replaces, src, n in [
             ('onehot_linear', 'multigrid_tpu/ops/fused_linear.py:133', 'fused_linear.cu',
              counts['onehot_linear']),
@@ -2528,6 +2972,7 @@ def main() -> None:
                             max_rel_err=errs[name][1], sass_tensor_ops=sass[name],
                             **tt['kernels'][name]))
     kernels[2]['launches_path'] = 'train, learner gate off (autograd)'
+    kernels[1]['launches_visualize_mlp'] = vis['launches_b2']
     for k in kernels[1:4]:
         k['launches_bup_train'] = bcounts[k['name']]
         if k['name'] in bt['kernels']:
@@ -2561,7 +3006,9 @@ def main() -> None:
                       'zoo_reset_share': zoo_res['reset_share'],
                       'pool_layers_ms': pool['layers'], 'bup_pool_timing': pt,
                       'cnn_trained_agent_steps_per_s': {k: v['rate'] for k, v in cnn.items()},
-                      'resume': resumed, 'cli_evaluate': cli_row}))
+                      'resume': resumed, 'cli_evaluate': cli_row, 'wrapped_step_ms': wt,
+                      'gym_adapter': {k: v for k, v in adapters.items() if k != 'launches'},
+                      'render_ms_a_frame': render_ms}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -9,8 +9,12 @@ configurations of the env zoo, procedural layouts drawn on the device.
 a centralized critic, conditioned on the mission where the env has one),
 with the policy's first layer, its weight gradient, the whole PPO
 loss and the fused rollout policy step in hand-written CUDA kernels
-(``python -m multigrid_tpu_torch.train``). Entry points run on the card
-unless the caller passes ``device='cpu'``.
+(``python -m multigrid_tpu_torch.train``). The user-facing surface has the
+JAX package's names: observation wrappers (``wrappers``), rendering
+(``render``, ``python -m multigrid_tpu_torch.visualize``), the Gymnasium,
+PettingZoo and RLlib adapters (``adapters``) and MiniGrid compatibility
+(``utils.minigrid_builder``, ``utils.minigrid_interface``). Entry points run
+on the card unless the caller passes ``device='cpu'``.
 """
 
 from .core import (

@@ -133,6 +133,19 @@ class MultiGridEnv(abc.ABC):
         and its extras."""
         return state.agent_terminated.any(dim=-1)
 
+    def transform_obs(self, obs, state: MultiGridState):
+        """Observation post-processing hook; identity for base environments.
+        Observation wrappers compose through it, so that a ``VectorEnv``
+        makes the raw observations once, through the kernel, and applies the
+        wrapper chain after (env.py:149-156)."""
+        return obs
+
+    def transform_space(self, agent_space):
+        """Per-agent observation-space hook; identity here. Observation
+        wrappers compose through it, so that the adapters report the space
+        wrapped observations inhabit (env.py:158-163)."""
+        return agent_space
+
     def post_step(
         self,
         prev_state: MultiGridState,

@@ -79,7 +79,7 @@ class VectorEnv:
         if packed_obs:
             # Observation wrappers work on (vs, vs, 3) channel triples, so
             # only an unwrapped env packs; 4-bit fields bound colors and states.
-            if getattr(type(env), 'transform_obs', None) is not None:
+            if type(env).transform_obs is not MultiGridEnv.transform_obs:
                 raise ValueError('packed_obs requires an unwrapped env '
                                  '(observation wrappers take channel triples)')
             if len(Color) > 16 or len(State) > 16:
@@ -230,12 +230,14 @@ class VectorEnv:
 
     def observe(self, state: MultiGridState):
         """Observations of a batched state, through the kernel wrapper, with
-        each env's mission index (E, N) where the env has missions."""
+        each env's mission index (E, N) where the env has missions, then the
+        env's observation wrappers (``transform_obs``, vector.py:443-444)."""
         cfg = self.env.cfg
         image = gen_obs_batched(state, cfg.view_size, cfg.see_through_walls,
                                 self.packed_obs)
-        return self.env.attach_mission(
+        obs = self.env.attach_mission(
             {'image': image, 'direction': state.agent_dir}, state)
+        return self.env.transform_obs(obs, state)
 
     def rollout_random(self, state: MultiGridState, steps: int):
         """Advance ``steps`` lockstep steps with uniform-random actions.

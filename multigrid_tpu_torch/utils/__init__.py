@@ -1,4 +1,6 @@
-"""Small helpers shared by the port: indexed enums and device resolution."""
+"""Helpers of the port: indexed enums, device resolution, the kernels' build,
+checkpoints, profiling, rendering primitives, pretty-printing and MiniGrid
+compatibility."""
 
 from .device import resolve_device
 

@@ -500,3 +500,84 @@ def test_resume_on_the_card_is_exact(cuda_device, tmp_path):
         assert torch.equal(getattr(resumed.env_state, k), getattr(straight.env_state, k)), k
     assert torch.equal(resumed.env_state.pool.reserve.grid, straight.env_state.pool.reserve.grid)
     assert torch.equal(venv2.generator.get_state(), venv.generator.get_state())
+
+
+# ------------------------------------------------ the user-facing surface
+
+
+def _obs_to(obs, device):
+    if isinstance(obs, dict):
+        return {k: v.to(device) for k, v in obs.items()}
+    return obs.to(device)
+
+
+def _obs_equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_obs_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize('name', ['FullyObsWrapper', 'ImgObsWrapper', 'OneHotObsWrapper'])
+def test_wrapped_vector_env_on_the_card_matches_the_cpu(cuda_device, name):
+    """BUP on the pool under each wrapper, 64 envs, episodes of 3 steps,
+    from the same state and reserve on both devices, the same actions and
+    orders, ``refresh=False``: every step's wrapped observations equal the
+    CPU path's, one obs launch a step."""
+    from multigrid_tpu_torch import wrappers
+    from multigrid_tpu_torch.ops.step import sample_order
+    env_id, e = 'MultiGrid-BlockedUnlockPickup-v0', 64
+    cpu, card = (VectorEnv(getattr(wrappers, name)(make(env_id, agents=2, max_steps=3,
+                                                        device=d)), e)
+                 for d in ('cpu', cuda_device))
+    obs, state = cpu.reset(seed=3)
+    gstate = _state_to(state, cuda_device)
+    assert _obs_equal(_obs_to(card.observe(gstate), 'cpu'), obs)
+    g = torch.Generator().manual_seed(3)
+    dones = 0
+    for t in range(9):
+        actions = torch.randint(0, 7, (e, 2), generator=g)
+        order = sample_order(g, e, 2, 'cpu')
+        obs, state, *_, done, _ = cpu.step(state, actions, order=order, refresh=False)
+        launches = obs_cuda.launches
+        gobs, gstate, *_ = card.step(gstate, actions.to(cuda_device),
+                                     order=order.to(cuda_device), refresh=False)
+        assert obs_cuda.launches == launches + 1
+        assert _obs_equal(_obs_to(gobs, 'cpu'), obs), t
+        dones += int(done.sum())
+    assert dones == 3 * e
+
+
+def test_adapters_launch_the_obs_kernel_once_a_call(cuda_device):
+    """A ``GymAdapter`` over BUP keeps its state on the card and launches
+    the obs kernel once a reset and once a step; a ``MiniGridCompatEnv``
+    (host-side layouts uploaded to the card) through the MiniGrid facade
+    does the same, its observations equal to the plain version's."""
+    from multigrid_tpu_torch.adapters import GymAdapter
+    from multigrid_tpu_torch.utils.minigrid_builder import Goal, Grid, MiniGridCompatEnv
+    from multigrid_tpu_torch.utils.minigrid_interface import MiniGridInterface
+
+    ad = GymAdapter(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device=cuda_device))
+    launches = obs_cuda.launches
+    ad.reset(seed=0)
+    assert obs_cuda.launches == launches + 1 and ad._state.device.type == cuda_device.type
+    for t in range(10):
+        ad.step({0: t % 7} if t % 3 else {0: 2, 1: t % 7})
+        assert obs_cuda.launches == launches + 2 + t
+
+    class Room(MiniGridCompatEnv):
+        mission = 'get to the green goal square'
+
+        def _gen_grid(self, width, height):
+            self.grid = Grid(width, height)
+            self.grid.wall_rect(0, 0, width, height)
+            self.put_obj(Goal(), width - 2, height - 2)
+            self.place_agent()
+
+    mg = MiniGridInterface(Room(grid_size=7, device=cuda_device))
+    launches = obs_cuda.launches
+    obs, _ = mg.reset(seed=1)
+    for t, a in enumerate([2, 1, 2, 0, 2, 2]):
+        want = gen_obs_batched_plain(_to(mg._state, 'cpu'), 7, False)[0, 0].numpy()
+        np.testing.assert_array_equal(obs['image'], want)
+        obs, *_ = mg.step(a)
+        assert obs_cuda.launches == launches + 2 + t

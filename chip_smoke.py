@@ -164,6 +164,21 @@ Phases, in order; any failure exits non-zero:
                (B2): launches exact (obs one at ppo_init and one a frame, B2
                one a step), observations and B2 outputs held to their plain
                versions, frames of BUP's size.
+27. distributed — data-parallel PPO over spawned processes on this card
+               (a file-store rendezvous, a join timeout each): NCCL in a
+               world of one (the flagship's metrics equal to the plain
+               path's, then both in turns for trained agent-steps/s); gloo
+               with two processes sharing the card, 2048 of 4096 envs each
+               (the flagship, 2 epochs x 4 minibatches, the BUP recipe on
+               the replicated pool, the fused policy; each held to this
+               process: every rollout bit-equal, metrics at rtol 1e-4; on
+               the BUP recipe the first update whose rollout differs, and
+               its step, is reported and the metrics are held up to it;
+               not a scaling measure); every process's launches exact (B1
+               16, B2 17, B4 1 an update, B5 16 fused); the extra ms a BUP
+               step pays a process for the global reserve's draws; and
+               torchrun --nproc-per-node 1 -m multigrid_tpu_torch.train
+               --mesh (2 updates, one checkpoint that evaluate reads).
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 B1 (images and packed, at the flagship, with 16 agents and at the BUP
@@ -521,14 +536,18 @@ def ppo_stages(fn, reps=5):
 
 # ------------------------------------------------------------------ phases
 
-def card_info():
-    import torch
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
-    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
         else f'nvidia-smi unavailable (rc {smi.returncode})'
-    print(line, flush=True)
+
+
+def card_info():
+    import torch
+    print(smi_line(), flush=True)
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)')
 
@@ -988,18 +1007,13 @@ def policy_kernel_cases(device):
 
 
 def _counts():
-    from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
-    return {'obs': obs_cuda.launches, 'obs_general': obs_cuda.general_launches,
-            'onehot_linear': fused_linear.launches,
-            'onehot_linear_grad': fused_linear.grad_launches, 'ppo_loss': fused_ppo.launches,
-            'policy_sample': fused_policy.launches}
+    from multigrid_tpu_torch.ops import launch_counts
+    return launch_counts()
 
 
 def _zero_counts():
-    from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
-    obs_cuda.launches = obs_cuda.general_launches = 0
-    fused_linear.launches = fused_linear.grad_launches = 0
-    fused_ppo.launches = fused_policy.launches = 0
+    from multigrid_tpu_torch.ops import zero_launch_counts
+    zero_launch_counts()
 
 
 def _set_counts(counts):
@@ -2771,6 +2785,223 @@ def visualize_path(ckdir, device=None):
                 launches_b2=out['mlp']['onehot_linear'], b2_err=b2_err[0])
 
 
+# ------------------------------------------------------ multi-process runs
+
+#: A spawned run's join timeout (s): a process that fails or hangs fails it.
+SPAWN_TIMEOUT = 600.0
+
+
+def _flagship_run(updates, device=None, **kw):
+    """:func:`ppo_run` keywords of the trained flagship (Empty-16x16, 4
+    agents, 4096 global envs, mlp 128 on packed cells, T 16)."""
+    return dict(num_envs=E, updates=updates, env_id='MultiGrid-Empty-16x16-v0', agents=N,
+                hidden=HIDDEN, device=device, **{'config': dict(rollout_steps=TRAIN_T), **kw})
+
+
+def _want_launches(kw):
+    """The kernels a process launches in the updates of the run ``kw``
+    (:func:`ppo_run`'s keywords), as the single path does: B1 T, B2 T + 1
+    (1 with the fused policy, whose B5 takes the T rollout steps), B4 once
+    an SGD step, each an update."""
+    cfg, updates, fused = kw.get('config', {}), kw['updates'], kw.get('fused_policy', False)
+    t = cfg.get('rollout_steps', TRAIN_T)
+    return {'obs': t * updates, 'obs_general': 0,
+            'onehot_linear': (1 if fused else t + 1) * updates, 'onehot_linear_grad': 0,
+            'ppo_loss': cfg.get('epochs', 1) * cfg.get('minibatches', 1) * updates,
+            'policy_sample': t * updates if fused else 0}
+
+
+def _checked(label, results, runs, single=None, exact=False, counted=True):
+    """Each process's results of ``runs`` with exact launch counts; held to
+    ``single`` (one process's runs) where given by
+    :func:`~multigrid_tpu_torch.parallel.dryrun.assert_consistent`: every
+    rollout's checksums equal (a run with ``flips`` reports the first
+    differing update and step instead), the metrics of every update with an
+    equal rollout at rtol 1e-4 (equal with ``exact``), the parameters equal
+    across processes after every update. Prints each process's launches and
+    every compared update's metrics; returns ``{name: consistency}``."""
+    from multigrid_tpu_torch.parallel.dryrun import assert_consistent
+
+    out = {}
+    for i, kw in enumerate(runs):
+        name = kw.get('name', f'run {i}')
+        per_proc = [res[i] for res in results]
+        want = _want_launches(kw)
+        for rank, res in enumerate(per_proc):
+            if counted and res['launches'] != want:
+                fail(f'{label}, {name}, process {rank}: launches {res["launches"]}, '
+                     f'expected {want}')
+        print(f'{label}, {name}: launches a process {per_proc[0]["launches"]} in '
+              f'{kw["updates"]} updates')
+        _check_finite(per_proc[0]['metrics'], f'{label}, {name}')
+        if single is None:
+            continue
+        ref = single[i]
+        for u, (a, b) in enumerate(zip(per_proc[0]['metrics'], ref['metrics'])):
+            same = per_proc[0]['rollouts'][u] == ref['rollouts'][u]
+            print(f'  update {u + 1} (rollout {"bit-equal" if same else "differs"}): '
+                  + ', '.join(f'{k} {a[k]:.9g}/{b[k]:.9g}'
+                              for k in ('loss', 'pg_loss', 'vf_loss', 'entropy',
+                                        'reward_per_step')))
+        try:
+            out[name] = assert_consistent(per_proc, ref, f'{label}, {name}',
+                                          flips=kw.get('flips', False),
+                                          **(dict(rtol=0.0, atol=0.0) if exact else {}))
+        except AssertionError as exc:
+            fail(str(exc))
+        if out[name]['first_flip']:
+            u, t = out[name]['first_flip']
+            print(f'  {name}: the rollout of update {u} first differs at step {t} (a '
+                  f'parameter rounded otherwise after the reordered gradient sums); '
+                  f'updates 1-{u - 1} compared at rtol 1e-4')
+    return out
+
+
+def _bup_reset_extra_ms(device=None, card='', reps=4):
+    """The extra ms a BUP env step pays on each of 2 processes to refresh
+    the global reserve (4096 envs) instead of its own half (2048): one
+    ``refresh_pool(16)`` of each, in turns (global, half, half, global),
+    over 16 steps. Returns ``{'global_ms', 'half_ms', 'extra_ms'}`` a step
+    (medians)."""
+    import statistics
+
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+
+    venvs = {e: VectorEnv(make(BUP, agents=BUP_N, device=device), e) for e in (E, E // 2)}
+    states = {e: v.reset(seed=1)[1] for e, v in venvs.items()}
+    chunk = VectorEnv.REFRESH_CHUNK
+    times = {E: [], E // 2: []}
+    for e in [E, E // 2, E // 2, E] * reps:
+        venvs[e].refresh_pool(states[e], chunk)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        venvs[e].refresh_pool(states[e], chunk)
+        torch.cuda.synchronize()
+        times[e].append((time.perf_counter() - t0) * 1e3 / chunk)
+    g, h = statistics.median(times[E]), statistics.median(times[E // 2])
+    print(f'BUP reserve refresh a step on {card}: global {E} envs {g:.6f} ms, half {E // 2} '
+          f'{h:.6f} ms; extra a process pays for the global draws {g - h:.6f} ms '
+          '(medians, in turns)')
+    return {'global_ms': g, 'half_ms': h, 'extra_ms': g - h}
+
+
+def distributed_path(tmp, device=None):
+    """Data-parallel PPO over processes (``parallel.mesh``, ``parallel.
+    distributed``), each process on this card, spawned with a file-store
+    rendezvous and a join timeout:
+
+    - NCCL, one process: the flagship sharded over a world of one against
+      the plain path in the same process from the same seed (equal metrics:
+      an all-reduce over one process is the identity), then both in turns
+      for their trained agent-steps/s;
+    - gloo, two processes sharing the card (NCCL refuses two on one card),
+      each 2048 of the 4096 envs: the flagship (3 updates), one update of
+      2 epochs x 4 minibatches (the env-axis roll crosses the processes),
+      the BUP recipe on the replicated pool (2 updates) and the fused-policy
+      variant (3 updates), each against one process (this one): every
+      rollout bit-equal and the metrics at rtol 1e-4. The BUP recipe's
+      bfloat16 logits pick another action near a tie once the parameters
+      differ in their last bits (the gradients summed in another order), so
+      its first differing update and step is reported and the metrics are
+      held to rtol 1e-4 up to it. Two processes on one card are not a
+      scaling measure;
+    - ``torchrun --standalone --nproc-per-node 1 -m multigrid_tpu_torch.train
+      --mesh``: 2 flagship updates, one checkpoint, which ``python -m
+      multigrid_tpu_torch.evaluate`` reads.
+
+    Every process's launches are exact (B1 16, B2 17, B4 1 an update; B5
+    16 on the fused variant). Returns the launches and times. With
+    ``device='cpu'`` (a rehearsal without a card) the world of one is gloo's
+    and no launch is counted."""
+    from multigrid_tpu_torch.parallel.dryrun import ppo_run, ppo_runs, spawn
+
+    out = {}
+    # NCCL, a world of one: sharded and plain in turns, the first pair equal.
+    counted = device is None
+    nccl = [dict(_flagship_run(3, device), name='sharded'),
+            dict(_flagship_run(3, device), name='plain', sharded=False)]
+    nccl += [nccl[1], nccl[0]]
+    t0 = time.perf_counter()
+    res = spawn(ppo_runs, 1, ([{k: v for k, v in kw.items() if k != 'name'} for kw in nccl],),
+                backend='nccl' if counted else 'gloo', device=device, timeout=SPAWN_TIMEOUT)
+    print(f'nccl, 1 process: {time.perf_counter() - t0:.1f} s with start-up')
+    _checked('nccl, 1 process', res, nccl[:1], single=[res[0][1]], exact=True, counted=counted)
+    rates = {'sharded': [], 'plain': []}
+    for kw, r in zip(nccl, res[0]):
+        rates[kw['name']].append(r['agent_steps'] / r['seconds'])
+    card = smi_line() if counted else 'the CPU'
+    print(f'nccl, 1 process, on {card}: trained agent-steps/s of 3 updates in turns '
+          '(sharded, plain, plain, sharded): ' + '; '.join(f'{k} ' + ', '.join(f'{x:.6e}' for x in v)
+                                          for k, v in rates.items()))
+    out['nccl_1'] = {'launches': res[0][0]['launches'], 'trained_agent_steps_per_s': rates}
+
+    # gloo, two processes on the one card, against this process.
+    bup_cfg = dict(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)
+    gloo = [dict(_flagship_run(3, device), name='flagship'),
+            dict(_flagship_run(1, device, config=dict(rollout_steps=TRAIN_T, epochs=2,
+                                                      minibatches=4)),
+                 name='2 epochs x 4 minibatches'),
+            dict(num_envs=E, updates=2, env_id=BUP, agents=BUP_N, hidden=HIDDEN,
+                 config=bup_cfg, device=device, flips=True,
+                 name='BUP recipe, replicated pool'),
+            dict(_flagship_run(3, device), fused_policy=True, name='fused policy')]
+    names = ('name', 'flips')
+    runs = [{k: v for k, v in kw.items() if k not in names} for kw in gloo]
+    t0 = time.perf_counter()
+    res = spawn(ppo_runs, 2, (runs,), backend='gloo', device=device, timeout=SPAWN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    single = [ppo_run(**kw, sharded=False) for kw in runs]
+    consistency = _checked('gloo, 2 processes', res, gloo, single=single, counted=counted)
+    flag = [r[0] for r in res]
+    rate = flag[0]['agent_steps'] / max(r['seconds'] for r in flag)
+    print(f'gloo, 2 processes on one card, {card} ({wall:.1f} s with start-up): flagship '
+          f'{rate:.6e} trained agent-steps/s over both (one process here: '
+          f'{single[0]["agent_steps"] / single[0]["seconds"]:.6e}); two processes share '
+          'one card, so this is no scaling measure')
+    out['gloo_2'] = {'launches': [r[0]['launches'] for r in res],
+                     'launches_fused': [r[3]['launches'] for r in res],
+                     'trained_agent_steps_per_s_one_card': rate,
+                     'one_process_trained_agent_steps_per_s':
+                         single[0]['agent_steps'] / single[0]['seconds'],
+                     'consistency': consistency}
+    out['bup_reset_extra'] = _bup_reset_extra_ms(device, card)
+
+    # The CLI under torchrun, then evaluate on its checkpoint.
+    ck = os.path.join(tmp, 'mesh-ck')
+    t = [sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc-per-node',
+         '1', '-m', 'multigrid_tpu_torch.train', '--mesh', '--env',
+         'MultiGrid-Empty-16x16-v0', '--num-agents', str(N), '--num-envs', str(E),
+         '--rollout-steps', str(TRAIN_T), '--encoder', 'mlp', '--hidden', str(HIDDEN),
+         '--num-timesteps', str(2 * E * N * TRAIN_T), '--save-dir', ck, '--save-interval',
+         '2', '--log-interval', '1'] + ([] if device is None else ['--device', device])
+    t0 = time.perf_counter()
+    run = subprocess.run(t, cwd=HERE, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        fail(f'torchrun train --mesh: exit {run.returncode}: {run.stderr[-3000:]}')
+    rows = [json.loads(x) for x in run.stdout.splitlines() if x.startswith('{')]
+    if [r['update'] for r in rows] != [1, 2] or os.listdir(ck) != ['step_2']:
+        fail(f'torchrun train --mesh: rows {rows}, checkpoints {os.listdir(ck)}')
+    print(f'torchrun train --mesh on {card} ({time.perf_counter() - t0:.1f} s): '
+          f'{json.dumps(rows[-1])}')
+    ev = subprocess.run([sys.executable, '-m', 'multigrid_tpu_torch.evaluate', '--env',
+                         'MultiGrid-Empty-16x16-v0', '--num-agents', str(N), '--num-envs',
+                         str(E), '--num-steps', str(64 * E * N), '--encoder', 'mlp',
+                         '--hidden', str(HIDDEN), '--load-dir', ck]
+                        + ([] if device is None else ['--device', device]), cwd=HERE,
+                        capture_output=True, text=True, timeout=600)
+    evals = [json.loads(x) for x in ev.stdout.splitlines() if x.startswith('{')]
+    if ev.returncode != 0 or not evals or 'loaded' not in ev.stdout:
+        fail(f'evaluate on the --mesh checkpoint: exit {ev.returncode}: '
+             f'{ev.stdout[-1000:]} {ev.stderr[-2000:]}')
+    print(f'evaluate on the --mesh checkpoint: {json.dumps(evals[-1])}')
+    # NaN (no episode ended) as null, so that the record is strict JSON.
+    out['torchrun_train'] = {k: None if v != v else v for k, v in rows[-1].items()}
+    out['evaluate'] = evals[-1]
+    return out
+
+
 def kernel_times(device):
     """``--kernel-times``: B2 at the rollout's three shapes, B3 at the
     learner's three (flagship, per agent, critic), B1 at the flagship as
@@ -2947,6 +3178,8 @@ def main() -> None:
         cli_row = cli_path(ckdir)
         phase('visualize')
         vis = visualize_path(ckdir)
+        phase('distributed')
+        dist_res = distributed_path(ckdir)
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
@@ -2977,6 +3210,12 @@ def main() -> None:
         k['launches_bup_train'] = bcounts[k['name']]
         if k['name'] in bt['kernels']:
             k['bup'] = bt['kernels'][k['name']]
+    for k in kernels[:4]:
+        if k['name'] != 'onehot_linear_grad':
+            k['launches_distributed'] = {
+                'path': '3 flagship updates a process',
+                'nccl_1': dist_res['nccl_1']['launches'][k['name']],
+                'gloo_2': [c[k['name']] for c in dist_res['gloo_2']['launches']]}
     kernels.append(dict(name='policy_sample', route='cuda',
                         source='multigrid_tpu_torch/csrc/fused_policy.cu',
                         replaces='multigrid_tpu/ops/fused_policy.py:62',
@@ -2985,6 +3224,10 @@ def main() -> None:
                         max_abs_err=policy_err[0], max_rel_err=policy_err[1],
                         sass_tensor_ops=sass['policy_sample'], **vt['kernel'],
                         launches_bup_fused=bcounts_fused['policy_sample'],
+                        launches_distributed={
+                            'path': '3 fused-policy flagship updates a process',
+                            'gloo_2': [c['policy_sample']
+                                       for c in dist_res['gloo_2']['launches_fused']]},
                         bup=bt['kernels']['policy_sample']))
     gen_t = general['times']['250x250 N=2 vs=7 E=64 packed']
     kernels.append(dict(name='obs_general', route='cuda',
@@ -3008,7 +3251,11 @@ def main() -> None:
                       'cnn_trained_agent_steps_per_s': {k: v['rate'] for k, v in cnn.items()},
                       'resume': resumed, 'cli_evaluate': cli_row, 'wrapped_step_ms': wt,
                       'gym_adapter': {k: v for k, v in adapters.items() if k != 'launches'},
-                      'render_ms_a_frame': render_ms}))
+                      'render_ms_a_frame': render_ms,
+                      'distributed': {
+                          **dist_res, 'nccl_1': dist_res['nccl_1']['trained_agent_steps_per_s'],
+                          'gloo_2': {k: v for k, v in dist_res['gloo_2'].items()
+                                     if not k.startswith('launches')}}}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -30,11 +30,22 @@ can keep one and run from it again, after restoring the generators' states.
 Randomness comes from ``torch.Generator``s: the vector env's (agent orders,
 resets) and the train state's (actions, minibatch shuffles); they give other
 numbers than ``jax.random``.
+
+On a vector env sharded over a process mesh (``VectorEnv(mesh=...)``) the
+update is data-parallel with the semantics of the JAX package's sharded
+``train_step``: every process holds the same parameters and generators,
+draws its noise at the global batch's shape and keeps its rows, normalizes
+advantages over the global batch, and averages its gradients with the other
+processes' before the clip, so the update is the one-process update of the
+global batch up to the order of float sums. Minibatches hold the global
+envs one process would give them; the metrics are global.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import math
 import os
 import warnings
 from collections.abc import Callable
@@ -46,6 +57,7 @@ from torch.func import functional_call
 
 from ..core.state import MultiGridState
 from ..ops import fused_policy, fused_ppo
+from ..parallel import distributed
 from ..parallel.vector import VectorEnv
 from .nets import ACTOR, CRITIC, ActorCritic, dir_mission_features, make_centralized_critic
 
@@ -225,6 +237,29 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
 
 
+def params_digest(params: dict[str, torch.Tensor]) -> int:
+    """A 63-bit digest of the parameters' names, shapes, dtypes and bytes."""
+    h = hashlib.sha256()
+    for k in sorted(params):
+        v = params[k].detach().cpu().contiguous()
+        h.update(f'{k}{tuple(v.shape)}{v.dtype}'.encode())
+        h.update(v.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], 'little') >> 1
+
+
+def check_replicated(params: dict[str, torch.Tensor], group) -> None:
+    """Raise unless every process of ``group`` holds the same parameters
+    (by :func:`params_digest`, one all-reduce)."""
+    if group is None:
+        return
+    d = params_digest(params)
+    device = next(iter(params.values())).device
+    top = distributed.all_reduce(torch.tensor([d, -d], device=device), group, op='max')
+    if top.tolist() != [d, -d]:
+        raise RuntimeError(f'parameters differ across processes (digest {d} on process '
+                           f'{distributed.process_index()})')
+
+
 def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
              hidden: int = 128, dtype=torch.bfloat16, net: ActorCritic | None = None,
              net_kwargs: dict | None = None,
@@ -243,6 +278,10 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
     and the net none. With the centralized critic (always the mlp) the
     parameters are keyed ``actor.*`` and ``critic.*``. ``lr_schedule``
     (:func:`linear_schedule`) replaces the constant ``config.lr``.
+
+    On a sharded vector env every process derives the same seeds, so its
+    parameters and generators start alike; a digest all-reduce checks the
+    parameters.
     """
     config = config or PPOConfig()
     env_seed, net_seed, train_seed, critic_seed = (
@@ -280,11 +319,13 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
                      for k, v in critic.state_dict().items()}}
     tx = Optimizer(config.lr if lr_schedule is None else lr_schedule, config.max_grad_norm,
                    per_agent=config.per_agent_policies, critic=config.centralized_critic)
+    if venv.mesh is not None:
+        check_replicated(params, venv.mesh.group)
     state = TrainState(
         params=params, opt_state=tx.init(params), env_state=env_state,
         last_obs=obs,
         generator=torch.Generator(device=venv.device).manual_seed(train_seed),
-        ep_return_acc=torch.zeros(venv.num_envs, device=venv.device))
+        ep_return_acc=torch.zeros(venv.local_envs, device=venv.device))
     return state, net, config, tx
 
 
@@ -296,12 +337,17 @@ class TrainStep:
     The learner's kernel gate is :func:`fused_ppo.supports`, and the fully
     fused rollout policy's is ``MULTIGRID_FUSED_POLICY`` (any non-empty
     value) with :func:`fused_policy.supports`; both are read when the step
-    is built (as the JAX package reads them).
+    is built (as the JAX package reads them). Under a mesh they see this
+    process's rows.
     """
 
     def __init__(self, venv: VectorEnv, net: ActorCritic, config: PPOConfig,
                  tx: Optimizer):
         self.venv, self.net, self.config, self.tx = venv, net, config, tx
+        #: The mesh's process group (None in one process), and whether this
+        #: process holds only part of the env batch.
+        self.group = None if venv.mesh is None else venv.mesh.group
+        self.split = venv.local_envs != venv.num_envs
         self._loss_kernel_ok = fused_ppo.supports
         self.critic = (make_centralized_critic(net, venv.num_agents).to(venv.device)
                        if config.centralized_critic else None)
@@ -312,7 +358,7 @@ class TrainStep:
             os.environ.get('MULTIGRID_FUSED_POLICY') and net.packed_obs
             and net.encoder == 'mlp'
             and not config.per_agent_policies and not config.centralized_critic
-            and fused_policy.supports(venv.num_envs * venv.num_agents, net.hidden,
+            and fused_policy.supports(venv.local_envs * venv.num_agents, net.hidden,
                                       net.num_actions))
 
     def actor_params(self, params):
@@ -373,9 +419,12 @@ class TrainStep:
         """One rollout step's ``(action, log_prob, value)``, each (E, N): the
         fused-policy kernel on ``prepped`` (from :meth:`prepare_policy`)
         where it is not None, else :meth:`policy` and Gumbel-max sampling.
-        Both paths draw the same noise, of one shape from one generator."""
+        Both paths draw the same noise, of one shape from one generator (the
+        global batch's, of which this process keeps its rows)."""
         lead, a = obs['direction'].shape, self.net.num_actions
-        gumbel = gumbel_noise(lead + (a,), generator, self.venv.device)
+        venv = self.venv
+        gumbel = venv.local(gumbel_noise((venv.num_envs,) + lead[1:] + (a,), generator,
+                                         venv.device))
         if prepped is None:
             logits, value = self.policy(params, obs)
             action = sample_actions(logits, gumbel)
@@ -439,6 +488,22 @@ class TrainStep:
             next_value = traj.value[t]
         return advantages, advantages + traj.value
 
+    def moments(self, x: torch.Tensor, dims: tuple[int, ...] | None = None):
+        """``(mean, std)`` of ``x`` over ``dims`` (kept; None: all) across
+        the mesh's processes, the std without correction. With one env
+        shard they are the local moments; else two all-reduces, of the sums
+        and of the squared deviations' sums."""
+        if not self.split:
+            if dims is None:
+                return x.mean(), x.std(correction=0)
+            return x.mean(dims, keepdim=True), x.std(dims, correction=0, keepdim=True)
+        kw = {} if dims is None else dict(dim=dims, keepdim=True)
+        count = (x.numel() if dims is None else math.prod(x.shape[d] for d in dims)) \
+            * self.venv.mesh.env_shards
+        mu = distributed.all_reduce(x.sum(**kw), self.group) / count
+        var = distributed.all_reduce(torch.square(x - mu).sum(**kw), self.group) / count
+        return mu, torch.sqrt(var)
+
     def loss_fn(self, params, traj: Rollout, advantages, targets):
         """``(loss, metrics)`` of the clipped-PPO objective through the net."""
         cfg = self.config
@@ -450,11 +515,9 @@ class TrainStep:
         if cfg.per_agent_policies:
             # Each agent's own statistics, over all axes but the agent axis
             # (ppo.py:499-511), so the policies do not couple through them.
-            axes = tuple(range(advantages.dim() - 1))
-            mu = advantages.mean(axes, keepdim=True)
-            sd = advantages.std(axes, correction=0, keepdim=True)
+            mu, sd = self.moments(advantages, tuple(range(advantages.dim() - 1)))
         else:
-            mu, sd = advantages.mean(), advantages.std(correction=0)
+            mu, sd = self.moments(advantages)
         adv = (advantages - mu) / (sd + 1e-8)
         pg_loss = -torch.minimum(
             ratio * adv,
@@ -479,7 +542,7 @@ class TrainStep:
             def flat(x):
                 return x.reshape((b,) + x.shape[3:]).contiguous()
 
-            mu, sd = advantages.mean(), advantages.std(correction=0)
+            mu, sd = self.moments(advantages)
             adv = flat((advantages - mu) / (sd + 1e-8))
         else:
             n = traj.direction.shape[-1]
@@ -489,8 +552,8 @@ class TrainStep:
                 return x.movedim(2, 0).reshape((n, b) + x.shape[3:]).contiguous()
 
             adv = flat(advantages)
-            adv = (adv - adv.mean(1, keepdim=True)) / (adv.std(1, correction=0, keepdim=True)
-                                                       + 1e-8)
+            mu, sd = self.moments(adv, (1,))
+            adv = (adv - mu) / (sd + 1e-8)
         return [flat(traj.image), flat(dirf), flat(traj.action.to(torch.int32)),
                 flat(traj.log_prob), adv, flat(targets)]
 
@@ -531,18 +594,34 @@ class TrainStep:
                  for k, g in zip(names, grads)},
                 {k: v.detach() for k, v in metrics.items()})
 
+    def mean_over_processes(self, tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Each tensor's mean over the mesh's processes, in one all-reduce
+        (every process holds as many samples, so the mean of their means is
+        the global mean); ``tree`` itself in one process."""
+        if self.group is None:
+            return tree
+        flat = torch.cat([v.reshape(-1).to(torch.float64) for v in tree.values()])
+        flat = distributed.all_reduce(flat, self.group) / self.venv.mesh.env_shards
+        out = dict(zip(tree, flat.split([v.numel() for v in tree.values()])))
+        return {k: out[k].reshape(v.shape).to(v.dtype) for k, v in tree.items()}
+
     @torch.no_grad()
     def sgd_step(self, params, opt_state: OptState, traj: Rollout, advantages, targets):
-        """One optimizer step on a (minibatch) trajectory. Returns
-        ``(params, opt_state, metrics)``."""
+        """One optimizer step on a (minibatch) trajectory, its gradients
+        averaged over the mesh's processes before the clip. Returns
+        ``(params, opt_state, metrics)``: this process's metrics."""
         grads, metrics = self.loss_grads(params, traj, advantages, targets)
+        grads = self.mean_over_processes(grads)
         updates, opt_state = self.tx.update(grads, opt_state)
         return {k: params[k] + updates[k] for k in params}, opt_state, metrics
 
     def __call__(self, state: TrainState, shuffle=None):
         """One update. ``shuffle`` fixes each epoch's minibatch shuffle as a
-        list of ``(perm_t, off_e)`` (a T-permutation and an env-axis roll);
-        by default they are drawn from ``state.generator``."""
+        list of ``(perm_t, off_e)`` (a T-permutation and an env-axis roll
+        of the global batch); by default they are drawn from
+        ``state.generator``. Under a mesh of several env shards, minibatches
+        need the global batch: every process gathers it once an update and
+        takes its share of each minibatch's envs."""
         cfg = self.config
         state, traj, last_value, (ep_sum, ep_cnt, ep_suc) = self.rollout_phase(state)
         advantages, targets = self.compute_gae(traj, last_value)
@@ -552,10 +631,16 @@ class TrainStep:
                 params, opt_state, metrics = self.sgd_step(
                     params, opt_state, traj, advantages, targets)
         else:
-            t, e = advantages.shape[:2]
+            t, e = advantages.shape[0], self.venv.num_envs
             if e % cfg.minibatches:
                 raise ValueError(f'env batch {e} not divisible by '
                                  f'{cfg.minibatches} minibatches')
+            batch, shard, shards = (traj, advantages, targets), 0, 1
+            if self.split:
+                mesh = self.venv.mesh
+                shard, shards = mesh.coords[0], mesh.env_shards
+                batch = tuple(x.map(self._gather) if isinstance(x, Rollout) else self._gather(x)
+                              for x in batch)
             for epoch in range(cfg.epochs):
                 if shuffle is None:
                     perm_t = torch.randperm(t, generator=state.generator,
@@ -564,14 +649,18 @@ class TrainStep:
                                               device=state.generator.device))
                 else:
                     perm_t, off_e = shuffle[epoch]
-                for tr, adv, tg in minibatches((traj, advantages, targets),
-                                               cfg.minibatches, perm_t, off_e):
+                for tr, adv, tg in minibatches(batch, cfg.minibatches, perm_t, off_e,
+                                               shard, shards):
                     params, opt_state, metrics = self.sgd_step(
                         params, opt_state, tr, adv, tg)
+        metrics = self.mean_over_processes({**metrics, 'reward_per_step': traj.reward.mean()})
+        if self.group is not None:
+            sums = distributed.all_reduce(torch.stack([ep_sum.double(), ep_cnt.double(),
+                                                       ep_suc.double()]), self.group)
+            ep_sum, ep_cnt, ep_suc = (sums[0].to(ep_sum.dtype), sums[1].to(ep_cnt.dtype),
+                                      sums[2].to(ep_suc.dtype))
         nan = torch.full((), float('nan'), device=ep_sum.device)
         done_any = ep_cnt > 0
-        metrics = dict(metrics)
-        metrics['reward_per_step'] = traj.reward.mean()
         metrics['episodes_in_batch'] = ep_cnt.float()
         metrics['episode_reward'] = torch.where(done_any, ep_sum / ep_cnt.clamp_min(1), nan)
         metrics['success_rate'] = torch.where(done_any, ep_suc / ep_cnt.clamp_min(1), nan)
@@ -579,24 +668,31 @@ class TrainStep:
                               update_count=state.update_count + 1)
         return state, metrics
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch of this process's (T, E/R, ...) rows."""
+        return distributed.all_gather_rows(x, self.group, dim=1)
+
 
 def minibatches(batch: tuple[Rollout, torch.Tensor, torch.Tensor], count: int,
-                perm_t, off_e: int):
+                perm_t, off_e: int, shard: int = 0, shards: int = 1):
     """Split ``(traj, advantages, targets)`` (T, E, ...) into ``count``
     minibatches: permute T by ``perm_t``, roll the env axis by ``off_e``,
-    then take contiguous env blocks (ppo.py:671-698)."""
+    then take contiguous env blocks (ppo.py:671-698). With ``shards``,
+    each minibatch's block is split in as many contiguous parts and only
+    part ``shard`` is yielded (a process's share of the minibatch)."""
     traj, adv, tg = batch
     e = adv.shape[1]
     c = e // count
+    if c % shards:
+        raise ValueError(f'a minibatch of {c} envs does not split over {shards} processes')
+    part = c // shards
     perm_t = torch.as_tensor(perm_t, device=adv.device)
-
-    def shuffle(x):
-        return torch.roll(x[perm_t], off_e, dims=1)
-
-    traj, adv, tg = traj.map(shuffle), shuffle(adv), shuffle(tg)
+    traj, adv, tg = traj.map(lambda x: x[perm_t]), adv[perm_t], tg[perm_t]
     for m in range(count):
-        block = slice(m * c, (m + 1) * c)
-        yield traj.map(lambda x: x[:, block]), adv[:, block], tg[:, block]
+        # Rolled position j holds env (j - off_e) mod E.
+        start = m * c + shard * part
+        src = (torch.arange(start, start + part, device=adv.device) - off_e) % e
+        yield traj.map(lambda x: x[:, src]), adv[:, src], tg[:, src]
 
 
 def make_train_step(venv: VectorEnv, net: ActorCritic, config: PPOConfig,

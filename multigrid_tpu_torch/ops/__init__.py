@@ -5,8 +5,27 @@ from .obs import gen_obs, gen_obs_batched_plain, gen_obs_grid_encoding, get_vis_
 from .obs_cuda import gen_obs_batched
 from .step import handle_actions, sample_order, step_with_order
 
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launch count in this process (each wrapper adds
+    one where it launches its kernel on the card)."""
+    from . import fused_linear, fused_policy, fused_ppo, obs_cuda
+    return {'obs': obs_cuda.launches, 'obs_general': obs_cuda.general_launches,
+            'onehot_linear': fused_linear.launches,
+            'onehot_linear_grad': fused_linear.grad_launches,
+            'ppo_loss': fused_ppo.launches, 'policy_sample': fused_policy.launches}
+
+
+def zero_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from . import fused_linear, fused_policy, fused_ppo, obs_cuda
+    obs_cuda.launches = obs_cuda.general_launches = 0
+    fused_linear.launches = fused_linear.grad_launches = 0
+    fused_ppo.launches = fused_policy.launches = 0
+
+
 __all__ = [
     'gen_obs', 'gen_obs_batched', 'gen_obs_batched_plain',
-    'gen_obs_grid_encoding', 'get_vis_mask', 'handle_actions', 'sample_order',
-    'step_with_order',
+    'gen_obs_grid_encoding', 'get_vis_mask', 'handle_actions', 'launch_counts',
+    'sample_order', 'step_with_order', 'zero_launch_counts',
 ]

@@ -19,6 +19,7 @@ of the window directly.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.config import EnvConfig
 from ..core.constants import (
@@ -67,12 +68,12 @@ def see_behind_mask(obs_grid: torch.Tensor) -> torch.Tensor:
 
 def _shift_up(v: torch.Tensor) -> torch.Tensor:
     """Along the last axis: the value at i moves to i+1."""
-    return torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], dim=-1)
+    return F.pad(v[..., :-1], (1, 0))
 
 
 def _shift_down(v: torch.Tensor) -> torch.Tensor:
     """Along the last axis: the value at i moves to i-1."""
-    return torch.cat([v[..., 1:], torch.zeros_like(v[..., :1])], dim=-1)
+    return F.pad(v[..., 1:], (0, 1))
 
 
 def _propagate(v: torch.Tensor, s: torch.Tensor, shift, steps: int) -> torch.Tensor:

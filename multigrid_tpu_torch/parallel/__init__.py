@@ -1,5 +1,11 @@
-"""Batched lockstep execution on one device."""
+"""Batched lockstep execution, on one device or sharded over processes.
 
+Thousands of environments run in lockstep on one card; a run of several
+processes (one card each, ``torch.distributed``) shards the env batch over
+the ``env`` axis of a process mesh (:mod:`.mesh`, :mod:`.distributed`).
+"""
+
+from .mesh import Mesh, env_rows, gather_batch, make_mesh, shard_batch
 from .vector import VectorEnv
 
-__all__ = ['VectorEnv']
+__all__ = ['Mesh', 'VectorEnv', 'env_rows', 'gather_batch', 'make_mesh', 'shard_batch']

@@ -1,0 +1,277 @@
+"""The sharding correctness gate: PPO sharded over processes against one.
+
+Counterpart of the JAX package's ``__graft_entry__.py::dryrun_multichip``:
+:func:`dryrun_multichip` runs 3 PPO updates on the flagship (Empty-16x16, 4
+agents, the default mlp) with the env batch sharded over ``n_procs``
+processes, then the same global batch in this process alone, and asserts
+that every metric agrees (``rtol=1e-4, atol=1e-6``, as the JAX gate does)
+and that every update's rollout is bit-equal in its integer checksums. A dropped all-reduce, a mis-split batch or a stale shard changes
+the numbers; the absence of a crash alone would not catch it.
+
+    python -m multigrid_tpu_torch.parallel.dryrun 2              # on the card
+    python -m multigrid_tpu_torch.parallel.dryrun 2 --device cpu  # gloo
+
+The processes are spawned here (:func:`spawn`) and meet through a file
+store in a temporary directory, never a TCP port. Each has a join timeout:
+a process that fails or hangs fails the run. NCCL refuses two processes on
+one card, so two processes sharing a card take ``backend='gloo'``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import math
+import multiprocessing as mp
+import os
+import sys
+import tempfile
+import time
+from collections.abc import Callable
+from multiprocessing.connection import wait
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from . import distributed
+
+FLAGSHIP = 'MultiGrid-Empty-16x16-v0'
+#: Seconds a spawned run may take, start to join.
+JOIN_TIMEOUT = 600.0
+
+
+def _child(rank: int, n_procs: int, store: str, backend, device: str, timeout: float,
+           fn: Callable, args: tuple, kwargs: dict, out: str) -> None:
+    torch.set_num_threads(1)
+    distributed.initialize(f'file://{store}', n_procs, rank, backend=backend, device=device,
+                           timeout=datetime.timedelta(seconds=timeout))
+    try:
+        result = fn(*args, **kwargs)
+    finally:
+        distributed.shutdown()
+    with open(out, 'w') as f:
+        json.dump(result, f)
+
+
+def spawn(fn: Callable, n_procs: int, args: tuple = (), kwargs: dict | None = None, *,
+          backend: str | None = None, device: str | torch.device | None = None,
+          timeout: float = JOIN_TIMEOUT) -> list:
+    """``fn(*args, **kwargs)`` in each of ``n_procs`` new processes joined
+    into one process group (``initialize``'s backend and card rules); returns
+    each process's result (JSON values), in rank order. ``fn`` is a
+    module-level function. Raises if a process exits with an error (the
+    others are killed then) or is still running ``timeout`` seconds after
+    the start (it is killed)."""
+    device = str(resolve_device(device))
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory(prefix='mgt-spawn-') as tmp:
+        outs = [os.path.join(tmp, f'rank{r}.json') for r in range(n_procs)]
+        procs = [ctx.Process(target=_child, daemon=True, args=(
+            r, n_procs, os.path.join(tmp, 'store'), backend, device, timeout, fn, args,
+            kwargs or {}, outs[r])) for r in range(n_procs)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            pending = procs
+            # Until all exit, one fails (the others would wait for it in a
+            # collective) or the time is up.
+            while pending and not any(p.exitcode for p in procs):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                wait([p.sentinel for p in pending], left)
+                pending = [p for p in pending if p.exitcode is None]
+        finally:
+            running = [r for r, p in enumerate(procs) if p.exitcode is None]
+            for r in running:
+                procs[r].kill()
+                procs[r].join(30)
+        failed = {r: p.exitcode for r, p in enumerate(procs) if r not in running and p.exitcode}
+        if failed:
+            raise RuntimeError(f'{fn.__name__} on {n_procs} processes failed: exit codes '
+                               f'{failed}, ranks {running} killed (the tracebacks are on '
+                               'stderr)')
+        if running:
+            raise RuntimeError(f'{fn.__name__} on {n_procs} processes: ranks {running} still '
+                               f'running after {timeout} s (killed)')
+        results = []
+        for path in outs:
+            with open(path) as f:
+                results.append(json.load(f))
+        return results
+
+
+def rollout_checksums(traj, venv) -> dict[str, list[int]]:
+    """Integer checksums of each step of a (T, E/R, N, ...) rollout: its
+    observations, actions, dones and reward bits, each env's weighted by its
+    index in the global batch (so a row moved to another env changes it),
+    summed over the mesh's processes. ``{field: [T sums]}``."""
+    t = traj.action.shape[0]
+    w = torch.arange(venv.rows.start, venv.rows.stop, device=traj.action.device) + 1
+    fields = {'image': traj.image, 'direction': traj.direction, 'action': traj.action,
+              'done': traj.done, 'reward_bits': traj.reward.contiguous().view(torch.int32)}
+    if traj.mission is not None:
+        fields['mission'] = traj.mission
+    sums = torch.stack([(x.to(torch.int64).reshape(t, w.shape[0], -1).sum(-1) * w).sum(-1)
+                        for x in fields.values()])
+    if venv.mesh is not None:
+        sums = distributed.all_reduce(sums, venv.mesh.group)
+    return dict(zip(fields, sums.tolist()))
+
+
+def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: int = 4,
+            env_kwargs: dict | None = None, config: dict | None = None, hidden: int = 128,
+            float32: bool = False, fused_policy: bool = False, sharded: bool = True,
+            device: str | None = None) -> dict:
+    """``updates`` PPO updates of the mlp on packed cells (seed 0) on a
+    global batch of ``num_envs`` envs, sharded over every process of the run
+    (``sharded``) or in this process alone. Returns each update's metrics,
+    its rollout's :func:`rollout_checksums` (the rollout run once more from
+    the update's state and generator states, untimed), the parameters'
+    digest after each update, the kernels' launches in the updates and
+    their seconds (on the host's clock, to the metrics' copy to the host)."""
+    from collections import Counter
+
+    from ..envs import make
+    from ..learn import PPOConfig, make_train_step, ppo_init
+    from ..learn.ppo import params_digest
+    from ..ops import launch_counts, zero_launch_counts
+    from .mesh import make_mesh
+    from .vector import VectorEnv
+
+    env = make(env_id, agents=agents, device=device, **(env_kwargs or {}))
+    venv = VectorEnv(env, num_envs, packed_obs=True, mesh=make_mesh() if sharded else None)
+    state, net, cfg, tx = ppo_init(
+        venv, 0, config=PPOConfig(**(config or {})),
+        net_kwargs=dict(hidden=hidden, encoder='mlp',
+                        **({'dtype': torch.float32} if float32 else {})))
+    before = os.environ.get('MULTIGRID_FUSED_POLICY')
+    if fused_policy:
+        os.environ['MULTIGRID_FUSED_POLICY'] = '1'
+    else:
+        os.environ.pop('MULTIGRID_FUSED_POLICY', None)
+    try:
+        step = make_train_step(venv, net, cfg, tx)
+    finally:
+        if before is None:
+            os.environ.pop('MULTIGRID_FUSED_POLICY', None)
+        else:
+            os.environ['MULTIGRID_FUSED_POLICY'] = before
+    if fused_policy and not step.fused_policy:
+        raise RuntimeError('the fused-policy rollout is off for this configuration')
+    rows, rollouts, digests, seconds, launches = [], [], [], 0.0, Counter()
+    for _ in range(updates):
+        gens = state.generator.get_state(), venv.generator.get_state()
+        rollouts.append(rollout_checksums(step.rollout_phase(state)[1], venv))
+        state.generator.set_state(gens[0])
+        venv.generator.set_state(gens[1])
+        if venv.device.type == 'cuda':
+            torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state)
+        rows.append({k: float(v) for k, v in metrics.items()})
+        seconds += time.perf_counter() - t0
+        launches.update(launch_counts())
+        digests.append(params_digest(state.params))
+    return {'metrics': rows, 'rollouts': rollouts, 'params_digests': digests,
+            'launches': {k: launches[k] for k in launch_counts()}, 'seconds': seconds,
+            'agent_steps': updates * cfg.rollout_steps * num_envs * agents,
+            'process_count': venv.mesh.env_shards if sharded else 1}
+
+
+def ppo_runs(runs: list[dict]) -> list[dict]:
+    """:func:`ppo_run` for each keyword dict of ``runs``, in order."""
+    return [ppo_run(**kw) for kw in runs]
+
+
+def assert_consistent(sharded: list[dict], single: dict, label: str = 'sharded run',
+                      rtol: float = 1e-4, atol: float = 1e-6, flips: bool = False) -> dict:
+    """Hold every process's :func:`ppo_run` result to the one-process run's.
+
+    Every process's parameters (digests, after every update) and metrics
+    equal the first process's; the first rollout, before any update, is
+    bit-equal; every metric of an update whose rollout is bit-equal agrees
+    within ``rtol``/``atol`` (NaN where NaN). A later update's rollout may
+    differ where the parameters' rounding differs (the gradients are summed
+    in another order, and a bfloat16 logit near a tie then picks another
+    action): that is a failure unless ``flips``, which reports the first
+    differing update and step instead and compares no metric from that
+    update on. Returns ``{'compared_updates', 'first_flip'}`` (``first_flip``
+    is ``[update, step]``, both from 1, or None)."""
+    for rank, res in enumerate(sharded):
+        if res['params_digests'] != sharded[0]['params_digests']:
+            raise AssertionError(f'{label}: the parameters of process {rank} differ from '
+                                 "process 0's after an update")
+        if not _nan_equal(res, sharded[0]):
+            raise AssertionError(f'{label}: process {rank} reports other metrics than '
+                                 f'process 0: {res["metrics"]} vs {sharded[0]["metrics"]}')
+    got = sharded[0]
+    flip = None
+    for u, (a, b) in enumerate(zip(got['rollouts'], single['rollouts'])):
+        if a != b:
+            step = min(next(t for t, (x, y) in enumerate(zip(a[k], b[k])) if x != y)
+                       for k in b if a[k] != b[k])
+            flip = [u + 1, step + 1]
+            where = (f'{label}: the rollout of update {u + 1} first differs from one '
+                     f"process's at step {step + 1}")
+            if u == 0:
+                raise AssertionError(where + ' (the first rollout must be bit-equal)')
+            if not flips:
+                raise AssertionError(where)
+            break
+        for k in sorted(single['metrics'][u]):
+            np.testing.assert_allclose(
+                got['metrics'][u][k], single['metrics'][u][k], rtol=rtol, atol=atol,
+                equal_nan=True,
+                err_msg=f'{label}: metric {k!r} of update {u + 1} diverges between '
+                        f'{got["process_count"]} processes and one')
+    compared = len(single['metrics']) if flip is None else flip[0] - 1
+    return {'compared_updates': compared, 'first_flip': flip}
+
+
+def _nan_equal(a: dict, b: dict) -> bool:
+    return all(x.keys() == y.keys() and all(
+        x[k] == y[k] or (math.isnan(x[k]) and math.isnan(y[k])) for k in x)
+        for x, y in zip(a['metrics'], b['metrics']))
+
+
+def dryrun_multichip(n_procs: int, *, backend: str | None = None,
+                     device: str | torch.device | None = None, num_envs_per_proc: int = 128,
+                     rollout_steps: int = 2, timeout: float = JOIN_TIMEOUT):
+    """Sharding correctness gate: 3 PPO updates on the flagship sharded over
+    ``n_procs`` spawned processes and the same global batch in this process,
+    held together by :func:`assert_consistent`. Returns ``(sharded,
+    single)``: each process's :func:`ppo_run` result and this process's."""
+    device = str(resolve_device(device))
+    num_envs = num_envs_per_proc * n_procs
+    kw = dict(updates=3, config=dict(rollout_steps=rollout_steps), device=device)
+    sharded = spawn(ppo_run, n_procs, (num_envs,), kw, backend=backend, device=device,
+                    timeout=timeout)
+    single = ppo_run(num_envs, sharded=False, **kw)
+    assert_consistent(sharded, single, f'dryrun_multichip({n_procs})')
+    print(f'dryrun_multichip({n_procs}): ok: 3 updates consistent with one process, '
+          f'every rollout bit-equal; metrics {sharded[0]["metrics"][-1]}', flush=True)
+    return sharded, single
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description='PPO sharded over N processes against one.')
+    p.add_argument('n_procs', type=int)
+    p.add_argument('--device', default=None, help="'cuda' (default) or 'cpu'")
+    p.add_argument('--backend', default=None,
+                   help="'nccl' (default on the card) or 'gloo' (default on the CPU; "
+                        'two processes on one card)')
+    p.add_argument('--num-envs-per-proc', type=int, default=128)
+    p.add_argument('--rollout-steps', type=int, default=2)
+    args = p.parse_args(argv)
+    dryrun_multichip(args.n_procs, backend=args.backend, device=args.device,
+                     num_envs_per_proc=args.num_envs_per_proc,
+                     rollout_steps=args.rollout_steps)
+
+
+if __name__ == '__main__':
+    main(sys.argv[1:])

@@ -16,6 +16,15 @@ step or, in rollout loops, once a chunk of steps.
 Randomness (agent orders, random actions, random starts, fresh reserve
 layouts) comes from the VectorEnv's own ``torch.Generator`` on the device,
 seeded by :meth:`reset`. The loop runs eagerly, one step per Python call.
+
+Under a process mesh (``mesh=``, :mod:`~multigrid_tpu_torch.parallel.mesh`)
+``num_envs`` is the global batch and each process steps its own rows. Every
+draw over the env axis is made at the global shape from a generator seeded
+alike on every process, which keeps its rows, so a sharded run's envs are
+the unsharded run's, bit for bit (as the JAX package keys every env by
+``jax.random.split(key, E)``, vector.py:186-191). The reserve pool is
+replicated: every process holds and refreshes the global reserve, and env
+``i`` of the global batch consumes slot ``(i + g) mod E`` as in one process.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from ..envs.env import MultiGridEnv
 from ..ops.obs_cuda import gen_obs_batched
 from ..ops.step import sample_order
 from ..utils.device import resolve_device
+from . import distributed
+from .mesh import Mesh, env_rows, make_mesh, shard_batch
 
 
 class VectorEnv:
@@ -59,6 +70,11 @@ class VectorEnv:
     ``type<<8 | color<<4 | state`` on a flat ``(E, N, vs·vs)`` cell axis
     (the training format: a third of the triples' bytes), bit-equal to the
     JAX package's ``VectorEnv(packed_obs=True)``.
+
+    ``mesh`` shards the env axis over its processes: ``num_envs`` is the
+    global batch, which the env shards must divide, and the returned
+    tensors hold this process's :attr:`local_envs` rows (:attr:`rows` of
+    the global batch).
     """
 
     #: Steps a rollout loop runs with ``refresh=False`` before one
@@ -75,6 +91,7 @@ class VectorEnv:
         reset_pool_period: int | None = None,
         packed_obs: bool = False,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
         if packed_obs:
             # Observation wrappers work on (vs, vs, 3) channel triples, so
@@ -103,19 +120,36 @@ class VectorEnv:
         self.auto_reset = auto_reset
         self.reset_pool = bool(reset_pool) and auto_reset
         self.reset_pool_period = reset_pool_period
+        self.mesh = mesh
+        #: This process's rows of the global batch (all of it without a mesh).
+        self.rows = slice(0, num_envs) if mesh is None else env_rows(num_envs, mesh)
+        self.local_envs = self.rows.stop - self.rows.start
         self.generator = torch.Generator(device=self.device)
         # Slot indices twice over: env i's slot at offset o is ring[o + i].
         self._ring = torch.arange(2 * num_envs, device=self.device) % num_envs
+
+    @classmethod
+    def sharded(cls, env: MultiGridEnv, num_envs: int, **kwargs) -> 'VectorEnv':
+        """A VectorEnv over every process of the run (env axis = the whole
+        mesh)."""
+        return cls(env, num_envs, mesh=make_mesh(), **kwargs)
 
     @property
     def num_agents(self) -> int:
         return self.env.num_agents
 
+    def local(self, tree):
+        """This process's rows of a global ``(E, ...)`` draw (a tensor or a
+        state); the draw itself without a mesh of several env shards."""
+        if self.local_envs == self.num_envs:
+            return tree
+        return shard_batch(tree, self.mesh)
+
     def reset(self, seed: int = 0):
         """Seed the generator and reset all envs (then draw the reserve,
         where the pool is on). Returns ``(obs, state)``."""
         self.generator.manual_seed(seed)
-        state = self.env.reset_core(self.num_envs, self.generator).clone()
+        state = self.local(self.env.reset_core(self.num_envs, self.generator)).clone()
         if self.reset_pool:
             reserve = self.env.reset_core(self.num_envs, self.generator).clone()
             state = state.replace(pool=ResetPool(reserve, 0))
@@ -152,7 +186,7 @@ class VectorEnv:
         terminations, truncations, done, success)``."""
         e, n = self.num_envs, self.num_agents
         if order is None:
-            order = sample_order(self.generator, e, n, self.device)
+            order = self.local(sample_order(self.generator, e, n, self.device))
         obs_state, new_state, rew, term, trunc = self.env.step_core(
             state.replace(pool=None), actions, order)
         done = term.all(dim=-1) | trunc.any(dim=-1)
@@ -167,8 +201,8 @@ class VectorEnv:
         From ``pool`` where there is one (:meth:`consume`), else one exact
         reset for every env (the JAX package's ``reset_pool=False``).
         Returns ``(obs_state, state)``."""
-        fresh = (self.env.reset_core(self.num_envs, self.generator) if pool is None
-                 else self.consume(pool))
+        fresh = (self.local(self.env.reset_core(self.num_envs, self.generator))
+                 if pool is None else self.consume(pool))
         merged = where_state(done, fresh, new_state)
         obs_state = merged if obs_state is new_state \
             else where_state(done, fresh, obs_state)
@@ -177,10 +211,10 @@ class VectorEnv:
     def consume(self, pool: ResetPool) -> MultiGridState:
         """The reserve as the envs read it at the pool's step ``g``: env
         ``i`` gets slot ``(i + g) mod E``, so an env never replays the
-        layout it just played (vector.py:392-405). One gather a tensor."""
-        e = self.num_envs
-        offset = pool.step % e
-        idx = self._ring[offset:offset + e]
+        layout it just played (vector.py:392-405), ``i`` counting in the
+        global batch. One gather a tensor."""
+        start = pool.step % self.num_envs + self.rows.start
+        idx = self._ring[start:start + self.local_envs]
         r = pool.reserve
         return r.replace(**{f: getattr(r, f)[idx] for f in FIELDS},
                          extras={k: v[idx] for k, v in r.extras.items()})
@@ -248,7 +282,8 @@ class VectorEnv:
         (vector.py:529-590). Returns ``(state, summary)``: the reward sum
         (float32), the number of finished episodes (int32), and an
         observation checksum that wraps to int32 as the JAX package's
-        does. The summary stays on the device until read.
+        does, each summed over the mesh's processes. The summary stays on
+        the device until read.
         """
         e, n = self.num_envs, self.num_agents
         rew_sum = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -258,15 +293,20 @@ class VectorEnv:
         chunks = steps // chunk if self.reset_pool else 0
         for t in range(steps):
             in_chunk = t < chunks * chunk
-            actions = torch.randint(
+            actions = self.local(torch.randint(
                 0, NUM_ACTIONS, (e, n), generator=self.generator,
-                device=self.device, dtype=torch.int32)
+                device=self.device, dtype=torch.int32))
             obs, state, rew, _, _, done, _ = self.step(state, actions, refresh=not in_chunk)
             if in_chunk and (t + 1) % chunk == 0:
                 state = self.refresh_pool(state, chunk)
             rew_sum += rew.sum()
             episodes += done.sum()
             obs_sum += obs['image'].sum()
+        if self.mesh is not None:
+            group = self.mesh.group
+            rew_sum = distributed.all_reduce(rew_sum, group)
+            counts = distributed.all_reduce(torch.stack([episodes, obs_sum]), group)
+            episodes, obs_sum = counts[0], counts[1]
         wrapped = (obs_sum + 2**31) % 2**32 - 2**31
         return state, {
             'reward_sum': rew_sum,

@@ -23,6 +23,17 @@ updates, read once per SGD step as optax reads it (so with E epochs of M
 minibatches it reaches 0 after 1/(E·M) of the run, as in the JAX package);
 ``--ent-anneal`` lowers the entropy bonus in 4 stages.
 
+``--mesh`` shards the env batch over the processes of a ``torchrun`` launch,
+one card each (``LOCAL_RANK``'s), data-parallel (``--num-envs`` is the
+global batch; NCCL between the processes); without a launcher it is a world
+of one:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m multigrid_tpu_torch.train --mesh --num-envs 16384 ...
+
+Only the first process prints, logs and writes checkpoints, which hold the
+global state (any number of processes resumes them).
+
 Every ``--log-interval`` updates (and after the last) it prints one JSON row
 of metrics, and appends it to ``--log-jsonl`` when given; the last line is
 the phase timer's ``timing:``. ``--device cpu`` runs on the CPU with the
@@ -103,6 +114,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help='log metrics every N updates')
     p.add_argument('--log-jsonl', default=None,
                    help='append the logged metrics as JSON lines')
+    p.add_argument('--mesh', action='store_true',
+                   help='shard the env batch over the processes of a torchrun launch '
+                        '(one card each; a world of one without a launcher)')
     p.add_argument('--no-packed-obs', action='store_true',
                    help='observations as (vs, vs, 3) channel triples instead of packed '
                         'int32 cells')
@@ -112,6 +126,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def train(args: argparse.Namespace) -> None:
+    from multigrid_tpu_torch.parallel import distributed, make_mesh
+
+    if not args.mesh:
+        return _train(args, None)
+    distributed.initialize(device=args.device)
+    try:
+        _train(args, make_mesh())
+    finally:
+        distributed.shutdown()
+
+
+def _train(args: argparse.Namespace, mesh) -> None:
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.learn import (
         PPOConfig,
@@ -129,7 +155,10 @@ def train(args: argparse.Namespace) -> None:
     from multigrid_tpu_torch.utils.profiling import PhaseTimer
 
     env = make(args.env, agents=args.num_agents, device=args.device, **args.env_config)
-    venv = VectorEnv(env, args.num_envs, packed_obs=not args.no_packed_obs)
+    venv = VectorEnv(env, args.num_envs, packed_obs=not args.no_packed_obs, mesh=mesh)
+    # Only the mesh's first process prints, logs and writes.
+    lead = mesh is None or mesh.coords[0] == 0
+    say = print if lead else (lambda *a, **k: None)
     config = PPOConfig(rollout_steps=args.rollout_steps, lr=args.lr,
                        gamma=args.gamma, ent_coef=args.ent_coef,
                        epochs=args.epochs, minibatches=args.minibatches,
@@ -155,7 +184,7 @@ def train(args: argparse.Namespace) -> None:
                     'Hint: --per-agent-policies, --hidden, --encoder, --num-agents and '
                     '--num-envs must match the values the checkpoint was trained with.'
                 ) from exc
-            print(f'resumed from {ckpt} (update {state.update_count})', flush=True)
+            say(f'resumed from {ckpt} (update {state.update_count})', flush=True)
 
     upc = max(1, args.updates_per_call)
 
@@ -177,11 +206,11 @@ def train(args: argparse.Namespace) -> None:
     timer = PhaseTimer()
     kind = (torch.cuda.get_device_name(venv.device) if venv.device.type == 'cuda'
             else 'cpu')
-    print(f'training {args.env}: {args.num_agents} agents x {args.num_envs} envs, '
+    say(f'training {args.env}: {args.num_agents} agents x {args.num_envs} envs, '
           f'{num_updates} updates of {steps_per_update} agent-steps on {kind}',
           flush=True)
 
-    log_f = open(args.log_jsonl, 'a') if args.log_jsonl else None
+    log_f = open(args.log_jsonl, 'a') if args.log_jsonl and lead else None
     try:
         t_start = time.perf_counter()
         t_last, steps_last = t_start, 0
@@ -191,7 +220,7 @@ def train(args: argparse.Namespace) -> None:
             if cfg.ent_coef != current_ent:
                 current_ent = cfg.ent_coef
                 train_step = build_step(cfg)
-                print(f'ent-anneal stage: ent_coef -> {current_ent:g}', flush=True)
+                say(f'ent-anneal stage: ent_coef -> {current_ent:g}', flush=True)
             last = update == num_updates - 1
             save = (update + 1) % args.save_interval == 0 or last
             log = (update + 1) % args.log_interval == 0 or last
@@ -204,7 +233,7 @@ def train(args: argparse.Namespace) -> None:
             if save:
                 path = save_checkpoint(os.path.join(args.save_dir, f'step_{update + 1}'),
                                        state, venv)
-                print(f'checkpoint -> {path}', flush=True)
+                say(f'checkpoint -> {path}', flush=True)
             if not log:
                 continue
             values = {k: float(v) for k, v in metrics.items()}
@@ -224,7 +253,7 @@ def train(args: argparse.Namespace) -> None:
                 'success_rate': values['success_rate'],
             }
             t_last, steps_last = now, steps_done
-            print(json.dumps(row), flush=True)
+            say(json.dumps(row), flush=True)
             if log_f:
                 log_f.write(json.dumps(row) + '\n')
                 log_f.flush()
@@ -238,11 +267,11 @@ def train(args: argparse.Namespace) -> None:
                 if val is not None and val == val and (best_val is None or val > best_val):
                     best_val = val
                     path = save_checkpoint(os.path.join(args.save_dir, 'best'), state, venv)
-                    print(f'best {args.save_best}={val:.4f} -> {path}', flush=True)
+                    say(f'best {args.save_best}={val:.4f} -> {path}', flush=True)
     finally:
         if log_f:
             log_f.close()
-    print('timing:', json.dumps(timer.summary()), flush=True)
+    say('timing:', json.dumps(timer.summary()), flush=True)
 
 
 def main(argv=None) -> None:

@@ -8,6 +8,11 @@ returns, the update count) and the states of both generators, the train
 state's (actions, shuffles) and the vector env's (orders, resets, reserve
 layouts), so a resumed run continues exactly where the saved one stood.
 A checkpoint written by the JAX package is not read here.
+
+A sharded run's checkpoint holds the global state, as the JAX package's
+holds global arrays: the processes' env rows are gathered and the first
+process alone writes; on restore every process reads the file and takes
+its rows, so a checkpoint written by R processes restores on any number.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch
 
 from ..core.state import FIELDS, MultiGridState, ResetPool
 from ..learn.ppo import OptState, TrainState
+from ..parallel import distributed
+from ..parallel.mesh import gather_batch
 from ..parallel.vector import VectorEnv
 
 
@@ -94,10 +101,43 @@ def _load(path: str) -> dict[str, Any]:
     return raw
 
 
+def _local_rows(tree: dict[str, Any], venv: VectorEnv) -> dict[str, Any]:
+    """A stored train tree's env rows cut to ``venv``'s (the reserve pool
+    stays whole)."""
+    if venv.local_envs == venv.num_envs:
+        return tree
+    stored = tuple(getattr(tree.get('ep_return_acc'), 'shape', ()))
+    if stored != (venv.num_envs,):
+        raise _mismatch('train_state.ep_return_acc', stored, (venv.num_envs,))
+    rows, env = venv.rows, tree['env_state']
+    return {**tree,
+            'env_state': {**{f: env[f][rows] for f in FIELDS}, 'pool': env['pool'],
+                          'extras': {k: v[rows] for k, v in env['extras'].items()}},
+            'last_obs': {k: v[rows] for k, v in tree['last_obs'].items()},
+            'ep_return_acc': tree['ep_return_acc'][rows]}
+
+
 def save_checkpoint(path: str, state: TrainState, venv: VectorEnv) -> str:
     """Atomically write ``state`` and ``venv``'s generator to the file
     ``path`` (a temporary file in the same directory, then a rename).
+    Under a mesh every process calls it: the env rows are gathered, the
+    mesh's first process writes, and all return once the file is there.
     Returns the absolute path."""
+    mesh = venv.mesh
+    if mesh is not None:
+        state = state.replace(env_state=gather_batch(state.env_state, mesh),
+                              last_obs=gather_batch(state.last_obs, mesh),
+                              ep_return_acc=gather_batch(state.ep_return_acc, mesh))
+        if mesh.coords[0]:
+            distributed.barrier(mesh.group)
+            return os.path.abspath(path)
+    path = _write(path, state, venv)
+    if mesh is not None:
+        distributed.barrier(mesh.group)
+    return path
+
+
+def _write(path: str, state: TrainState, venv: VectorEnv) -> str:
     path = os.path.abspath(path)
     directory = os.path.dirname(path)
     os.makedirs(directory, exist_ok=True)
@@ -119,12 +159,13 @@ def save_checkpoint(path: str, state: TrainState, venv: VectorEnv) -> str:
 def restore_checkpoint(path: str, target: TrainState, venv: VectorEnv) -> TrainState:
     """The training state saved at ``path``, laid out like ``target`` (a
     freshly initialized ``TrainState`` for the same configuration: its
-    tensors give the shapes, devices and dtypes), with the saved states set
+    tensors give the shapes, devices and dtypes; under a mesh, this
+    process's rows of the stored global batch), with the saved states set
     into ``target.generator`` and ``venv.generator``. Any difference of
     structure or shape raises ``ValueError`` (checkpoint/env-config
     mismatch)."""
     raw = _load(path)
-    tree = _place(_train_tree(target), raw['train_state'], 'train_state')
+    tree = _place(_train_tree(target), _local_rows(raw['train_state'], venv), 'train_state')
     env_gen = _place(venv.generator.get_state(), raw['env_generator'], 'env_generator')
     target.generator.set_state(tree['generator'])
     venv.generator.set_state(env_gen)

@@ -581,3 +581,24 @@ def test_adapters_launch_the_obs_kernel_once_a_call(cuda_device):
         np.testing.assert_array_equal(obs['image'], want)
         obs, *_ = mg.step(a)
         assert obs_cuda.launches == launches + 2 + t
+
+
+@pytest.mark.parametrize('backend,procs', [('nccl', 1), ('gloo', 2)])
+def test_sharded_training_on_the_card_matches_one_process(cuda_device, backend, procs):
+    """PPO over processes on the card (spawned, a file-store rendezvous):
+    NCCL in a world of one equals the plain path; two gloo processes
+    sharing the card (NCCL refuses two on one card) match one process at
+    rtol 1e-4 with the first rollout bit-equal. Each process launches B1 T,
+    B2 T + 1 and B4 once an update."""
+    from multigrid_tpu_torch.parallel.dryrun import assert_consistent, ppo_run, spawn
+
+    kw = dict(num_envs=512, updates=2, env_id='MultiGrid-Empty-16x16-v0', agents=4,
+              hidden=128, config=dict(rollout_steps=4), device='cuda')
+    sharded = spawn(ppo_run, procs, (), kw, backend=backend, device='cuda', timeout=300)
+    single = ppo_run(**kw, sharded=False)
+    assert_consistent(sharded, single, f'{backend} x {procs}',
+                      **(dict(rtol=0.0, atol=0.0) if procs == 1 else {}))
+    for res in sharded:
+        assert res['launches'] == {'obs': 8, 'obs_general': 0, 'onehot_linear': 10,
+                                   'onehot_linear_grad': 0, 'ppo_loss': 2,
+                                   'policy_sample': 0}

@@ -62,6 +62,7 @@ def _assert_obs_equal(ref_obs, our_obs, n, t):
 @pytest.mark.parametrize(
     'env_id,seed,n,steps,kwargs', GOLDEN,
     ids=[f'{c[0][10:]}-s{c[1]}-n{c[2]}' for c in GOLDEN])
+@torch.inference_mode()
 def test_golden_replay(env_id, seed, n, steps, kwargs):
     ref = GoldenReference(env_id, seed, n, **kwargs)
     runner = ParityRunner(make(env_id, agents=n, device='cpu', **kwargs), seed)

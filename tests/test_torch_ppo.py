@@ -327,4 +327,4 @@ def test_cli_trains_at_a_tiny_size(tmp_path, capsys):
                             'episode_reward', 'episodes_in_batch', 'success_rate'}
     assert rows[-1]['agent_steps'] == 192 and np.isfinite(rows[-1]['loss'])
     with pytest.raises(SystemExit):
-        train_cli.parse_args(['--mesh'])  # no flag it would ignore
+        train_cli.parse_args(['--platform', 'cpu'])  # no flag it would ignore

@@ -179,6 +179,20 @@ Phases, in order; any failure exits non-zero:
                step pays a process for the global reserve's draws; and
                torchrun --nproc-per-node 1 -m multigrid_tpu_torch.train
                --mesh (2 updates, one checkpoint that evaluate reads).
+28. model axis — the (env, model) mesh of the JAX dry run, each process
+               keeping its columns of the Dense_0 kernels and their Adam
+               moments, over gloo processes sharing the card (not a scaling
+               measure): 2 processes at (1, 2) on the JAX gate's
+               configuration (the cnn on images, 256 envs, T 2, 3 updates),
+               the mlp flagship (E 4096, T 16, 3 updates) and the fused
+               policy, each bit-equal to one process with each process's
+               launches exact (B1 16, B2 17, B4 1 an update; B5 16 fused;
+               B1 2 on the cnn); the checkpoint round trip, (1, 2) to one
+               process and back, bit-equal; then 4 processes at (2, 2):
+               dryrun_multichip(4), the gate at 512 envs, at rtol 1e-4.
+29. profile — python -m multigrid_tpu_torch.profile_env and profile_train
+               at the flagship (64 env steps a phase, 2 updates a train
+               stage): the JAX scripts' keys, each phase's time.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 B1 (images and packed, at the flagship, with 16 agents and at the BUP
@@ -1096,7 +1110,7 @@ def train_path(device=None):
     if device is None and venv.device.type != 'cuda':
         fail(f'default device is {venv.device}, not cuda')
     state, net, config, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=TRAIN_T),
-                                      hidden=HIDDEN)
+                                      hidden=HIDDEN, net_kwargs=dict(encoder='mlp'))
     step = make_train_step(venv, net, config, tx)
     snap = _snapshot(step, state)  # warm-up: first launches, cuBLAS handles
     per_update = TRAIN_T + 1
@@ -1368,7 +1382,7 @@ def variants(device=None):
 
     # The fully fused rollout policy beside the default path, from one state.
     state, net, config, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=TRAIN_T),
-                                      hidden=HIDDEN)
+                                      hidden=HIDDEN, net_kwargs=dict(encoder='mlp'))
     default = make_train_step(venv, net, config, tx)
     os.environ['MULTIGRID_FUSED_POLICY'] = '1'
     try:
@@ -1404,7 +1418,8 @@ def variants(device=None):
 
     # Per-agent policies: the loss kernel once per agent, and its gate off.
     cfg = PPOConfig(rollout_steps=TRAIN_T, per_agent_policies=True)
-    state, net, cfg, tx = ppo_init(venv, 1, config=cfg, hidden=HIDDEN)
+    state, net, cfg, tx = ppo_init(venv, 1, config=cfg, hidden=HIDDEN,
+                                   net_kwargs=dict(encoder='mlp'))
     per_agent = make_train_step(venv, net, cfg, tx)
     gate = fused_ppo.supports
     fused_ppo.supports = lambda *a: False
@@ -1427,7 +1442,8 @@ def variants(device=None):
     for shared in (True, False):
         cfg = PPOConfig(rollout_steps=TRAIN_T, per_agent_policies=not shared,
                         centralized_critic=True)
-        state, net, cfg, tx = ppo_init(venv, 2, config=cfg, hidden=HIDDEN)
+        state, net, cfg, tx = ppo_init(venv, 2, config=cfg, hidden=HIDDEN,
+                                       net_kwargs=dict(encoder='mlp'))
         step = make_train_step(venv, net, cfg, tx)
         snap = _snapshot(step, state)
         actors = 1 if shared else N
@@ -1874,7 +1890,8 @@ def bup_train(device=None):
     if venv.device.type != 'cuda':
         fail(f'default device is {venv.device}, not cuda')
     cfg = PPOConfig(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)
-    state, net, cfg, tx = ppo_init(venv, 0, config=cfg, hidden=HIDDEN)
+    state, net, cfg, tx = ppo_init(venv, 0, config=cfg, hidden=HIDDEN,
+                                   net_kwargs=dict(encoder='mlp'))
     if net.num_missions != 12 or state.params['Dense_0.kernel'].shape[0] != BUP_F:
         fail(f'BUP net has {net.num_missions} missions, not 12')
     step = make_train_step(venv, net, cfg, tx)
@@ -2152,7 +2169,8 @@ def pool_timing(device=None, pairs=2):
         venv = VectorEnv(make(BUP, agents=BUP_N, device=device), E, packed_obs=True,
                          reset_pool=None if label == 'pool' else False)
         cfg = PPOConfig(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)
-        state, net, cfg, tx = ppo_init(venv, 0, config=cfg, hidden=HIDDEN)
+        state, net, cfg, tx = ppo_init(venv, 0, config=cfg, hidden=HIDDEN,
+                                       net_kwargs=dict(encoder='mlp'))
         step = make_train_step(venv, net, cfg, tx)
         state, _ = _run(step, state, 1)  # warm-up
         runs[label] = [step, state]
@@ -2802,9 +2820,12 @@ def _want_launches(kw):
     """The kernels a process launches in the updates of the run ``kw``
     (:func:`ppo_run`'s keywords), as the single path does: B1 T, B2 T + 1
     (1 with the fused policy, whose B5 takes the T rollout steps), B4 once
-    an SGD step, each an update."""
+    an SGD step, each an update; the cnn B1 alone."""
     cfg, updates, fused = kw.get('config', {}), kw['updates'], kw.get('fused_policy', False)
     t = cfg.get('rollout_steps', TRAIN_T)
+    if kw.get('encoder', 'mlp') == 'cnn':
+        return {'obs': t * updates, 'obs_general': 0, 'onehot_linear': 0,
+                'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0}
     return {'obs': t * updates, 'obs_general': 0,
             'onehot_linear': (1 if fused else t + 1) * updates, 'onehot_linear_grad': 0,
             'ppo_loss': cfg.get('epochs', 1) * cfg.get('minibatches', 1) * updates,
@@ -3002,6 +3023,168 @@ def distributed_path(tmp, device=None):
     return out
 
 
+#: The JAX gate's configuration (__graft_entry__.py:64-74, 104-127): the
+#: default ActorCritic (the cnn on images), 128 envs a process, T 2, 3
+#: updates.
+GATE_ENVS, GATE_T = 128, 2
+
+
+def _gate_run(procs, device=None, **kw):
+    """:func:`ppo_run` keywords of the JAX gate on ``procs`` processes."""
+    return dict(num_envs=GATE_ENVS * procs, updates=3, env_id='MultiGrid-Empty-16x16-v0',
+                agents=N, encoder='cnn', config=dict(rollout_steps=GATE_T), device=device, **kw)
+
+
+def ck_third_update(path, model_shards, save, device=None):
+    """The gate's configuration on a mesh of ``model_shards`` on
+    ``'model'`` (1: one process, no mesh): 2 updates, a checkpoint at
+    ``path`` and the third update (``save``), or the third update from the
+    checkpoint at ``path`` restored into fresh objects. Returns its metrics
+    and the full parameters' digest."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.learn.ppo import params_digest
+    from multigrid_tpu_torch.parallel import gather_params, make_mesh
+    from multigrid_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh(n_model_shards=model_shards) if model_shards > 1 else None
+        venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=N, device=device),
+                         GATE_ENVS * 2, mesh=mesh)
+        state, net, cfg, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=GATE_T))
+        step = make_train_step(venv, net, cfg, tx)
+        if save:
+            for _ in range(2):
+                state, _ = step(state)
+            save_checkpoint(path, state, venv)
+        else:
+            state = restore_checkpoint(path, state, venv)
+        state, metrics = step(state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {'metrics': {k: float(v) for k, v in metrics.items()},
+            'digest': params_digest(gather_params(state.params, venv.mesh))}
+
+
+def model_axis_work(runs, ck_saved, ck_from_one, device=None):
+    """A (1, 2) mesh's share: :func:`ppo_run` of each keyword dict of
+    ``runs``; then a checkpoint of the gate written on the mesh at
+    ``ck_saved`` and its third update; then the third update from the
+    one-process checkpoint at ``ck_from_one``."""
+    from multigrid_tpu_torch.parallel.dryrun import ppo_runs
+    return {'runs': ppo_runs(runs),
+            'saved': ck_third_update(ck_saved, 2, True, device),
+            'resumed': ck_third_update(ck_from_one, 2, False, device)}
+
+
+def model_axis_path(tmp, device=None):
+    """The ``'model'`` mesh axis (``parallel.mesh.shard_params``): every
+    process keeps its columns of the ``Dense_0`` kernels and of their Adam
+    moments, the update gathers them; spawned gloo processes sharing this
+    card (NCCL refuses two on one card), a file-store rendezvous and a join
+    timeout each:
+
+    - 2 processes at ``(1, 2)``: the JAX gate's configuration (the cnn on
+      images, 256 envs, T 2, 3 updates), the mlp flagship (E 4096, T 16, 3
+      updates) and the fused-policy variant, each bit-equal to one process
+      (this one: the parameters after every update, every rollout, every
+      metric), with each process's launches what the single path launches
+      (B1 16, B2 17, B4 1 an update on the mlp, B5 16 fused; B1 2 on the
+      cnn); and the checkpoint round trip: the gate written on ``(1, 2)``
+      and resumed in one process, and written in one process and resumed on
+      ``(1, 2)``, each third update bit-equal;
+    - 4 processes at ``(2, 2)``: ``dryrun_multichip(4)``, the gate's
+      configuration at 512 envs held to one process at rtol 1e-4.
+
+    Two or four processes on one card are not a scaling measure. With
+    ``device='cpu'`` (a rehearsal without a card) no launch is counted."""
+    from multigrid_tpu_torch.parallel.dryrun import dryrun_multichip, ppo_run, spawn
+
+    counted = device is None
+    card = smi_line() if counted else 'the CPU'
+    runs = [dict(_gate_run(2, device), name='JAX gate (cnn, 256 envs, T 2)'),
+            dict(_flagship_run(3, device), name='mlp flagship'),
+            dict(_flagship_run(3, device), fused_policy=True, name='fused policy')]
+    plain = [{k: v for k, v in kw.items() if k != 'name'} for kw in runs]
+    ck_saved, ck_one = os.path.join(tmp, 'model-axis-ck'), os.path.join(tmp, 'one-ck')
+    one = ck_third_update(ck_one, 1, True, device)
+    t0 = time.perf_counter()
+    res = spawn(model_axis_work, 2, ([dict(kw, model_shards=2) for kw in plain], ck_saved,
+                                     ck_one),
+                dict(device=device), backend='gloo', device=device, timeout=SPAWN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(res):
+        if [x['mesh_shape'] for x in r['runs']] != [[1, 2]] * len(runs):
+            fail(f'model axis, process {rank}: meshes {[x["mesh_shape"] for x in r["runs"]]}')
+    single = [ppo_run(**kw, sharded=False) for kw in plain]
+    _checked('model axis (1, 2)', [r['runs'] for r in res], runs, single=single, exact=True,
+             counted=counted)
+    resumed_one = ck_third_update(ck_saved, 1, False, device)
+    for label, got, want in [('(1, 2) checkpoint resumed in one process',
+                              [resumed_one, res[1]['saved']], res[0]['saved']),
+                             ('one-process checkpoint resumed on (1, 2)',
+                              [r['resumed'] for r in res], one),
+                             ('the gate on (1, 2) and in one process', [res[0]['saved']], one)]:
+        if any(json.dumps(g) != json.dumps(want) for g in got):
+            fail(f'model axis: {label}: {got} vs {want}')
+    print(f'model axis (1, 2) checkpoints: both directions resume bit-equal (digest '
+          f'{one["digest"]})')
+    rates = [r['runs'][1]['agent_steps'] / r['runs'][1]['seconds'] for r in res]
+    print(f'model axis (1, 2), 2 gloo processes on one card, {card} ({wall:.1f} s with '
+          f'start-up): mlp flagship {", ".join(f"{x:.6e}" for x in rates)} trained '
+          f'agent-steps/s a process, each on the whole batch (one process here: '
+          f'{single[1]["agent_steps"] / single[1]["seconds"]:.6e}); no scaling measure')
+    t0 = time.perf_counter()
+    grid, _ = dryrun_multichip(4, backend='gloo', device=device, num_envs_per_proc=GATE_ENVS,
+                               timeout=SPAWN_TIMEOUT)
+    grid_wall = time.perf_counter() - t0
+    want = _want_launches(_gate_run(4))
+    for rank, r in enumerate(grid):
+        if r['mesh_shape'] != [2, 2] or (counted and r['launches'] != want):
+            fail(f'model axis (2, 2), process {rank}: mesh {r["mesh_shape"]}, launches '
+                 f'{r["launches"]}, expected {want}')
+    print(f'model axis (2, 2): dryrun_multichip(4) on {card} ({grid_wall:.1f} s with '
+          f'start-up): launches a process {grid[0]["launches"]}')
+    return {'launches': [r['runs'][1]['launches'] for r in res],
+            'launches_fused': [r['runs'][2]['launches'] for r in res],
+            'launches_gate': [r['runs'][0]['launches'] for r in res],
+            'launches_grid': [r['launches'] for r in grid],
+            'flagship_trained_agent_steps_per_s_a_process': rates,
+            'one_process_trained_agent_steps_per_s':
+                single[1]['agent_steps'] / single[1]['seconds'],
+            'seconds_1x2': wall, 'seconds_2x2': grid_wall}
+
+
+def profile_path(device=None, steps=64, updates_per_call=2):
+    """``python -m multigrid_tpu_torch.profile_env`` and ``profile_train``
+    at the flagship (Empty-16x16, 4 agents, 4096 envs), in this process:
+    their JSON rows, checked for the JAX scripts' keys and positive
+    times."""
+    from multigrid_tpu_torch import profile_env, profile_train
+
+    dev = [] if device is None else ['--device', device]
+    card = smi_line() if device is None else 'the CPU'
+    rows = profile_env.main(['--env-id', 'MultiGrid-Empty-16x16-v0', '--agents', str(N),
+                             '--num-envs', str(E), '--steps', str(steps)] + dev)
+    phases = [r['phase'] for r in rows]
+    if phases != ['full_step', 'full_no_autoreset', 'obs_kernel', 'dynamics', 'reset_core'] \
+            or not all(r.get('ms_per_step', 1) > 0 for r in rows):
+        fail(f'profile_env: rows {rows}')
+    rates = profile_train.main(['--num-envs', str(E), '--agents', str(N), '--rollout-steps',
+                                str(TRAIN_T), '--updates-per-call', str(updates_per_call)]
+                               + dev)
+    if list(rates) != ['A_env_only', 'B_rollout_policy_nostore', 'C_rollout_stored',
+                       'E_full_train'] or not all(v > 0 for v in rates.values()):
+        fail(f'profile_train: {rates}')
+    print(f'profile modules on {card}: env phases {json.dumps(rows)}; train stages '
+          f'{json.dumps(rates)}')
+    return {'env': rows, 'train': rates}
+
+
 def kernel_times(device):
     """``--kernel-times``: B2 at the rollout's three shapes, B3 at the
     learner's three (flagship, per agent, critic), B1 at the flagship as
@@ -3180,6 +3363,10 @@ def main() -> None:
         vis = visualize_path(ckdir)
         phase('distributed')
         dist_res = distributed_path(ckdir)
+        phase('model axis')
+        model_axis = model_axis_path(ckdir)
+    phase('profile')
+    profiles = profile_path()
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
@@ -3216,6 +3403,12 @@ def main() -> None:
                 'path': '3 flagship updates a process',
                 'nccl_1': dist_res['nccl_1']['launches'][k['name']],
                 'gloo_2': [c[k['name']] for c in dist_res['gloo_2']['launches']]}
+            k['launches_model_axis'] = {
+                'path': '3 flagship updates a process, (1, 2) mesh',
+                'gloo_2': [c[k['name']] for c in model_axis['launches']]}
+    kernels[0]['launches_model_axis'].update(
+        gate_1x2=[c['obs'] for c in model_axis['launches_gate']],
+        gate_2x2=[c['obs'] for c in model_axis['launches_grid']])
     kernels.append(dict(name='policy_sample', route='cuda',
                         source='multigrid_tpu_torch/csrc/fused_policy.cu',
                         replaces='multigrid_tpu/ops/fused_policy.py:62',
@@ -3228,6 +3421,10 @@ def main() -> None:
                             'path': '3 fused-policy flagship updates a process',
                             'gloo_2': [c['policy_sample']
                                        for c in dist_res['gloo_2']['launches_fused']]},
+                        launches_model_axis={
+                            'path': '3 fused-policy flagship updates a process, (1, 2) mesh',
+                            'gloo_2': [c['policy_sample']
+                                       for c in model_axis['launches_fused']]},
                         bup=bt['kernels']['policy_sample']))
     gen_t = general['times']['250x250 N=2 vs=7 E=64 packed']
     kernels.append(dict(name='obs_general', route='cuda',
@@ -3255,7 +3452,10 @@ def main() -> None:
                       'distributed': {
                           **dist_res, 'nccl_1': dist_res['nccl_1']['trained_agent_steps_per_s'],
                           'gloo_2': {k: v for k, v in dist_res['gloo_2'].items()
-                                     if not k.startswith('launches')}}}))
+                                     if not k.startswith('launches')}},
+                      'model_axis': {k: v for k, v in model_axis.items()
+                                     if not k.startswith('launches')},
+                      'profile': profiles}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -33,7 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .constants import COLOR_RED, EMPTY_ENCODING, TYPE_AGENT
+from .constants import COLOR_RED, EMPTY_ENCODING, TYPE_AGENT, TYPE_EMPTY
 
 #: Tensor fields in declaration order (``extras`` excluded).
 FIELDS = (
@@ -150,6 +150,12 @@ def init_state(
         agent_carrying_contents=empty.expand(e, n, 3).clone(),
         step_count=torch.zeros((e,), dtype=torch.int32, device=device),
     )
+
+
+def is_carrying(state: MultiGridState) -> torch.Tensor:
+    """(..., N) bool: whether each agent carries an object
+    (multigrid_tpu/core/state.py:169)."""
+    return state.agent_carrying[..., 0] != TYPE_EMPTY
 
 
 def state_from_numpy(

@@ -38,6 +38,11 @@ from . import layout
 from .env import MultiGridEnv
 
 
+def opposite(direction: int) -> int:
+    """The direction facing ``direction`` (roomgrid.py:35)."""
+    return (direction + 2) % 4
+
+
 def randint(generator, low, high, shape, device) -> torch.Tensor:
     """int32 draws uniform in ``[low, high)``."""
     return torch.randint(low, high, shape, generator=generator, device=device,

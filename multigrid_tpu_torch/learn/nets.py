@@ -124,12 +124,13 @@ CNN_MIN_VIEW = 7
 class ActorCritic(nn.Module):
     """Encoder + categorical actor + value critic.
 
+    ``encoder='cnn'`` (the default, as in the JAX package) is the reference
+    example's 3×Conv+ReLU network over the one-hot planes (16, 32 and 64
+    channels, VALID), the direction and mission features added to the first
+    convolution's channels, then ``Dense_1`` (hidden) over the flattened (h,
+    w, c) map (nets.py:120-133); it needs views of at least 7.
     ``encoder='mlp'`` is the one-hot features through one wide dense layer
-    (``img_kernel``); ``encoder='cnn'`` the reference example's 3×Conv+ReLU
-    network over the one-hot planes (16, 32 and 64 channels, VALID), the
-    direction and mission features added to the first convolution's
-    channels, then ``Dense_1`` (hidden) over the flattened (h, w, c) map
-    (nets.py:120-133); it needs views of at least 7.
+    (``img_kernel``).
 
     ``image`` is (..., C) packed cells with ``packed_obs=True``, else (...,
     vs, vs, 3) triples (C = vs·vs); ``direction`` is (...), and ``mission``
@@ -143,7 +144,7 @@ class ActorCritic(nn.Module):
 
     def __init__(self, num_cells: int, *, num_actions: int = 7, hidden: int = 128,
                  packed_obs: bool = False, seed: int = 0, dtype=DTYPE,
-                 num_missions: int = 0, encoder: str = 'mlp'):
+                 num_missions: int = 0, encoder: str = 'cnn'):
         super().__init__()
         if encoder not in ('mlp', 'cnn'):
             raise ValueError(f"encoder must be 'mlp' or 'cnn', not {encoder!r}")

@@ -39,6 +39,17 @@ advantages over the global batch, and averages its gradients with the other
 processes' before the clip, so the update is the one-process update of the
 global batch up to the order of float sums. Minibatches hold the global
 envs one process would give them; the metrics are global.
+
+Under a mesh with a ``'model'`` axis each process holds only its column
+slice of every 2-D ``Dense_0…kernel`` and of that kernel's Adam moments
+(:func:`~multigrid_tpu_torch.parallel.mesh.shard_params`), as the JAX dry
+run places them (``__graft_entry__.py:85-92``). An update gathers the full
+kernels over the model group at its start and after every SGD step, so that
+the rollout, the loss and its kernels (whose direction-feature operand is
+that kernel, whole) see the one-process parameters; the clip norm comes
+from the full gradient, which every process of a model group holds, and
+Adam then updates this process's columns only. With one env shard the
+update is the one-process update bit for bit.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from torch.func import functional_call
 from ..core.state import MultiGridState
 from ..ops import fused_policy, fused_ppo
 from ..parallel import distributed
+from ..parallel.mesh import gather_params, shard_params
 from ..parallel.vector import VectorEnv
 from .nets import ACTOR, CRITIC, ActorCritic, dir_mission_features, make_centralized_critic
 
@@ -169,7 +181,11 @@ class Optimizer:
         return {k: clipped[k] for k in grads}
 
     def update(self, grads: dict[str, torch.Tensor], state: OptState):
-        grads = self.clip(grads)
+        return self.step(self.clip(grads), state)
+
+    def step(self, grads: dict[str, torch.Tensor], state: OptState):
+        """Adam on clipped gradients (of all the parameters, or of a
+        process's part of them, moments alike): ``(updates, state)``."""
         count = state.count + 1
         mu = {k: (1 - self.b1) * g + self.b1 * state.mu[k] for k, g in grads.items()}
         nu = {k: (1 - self.b2) * (g * g) + self.b2 * state.nu[k] for k, g in grads.items()}
@@ -263,27 +279,34 @@ def check_replicated(params: dict[str, torch.Tensor], group) -> None:
 def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
              hidden: int = 128, dtype=torch.bfloat16, net: ActorCritic | None = None,
              net_kwargs: dict | None = None,
-             lr_schedule: Callable[[int], float] | None = None):
+             lr_schedule: Callable[[int], float] | None = None,
+             per_agent_policies: bool | None = None):
     """``(train_state, net, config, optimizer)`` for training on ``venv``.
 
     The env, the net's weights, the train state's generator and the critic
     get independent seeds derived from ``seed``; per-agent policies get one
     net each, from seeds derived from the net's. ``net_kwargs`` (``hidden``,
-    ``dtype``, ``encoder``: ``'mlp'``, the default, or ``'cnn'``) build the
-    net, over ``hidden`` and ``dtype`` (the nets' compute type). The net
-    conditions on the mission where the env has missions, with
-    ``num_missions`` the size of the env's mission space (ppo.py:170-201).
+    ``dtype``, ``encoder``: ``'cnn'``, the default, as in the JAX package,
+    or ``'mlp'``) build the net, over ``hidden`` and ``dtype`` (the nets'
+    compute type). The net conditions on the mission where the env has
+    missions, with ``num_missions`` the size of the env's mission space
+    (ppo.py:170-201).
     A ``net`` passed in is taken as it is (its weights start the training;
     its attributes are its own), with a warning where the env has missions
     and the net none. With the centralized critic (always the mlp) the
     parameters are keyed ``actor.*`` and ``critic.*``. ``lr_schedule``
     (:func:`linear_schedule`) replaces the constant ``config.lr``.
+    ``per_agent_policies`` is the JAX package's deprecated alias for the
+    config field.
 
     On a sharded vector env every process derives the same seeds, so its
     parameters and generators start alike; a digest all-reduce checks the
-    parameters.
+    parameters. Under a ``'model'`` axis each process then keeps its
+    columns of the ``Dense_0`` kernels, and its moments start as those.
     """
     config = config or PPOConfig()
+    if per_agent_policies is not None:
+        config = config.replace(per_agent_policies=per_agent_policies)
     env_seed, net_seed, train_seed, critic_seed = (
         int(s) for s in np.random.SeedSequence(seed).generate_state(4))
     obs, env_state = venv.reset(seed=env_seed)
@@ -320,7 +343,8 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
     tx = Optimizer(config.lr if lr_schedule is None else lr_schedule, config.max_grad_norm,
                    per_agent=config.per_agent_policies, critic=config.centralized_critic)
     if venv.mesh is not None:
-        check_replicated(params, venv.mesh.group)
+        check_replicated(params, venv.mesh.mesh_group)
+        params = shard_params(params, venv.mesh)
     state = TrainState(
         params=params, opt_state=tx.init(params), env_state=env_state,
         last_obs=obs,
@@ -344,8 +368,8 @@ class TrainStep:
     def __init__(self, venv: VectorEnv, net: ActorCritic, config: PPOConfig,
                  tx: Optimizer):
         self.venv, self.net, self.config, self.tx = venv, net, config, tx
-        #: The mesh's process group (None in one process), and whether this
-        #: process holds only part of the env batch.
+        #: The mesh's env-axis process group (None in one process), and
+        #: whether this process holds only part of the env batch.
         self.group = None if venv.mesh is None else venv.mesh.group
         self.split = venv.local_envs != venv.num_envs
         self._loss_kernel_ok = fused_ppo.supports
@@ -437,10 +461,12 @@ class TrainStep:
         return tuple(x.reshape(lead) for x in out)
 
     @torch.no_grad()
-    def rollout_phase(self, state: TrainState):
-        """``rollout_steps`` env steps under the policy. Returns ``(state,
-        traj, last_value, (ep_sum, ep_cnt, ep_suc))``."""
-        venv, params = self.venv, state.params
+    def rollout_phase(self, state: TrainState, params=None):
+        """``rollout_steps`` env steps under the policy (``params``: the
+        full parameters, by default gathered from the state's part). Returns
+        ``(state, traj, last_value, (ep_sum, ep_cnt, ep_suc))``."""
+        venv = self.venv
+        params = gather_params(state.params, venv.mesh) if params is None else params
         env_state, obs = state.env_state, state.last_obs
         ep_acc = state.ep_return_acc
         ep_sum = torch.zeros((), device=venv.device)
@@ -607,13 +633,19 @@ class TrainStep:
 
     @torch.no_grad()
     def sgd_step(self, params, opt_state: OptState, traj: Rollout, advantages, targets):
-        """One optimizer step on a (minibatch) trajectory, its gradients
-        averaged over the mesh's processes before the clip. Returns
-        ``(params, opt_state, metrics)``: this process's metrics."""
+        """One optimizer step on a (minibatch) trajectory from the full
+        ``params``, its gradients averaged over the env axis's processes
+        before the clip; under a ``'model'`` axis Adam updates this
+        process's columns (``opt_state`` holds their moments) and the new
+        columns are gathered. Returns ``(params, opt_state, metrics)``: the
+        full parameters and this process's metrics."""
+        mesh = self.venv.mesh
         grads, metrics = self.loss_grads(params, traj, advantages, targets)
-        grads = self.mean_over_processes(grads)
-        updates, opt_state = self.tx.update(grads, opt_state)
-        return {k: params[k] + updates[k] for k in params}, opt_state, metrics
+        grads = shard_params(self.tx.clip(self.mean_over_processes(grads)), mesh)
+        updates, opt_state = self.tx.step(grads, opt_state)
+        own = shard_params(params, mesh)
+        return (gather_params({k: own[k] + updates[k] for k in own}, mesh), opt_state,
+                metrics)
 
     def __call__(self, state: TrainState, shuffle=None):
         """One update. ``shuffle`` fixes each epoch's minibatch shuffle as a
@@ -623,9 +655,9 @@ class TrainStep:
         need the global batch: every process gathers it once an update and
         takes its share of each minibatch's envs."""
         cfg = self.config
-        state, traj, last_value, (ep_sum, ep_cnt, ep_suc) = self.rollout_phase(state)
+        params, opt_state = gather_params(state.params, self.venv.mesh), state.opt_state
+        state, traj, last_value, (ep_sum, ep_cnt, ep_suc) = self.rollout_phase(state, params)
         advantages, targets = self.compute_gae(traj, last_value)
-        params, opt_state = state.params, state.opt_state
         if cfg.minibatches == 1:
             for _ in range(cfg.epochs):
                 params, opt_state, metrics = self.sgd_step(
@@ -664,8 +696,8 @@ class TrainStep:
         metrics['episodes_in_batch'] = ep_cnt.float()
         metrics['episode_reward'] = torch.where(done_any, ep_sum / ep_cnt.clamp_min(1), nan)
         metrics['success_rate'] = torch.where(done_any, ep_suc / ep_cnt.clamp_min(1), nan)
-        state = state.replace(params=params, opt_state=opt_state,
-                              update_count=state.update_count + 1)
+        state = state.replace(params=shard_params(params, self.venv.mesh),
+                              opt_state=opt_state, update_count=state.update_count + 1)
         return state, metrics
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,17 @@
 """The sharding correctness gate: PPO sharded over processes against one.
 
-Counterpart of the JAX package's ``__graft_entry__.py::dryrun_multichip``:
-:func:`dryrun_multichip` runs 3 PPO updates on the flagship (Empty-16x16, 4
-agents, the default mlp) with the env batch sharded over ``n_procs``
-processes, then the same global batch in this process alone, and asserts
-that every metric agrees (``rtol=1e-4, atol=1e-6``, as the JAX gate does)
-and that every update's rollout is bit-equal in its integer checksums. A dropped all-reduce, a mis-split batch or a stale shard changes
-the numbers; the absence of a crash alone would not catch it.
+Counterpart of the JAX package's ``__graft_entry__.py::dryrun_multichip``
+(:104-127), at its topology and net: :func:`dryrun_multichip` runs 3 PPO
+updates (T 2) of the default ``ActorCritic`` (the cnn on ``(vs, vs, 3)``
+images) on the flagship (Empty-16x16, 4 agents, 128 envs a process) over an
+``(n/2, 2)`` mesh where ``n`` is even (``(n, 1)`` where odd): the env batch
+sharded over ``'env'``, the ``Dense_0`` kernel and its Adam moments split
+by columns over ``'model'``. It then runs the same global batch in this
+process alone, and asserts that every metric agrees (``rtol=1e-4,
+atol=1e-6``, as the JAX gate does) and that every update's rollout is
+bit-equal in its integer checksums. A dropped all-reduce, a mis-split
+batch, a stale shard or a wrong column changes the numbers; the absence of
+a crash alone would not catch it.
 
     python -m multigrid_tpu_torch.parallel.dryrun 2              # on the card
     python -m multigrid_tpu_torch.parallel.dryrun 2 --device cpu  # gloo
@@ -124,29 +129,36 @@ def rollout_checksums(traj, venv) -> dict[str, list[int]]:
 
 def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: int = 4,
             env_kwargs: dict | None = None, config: dict | None = None, hidden: int = 128,
-            float32: bool = False, fused_policy: bool = False, sharded: bool = True,
+            encoder: str = 'mlp', float32: bool = False, fused_policy: bool = False,
+            sharded: bool = True, model_shards: int = 1, mesh=None,
             device: str | None = None) -> dict:
-    """``updates`` PPO updates of the mlp on packed cells (seed 0) on a
-    global batch of ``num_envs`` envs, sharded over every process of the run
-    (``sharded``) or in this process alone. Returns each update's metrics,
+    """``updates`` PPO updates (seed 0) of the mlp on packed cells, or of
+    the cnn (``encoder='cnn'``) on ``(vs, vs, 3)`` images as the JAX gate
+    trains it, on a global batch of ``num_envs`` envs: over a mesh of every
+    process of the run with ``model_shards`` on ``'model'`` (``sharded``),
+    over ``mesh``, or in this process alone. Returns each update's metrics,
     its rollout's :func:`rollout_checksums` (the rollout run once more from
-    the update's state and generator states, untimed), the parameters'
+    the update's state and generator states, untimed), the full parameters'
     digest after each update, the kernels' launches in the updates and
-    their seconds (on the host's clock, to the metrics' copy to the host)."""
+    their seconds (on the host's clock, to the metrics' copy to the host).
+    cuDNN runs deterministic meanwhile, so that the cnn's processes compute
+    the same bits."""
     from collections import Counter
 
     from ..envs import make
     from ..learn import PPOConfig, make_train_step, ppo_init
     from ..learn.ppo import params_digest
     from ..ops import launch_counts, zero_launch_counts
-    from .mesh import make_mesh
+    from .mesh import gather_params, make_mesh
     from .vector import VectorEnv
 
     env = make(env_id, agents=agents, device=device, **(env_kwargs or {}))
-    venv = VectorEnv(env, num_envs, packed_obs=True, mesh=make_mesh() if sharded else None)
+    if mesh is None and sharded:
+        mesh = make_mesh(n_model_shards=model_shards)
+    venv = VectorEnv(env, num_envs, packed_obs=encoder == 'mlp', mesh=mesh)
     state, net, cfg, tx = ppo_init(
         venv, 0, config=PPOConfig(**(config or {})),
-        net_kwargs=dict(hidden=hidden, encoder='mlp',
+        net_kwargs=dict(hidden=hidden, encoder=encoder,
                         **({'dtype': torch.float32} if float32 else {})))
     before = os.environ.get('MULTIGRID_FUSED_POLICY')
     if fused_policy:
@@ -163,24 +175,31 @@ def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: 
     if fused_policy and not step.fused_policy:
         raise RuntimeError('the fused-policy rollout is off for this configuration')
     rows, rollouts, digests, seconds, launches = [], [], [], 0.0, Counter()
-    for _ in range(updates):
-        gens = state.generator.get_state(), venv.generator.get_state()
-        rollouts.append(rollout_checksums(step.rollout_phase(state)[1], venv))
-        state.generator.set_state(gens[0])
-        venv.generator.set_state(gens[1])
-        if venv.device.type == 'cuda':
-            torch.cuda.synchronize()
-        zero_launch_counts()
-        t0 = time.perf_counter()
-        state, metrics = step(state)
-        rows.append({k: float(v) for k, v in metrics.items()})
-        seconds += time.perf_counter() - t0
-        launches.update(launch_counts())
-        digests.append(params_digest(state.params))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(updates):
+            gens = state.generator.get_state(), venv.generator.get_state()
+            rollouts.append(rollout_checksums(step.rollout_phase(state)[1], venv))
+            state.generator.set_state(gens[0])
+            venv.generator.set_state(gens[1])
+            if venv.device.type == 'cuda':
+                torch.cuda.synchronize()
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state)
+            rows.append({k: float(v) for k, v in metrics.items()})
+            seconds += time.perf_counter() - t0
+            launches.update(launch_counts())
+            digests.append(params_digest(gather_params(state.params, venv.mesh)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     return {'metrics': rows, 'rollouts': rollouts, 'params_digests': digests,
             'launches': {k: launches[k] for k in launch_counts()}, 'seconds': seconds,
             'agent_steps': updates * cfg.rollout_steps * num_envs * agents,
-            'process_count': venv.mesh.env_shards if sharded else 1}
+            'process_count': 1 if venv.mesh is None else venv.mesh.env_shards,
+            'mesh_shape': [1, 1] if venv.mesh is None else list(venv.mesh.shape),
+            'encoder': net.encoder}
 
 
 def ppo_runs(runs: list[dict]) -> list[dict]:
@@ -242,18 +261,23 @@ def _nan_equal(a: dict, b: dict) -> bool:
 def dryrun_multichip(n_procs: int, *, backend: str | None = None,
                      device: str | torch.device | None = None, num_envs_per_proc: int = 128,
                      rollout_steps: int = 2, timeout: float = JOIN_TIMEOUT):
-    """Sharding correctness gate: 3 PPO updates on the flagship sharded over
-    ``n_procs`` spawned processes and the same global batch in this process,
-    held together by :func:`assert_consistent`. Returns ``(sharded,
-    single)``: each process's :func:`ppo_run` result and this process's."""
+    """Sharding correctness gate: 3 PPO updates of the default cnn on the
+    flagship over ``n_procs`` spawned processes, on an ``(n/2, 2)`` mesh
+    where ``n_procs`` is even (else ``(n, 1)``), and the same global batch
+    (``num_envs_per_proc · n_procs`` envs) in this process, held together
+    by :func:`assert_consistent`. Returns ``(sharded, single)``: each
+    process's :func:`ppo_run` result and this process's."""
     device = str(resolve_device(device))
+    n_model = 2 if n_procs % 2 == 0 else 1
     num_envs = num_envs_per_proc * n_procs
-    kw = dict(updates=3, config=dict(rollout_steps=rollout_steps), device=device)
-    sharded = spawn(ppo_run, n_procs, (num_envs,), kw, backend=backend, device=device,
-                    timeout=timeout)
+    kw = dict(updates=3, encoder='cnn', config=dict(rollout_steps=rollout_steps),
+              device=device)
+    sharded = spawn(ppo_run, n_procs, (num_envs,), dict(kw, model_shards=n_model),
+                    backend=backend, device=device, timeout=timeout)
     single = ppo_run(num_envs, sharded=False, **kw)
     assert_consistent(sharded, single, f'dryrun_multichip({n_procs})')
-    print(f'dryrun_multichip({n_procs}): ok: 3 updates consistent with one process, '
+    print(f'dryrun_multichip({n_procs}): ok: 3 updates on the '
+          f'{tuple(sharded[0]["mesh_shape"])} (env, model) mesh consistent with one process, '
           f'every rollout bit-equal; metrics {sharded[0]["metrics"][-1]}', flush=True)
     return sharded, single
 

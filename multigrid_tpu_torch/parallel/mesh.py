@@ -1,11 +1,15 @@
 """The process mesh of a sharded run.
 
-Counterpart of ``multigrid_tpu.parallel.mesh``. Env batches shard over a
-data axis (``'env'``): process ``r`` of ``R`` holds the contiguous rows
-``[r·E/R, (r+1)·E/R)`` of the global batch of ``E`` envs, and the learner's
-parameters are replicated. The ``'model'`` axis (a tensor-parallel first
-layer in the JAX package's dry run) is not ported: ``n_model_shards`` other
-than 1 raises.
+Counterpart of ``multigrid_tpu.parallel.mesh``. A mesh lays the run's
+processes out as ``(env, model)``, env-major (global rank ``e·R_m + m`` at
+coordinates ``(e, m)``, as ``np.asarray(devices).reshape(n_env, n_model)``
+lays out the JAX package's devices). Env batches shard over the data axis
+(``'env'``): the processes of env coordinate ``e`` of ``R_e`` hold the
+contiguous rows ``[e·E/R_e, (e+1)·E/R_e)`` of the global batch of ``E`` envs,
+replicated over ``'model'``. The learner's parameters are replicated,
+except that every 2-D ``Dense_0…kernel`` and its Adam moments are split by
+columns over ``'model'``, as the JAX dry run places them
+(``__graft_entry__.py:85-92``; :func:`shard_params`, :func:`gather_params`).
 
 One process is a mesh of one shard, with no process group, so
 ``VectorEnv(env, E, mesh=make_mesh())`` works without a launcher.
@@ -26,19 +30,29 @@ from . import distributed
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``(env, model)`` process mesh: ``ranks`` (global ranks, env-major)
-    laid out as ``shape``, this process's global ``rank``, and the env
-    axis's process group (None for a mesh of one process, whose
-    collectives are the identity)."""
+    laid out as ``shape``, this process's global ``rank``, and its process
+    groups, each None where it would hold one process (whose collectives
+    are the identity): ``group``, the env axis's (the processes with this
+    process's model coordinate: gradient means, advantage moments, episode
+    sums, the env rows' gathers); ``model_group``, the model axis's (the
+    processes with this env coordinate: the column gathers of the
+    parameters); ``mesh_group``, every process of the mesh."""
 
     shape: tuple[int, int]
     ranks: tuple[int, ...]
     rank: int
     group: Any = None
+    model_group: Any = None
+    mesh_group: Any = None
     axis_names: ClassVar[tuple[str, str]] = ('env', 'model')
 
     @property
     def env_shards(self) -> int:
         return self.shape[0]
+
+    @property
+    def model_shards(self) -> int:
+        return self.shape[1]
 
     @property
     def coords(self) -> tuple[int, int]:
@@ -56,13 +70,14 @@ def make_mesh(
     """An ``(env, model)`` mesh over ``devices``: global ranks, by default
     every process of the run (this one alone without
     :func:`~multigrid_tpu_torch.parallel.distributed.initialize`). With the
-    defaults every process goes to the env axis. A mesh of a strict subset
-    of the run's processes creates a process group, which every process of
-    the run must do together (``torch.distributed.new_group``)."""
-    if n_model_shards != 1:
-        raise NotImplementedError(
-            "the 'model' mesh axis (a tensor-parallel first layer, "
-            "__graft_entry__.py:86-93) is not ported: ROADMAP A, the model-axis item")
+    defaults every process goes to the env axis.
+
+    Every process of the run calls it together, with the same arguments:
+    the groups of a mesh over a strict subset of the run's processes, and
+    the ``R_m`` env groups and ``R_e`` model groups of a mesh with both axes
+    above 1, are new process groups, created in one order on every process
+    (``torch.distributed.new_group``). A process outside ``devices`` takes
+    part in that, then gets ``ValueError``."""
     world, rank = distributed.process_count(), distributed.process_index()
     ranks = tuple(range(world)) if devices is None else tuple(int(d) for d in devices)
     if n_env_shards is None:
@@ -71,15 +86,29 @@ def make_mesh(
         raise ValueError(f'{n_env_shards} x {n_model_shards} != {len(ranks)} processes')
     if len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
         raise ValueError(f'mesh ranks {ranks} are not distinct processes of {world}')
-    if not dist.is_initialized() or len(ranks) == 1 < world:
-        group = None
-    elif len(ranks) == world:
-        group = dist.group.WORLD
-    else:
-        group = dist.new_group(list(ranks))
+    groups, made = {}, {}
+
+    def group(members: tuple[int, ...]):
+        # One group per member set; None for one process.
+        if len(members) == 1:
+            return None
+        if len(members) == world:
+            return dist.group.WORLD
+        if members not in made:
+            made[members] = dist.new_group(list(members))
+        return made[members]
+
+    if dist.is_initialized():
+        grid = [ranks[e * n_model_shards:(e + 1) * n_model_shards] for e in range(n_env_shards)]
+        whole = group(ranks)
+        env_groups = [group(tuple(row[m] for row in grid)) for m in range(n_model_shards)]
+        model_groups = [group(row) for row in grid]
+        if rank in ranks:
+            e, m = divmod(ranks.index(rank), n_model_shards)
+            groups = dict(group=env_groups[m], model_group=model_groups[e], mesh_group=whole)
     if rank not in ranks:
         raise ValueError(f'process {rank} is not in the mesh {ranks}')
-    return Mesh((n_env_shards, n_model_shards), ranks, rank, group)
+    return Mesh((n_env_shards, n_model_shards), ranks, rank, **groups)
 
 
 def env_rows(num_envs: int, mesh: Mesh) -> slice:
@@ -118,4 +147,44 @@ def gather_batch(tree, mesh: Mesh):
     return _map_rows(tree, lambda x: distributed.all_gather_rows(x, mesh.group))
 
 
-__all__ = ['Mesh', 'env_rows', 'gather_batch', 'make_mesh', 'shard_batch']
+def model_sharded(name: str, x: torch.Tensor) -> bool:
+    """Whether the JAX dry run's placement splits the parameter or moment
+    ``name`` over ``'model'``: a 2-D tensor whose name holds ``Dense_0`` and
+    ``kernel`` (``__graft_entry__.py:89``). Per-agent policies' kernels are
+    stacked to 3-D and stay replicated."""
+    return 'Dense_0' in name and 'kernel' in name and x.dim() == 2
+
+
+def model_columns(columns: int, mesh: Mesh) -> slice:
+    """The columns of a ``columns``-wide sharded kernel that this process
+    holds; raises unless the model shards divide them."""
+    shards = mesh.model_shards
+    if columns % shards:
+        raise ValueError(f'{columns} columns not divisible by {shards} model shards')
+    per = columns // shards
+    return slice(mesh.coords[1] * per, (mesh.coords[1] + 1) * per)
+
+
+def shard_params(params: dict[str, torch.Tensor], mesh: Mesh | None) -> dict[str, torch.Tensor]:
+    """This process's part of a dict of full parameters (or of Adam
+    moments, keyed alike): every :func:`model_sharded` tensor cut to its
+    :func:`model_columns` (a copy, so that the full tensor is not kept),
+    the rest as they are; ``params`` itself without a model axis."""
+    if mesh is None or mesh.model_shards == 1:
+        return params
+    return {k: v[:, model_columns(v.shape[1], mesh)].clone(memory_format=torch.contiguous_format)
+            if model_sharded(k, v) else v for k, v in params.items()}
+
+
+def gather_params(params: dict[str, torch.Tensor], mesh: Mesh | None) -> dict[str, torch.Tensor]:
+    """The full parameters (or moments) of this process's part, on every
+    process of its model group (the inverse of :func:`shard_params`: the
+    :func:`model_sharded` tensors' columns gathered in model order)."""
+    if mesh is None or mesh.model_shards == 1:
+        return params
+    return {k: distributed.all_gather_rows(v, mesh.model_group, dim=1)
+            if model_sharded(k, v) else v for k, v in params.items()}
+
+
+__all__ = ['Mesh', 'env_rows', 'gather_batch', 'gather_params', 'make_mesh', 'model_columns',
+           'model_sharded', 'shard_batch', 'shard_params']

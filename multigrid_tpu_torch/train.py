@@ -34,6 +34,9 @@ of one:
 Only the first process prints, logs and writes checkpoints, which hold the
 global state (any number of processes resumes them).
 
+The JAX CLI's compat flags ``--algo PPO``, ``--framework``, ``--num-workers``
+and ``--num-gpus`` are accepted and ignored, as there.
+
 Every ``--log-interval`` updates (and after the last) it prints one JSON row
 of metrics, and appends it to ``--log-jsonl`` when given; the last line is
 the phase timer's ``timing:``. ``--device cpu`` runs on the CPU with the
@@ -67,6 +70,12 @@ def ent_coef_at(ent_coef: float, update: int, num_updates: int) -> float:
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description='Train PPO policies on MultiGrid (PyTorch/CUDA).')
+    # The JAX CLI's compat flags (scripts/train.py:35-47), accepted and ignored.
+    p.add_argument('--algo', default='PPO', choices=['PPO'], help='RL algorithm (PPO only)')
+    p.add_argument('--framework', default='torch', help='ignored')
+    p.add_argument('--num-workers', type=int, default=None,
+                   help='ignored: --num-envs sets the lockstep envs')
+    p.add_argument('--num-gpus', type=int, default=0, help='ignored')
     p.add_argument('--env', default='MultiGrid-Empty-8x8-v0')
     p.add_argument('--env-config', type=json.loads, default={},
                    help='JSON dict of environment kwargs')

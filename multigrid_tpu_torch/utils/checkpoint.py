@@ -10,13 +10,16 @@ layouts), so a resumed run continues exactly where the saved one stood.
 A checkpoint written by the JAX package is not read here.
 
 A sharded run's checkpoint holds the global state, as the JAX package's
-holds global arrays: the processes' env rows are gathered and the first
-process alone writes; on restore every process reads the file and takes
-its rows, so a checkpoint written by R processes restores on any number.
+holds global arrays: the columns of the ``Dense_0`` kernels and of their
+Adam moments are gathered over the ``'model'`` axis, the processes' env
+rows over ``'env'``, and the mesh's first process alone writes; on restore
+every process reads the file and takes its rows and columns, so a
+checkpoint written on one mesh restores on any other, or in one process.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import tempfile
 from typing import Any
@@ -26,7 +29,7 @@ import torch
 from ..core.state import FIELDS, MultiGridState, ResetPool
 from ..learn.ppo import OptState, TrainState
 from ..parallel import distributed
-from ..parallel.mesh import gather_batch
+from ..parallel.mesh import gather_batch, gather_params, shard_params
 from ..parallel.vector import VectorEnv
 
 
@@ -101,9 +104,13 @@ def _load(path: str) -> dict[str, Any]:
     return raw
 
 
-def _local_rows(tree: dict[str, Any], venv: VectorEnv) -> dict[str, Any]:
-    """A stored train tree's env rows cut to ``venv``'s (the reserve pool
-    stays whole)."""
+def _local_part(tree: dict[str, Any], venv: VectorEnv) -> dict[str, Any]:
+    """A stored train tree's ``Dense_0`` columns and env rows cut to this
+    process's (the reserve pool stays whole)."""
+    opt = tree['opt_state']
+    tree = {**tree, 'params': shard_params(tree['params'], venv.mesh),
+            'opt_state': {**opt, 'mu': shard_params(opt['mu'], venv.mesh),
+                          'nu': shard_params(opt['nu'], venv.mesh)}}
     if venv.local_envs == venv.num_envs:
         return tree
     stored = tuple(getattr(tree.get('ep_return_acc'), 'shape', ()))
@@ -120,20 +127,25 @@ def _local_rows(tree: dict[str, Any], venv: VectorEnv) -> dict[str, Any]:
 def save_checkpoint(path: str, state: TrainState, venv: VectorEnv) -> str:
     """Atomically write ``state`` and ``venv``'s generator to the file
     ``path`` (a temporary file in the same directory, then a rename).
-    Under a mesh every process calls it: the env rows are gathered, the
-    mesh's first process writes, and all return once the file is there.
-    Returns the absolute path."""
+    Under a mesh every process calls it: the kernels' columns and the env
+    rows are gathered, the mesh's first process writes, and all return once
+    the file is there. Returns the absolute path."""
     mesh = venv.mesh
     if mesh is not None:
-        state = state.replace(env_state=gather_batch(state.env_state, mesh),
-                              last_obs=gather_batch(state.last_obs, mesh),
-                              ep_return_acc=gather_batch(state.ep_return_acc, mesh))
-        if mesh.coords[0]:
-            distributed.barrier(mesh.group)
+        opt = state.opt_state
+        state = state.replace(
+            params=gather_params(state.params, mesh),
+            opt_state=dataclasses.replace(opt, mu=gather_params(opt.mu, mesh),
+                                          nu=gather_params(opt.nu, mesh)),
+            env_state=gather_batch(state.env_state, mesh),
+            last_obs=gather_batch(state.last_obs, mesh),
+            ep_return_acc=gather_batch(state.ep_return_acc, mesh))
+        if mesh.coords != (0, 0):
+            distributed.barrier(mesh.mesh_group)
             return os.path.abspath(path)
     path = _write(path, state, venv)
     if mesh is not None:
-        distributed.barrier(mesh.group)
+        distributed.barrier(mesh.mesh_group)
     return path
 
 
@@ -160,12 +172,13 @@ def restore_checkpoint(path: str, target: TrainState, venv: VectorEnv) -> TrainS
     """The training state saved at ``path``, laid out like ``target`` (a
     freshly initialized ``TrainState`` for the same configuration: its
     tensors give the shapes, devices and dtypes; under a mesh, this
-    process's rows of the stored global batch), with the saved states set
+    process's rows of the stored global batch and its columns of the
+    stored ``Dense_0`` kernels and moments), with the saved states set
     into ``target.generator`` and ``venv.generator``. Any difference of
     structure or shape raises ``ValueError`` (checkpoint/env-config
     mismatch)."""
     raw = _load(path)
-    tree = _place(_train_tree(target), _local_rows(raw['train_state'], venv), 'train_state')
+    tree = _place(_train_tree(target), _local_part(raw['train_state'], venv), 'train_state')
     env_gen = _place(venv.generator.get_state(), raw['env_generator'], 'env_generator')
     target.generator.set_state(tree['generator'])
     venv.generator.set_state(env_gen)

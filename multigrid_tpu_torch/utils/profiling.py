@@ -1,7 +1,9 @@
-"""A wall-clock phase timer for the training CLI.
+"""Tracing hooks and a wall-clock phase timer for the training CLI.
 
-Counterpart of ``multigrid_tpu.utils.profiling``'s ``PhaseTimer`` and
-``force_completion``. Work on the card is asynchronous: a phase's time is
+Counterpart of ``multigrid_tpu.utils.profiling``: named trace scopes
+(:func:`trace_annotation`, shown in a ``torch.profiler`` trace), a trace of
+an enclosed block written for TensorBoard or Perfetto (:func:`trace_to`),
+and the ``PhaseTimer``. Work on the card is asynchronous: a phase's time is
 of finished work only where the caller forces completion inside it, which
 the training CLI does only where the JAX CLI does (at log and checkpoint
 points), so that the card stays fed between them.
@@ -14,6 +16,26 @@ import time
 from collections import defaultdict
 
 import torch
+
+
+def trace_annotation(name: str):
+    """A named profiler scope (``torch.profiler.record_function``), shown
+    in a captured trace."""
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def trace_to(log_dir: str):
+    """Trace the enclosed block (the host's operators, and the card's
+    kernels where there is one) into ``log_dir``, as TensorBoard's trace
+    handler writes it."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield
 
 
 def force_completion(tree) -> float:

@@ -120,7 +120,7 @@ def test_centralized_critic_matches_flax(setup):
     assert got.dtype == torch.float32 and got.shape == (6,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
     venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), 6, packed_obs=True)
-    step = ppo.make_train_step(venv, ActorCritic(49, hidden=H, packed_obs=True),
+    step = ppo.make_train_step(venv, ActorCritic(49, hidden=H, packed_obs=True, encoder='mlp'),
                                ppo.PPOConfig(centralized_critic=True), ppo.Optimizer(3e-4, 0.5))
     p = params_from_flax(params[(False, True)])
     with torch.no_grad():
@@ -197,7 +197,7 @@ def _compare_sgd_step(setup, per_agent, critic, fused, monkeypatch, grad_tol, me
     pconfig = ppo.PPOConfig(per_agent_policies=per_agent, centralized_critic=critic, **CONFIG)
     venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), E, packed_obs=True)
     step = ppo.make_train_step(
-        venv, ActorCritic(49, hidden=H, packed_obs=True), pconfig,
+        venv, ActorCritic(49, hidden=H, packed_obs=True, encoder='mlp'), pconfig,
         ppo.Optimizer(pconfig.lr, pconfig.max_grad_norm, per_agent=per_agent, critic=critic))
     p0 = params_from_flax(params)
     new, opt, metrics = step.sgd_step(
@@ -269,7 +269,8 @@ def test_every_agent_and_the_critic_train(per_agent, critic, monkeypatch):
     venv = VectorEnv(make(ENV_ID, agents=3, device='cpu'), 8, packed_obs=True)
     config = ppo.PPOConfig(rollout_steps=2, per_agent_policies=per_agent,
                            centralized_critic=critic)
-    state, net, config, tx = ppo.ppo_init(venv, 1, config=config, hidden=16)
+    state, net, config, tx = ppo.ppo_init(venv, 1, config=config, hidden=16,
+                                          net_kwargs=dict(encoder='mlp'))
     before = state.params
     actor = [k for k in before if not k.startswith('critic.')]
     state, metrics = ppo.make_train_step(venv, net, config, tx)(state)

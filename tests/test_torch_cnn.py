@@ -19,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from multigrid_tpu.envs import make as jax_make
 from multigrid_tpu.learn import nets as jax_nets
+from multigrid_tpu.learn import ppo_init as jax_ppo_init
+from multigrid_tpu.parallel.vector import VectorEnv as JaxVectorEnv
 from multigrid_tpu_torch.envs import make
 from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
 from multigrid_tpu_torch.learn.nets import ActorCritic, params_from_flax, params_to_flax
@@ -152,6 +155,24 @@ def test_per_agent_cnn_actors_match_flax_vmap():
         params, jnp.asarray(obs['image'].numpy()), jnp.asarray(obs['direction'].numpy()))
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_l), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(value.numpy(), np.asarray(want_v), rtol=1e-5, atol=1e-5)
+
+
+def test_default_net_is_the_jax_packages():
+    """``ppo_init`` with no net and no encoder builds the cnn, as the JAX
+    package's does (multigrid_tpu/learn/nets.py:80, ppo.py:175-178): the
+    same parameter names and shapes on Empty-5x5 at hidden 16. Its
+    ``per_agent_policies`` keyword is the config field's alias, as there
+    (ppo.py:146, 167-168)."""
+    jvenv = JaxVectorEnv(jax_make('MultiGrid-Empty-5x5-v0', agents=2), 2, use_pallas_obs=False)
+    jstate, jnet, *_ = jax_ppo_init(jvenv, jax.random.key(0), net_kwargs=dict(hidden=16))
+    want = {k: tuple(v.shape) for k, v in params_from_flax(jax.device_get(jstate.params)).items()}
+    venv = VectorEnv(make('MultiGrid-Empty-5x5-v0', agents=2, device='cpu'), 2)
+    state, net, config, _ = ppo_init(venv, 0, hidden=16)
+    assert net.encoder == jnet.encoder == 'cnn' and not config.per_agent_policies
+    assert {k: tuple(v.shape) for k, v in state.params.items()} == want
+    assert 'Conv_0.kernel' in want and 'img_kernel' not in want
+    state, _, config, _ = ppo_init(venv, 0, hidden=16, per_agent_policies=True)
+    assert config.per_agent_policies and state.params['Conv_0.kernel'].shape == (2, 16, 21, 3, 3)
 
 
 def test_small_views_raise_as_in_jax():

@@ -320,7 +320,8 @@ def test_float32_nets_take_the_first_layer_kernel_on_the_card(cuda_device):
     direction = torch.as_tensor(rng.integers(0, 4, (32, 2)))
     outs = []
     for dev, kernels in ((torch.device('cpu'), 0), (cuda_device, 2)):
-        net = ActorCritic(49, hidden=64, packed_obs=True, dtype=torch.float32).to(dev)
+        net = ActorCritic(49, hidden=64, packed_obs=True, dtype=torch.float32,
+                          encoder='mlp').to(dev)
         critic = make_centralized_critic(net, 2).to(dev)
         before = fl.launches
         outs.append((*net(image.to(dev), direction.to(dev)),
@@ -339,7 +340,8 @@ def test_train_step_on_the_card(cuda_device):
     from multigrid_tpu_torch.ops import fused_ppo
     venv = VectorEnv(make('MultiGrid-Empty-8x8-v0', agents=2, device=cuda_device), 64,
                      packed_obs=True)
-    state, net, config, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=4), hidden=32)
+    state, net, config, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=4), hidden=32,
+                                      net_kwargs=dict(encoder='mlp'))
     step = make_train_step(venv, net, config, tx)
     fl.launches = fl.grad_launches = fused_ppo.launches = 0
     for _ in range(2):
@@ -485,7 +487,7 @@ def test_resume_on_the_card_is_exact(cuda_device, tmp_path):
         venv = VectorEnv(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, max_steps=5,
                               device=cuda_device), 64, packed_obs=True)
         state, net, config, tx = ppo_init(venv, seed, hidden=32, config=PPOConfig(
-            rollout_steps=4, epochs=2, minibatches=2))
+            rollout_steps=4, epochs=2, minibatches=2), net_kwargs=dict(encoder='mlp'))
         return venv, state, make_train_step(venv, net, config, tx)
 
     venv, state, step = setup(0)
@@ -602,3 +604,20 @@ def test_sharded_training_on_the_card_matches_one_process(cuda_device, backend, 
         assert res['launches'] == {'obs': 8, 'obs_general': 0, 'onehot_linear': 10,
                                    'onehot_linear_grad': 0, 'ppo_loss': 2,
                                    'policy_sample': 0}
+
+
+def test_model_axis_gate_on_the_card_is_one_process(cuda_device):
+    """``dryrun_multichip(2)`` on the card, two gloo processes sharing it:
+    the JAX gate's (1, 2) mesh and cnn, each process holding half of
+    Dense_0's columns, bit for bit against one process; B1 T an update
+    a process (the cnn launches no other kernel)."""
+    from multigrid_tpu_torch.parallel.dryrun import assert_consistent, dryrun_multichip
+
+    sharded, single = dryrun_multichip(2, backend='gloo', device='cuda', timeout=300)
+    assert [r['mesh_shape'] for r in sharded] == [[1, 2], [1, 2]]
+    assert_consistent(sharded, single, '(1, 2) gate', rtol=0.0, atol=0.0)
+    for res in sharded:
+        assert res['encoder'] == 'cnn'
+        assert res['launches'] == {'obs': 6, 'obs_general': 0, 'onehot_linear': 0,
+                                   'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0}
+

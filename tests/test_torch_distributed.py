@@ -90,7 +90,8 @@ def test_make_mesh_in_one_process():
     assert mesh.shape == (1, 1) and mesh.coords == (0, 0) and mesh.group is None
     assert make_mesh(1, 1, devices=[0]) == mesh
     assert env_rows(12, mesh) == slice(0, 12)
-    with pytest.raises(NotImplementedError, match="'model' mesh axis"):
+    assert mesh.model_shards == 1 and mesh.model_group is None and mesh.mesh_group is None
+    with pytest.raises(ValueError, match='1 x 2 != 1'):
         make_mesh(1, 2)
     with pytest.raises(ValueError, match='2 x 1 != 1'):
         make_mesh(2)
@@ -182,7 +183,8 @@ def test_sharded_restore_checks_the_global_batch(two_procs, tmp_path):
     venv = VectorEnv(make('MultiGrid-Empty-5x5-v0', agents=2, device='cpu'), 12,
                      packed_obs=True, mesh=Mesh((2, 1), (0, 1), 0))
     from multigrid_tpu_torch.learn import PPOConfig, ppo_init
-    state, *_ = ppo_init(venv, 3, config=PPOConfig(rollout_steps=2), hidden=32)
+    state, *_ = ppo_init(venv, 3, config=PPOConfig(rollout_steps=2), hidden=32,
+                         net_kwargs=dict(encoder='mlp'))
     with pytest.raises(ValueError, match='checkpoint/env-config mismatch'):
         restore_checkpoint(two_procs[0]['checkpoint']['path'], state, venv)
 
@@ -203,10 +205,14 @@ def test_train_cli_mesh_is_a_world_of_one(tmp_path, capsys):
 
 
 def test_dryrun_multichip_on_two_processes():
+    """The JAX gate's topology and net (__graft_entry__.py:104-127): two
+    processes make a (1, 2) mesh and train the default cnn on images."""
     sharded, single = dryrun_multichip(2, device='cpu', num_envs_per_proc=16,
                                        timeout=TIMEOUT)
     assert len(sharded) == 2 and len(single['metrics']) == 3
     assert sharded[0]['agent_steps'] == 3 * 2 * 32 * 4
+    assert [r['mesh_shape'] for r in sharded] == [[1, 2], [1, 2]]
+    assert {r['encoder'] for r in sharded} == {single['encoder']} == {'cnn'}
 
 
 def test_probe_classification_is_the_jax_scripts():

@@ -97,7 +97,8 @@ def test_fused_rollout_matches_unfused(monkeypatch):
     venv = VectorEnv(make('MultiGrid-Empty-8x8-v0', agents=2, device='cpu'), 16,
                      packed_obs=True)
     state, net, config, tx = ppo.ppo_init(venv, 0, config=ppo.PPOConfig(rollout_steps=4),
-                                          hidden=32, dtype=torch.float32)
+                                          hidden=32, dtype=torch.float32,
+                                          net_kwargs=dict(encoder='mlp'))
     gens = state.generator.get_state(), venv.generator.get_state()
     plain = ppo.make_train_step(venv, net, config, tx)
     monkeypatch.setenv('MULTIGRID_FUSED_POLICY', '1')

@@ -10,7 +10,7 @@ import sys
 import pytest
 import torch
 
-from multigrid_tpu_torch import VectorEnv, make
+from multigrid_tpu_torch import VectorEnv, make, profile_env, profile_train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'multigrid_tpu'}
@@ -69,6 +69,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert env.device.type == 'cpu'
     with pytest.raises(RuntimeError):
         VectorEnv(env, 4, device='cuda')
+    for module in (profile_env, profile_train):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            module.main(['--num-envs', '4'])
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -90,7 +90,7 @@ def test_actor_critic_with_missions_matches_flax(setup):
     mission = rng.integers(0, M, (6, N)).astype(np.int32)
     want = jax.jit(jnet.apply)(params[False], jnp.asarray(image), jnp.asarray(direction),
                                jnp.asarray(mission))
-    net = ActorCritic(49, hidden=H, packed_obs=True, num_missions=M)
+    net = ActorCritic(49, hidden=H, packed_obs=True, num_missions=M, encoder='mlp')
     net.load_state_dict(params_from_flax(params[False]))
     args = [torch.as_tensor(x) for x in (image, direction, mission)]
     with torch.no_grad():
@@ -149,7 +149,8 @@ def _compare_sgd_step(setup, critic, fused, monkeypatch, grad_tol, metric_tol,
     venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), E, packed_obs=True,
                      reset_pool=False)
     step = ppo.make_train_step(
-        venv, ActorCritic(49, hidden=H, packed_obs=True, num_missions=M, dtype=dtype), pconfig,
+        venv, ActorCritic(49, hidden=H, packed_obs=True, num_missions=M, dtype=dtype,
+                          encoder='mlp'), pconfig,
         ppo.Optimizer(pconfig.lr, pconfig.max_grad_norm, critic=critic))
     p0 = params_from_flax(params)
     launches = fused_ppo.launches
@@ -197,15 +198,17 @@ def test_sgd_step_with_missions_on_the_autograd_path_matches_jax(setup, monkeypa
 
 def test_ppo_init_sizes_the_missions():
     venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), 8, packed_obs=True)
-    state, net, config, tx = ppo.ppo_init(venv, 0, hidden=H)
+    state, net, config, tx = ppo.ppo_init(venv, 0, hidden=H, net_kwargs=dict(encoder='mlp'))
     assert net.num_missions == M == len(venv.env.mission_space)
     assert state.params['Dense_0.kernel'].shape == (2 + M, H)
     with pytest.warns(UserWarning, match='num_missions=0'):
-        _, plain, _, _ = ppo.ppo_init(venv, 0, net=ActorCritic(49, hidden=H, packed_obs=True))
+        _, plain, _, _ = ppo.ppo_init(venv, 0, net=ActorCritic(49, hidden=H, packed_obs=True,
+                                                          encoder='mlp'))
     assert plain.num_missions == 0
     empty = VectorEnv(make('MultiGrid-Empty-5x5-v0', agents=N, device='cpu'), 8,
                       packed_obs=True)
-    assert ppo.ppo_init(empty, 0, hidden=H)[1].num_missions == 0
+    assert ppo.ppo_init(empty, 0, hidden=H,
+                        net_kwargs=dict(encoder='mlp'))[1].num_missions == 0
 
 
 def test_rollout_stores_missions_and_minibatches_carry_them():
@@ -214,7 +217,8 @@ def test_rollout_stores_missions_and_minibatches_carry_them():
     images."""
     venv = VectorEnv(make(ENV_ID, agents=N, device='cpu', max_steps=3), 8, packed_obs=True)
     config = ppo.PPOConfig(rollout_steps=5, epochs=2, minibatches=2)
-    state, net, config, tx = ppo.ppo_init(venv, 0, config=config, hidden=H)
+    state, net, config, tx = ppo.ppo_init(venv, 0, config=config, hidden=H,
+                                          net_kwargs=dict(encoder='mlp'))
     step = ppo.make_train_step(venv, net, config, tx)
     first = state.last_obs['mission']
     _, traj, _, _ = step.rollout_phase(state)
@@ -238,7 +242,8 @@ def test_fused_policy_takes_fourteen_features(monkeypatch):
     monkeypatch.setenv('MULTIGRID_FUSED_POLICY', '1')
     venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), 16, packed_obs=True)
     state, net, config, tx = ppo.ppo_init(venv, 0, hidden=H, dtype=torch.float32,
-                                          config=ppo.PPOConfig(rollout_steps=2))
+                                          config=ppo.PPOConfig(rollout_steps=2),
+                                          net_kwargs=dict(encoder='mlp'))
     fused = ppo.make_train_step(venv, net, config, tx)
     monkeypatch.delenv('MULTIGRID_FUSED_POLICY')
     plain = ppo.make_train_step(venv, net, config, tx)

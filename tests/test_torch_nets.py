@@ -72,7 +72,7 @@ def _flax_params(packed, hidden, seed):
 def test_params_round_trip():
     _, params = _flax_params(True, 32, 0)
     state = params_from_flax(params)
-    net = ActorCritic(49, hidden=32, packed_obs=True)
+    net = ActorCritic(49, hidden=32, packed_obs=True, encoder='mlp')
     net.load_state_dict(state)  # the names and shapes are the module's own
     back = params_to_flax(state)
     flat_a = jax.tree_util.tree_flatten_with_path(params)[0]
@@ -94,7 +94,7 @@ def test_actor_critic_matches_flax(packed):
     direction = rng.integers(0, 4, (e, n)).astype(np.int32)
     net_j, params = _flax_params(packed, hidden, 2)
     want_logits, want_value = net_j.apply(params, jnp.asarray(image), jnp.asarray(direction))
-    net = ActorCritic(49, hidden=hidden, packed_obs=packed)
+    net = ActorCritic(49, hidden=hidden, packed_obs=packed, encoder='mlp')
     net.load_state_dict(params_from_flax(params))
     with torch.no_grad():
         logits, value = net(torch.as_tensor(image), torch.as_tensor(direction))
@@ -105,10 +105,11 @@ def test_actor_critic_matches_flax(packed):
 
 
 def test_init_is_seeded_and_lecun_scaled():
-    a, b = ActorCritic(49, hidden=64, seed=3), ActorCritic(49, hidden=64, seed=3)
+    a, b = (ActorCritic(49, hidden=64, seed=3, encoder='mlp'),
+            ActorCritic(49, hidden=64, seed=3, encoder='mlp'))
     for (k, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(x, y), k
     w = a.img_kernel.detach()
     assert abs(float(w.std()) * np.sqrt(49 * 21) - 1) < 0.05
     assert float(w.abs().max()) <= 2 / 0.87962566103423978 / np.sqrt(49 * 21) + 1e-6
-    assert not ActorCritic(49, hidden=64, seed=4).img_kernel.detach().equal(w)
+    assert not ActorCritic(49, hidden=64, seed=4, encoder='mlp').img_kernel.detach().equal(w)

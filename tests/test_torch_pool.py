@@ -358,7 +358,7 @@ def test_ppo_rollout_refreshes_the_pool_once():
         venv = VectorEnv(make(BUP, agents=2, device='cpu'), 4, packed_obs=True,
                          reset_pool=reset_pool)
         state, net, config, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=5),
-                                          hidden=16)
+                                          hidden=16, net_kwargs=dict(encoder='mlp'))
         step = make_train_step(venv, net, config, tx)
         chunks = []
         refresh = venv._refresh

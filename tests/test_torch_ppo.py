@@ -74,7 +74,7 @@ def _jax_step(jnet, config, fused):
 
 
 def _port_step(venv, supports=fused_ppo.supports, monkeypatch=None):
-    net = ActorCritic(49, hidden=H, packed_obs=True)
+    net = ActorCritic(49, hidden=H, packed_obs=True, encoder='mlp')
     config = ppo.PPOConfig(**CONFIG)
     if monkeypatch is not None:
         monkeypatch.setattr(fused_ppo, 'supports', supports)
@@ -250,7 +250,7 @@ def test_train_step_runs_on_the_cpu():
     2 epochs of 4 minibatches: finite metrics, every parameter moves."""
     venv = VectorEnv(make(ENV_ID, agents=2, device='cpu'), 8, packed_obs=True)
     state, net, config, tx = ppo.ppo_init(venv, 0, config=ppo.PPOConfig(rollout_steps=4),
-                                          hidden=32)
+                                          hidden=32, net_kwargs=dict(encoder='mlp'))
     step = ppo.make_train_step(venv, net, config, tx)
     p0 = state.params
     for _ in range(3):
@@ -270,7 +270,7 @@ def test_train_loop_means_its_updates():
     NaN-skipping means (``episode_reward`` is NaN where none ended)."""
     venv = VectorEnv(make(ENV_ID, agents=2, device='cpu'), 8, packed_obs=True)
     state, net, config, tx = ppo.ppo_init(venv, 2, config=ppo.PPOConfig(rollout_steps=4),
-                                          hidden=32)
+                                          hidden=32, net_kwargs=dict(encoder='mlp'))
     gen = state.generator.get_state(), venv.generator.get_state()
     loop = ppo.make_train_loop(venv, net, config, tx, 3)
     after, metrics = loop(state)
@@ -294,7 +294,7 @@ def test_rollout_pairs_each_obs_with_its_action():
     episode's return is banked once."""
     venv = VectorEnv(make(ENV_ID, agents=2, max_steps=3, device='cpu'), 8, packed_obs=True)
     state, net, config, tx = ppo.ppo_init(venv, 1, config=ppo.PPOConfig(rollout_steps=5),
-                                          hidden=32)
+                                          hidden=32, net_kwargs=dict(encoder='mlp'))
     step = ppo.make_train_step(venv, net, config, tx)
     state, traj, last_value, (ep_sum, ep_cnt, _) = step.rollout_phase(state)
     with torch.no_grad():
@@ -328,3 +328,22 @@ def test_cli_trains_at_a_tiny_size(tmp_path, capsys):
     assert rows[-1]['agent_steps'] == 192 and np.isfinite(rows[-1]['loss'])
     with pytest.raises(SystemExit):
         train_cli.parse_args(['--platform', 'cpu'])  # no flag it would ignore
+
+
+def test_cli_takes_the_jax_clis_compat_flags():
+    """The JAX CLI's own example (scripts/train.py:9-11) parses, and its
+    compat flags --algo, --framework, --num-workers and --num-gpus
+    (scripts/train.py:35-47) change nothing else; --algo takes PPO only."""
+    example = ['--algo', 'PPO', '--framework', 'jax', '--env', 'MultiGrid-Empty-8x8-v0',
+               '--num-agents', '2', '--num-envs', '1024', '--num-timesteps', '1000000',
+               '--save-dir', '~/ray_results/']
+    compat = {'algo', 'framework', 'num_workers', 'num_gpus'}
+    got = vars(train_cli.parse_args(example + ['--num-workers', '8', '--num-gpus', '1']))
+    plain = vars(train_cli.parse_args(example[4:]))
+    assert {k: v for k, v in got.items() if k not in compat} == \
+        {k: v for k, v in plain.items() if k not in compat}
+    assert (got['algo'], got['framework'], got['num_workers'], got['num_gpus']) == \
+        ('PPO', 'jax', 8, 1)
+    assert plain['num_envs'] == 1024 and plain['save_dir'] == '~/ray_results/'
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(['--algo', 'IMPALA'])

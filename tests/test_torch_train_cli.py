@@ -83,7 +83,7 @@ def test_schedule_counts_sgd_steps():
                      packed_obs=True)
     state, net, config, tx = ppo_init(
         venv, 0, config=PPOConfig(rollout_steps=2, epochs=2, minibatches=2), hidden=16,
-        lr_schedule=linear_schedule(3e-4, 0.0, 8))
+        net_kwargs=dict(encoder='mlp'), lr_schedule=linear_schedule(3e-4, 0.0, 8))
     state, _ = make_train_step(venv, net, config, tx)(state)
     assert state.opt_state.schedule_count == state.opt_state.count == 4
 

@@ -86,7 +86,7 @@ def _setup(mesh):
     venv = VectorEnv(make('MultiGrid-Empty-5x5-v0', agents=2, device='cpu'), 16,
                      packed_obs=True, mesh=mesh)
     state, net, config, tx = ppo_init(venv, 3, config=PPOConfig(rollout_steps=2),
-                                      net_kwargs=dict(hidden=32, dtype=torch.float32))
+                                      net_kwargs=dict(hidden=32, dtype=torch.float32, encoder='mlp'))
     return venv, state, make_train_step(venv, net, config, tx)
 
 

@@ -32,7 +32,13 @@ Phases, in order; any failure exits non-zero:
                (65536, 196) and small shapes; equal from run to run), the
                PPO loss (B=262144 and 65536, B=256 with 0 and 5 missions, a
                ragged B=1001, B=262144 with 12 missions (F 14); equal from
-               run to run), and the fused rollout policy (B=16384; C 9/25,
+               run to run); the agent axis of B2, B3 and B4 (per-agent
+               policies, one launch for all agents) at the flagship's per-
+               agent shapes (N 4: 4096 rows an agent a rollout step, 65,536
+               an SGD step) and BUP's (N 2: 4096 and 131,072, F 14), each
+               against its plain version and N single-agent launches (B2
+               bit-equal to them), B3 and B4 equal from run to run; and the
+               fused rollout policy (B=16384; C 9/25,
                H 32/256, F 2/14, a ragged batch, B=8192 at F 14; a
                constructed tie takes the first index).
 4. main     — ``VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4), 4096)``
@@ -72,7 +78,9 @@ Phases, in order; any failure exits non-zero:
                one-hot part the lesser of the sparse adds and the dense
                product, both printed), its plain version and a library
                call; B2 and B3 also at the per-agent and critic shapes, B4
-               also at 65,536 samples, and B4's stages apart (torch.profiler).
+               also at 65,536 samples, and B4's stages apart (torch.profiler);
+               the agent axis of B2, B3 and B4 at the flagship's per-agent
+               shapes beside N single-agent launches and its bound.
 10. train breakdown — one update under ``torch.profiler``: the device's
                busy share and the kernels that take its time.
 11. variants — the same flagship through each learner variant, launch
@@ -81,8 +89,10 @@ Phases, in order; any failure exits non-zero:
                its metrics track the default path's over 3 updates, and
                under 2% of the first rollout step's actions differ), per-agent
                policies on the loss kernel and with its gate off (metrics
-               tracking), and the centralized critic with a shared and with
-               per-agent actors (actor and critic parameters move).
+               tracking; each kernel launched once for all agents: B2 17 and
+               B4 1 an update, gate off B2 18 and B3 1), and the centralized
+               critic with a shared and with per-agent actors (actor and
+               critic parameters move).
 12. variant timing — each variant's trained agent-steps/s beside the
                default path's, the rollout step's layers with and without the
                fused policy, and the fused policy's kernel time at B=16384
@@ -377,6 +387,36 @@ def onehot_launch_ms(packed, w, reps=200):
         if fn(*args):
             fail('onehot_linear kernel launch failed')
     return event_ms(launch, reps)
+
+
+def onehot_agents_launch_ms(packed, w, reps=200):
+    """CUDA-event times of the first-layer kernel's launches alone over N
+    agents, ``(one launch over all agents, N single-agent launches)``: the
+    agent-axis launch on (N, B, C) cells and (N, C·21, H) weights, and the
+    single-agent launch on each agent's slices in turn."""
+    import torch
+
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    n, b, c = packed.shape
+    h = w.shape[-1]
+    wb = fl.pad_columns(w.detach().to(torch.bfloat16)).contiguous()
+    out = torch.empty((n, b, h), dtype=torch.bfloat16, device=packed.device)
+    st = torch.cuda.current_stream().cuda_stream
+    agents = fl._lib_fn('mgt_onehot_linear_agents_launch', 3, 5)
+    single = fl._lib_fn('mgt_onehot_linear_launch', 3, 4)
+    args = (packed.data_ptr(), wb.data_ptr(), out.data_ptr(), n, b, c, h, wb.shape[-1], st)
+    each = [(packed[i].data_ptr(), wb[i].data_ptr(), out[i].data_ptr(), b, c, h, wb.shape[-1],
+             st) for i in range(n)]
+
+    def launch_agents():
+        if agents(*args):
+            fail('onehot_linear agent-axis kernel launch failed')
+
+    def launch_singles():
+        for a in each:
+            if single(*a):
+                fail('onehot_linear kernel launch failed')
+    return event_ms(launch_agents, reps), event_ms(launch_singles, reps)
 
 
 def obs_launch_ms(state, vs, stw, packed, reps=200):
@@ -959,7 +999,82 @@ def train_kernel_cases(device):
                            for k in want_m])
         check('ppo_loss', f'B={b} missions={missions} (equal from run to run)', abs_err, err,
               5e-2)
+    agent_axis_cases(rng, device, check)
     return errs
+
+
+def agent_axis_cases(rng, device, check):
+    """The agent axis of B2, B3 and B4 (per-agent policies, one launch for
+    all agents) at the flagship's per-agent shapes (N 4: 4096 rows an agent
+    a rollout step, 65,536 an SGD step) and BUP's (N 2: 4096 and 131,072, F
+    14): each against its plain version at its tolerance and against N
+    single-agent launches (B2 bit-equal to them, B3 and B4 at the same
+    tolerance: their sums split otherwise), B3 and B4 equal from run to run."""
+    import torch
+
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    from multigrid_tpu_torch.ops import fused_ppo
+
+    def stacked(n, make):
+        return torch.stack([make() for _ in range(n)])
+
+    for n, b in [(N, E), (BUP_N, E)]:
+        packed = stacked(n, lambda: random_cells(rng, b, C, device))
+        w = torch.as_tensor(rng.normal(size=(n, C * 21, HIDDEN)).astype('float32'), device=device)
+        got = fl.onehot_linear_agents_forward(packed, w)
+        singles = torch.stack([fl.onehot_linear_forward(packed[i], w[i]) for i in range(n)])
+        want = fl.onehot_linear_agents_plain(packed, w)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float((diff / (want.float().abs() + 1)).max())
+        check('onehot_linear', f'agent axis N={n} B={b} C={C} H={HIDDEN}', float(diff.max()),
+              err, 2e-2)
+        if not torch.equal(got, singles):
+            fail(f'onehot_linear agent axis N={n} differs from {n} single launches')
+        print(f'  ok   onehot_linear agent axis N={n} B={b}: bit-equal to {n} single launches')
+    for n, b in [(N, E * TRAIN_T), (BUP_N, E * BUP_N * BUP_T // BUP_MB // BUP_N)]:
+        packed = stacked(n, lambda: random_cells(rng, b, C, device, 0.05))
+        g = torch.as_tensor(rng.normal(size=(n, b, HIDDEN)).astype('float32'), device=device)
+        got = fl.onehot_linear_agents_grad_w(packed, g)
+        again = fl.onehot_linear_agents_grad_w(packed, g)
+        want = fl.onehot_linear_agents_grad_w_plain(packed, g)
+        singles = torch.stack([fl.onehot_linear_grad_w(packed[i], g[i]) for i in range(n)])
+        torch.cuda.synchronize()
+        for ref, label in [(want, 'plain'), (singles, f'{n} single launches')]:
+            abs_err = max(float((got[i] - ref[i]).abs().max()) for i in range(n))
+            err = max(float((got[i] - ref[i]).abs().max()) / (float(ref[i].abs().max()) + 1)
+                      for i in range(n))
+            check('onehot_linear_grad', f'agent axis N={n} B={b} against {label}', abs_err,
+                  err, 1e-4)
+        if not torch.equal(got, again):
+            fail(f'onehot_linear_grad agent axis N={n} differs from run to run')
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
+    for n, b, missions in [(N, E * TRAIN_T, 0),
+                           (BUP_N, E * BUP_N * BUP_T // BUP_MB // BUP_N, BUP_F - 2)]:
+        cases = [ppo_inputs(rng, b, C, HIDDEN, missions, device) for _ in range(n)]
+        params = {k: torch.stack([p[k] for p, _ in cases]) for k in cases[0][0]}
+        args = [torch.stack([a[j] for _, a in cases]) for j in range(6)]
+        grads, metrics = fused_ppo.ppo_mlp_grads_agents(params, *args, **kw)
+        again, again_m = fused_ppo.ppo_mlp_grads_agents(params, *args, **kw)
+        want = fused_ppo.ppo_mlp_grads_agents_plain(params, *args,
+                                                    compute_dtype=torch.bfloat16, **kw)
+        singles = [fused_ppo.ppo_mlp_grads({k: v[i] for k, v in params.items()},
+                                           *(a[i] for a in args), **kw) for i in range(n)]
+        singles = ({k: torch.stack([g[k] for g, _ in singles]) for k in grads},
+                   {k: torch.stack([m[k] for _, m in singles]) for k in metrics})
+        torch.cuda.synchronize()
+        if not (all(torch.equal(grads[k], again[k]) for k in grads)
+                and all(torch.equal(metrics[k], again_m[k]) for k in metrics)):
+            fail(f'ppo_loss agent axis N={n} differs from run to run')
+        for (ref_g, ref_m), label in [(want, 'plain'), (singles, f'{n} single launches')]:
+            abs_err = max(float((grads[k] - ref_g[k]).abs().max()) for k in ref_g)
+            err = max(float((grads[k][i] - ref_g[k][i]).abs().max())
+                      / (float(ref_g[k][i].abs().max()) + 1e-6) for k in ref_g for i in range(n))
+            err = max([err] + [abs(float(metrics[k][i]) - float(ref_m[k][i]))
+                               / (abs(float(ref_m[k][i])) + 1e-6)
+                               for k in ref_m for i in range(n)])
+            check('ppo_loss', f'agent axis N={n} B={b} missions={missions} against {label} '
+                  '(equal from run to run)', abs_err, err, 5e-2)
 
 
 def policy_kernel_cases(device):
@@ -1231,8 +1346,9 @@ def train_timing(venv, step, state):
     lib = event_ms(lambda: F.embedding_bag(idx16, w, mode='sum'), 100)
     bd = bound(packed16.numel() * 4 + w.numel() * 4 + b16 * h * 2,
                ops_ms=onehot_ms(nnz16, b16, C, h, 'onehot_linear'))
-    # The per-agent (agent 0's cells, as TrainStep.actor copies them) and
-    # the critic's shapes (every agent's cells of an env, critic-sized W).
+    # One agent's cells (a single launch of an agent's share of the agent
+    # axis's work) and the critic's shapes (every agent's cells of an env,
+    # critic-sized W).
     shapes = {}
     for label, p16, wx in [
             ('per agent', traj.image[0][:, 0].contiguous(), w),
@@ -1299,6 +1415,8 @@ def train_timing(venv, step, state):
     out['ppo_loss'] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bd[0],
                            bound_by=bd[1], stages=stages,
                            per_agent=dict(batch=samples // N, ms=ms_q, stages=stages_q))
+    for name, r in agent_axis_times(traj, p, args, kw).items():
+        out[name]['agents'] = r
     _set_counts(counts)
     for name, r in out.items():
         lib = 'none' if r['library_ms'] is None else f'{r["library_ms"]:.6f} ms'
@@ -1306,6 +1424,68 @@ def train_timing(venv, step, state):
               f'bound {r["bound_ms"]:.6f} ms by {r["bound_by"]}; {r["bound_ms"] / r["ms"]:.4f} '
               'of the bound')
     return state, dict(rate=rate, kernels=out)
+
+
+def agent_axis_times(traj, params, args, kw):
+    """The agent axis of B2, B3 and B4 at the flagship's per-agent shapes,
+    on this rollout's cells laid out agent-major as the per-agent path lays
+    them out: one launch over the N agents beside N single-agent launches
+    of the same work (B2 by its launches alone, B3 and B4 by their calls;
+    CUDA events), with the launch's bound. Each agent's weights are the
+    trained net's plus its own noise."""
+    import torch
+
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    from multigrid_tpu_torch.ops import fused_ppo
+
+    h, out = HIDDEN, {}
+    gen = torch.Generator(device=traj.image.device).manual_seed(50)
+
+    def noisy(v):
+        return v + 1e-3 * torch.randn((N,) + v.shape, generator=gen, device=v.device)
+
+    def row(shape, ms, singles_ms, bd):
+        print(f'  agent axis {shape}: one launch {ms:.6f} ms, {N} single launches '
+              f'{singles_ms:.6f} ms ({singles_ms / ms:.4f}x); bound {bd[0]:.6f} ms by {bd[1]} '
+              f'({bd[0] / ms:.4f} of the bound)')
+        return dict(agents=N, shape=list(shape), ms=ms, single_launches_ms=singles_ms,
+                    bound_ms=bd[0], bound_by=bd[1])
+
+    # B2: a rollout step's cells, (N, E, C).
+    p2 = traj.image[0].movedim(1, 0).contiguous()
+    w2 = noisy(params['img_kernel'])
+    ms, singles = onehot_agents_launch_ms(p2, w2)
+    nnz = nonzeros(p2)
+    bd = bound(p2.numel() * 4 + w2.numel() * 4 + N * E * h * 2,
+               ops_ms=onehot_ms(nnz, N * E, C, h, 'onehot_linear agent axis'))
+    out['onehot_linear'] = row((N, E, C, h), ms, singles, bd)
+
+    # B3 and B4: an SGD step's samples, (N, T·E, ...).
+    def agent_major(a):
+        return a.reshape((-1, N) + a.shape[1:]).movedim(1, 0).contiguous()
+    args_a = [agent_major(a) for a in args]
+    p3, b = args_a[0], args_a[0].shape[1]
+    g3 = (torch.randn(N, b, h, generator=gen, device=p3.device) * 1e-3).to(torch.bfloat16)
+    ms = event_ms(lambda: fl.onehot_linear_agents_grad_w(p3, g3), 20)
+    singles = event_ms(lambda: [fl.onehot_linear_grad_w(p3[i], g3[i]) for i in range(N)], 20)
+    nnz = nonzeros(p3)
+    bd = bound(p3.numel() * 4 + g3.numel() * 2 + N * C * 21 * h * 4,
+               ops_ms=onehot_ms(nnz, N * b, C, h, 'onehot_linear_grad agent axis'))
+    out['onehot_linear_grad'] = row((N, b, C, h), ms, singles, bd)
+
+    pa = {k: noisy(v) for k, v in params.items()}
+    each = [{k: v[i] for k, v in pa.items()} for i in range(N)]
+    ms = event_ms(lambda: fused_ppo.ppo_mlp_grads_agents(pa, *args_a, **kw), 10)
+    singles = event_ms(lambda: [fused_ppo.ppo_mlp_grads(each[i], *(a[i] for a in args_a), **kw)
+                                for i in range(N)], 10)
+    f1 = args_a[1].shape[-1] + 1
+    param_bytes = sum(v.numel() * 4 for v in pa.values())
+    in_bytes = sum(a.numel() * a.element_size() for a in args_a) + param_bytes
+    dense = 2 * N * b * (2 * f1 * h + 3 * h * h + 3 * h * 8)
+    bd = bound(in_bytes + param_bytes, tensor_ops=dense,
+               ops_ms=2 * onehot_ms(nnz, N * b, C, h, 'ppo_loss agent axis (h and dW_img)'))
+    out['ppo_loss'] = row((N, b, C, h), ms, singles, bd)
+    return out
 
 
 def rollout_layers(step, state, steps=8):
@@ -1368,7 +1548,8 @@ def profile_update(step, state, label='update'):
 def variants(device=None):
     """The trained flagship through each learner variant, each from its own
     warmed-up state, with exact launch counts. Returns ``{name: (step,
-    snapshot)}`` for the timing and the fused run's launch counts."""
+    snapshot)}`` for the timing, the fused run's launch counts and the
+    per-agent runs' (``{'loss kernel': ..., 'gate off': ...}``)."""
     import torch
 
     from multigrid_tpu_torch import VectorEnv, make
@@ -1428,10 +1609,15 @@ def variants(device=None):
     finally:
         fused_ppo.supports = gate
     snap = _snapshot(per_agent, state)
+    # One launch of each kernel's agent axis for all N agents: a rollout
+    # step's first layer, an SGD step's loss (gate off: its first layer and
+    # that layer's dW).
     _, rows_k = _counted(per_agent, snap, 3, 'per-agent policies, loss kernel',
-                         onehot_linear=3 * N * per_update, ppo_loss=3 * N)
+                         onehot_linear=3 * per_update, ppo_loss=3)
+    counts_agents = {'loss kernel': _counts()}
     _, rows_o = _counted(per_agent_off, snap, 3, 'per-agent policies, gate off',
-                         onehot_linear=3 * (N * per_update + N), onehot_linear_grad=3 * N)
+                         onehot_linear=3 * (per_update + 1), onehot_linear_grad=3)
+    counts_agents['gate off'] = _counts()
     _track(rows_o, rows_k, 'per-agent gate off vs loss kernel')
     out['per-agent'] = (per_agent, snap)
     out['per-agent, gate off'] = (per_agent_off, snap)
@@ -1446,11 +1632,10 @@ def variants(device=None):
                                        net_kwargs=dict(encoder='mlp'))
         step = make_train_step(venv, net, cfg, tx)
         snap = _snapshot(step, state)
-        actors = 1 if shared else N
         name = f'centralized critic, {"shared" if shared else "per-agent"} actor'
-        after, _ = _counted(step, snap, 2, name,
-                            onehot_linear=2 * ((actors + 1) * per_update + actors + 1),
-                            onehot_linear_grad=2 * (actors + 1))
+        # The actor (per-agent: all agents in one launch) and the critic.
+        after, _ = _counted(step, snap, 2, name, onehot_linear=2 * (2 * per_update + 2),
+                            onehot_linear_grad=2 * 2)
         for group in ('actor.', 'critic.'):
             keys = [k for k in snap[0].params if k.startswith(group)]
             moved = sum(not torch.equal(snap[0].params[k], after.params[k]) for k in keys)
@@ -1458,7 +1643,7 @@ def variants(device=None):
             if not moved:
                 fail(f'{name}: no {group[:-1]} parameter moved')
         out[name] = (step, snap)
-    return out, counts_fused
+    return out, counts_fused, counts_agents
 
 
 def variant_timing(steps):
@@ -3329,7 +3514,7 @@ def main() -> None:
     phase('train breakdown')
     train_breakdown(step, tstate)
     phase('variants')
-    steps, counts_fused = variants()
+    steps, counts_fused, counts_agents = variants()
     phase('variant timing')
     vt = variant_timing(steps)
     phase('wide view')
@@ -3392,6 +3577,9 @@ def main() -> None:
                             max_rel_err=errs[name][1], sass_tensor_ops=sass[name],
                             **tt['kernels'][name]))
     kernels[2]['launches_path'] = 'train, learner gate off (autograd)'
+    for k, run in zip(kernels[1:4], ('loss kernel', 'gate off', 'loss kernel')):
+        k['agents'].update(launches=counts_agents[run][k['name']],
+                           launches_path=f'3 per-agent flagship updates, {run}')
     kernels[1]['launches_visualize_mlp'] = vis['launches_b2']
     for k in kernels[1:4]:
         k['launches_bup_train'] = bcounts[k['name']]

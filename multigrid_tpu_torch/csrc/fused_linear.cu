@@ -41,6 +41,12 @@
 // chunk's partial (no atomics) and a second pass sums the partials in a
 // fixed order, so dW is the same from run to run.
 //
+// Per-agent policies (the JAX package vmaps the TPU kernels over stacked
+// per-agent weights, and Pallas's batching rule adds a leading grid axis
+// over the agents) take both kernels with an agent axis, one launch for
+// all agents: the forward's blockIdx.z is the agent, and the gradient's
+// blockIdx.z is agent * chunks + chunk, the agents sharing the SMs' wave.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (multigrid_tpu_torch/utils/build.py does this).
 
@@ -59,29 +65,36 @@ constexpr int kFwdGroup = 3;      // channels a stage: 48 W rows
 
 // out[s0 .. s0 + 64, col0 .. col0 + BN) = bf16(one_hot(packed) @ W): the
 // block's 64 x BN tile on the tensor cores (onehot_mma.cuh). W is (C*21,
-// ldw) with ldw >= h a multiple of 8 (zero columns past h).
-template <int BN>
+// ldw) with ldw >= h a multiple of 8 (zero columns past h). With kAgents,
+// blockIdx.z is the agent: agent a's cells, weights and output follow a's
+// predecessors contiguously ((N, B, C), (N, C*21, ldw), (N, B, H)), and
+// each of its rows is computed as a launch of that agent alone computes it.
+// Its cells and output rows are addressed by row (agent * B + sample), its
+// weights by pointer; the single-agent instance keeps its code.
+template <int BN, bool kAgents>
 __global__ void __launch_bounds__(kFwdThreads) onehot_linear_kernel(
-    const int32_t* __restrict__ packed,     // (B, C)
-    const __nv_bfloat16* __restrict__ w,    // (C*21, ldw)
-    __nv_bfloat16* __restrict__ out,        // (B, H)
+    const int32_t* __restrict__ packed,     // (N, B, C)
+    const __nv_bfloat16* __restrict__ w,    // (N, C*21, ldw)
+    __nv_bfloat16* __restrict__ out,        // (N, B, H)
     int b, int c, int h, int ldw) {
   constexpr int kNT = BN / 8;
   __shared__ __align__(16) __nv_bfloat16 ring[kFwdStages * 16 * kFwdGroup * (BN + 8)];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
-  const int s0 = blockIdx.x * kFwdRows, col0 = blockIdx.y * BN;
+  const int base = kAgents ? static_cast<int>(blockIdx.z) * b : 0, end = base + b;
+  if (kAgents) w += static_cast<size_t>(blockIdx.z) * c * kNch * ldw;
+  const int s0 = base + blockIdx.x * kFwdRows, col0 = blockIdx.y * BN;
   float acc[kNT][4];
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
-  onehot_mma<BN, kNT, kFwdThreads, kFwdStages, kFwdGroup>(packed, b, c, s0, 16 * warp + grp, w, ldw, col0,
-                                               ldw, ring, 0, acc);
+  onehot_mma<BN, kNT, kFwdThreads, kFwdStages, kFwdGroup>(packed, end, c, s0, 16 * warp + grp, w, ldw,
+                                               col0, ldw, ring, 0, acc);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = s0 + 16 * warp + grp + 8 * i;
-    if (row >= b) continue;
+    if (row >= end) continue;
     __nv_bfloat16* o = out + static_cast<size_t>(row) * h;
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
@@ -125,8 +138,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 }
 
 // dW = one_hot(packed)^T @ g as a tensor-core product. Block (cell tile,
-// column tile, batch chunk) sums its 12 cells' rows x BN columns over the
-// chunk in f32 registers and writes them to the chunk's partial. A stage
+// column tile, agent * chunks + batch chunk) sums its 12 cells' rows x BN
+// columns over its agent's chunk in f32 registers and writes them to that
+// chunk's partial (agent a's cells and g follow a's predecessors
+// contiguously, (N, B, C) and (N, B, H); its partials are slabs a * chunks
+// .. a * chunks + chunks - 1, or slab a of dW with one chunk). A stage
 // takes one barrier: with stage q + 1 landed, the block turns its cells
 // into 21-bit channel masks (channel_bits) while the warps multiply stage
 // q. The A fragment of row cell*21 + ch is bit ch of the cells' masks,
@@ -136,10 +152,10 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 // chunk read g as 0 and cells past C are never written.
 template <int BN>
 __global__ void __launch_bounds__(kGradThreads, 1) onehot_grad_kernel(
-    const int32_t* __restrict__ packed,     // (B, C)
-    const __nv_bfloat16* __restrict__ g,    // (B, H)
-    float* __restrict__ out,                // (chunks, C*21, H) or (C*21, H)
-    int b, int c, int h, int chunk) {
+    const int32_t* __restrict__ packed,     // (N, B, C)
+    const __nv_bfloat16* __restrict__ g,    // (N, B, H)
+    float* __restrict__ out,                // (N * chunks, C*21, H) or (N, C*21, H)
+    int b, int c, int h, int chunks, int chunk) {
   constexpr int kNT = BN / 8;
   constexpr int kLd = BN + 8;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
@@ -148,7 +164,10 @@ __global__ void __launch_bounds__(kGradThreads, 1) onehot_grad_kernel(
   const int cell0 = blockIdx.x * kGradCells;
   const int ncell = min(kGradCells, c - cell0);
   const int col0 = blockIdx.y * BN;
-  const int s_begin = blockIdx.z * chunk;
+  const size_t agent = blockIdx.z / chunks;
+  packed += agent * b * c;
+  g += agent * b * h;
+  const int s_begin = static_cast<int>(blockIdx.z - agent * chunks) * chunk;
   const int s_end = min(b, s_begin + chunk);
   const int stages = max(0, (s_end - s_begin + kGradSamples - 1) / kGradSamples);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -268,20 +287,23 @@ __global__ void __launch_bounds__(kGradThreads, 1) onehot_grad_kernel(
     }
 }
 
-// out[i] = sum over k of partial[k][i], k in order.
+// out[a][i] = sum over k of partial[a][k][i], k in order, for each of
+// `agents` slabs of n entries.
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, int chunks,
-                                    int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                                    int n, int agents) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(n) * agents) return;
+  const size_t a = i / n, j = i - a * n;
+  const float* p = partial + a * chunks * n + j;
   float s = 0.f;
-  for (int k = 0; k < chunks; ++k) s += partial[static_cast<size_t>(k) * n + i];
+  for (int k = 0; k < chunks; ++k) s += p[static_cast<size_t>(k) * n];
   out[i] = s;
 }
 
 template <int BN>
-int launch_grad(const void* packed, const void* g, float* dst, int b, int c, int h,
-                int chunks, int chunk, cudaStream_t st) {
+int launch_grad(const void* packed, const void* g, float* dst, int agents, int b, int c,
+                int h, int chunks, int chunk, cudaStream_t st) {
   static bool sized = false;  // the kernel's shared memory is past the 48 KB default
   // (internal linkage: one flag for this library's kernel)
   const int smem = static_cast<int>(sizeof(GradSmem<BN>));
@@ -291,39 +313,85 @@ int launch_grad(const void* packed, const void* g, float* dst, int b, int c, int
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  const dim3 grid((c + kGradCells - 1) / kGradCells, (h + BN - 1) / BN, chunks);
+  const dim3 grid((c + kGradCells - 1) / kGradCells, (h + BN - 1) / BN, agents * chunks);
   onehot_grad_kernel<BN><<<grid, kGradThreads, smem, st>>>(
       static_cast<const int32_t*>(packed), static_cast<const __nv_bfloat16*>(g), dst, b, c,
-      h, chunk);
+      h, chunks, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+void launch_forward_bn(bool agents, dim3 grid, cudaStream_t st, const int32_t* p,
+                       const __nv_bfloat16* w, __nv_bfloat16* o, int b, int c, int h, int ldw) {
+  if (agents)
+    onehot_linear_kernel<BN, true><<<grid, kFwdThreads, 0, st>>>(p, w, o, b, c, h, ldw);
+  else
+    onehot_linear_kernel<BN, false><<<grid, kFwdThreads, 0, st>>>(p, w, o, b, c, h, ldw);
+}
+
+// The forward over `agents` agents, blockIdx.z the agent. A block takes 64
+// samples and BN columns: BN the smallest of 32, 64, 128 that covers ldw,
+// halved while the blocks of all agents would fill under half the SMs (BN
+// changes which block computes a row, not its sums).
+int launch_forward(const void* packed, const void* w, void* out, int agents, int b, int c,
+                   int h, int ldw, cudaStream_t st) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int rows = (b + kFwdRows - 1) / kFwdRows;
+  int bn = ldw <= 32 ? 32 : ldw <= 64 ? 64 : 128;
+  while (bn > 32 && 2 * agents * rows * ((ldw + bn - 1) / bn) <= sms) bn /= 2;
+  const dim3 grid(rows, (ldw + bn - 1) / bn, agents);
+  const auto* p = static_cast<const int32_t*>(packed);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  switch (bn) {
+    case 32: launch_forward_bn<32>(agents > 1, grid, st, p, wb, o, b, c, h, ldw); break;
+    case 64: launch_forward_bn<64>(agents > 1, grid, st, p, wb, o, b, c, h, ldw); break;
+    default: launch_forward_bn<128>(agents > 1, grid, st, p, wb, o, b, c, h, ldw); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dW of `agents` agents: the product, then (chunks > 1) the partials' sum.
+int launch_grad_all(const void* packed, const void* g, void* partial, void* out, int agents,
+                    int b, int c, int h, int chunks, int chunk, cudaStream_t st) {
+  float* dst = chunks > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
+  int err;
+  switch (h) {
+    case 32: err = launch_grad<32>(packed, g, dst, agents, b, c, h, chunks, chunk, st); break;
+    case 64: err = launch_grad<64>(packed, g, dst, agents, b, c, h, chunks, chunk, st); break;
+    case 128:
+    case 256: err = launch_grad<128>(packed, g, dst, agents, b, c, h, chunks, chunk, st); break;
+    default: return -1;
+  }
+  if (err != 0 || chunks == 1) return err;
+  const int n = c * kNch * h;
+  const size_t total = static_cast<size_t>(n) * agents;
+  sum_partials_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), chunks, n, agents);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). W is
-// (C*21, ldw), ldw a multiple of 8 and 16-byte aligned rows. A block takes
-// 64 samples and BN columns: BN the smallest of 32, 64, 128 that covers
-// ldw, halved while the blocks would fill under half the SMs.
+// (C*21, ldw), ldw a multiple of 8 and 16-byte aligned rows.
 extern "C" int mgt_onehot_linear_launch(const void* packed, const void* w,
                                         void* out, int b, int c, int h,
                                         int ldw, void* stream) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int rows = (b + kFwdRows - 1) / kFwdRows;
-  int bn = ldw <= 32 ? 32 : ldw <= 64 ? 64 : 128;
-  while (bn > 32 && 2 * rows * ((ldw + bn - 1) / bn) <= sms) bn /= 2;
-  const dim3 grid(rows, (ldw + bn - 1) / bn);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const int32_t*>(packed);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  switch (bn) {
-    case 32: onehot_linear_kernel<32><<<grid, kFwdThreads, 0, st>>>(p, wb, o, b, c, h, ldw); break;
-    case 64: onehot_linear_kernel<64><<<grid, kFwdThreads, 0, st>>>(p, wb, o, b, c, h, ldw); break;
-    default: onehot_linear_kernel<128><<<grid, kFwdThreads, 0, st>>>(p, wb, o, b, c, h, ldw); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_forward(packed, w, out, 1, b, c, h, ldw, static_cast<cudaStream_t>(stream));
+}
+
+// The forward of `agents` agents in one launch, the batched instance of
+// the TPU kernel that jax.vmap makes over per-agent policies: packed (N, B,
+// C), W (N, C*21, ldw), out (N, B, H), each agent's rows as its own launch
+// computes them.
+extern "C" int mgt_onehot_linear_agents_launch(const void* packed, const void* w,
+                                               void* out, int agents, int b, int c,
+                                               int h, int ldw, void* stream) {
+  return launch_forward(packed, w, out, agents, b, c, h, ldw,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // dW into `out` (C*21, H) f32, H one of 32, 64, 128, 256. Blocks take 12
@@ -335,19 +403,18 @@ extern "C" int mgt_onehot_linear_launch(const void* packed, const void* w,
 extern "C" int mgt_onehot_grad_launch(const void* packed, const void* g,
                                       void* partial, void* out, int b, int c,
                                       int h, int chunks, int chunk, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = chunks > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
-  int err;
-  switch (h) {
-    case 32: err = launch_grad<32>(packed, g, dst, b, c, h, chunks, chunk, st); break;
-    case 64: err = launch_grad<64>(packed, g, dst, b, c, h, chunks, chunk, st); break;
-    case 128:
-    case 256: err = launch_grad<128>(packed, g, dst, b, c, h, chunks, chunk, st); break;
-    default: return -1;
-  }
-  if (err != 0 || chunks == 1) return err;
-  const int n = c * kNch * h;
-  sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), chunks, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_grad_all(packed, g, partial, out, 1, b, c, h, chunks, chunk,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// dW of `agents` agents in one launch (and one sum of partials): packed (N,
+// B, C), g (N, B, H), `partial` (N * chunks, C*21, H), `out` (N, C*21, H);
+// every agent's batch split into the same chunks, each agent's partials
+// summed in chunk order, as its own launch sums them.
+extern "C" int mgt_onehot_grad_agents_launch(const void* packed, const void* g,
+                                             void* partial, void* out, int agents, int b,
+                                             int c, int h, int chunks, int chunk,
+                                             void* stream) {
+  return launch_grad_all(packed, g, partial, out, agents, b, c, h, chunks, chunk,
+                         static_cast<cudaStream_t>(stream));
 }

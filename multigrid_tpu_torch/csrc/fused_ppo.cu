@@ -35,6 +35,16 @@
 // pass sums in a fixed order, so the gradients are the same from run to
 // run. mma.sync rather than wgmma: see onehot_mma.cuh.
 //
+// Per-agent policies take the kernel with an agent axis (kAgents), the
+// batched instance that jax.vmap makes of the TPU kernel over stacked
+// per-agent weights: blockIdx.y is the agent, each agent's per-sample
+// inputs, weights, dx1 and partials follow its predecessors' contiguously,
+// every agent gets gridDim.x persistent blocks, and the second pass sums
+// each agent's partials apart. The single-agent instance keeps its code
+// (kAgents false: the offsets fold to 0), since at H 128 it sits at the
+// register cap; the agent instance addresses its samples by row (agent * B
+// + sample), its weights by pointer.
+//
 // One (sample, H) tensor leaves the chip: dx1, bf16 (67 MB at the
 // flagship), because dW_img, the (C*21, H) f32 gradient of the first layer,
 // does not fit a block's shared memory: the wrapper runs the gradient
@@ -93,8 +103,9 @@ struct Layout {
 
 // The whole loss, forward and backward, a tile of 64 samples at a time; a
 // block walks tiles tile = blockIdx.x, + gridDim.x, ... and writes its
-// partial sums once.
-template <int H>
+// partial sums once. With kAgents, of agent blockIdx.y's arrays (shapes
+// below are an agent's).
+template <int H, bool kAgents>
 __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
     const int32_t* __restrict__ packed,        // (B, C)
     const float* __restrict__ dirf,            // (B, F)
@@ -115,6 +126,20 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
     int b, int c, int f, int na, Coefs k) {
   using L = Layout<H>;
   constexpr int kLd = L::kLd;
+  // The agent's samples are rows base .. end of the (N * B)-row arrays: an
+  // index rather than seven pointers kept live in registers.
+  const int base = kAgents ? static_cast<int>(blockIdx.y) * b : 0, end = base + b;
+  if (kAgents) {
+    const size_t agent = blockIdx.y;
+    w_img += agent * c * kNch * H;
+    wd += agent * (f + 1) * H;
+    w1 += agent * H * H;
+    b1 += agent * H;
+    wa += agent * H * na;
+    ba += agent * na;
+    wv += agent * H;
+    bv += agent;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kW1);
   __nv_bfloat16* wds = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kWd);
@@ -163,10 +188,10 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
   float acc_b1 = 0.f, acc_bv = 0.f, sum_pg = 0.f, sum_vf = 0.f, sum_ent = 0.f;
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int s0 = tile * kTM;
+    const int s0 = base + tile * kTM;
     __syncthreads();  // the previous tile's readers are done
-    mlp_load_dirs(dirf, b, f, s0, dirs);
-    if (tid < kTM && s0 + tid < b) {
+    mlp_load_dirs(dirf, end, f, s0, dirs);
+    if (tid < kTM && s0 + tid < end) {
       const int n = s0 + tid;
       acts[tid] = action[n];
       olps[tid] = old_logp[n];
@@ -176,14 +201,14 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
 
     // The forward (mlp_forward.cuh): x1, x2 and [logits | value] of the
     // tile in shared memory; the ring, free again, primed for the next tile.
-    mlp_forward<H, kStages, kGroup, false>(packed, b, c, s0, tile + gridDim.x < ntiles, w_img,
+    mlp_forward<H, kStages, kGroup, false>(packed, end, c, s0, tile + gridDim.x < ntiles, w_img,
                                           ring, wds, dirs, w1s, b1s, x1s, x2s, whs, lgs, warp, lane, grp, tig,
                                           wm, r0, n0);
 
     // The loss and dlogits: one thread a sample.
     if (tid < kTM) {
       const int s = tid;
-      if (s0 + s >= b) {
+      if (s0 + s >= end) {
 #pragma unroll
         for (int a = 0; a <= kA; ++a) dlv[s * kDlLd + a] = __float2bfloat16(0.f);
       } else {
@@ -315,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
     // dx1 out to memory for dW_img; dWd += [dirf, 1]^T dx1.
     for (int i = tid; i < kTM * H / 8; i += kThreads) {
       const int s = i / (H / 8), q = (i % (H / 8)) * 8;
-      if (s0 + s < b)
+      if (s0 + s < end)
         *reinterpret_cast<uint4*>(dx1_out + static_cast<size_t>(s0 + s) * H + q) =
             *reinterpret_cast<const uint4*>(dx1s + s * kLd + q);
     }
@@ -333,7 +358,8 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
   // dWa (H, kA) at kk*kA + a, dWv at kA*H + kk, then dba, dbv and the three
   // sums at 9H.
   const int p_len = H * H + H + f1 * H + L::kTail;
-  float* out = partial + static_cast<size_t>(blockIdx.x) * p_len;
+  float* out = partial + ((kAgents ? static_cast<size_t>(blockIdx.y) * gridDim.x : 0)
+                          + blockIdx.x) * p_len;
   float* tail = out + H * H + H + f1 * H;
   if (warp < L::kW1Warps) {
 #pragma unroll
@@ -396,28 +422,32 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_loss_kernel(
   }
 }
 
+// out[a][i] = sum over r of partial[a][r][i], r in order, for each of
+// `agents` agents' `rows` partials of n entries.
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ out, int rows, int n) {
+                                    float* __restrict__ out, int rows, int n, int agents) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n * agents) return;
+  const int a = i / n, j = i - a * n;
+  const float* p = partial + static_cast<size_t>(a) * rows * n + j;
   float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += partial[static_cast<size_t>(r) * n + i];
+  for (int r = 0; r < rows; ++r) s += p[static_cast<size_t>(r) * n];
   out[i] = s;
 }
 
-template <int H>
+template <int H, bool kAgents>
 int launch(const void* packed, const void* dirf, const void* action,
            const void* old_logp, const void* adv, const void* target,
            const void* w_img, const void* wd, const void* w1, const void* b1,
            const void* wa, const void* ba, const void* wv, const void* bv,
-           void* dx1, void* partial, void* out, int b, int c, int f, int na,
+           void* dx1, void* partial, void* out, int agents, int b, int c, int f, int na,
            int blocks, Coefs k, cudaStream_t st) {
   const size_t smem = Layout<H>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      ppo_loss_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ppo_loss_kernel<H, kAgents>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ppo_loss_kernel<H><<<blocks, kThreads, smem, st>>>(
+  ppo_loss_kernel<H, kAgents><<<dim3(blocks, agents), kThreads, smem, st>>>(
       static_cast<const int32_t*>(packed), static_cast<const float*>(dirf),
       static_cast<const int32_t*>(action), static_cast<const float*>(old_logp),
       static_cast<const float*>(adv), static_cast<const float*>(target),
@@ -429,9 +459,31 @@ int launch(const void* packed, const void* dirf, const void* action,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = H * H + H + (f + 1) * H + Layout<H>::kTail;
-  sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), blocks, n);
+  sum_partials_kernel<<<(n * agents + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), blocks, n, agents);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAgents>
+int launch_width(const void* packed, const void* dirf, const void* action,
+                 const void* old_logp, const void* adv, const void* target,
+                 const void* w_img, const void* wd, const void* w1, const void* b1,
+                 const void* wa, const void* ba, const void* wv, const void* bv,
+                 void* dx1, void* partial, void* out, int agents, int b, int c, int f,
+                 int na, int h, int blocks, Coefs k, cudaStream_t st) {
+#define MGT_PPO_CASE(HH)                                                          \
+  case HH:                                                                        \
+    return launch<HH, kAgents>(packed, dirf, action, old_logp, adv, target, w_img, \
+                               wd, w1, b1, wa, ba, wv, bv, dx1, partial, out,      \
+                               agents, b, c, f, na, blocks, k, st);
+  switch (h) {
+    MGT_PPO_CASE(32)
+    MGT_PPO_CASE(64)
+    MGT_PPO_CASE(128)
+    default:
+      return -1;
+  }
+#undef MGT_PPO_CASE
 }
 
 }  // namespace
@@ -446,19 +498,26 @@ extern "C" int mgt_ppo_loss_launch(
     void* dx1, void* partial, void* out, int b, int c, int f, int na, int h,
     int blocks,
     float inv_b, float c_ent, float c_vf, float lo, float hi, void* stream) {
-  const Coefs k{inv_b, c_ent, c_vf, lo, hi};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MGT_PPO_CASE(HH)                                                     \
-  case HH:                                                                   \
-    return launch<HH>(packed, dirf, action, old_logp, adv, target, w_img, wd, \
-                      w1, b1, wa, ba, wv, bv, dx1, partial, out, b, c, f, na, \
-                      blocks, k, st);
-  switch (h) {
-    MGT_PPO_CASE(32)
-    MGT_PPO_CASE(64)
-    MGT_PPO_CASE(128)
-    default:
-      return -1;
-  }
-#undef MGT_PPO_CASE
+  return launch_width<false>(packed, dirf, action, old_logp, adv, target, w_img, wd, w1, b1,
+                             wa, ba, wv, bv, dx1, partial, out, 1, b, c, f, na, h, blocks,
+                             Coefs{inv_b, c_ent, c_vf, lo, hi},
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The loss of `agents` agents in one launch: every array (N, ...) with the
+// shape of mgt_ppo_loss_launch's for each agent (B samples an agent), each
+// agent on `blocks` blocks, its partials (N, blocks, P) summed into out (N,
+// P); inv_b is 1/B, each agent's loss a mean over its own samples.
+extern "C" int mgt_ppo_loss_agents_launch(
+    const void* packed, const void* dirf, const void* action,
+    const void* old_logp, const void* adv, const void* target,
+    const void* w_img, const void* wd, const void* w1, const void* b1,
+    const void* wa, const void* ba, const void* wv, const void* bv,
+    void* dx1, void* partial, void* out, int agents, int b, int c, int f, int na, int h,
+    int blocks,
+    float inv_b, float c_ent, float c_vf, float lo, float hi, void* stream) {
+  return launch_width<true>(packed, dirf, action, old_logp, adv, target, w_img, wd, w1, b1,
+                            wa, ba, wv, bv, dx1, partial, out, agents, b, c, f, na, h, blocks,
+                            Coefs{inv_b, c_ent, c_vf, lo, hi},
+                            static_cast<cudaStream_t>(stream));
 }

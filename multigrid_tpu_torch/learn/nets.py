@@ -29,6 +29,12 @@ exists for the tests) the one-hot product in float32, as flax computes it
 outside the kernel. The cnn runs its three VALID 3x3 convolutions through
 ``torch.nn.functional.conv2d`` (the JAX package computes them in XLA, not
 in a Pallas kernel).
+
+Per-agent policies stack every parameter on a leading agent axis; the JAX
+package applies the net to them with ``jax.vmap``. For the mlp,
+:func:`apply_per_agent` is that batched forward: the first layer of all
+agents in one launch of the first-layer kernel's agent axis, ``Dense_0…3``
+batched products over the stacked weights.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ from ..ops.fused_linear import NCH, OBS_CHANNELS, one_hot_image, onehot_linear
 DTYPE = torch.bfloat16
 
 __all__ = ['CNN_MIN_VIEW', 'OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic',
-           'direction_features', 'dir_mission_features', 'make_centralized_critic',
-           'one_hot_image', 'params_from_flax', 'params_to_flax']
+           'apply_per_agent', 'direction_features', 'dir_mission_features',
+           'make_centralized_critic', 'one_hot_image', 'params_from_flax', 'params_to_flax']
 
 
 def direction_features(direction: torch.Tensor, dtype=DTYPE) -> torch.Tensor:
@@ -216,6 +222,48 @@ def _first_layer(image, w, cells, lead, packed, dtype):
         return h.to(dtype)
     x = one_hot_image(image, dtype, packed=packed).reshape(lead + (cells * NCH,))
     return x @ w.to(dtype)
+
+
+def apply_per_agent(net: ActorCritic, params: dict[str, torch.Tensor], image: torch.Tensor,
+                    direction: torch.Tensor, mission: torch.Tensor | None = None):
+    """The mlp ``net`` with per-agent parameters (every leaf stacked (N,
+    ...)), agent ``i``'s slice on agent ``i``'s observations, all agents at
+    once: the counterpart of the JAX package's ``jax.vmap(net.apply)`` over
+    the agent axis (multigrid_tpu/learn/ppo.py:269-285).
+
+    ``image`` (..., N, C) packed cells or (..., N, vs, vs, 3) triples,
+    ``direction`` and ``mission`` (..., N). The first layer is one call of
+    :func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear` on (N, B,
+    C) cells (one launch on the card) where :func:`_first_layer` would take
+    the kernel, else the one-hot product; ``Dense_0…3`` are batched products
+    over the stacked weights, in the net's ``dtype`` as ``Dense`` computes
+    them. Returns float32 ``(logits (..., N, A), value (..., N))``.
+    """
+    if net.encoder != 'mlp':
+        raise ValueError(f'apply_per_agent batches the mlp, not the {net.encoder}')
+    n, lead, dt = direction.shape[-1], direction.shape[:-1], net.dtype
+    axis = image.dim() - (2 if net.packed_obs else 4)
+    # Agent axis first, copied once, each agent's rows contiguous.
+    x = image.movedim(axis, 0).contiguous()
+    x = x.reshape((n, -1) + x.shape[len(lead) + 1:])
+    d = dir_mission_features(direction, mission, net.num_missions, dt)
+    d = d.movedim(-2, 0).reshape(n, -1, d.shape[-1])
+    w = params['img_kernel']
+    if net.packed_obs and (x.is_cuda or dt == torch.bfloat16):
+        h = onehot_linear(x, w).to(dt)
+    else:
+        h = torch.bmm(one_hot_image(x, dt, packed=net.packed_obs).reshape(n, x.shape[1], -1),
+                      w.to(dt))
+
+    def dense(x, name):
+        y = torch.bmm(x.to(dt), params[f'{name}.kernel'].to(dt))
+        return y + params[f'{name}.bias'].to(dt)[:, None]
+
+    x = torch.relu(h + dense(d, 'Dense_0'))
+    x = torch.relu(dense(x, 'Dense_1'))
+    logits = dense(x, 'Dense_2').float().reshape((n,) + lead + (-1,))
+    value = dense(x, 'Dense_3').float().reshape((n,) + lead)
+    return logits.movedim(0, -2), value.movedim(0, -1)
 
 
 class CentralizedCritic(nn.Module):

@@ -8,14 +8,15 @@ centralized critic (``PPOConfig.centralized_critic``). An update
 (:class:`TrainStep`) runs ``rollout_steps`` lockstep steps of the vector env
 with actions sampled from the policy, computes GAE, and takes ``epochs`` ×
 ``minibatches`` SGD steps. On the card the rollout's first layer is the
-``onehot_linear`` kernel (once per agent with per-agent policies), or, with
+``onehot_linear`` kernel (per-agent mlp policies: one launch over all
+agents, :func:`~multigrid_tpu_torch.learn.nets.apply_per_agent`), or, with
 ``MULTIGRID_FUSED_POLICY`` set for a shared policy without the critic, the
 whole policy step is the fused-policy kernel; a cnn actor runs through
 autograd and ``conv2d`` (the kernels are the mlp's). Envs with missions
 (BlockedUnlockPickup) give the nets the episode's mission, sized from the
 env's mission space, as a one-hot after the direction features: the
 kernels' direction-feature operand (F = 2 + missions). The learner is the fused
-PPO-loss kernel (once per agent with per-agent policies) where
+PPO-loss kernel (per-agent policies: one launch over all agents) where
 :func:`~multigrid_tpu_torch.ops.fused_ppo.supports` holds and there is no
 centralized critic and the actor is the mlp, else autograd of
 :meth:`TrainStep.loss_fn` (whose mlp first layers' weight gradients are the
@@ -71,7 +72,14 @@ from ..ops import fused_policy, fused_ppo
 from ..parallel import distributed
 from ..parallel.mesh import gather_params, shard_params
 from ..parallel.vector import VectorEnv
-from .nets import ACTOR, CRITIC, ActorCritic, dir_mission_features, make_centralized_critic
+from .nets import (
+    ACTOR,
+    CRITIC,
+    ActorCritic,
+    apply_per_agent,
+    dir_mission_features,
+    make_centralized_critic,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -394,11 +402,14 @@ class TrainStep:
     def actor(self, params, image, direction, mission=None):
         """The actor's ``(logits, value)`` for (..., N, ...) observations.
         Per-agent policies apply agent i's parameter slice to agent i's
-        observations: one first-layer launch per agent, each on that agent's
-        cells, copied once into a contiguous batch."""
+        observations: the mlp for all agents at once (one first-layer
+        launch, :func:`apply_per_agent`, as the JAX package ``vmap``s it),
+        the cnn agent by agent."""
         ap = self.actor_params(params)
         if not self.config.per_agent_policies:
             return functional_call(self.net, ap, (image, direction, mission))
+        if self.net.encoder == 'mlp':
+            return apply_per_agent(self.net, ap, image, direction, mission)
         # Agent axis first, copied once, so each agent's rows are contiguous
         # (a strided slice of (E, N, C) may reshape to a non-contiguous view).
         image = image.movedim(image.dim() - (2 if self.net.packed_obs else 4), 0).contiguous()
@@ -586,8 +597,8 @@ class TrainStep:
     def loss_grads(self, params, traj: Rollout, advantages, targets):
         """``(grads, metrics)``: the fused PPO-loss kernel where its gate
         holds, the actor is the mlp and there is no centralized critic (the
-        kernel computes the actor's own value head), once per agent with
-        per-agent policies; else autograd of :meth:`loss_fn`
+        kernel computes the actor's own value head), one launch over all
+        agents with per-agent policies; else autograd of :meth:`loss_fn`
         (ppo.py:583-637)."""
         cfg, net = self.config, self.net
         b, n = traj.direction.numel(), traj.direction.shape[-1]
@@ -596,15 +607,12 @@ class TrainStep:
         if net.packed_obs and net.encoder == 'mlp' and self.critic is None:
             if cfg.per_agent_policies and self._loss_kernel_ok(
                     b // n, net.hidden, net.num_actions):
-                args = self.kernel_inputs(traj, advantages, targets)
-                per = [fused_ppo.ppo_mlp_grads({k: v[i] for k, v in params.items()},
-                                               *(a[i] for a in args), **kw)
-                       for i in range(n)]
-                # Each launch means its loss over its agent's T·E samples;
-                # autograd of loss_fn means over all N·T·E (ppo.py:575-579).
-                grads = {k: torch.stack([g[k] for g, _ in per]) / n for k in params}
-                return grads, {k: torch.stack([m[k] for _, m in per]).mean()
-                               for k in per[0][1]}
+                grads, metrics = fused_ppo.ppo_mlp_grads_agents(
+                    params, *self.kernel_inputs(traj, advantages, targets), **kw)
+                # Each agent's loss means over its T·E samples; autograd of
+                # loss_fn means over all N·T·E (ppo.py:575-579).
+                return ({k: g / n for k, g in grads.items()},
+                        {k: m.mean() for k, m in metrics.items()})
             if not cfg.per_agent_policies and self._loss_kernel_ok(
                     b, net.hidden, net.num_actions):
                 return fused_ppo.ppo_mlp_grads(

@@ -8,9 +8,17 @@ the flax layout (C·21, H), feature index ``cell·21 + ch``. Numerics follow
 the TPU kernels: bf16 weights and ``g``, f32 sums, bf16 forward output,
 f32 ``dW``.
 
-Each wrapper takes its plain version (the one-hot product written out) for
-tensors on the CPU; for CUDA tensors it launches its kernel or raises. The
-library is built from the package's sources at first use
+Per-agent policies take both kernels with an agent axis, one launch for
+all agents, as the JAX package ``vmap``s its kernels over stacked per-agent
+weights (Pallas's batching rule adds a leading grid axis):
+:func:`onehot_linear_agents_forward` and :func:`onehot_linear_agents_grad_w`
+on (N, B, C) cells and (N, C·21, H) weights or (N, B, H) cotangents, and
+:func:`onehot_linear` with those shapes. Each launch counts once.
+
+Each wrapper takes its plain version (the one-hot product written out; with
+the agent axis, the single-agent plain version agent by agent) for tensors
+on the CPU; for CUDA tensors it launches its kernel or raises. The library
+is built from the package's sources at first use
 (:mod:`multigrid_tpu_torch.utils.build`).
 """
 
@@ -33,7 +41,8 @@ NCH = sum(OBS_CHANNELS)
 PAD_CELL = (0x7FF << 8) | (15 << 4) | 15
 
 #: Launches of the forward kernel (B2) and of the gradient kernel (B3)
-#: through their wrappers since the counts were last set to 0.
+#: through their wrappers since the counts were last set to 0 (a launch over
+#: all agents counts once).
 launches = 0
 grad_launches = 0
 
@@ -103,6 +112,19 @@ def onehot_linear_grad_w_plain(packed: torch.Tensor, g: torch.Tensor) -> torch.T
     return onehot_features(packed).T @ g.to(torch.bfloat16).float()
 
 
+def onehot_linear_agents_plain(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward kernel's agent axis: (N, B, H) bf16,
+    agent ``i`` the single-agent plain version on ``packed[i]``, ``w[i]``."""
+    return torch.stack([onehot_linear_plain(p, wi) for p, wi in zip(packed, w)])
+
+
+def onehot_linear_agents_grad_w_plain(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gradient kernel's agent axis: (N, C·21, H)
+    float32, agent ``i`` the single-agent plain version on ``packed[i]``,
+    ``g[i]``."""
+    return torch.stack([onehot_linear_grad_w_plain(p, gi) for p, gi in zip(packed, g)])
+
+
 def check_cuda(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype) -> int:
     """``t.data_ptr()`` of a contiguous CUDA tensor of ``shape`` and
     ``dtype``; ValueError for anything else."""
@@ -115,9 +137,12 @@ def check_cuda(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype) -> 
     return t.data_ptr()
 
 
-def _check_shapes(packed: torch.Tensor, h: int) -> tuple[int, int]:
-    if packed.dim() != 2:
-        raise ValueError(f'packed cells must be (B, C), got {tuple(packed.shape)}')
+def _check_shapes(packed: torch.Tensor, h: int, agents: bool = False) -> tuple[int, ...]:
+    """``packed``'s shape, (B, C), or (N, B, C) with ``agents``; ValueError
+    for another rank or a width past the kernels'."""
+    if packed.dim() != 2 + agents:
+        want = '(N, B, C)' if agents else '(B, C)'
+        raise ValueError(f'packed cells must be {want}, got {tuple(packed.shape)}')
     if not 1 <= h <= MAX_HIDDEN:
         raise ValueError(f'the kernels take 1..{MAX_HIDDEN} columns, got {h}')
     return packed.shape
@@ -135,30 +160,52 @@ def pad_columns(w: torch.Tensor, multiple: int = 8) -> torch.Tensor:
     return torch.nn.functional.pad(w, (0, pad)) if pad else w
 
 
-def onehot_linear_forward(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``one_hot(packed) @ w`` → (B, H) bf16: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+def _forward_cuda(packed: torch.Tensor, w: torch.Tensor, agents: bool) -> torch.Tensor:
+    """Launch the forward kernel on CUDA tensors, with the agent axis where
+    ``agents`` (counts once)."""
     global launches
-    if packed.device.type == 'cpu':
-        return onehot_linear_plain(packed, w)
     h = w.shape[-1]
-    b, c = _check_shapes(packed, h)
+    shape = _check_shapes(packed, h, agents)
+    n, (b, c) = (shape[0] if agents else 1), shape[-2:]
+    lead = (n,) if agents else ()
     wb = pad_columns(w.detach().to(torch.bfloat16)).contiguous()
     if wb.data_ptr() % 16:
         wb = wb.clone()
     ldw = wb.shape[-1]
-    ptrs = [check_cuda(packed, 'packed', (b, c), torch.int32),
-            check_cuda(wb, 'w', (c * NCH, ldw), torch.bfloat16)]
-    out = torch.empty((b, h), dtype=torch.bfloat16, device=packed.device)
-    if b == 0:
+    ptrs = [check_cuda(packed, 'packed', lead + (b, c), torch.int32),
+            check_cuda(wb, 'w', lead + (c * NCH, ldw), torch.bfloat16)]
+    out = torch.empty(lead + (b, h), dtype=torch.bfloat16, device=packed.device)
+    if out.numel() == 0:
         return out
     with torch.cuda.device(packed.device):
-        err = _lib_fn('mgt_onehot_linear_launch', 3, 4)(
-            *ptrs, out.data_ptr(), b, c, h, ldw, _stream(packed.device))
+        if agents:
+            err = _lib_fn('mgt_onehot_linear_agents_launch', 3, 5)(
+                *ptrs, out.data_ptr(), n, b, c, h, ldw, _stream(packed.device))
+        else:
+            err = _lib_fn('mgt_onehot_linear_launch', 3, 4)(
+                *ptrs, out.data_ptr(), b, c, h, ldw, _stream(packed.device))
     if err != 0:
         raise RuntimeError(f'onehot_linear kernel launch failed: CUDA error {err}')
     launches += 1
     return out
+
+
+def onehot_linear_forward(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``one_hot(packed) @ w`` → (B, H) bf16: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if packed.device.type == 'cpu':
+        return onehot_linear_plain(packed, w)
+    return _forward_cuda(packed, w, False)
+
+
+def onehot_linear_agents_forward(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``one_hot(packed[i]) @ w[i]`` for every agent ``i`` → (N, B, H) bf16
+    from (N, B, C) int32 cells and (N, C·21, H) weights: one launch of the
+    kernel over all agents for CUDA tensors (each row equal to the
+    single-agent launch's), the plain version for CPU tensors."""
+    if packed.device.type == 'cpu':
+        return onehot_linear_agents_plain(packed, w)
+    return _forward_cuda(packed, w, True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,55 +214,83 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def grad_plan(b: int, c: int, h: int, sms: int) -> tuple[int, int]:
+def grad_plan(b: int, c: int, h: int, sms: int, agents: int = 1) -> tuple[int, int]:
     """``(chunks, chunk)``: how the gradient kernel splits a batch of ``b``
-    samples. Chunk ``k`` takes samples ``[k·chunk, min(b, (k+1)·chunk))``;
-    ``chunk`` is a multiple of the 128-sample stage, no chunk is empty, and
-    the blocks (cell tiles × column tiles × chunks) fit on the ``sms`` SMs
-    in one wave, one block an SM, with chunks of at least 256 samples."""
+    samples (each agent's, with ``agents``). Chunk ``k`` takes samples
+    ``[k·chunk, min(b, (k+1)·chunk))``; ``chunk`` is a multiple of the
+    128-sample stage, no chunk is empty, and the blocks (cell tiles ×
+    column tiles × chunks × agents) fit on the ``sms`` SMs in one wave, one
+    block an SM, with chunks of at least 256 samples. The plan depends on
+    the shapes only, so the sums' order is the same from run to run."""
     tiles = -(-c // GRAD_CELLS_PER_BLOCK) * -(-h // GRAD_COLS_PER_BLOCK)
     b = max(b, 1)
-    chunks = max(1, min(-(-b // 256), sms // tiles))
+    chunks = max(1, min(-(-b // 256), sms // (tiles * agents)))
     per_chunk = -(-b // chunks)
     chunk = -(-per_chunk // GRAD_STAGE) * GRAD_STAGE
     return -(-b // chunk), chunk
 
 
 def grad_w_cuda(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the gradient kernel on CUDA tensors (no count): (C·21, H) f32.
-    ``g`` must be bf16 already."""
+    """Launch the gradient kernel on CUDA tensors (no count): (C·21, H) f32
+    from (B, C) cells, or (N, C·21, H) from (N, B, C) cells, one launch for
+    all agents. ``g`` must be bf16 already, (B, H) or (N, B, H)."""
     h = g.shape[-1]
-    b, c = _check_shapes(packed, h)
+    agents = packed.dim() == 3
+    shape = _check_shapes(packed, h, agents)
+    n, (b, c) = (shape[0] if agents else 1), shape[-2:]
+    lead = (n,) if agents else ()
     if h not in GRAD_HIDDEN:
         raise ValueError(f'the gradient kernel takes {GRAD_HIDDEN} columns, got {h}')
     dev = packed.device
     if g.data_ptr() % 16:  # the kernel stages g's rows in 16-byte pieces
         g = g.clone()
-    ptrs = [check_cuda(packed, 'packed', (b, c), torch.int32),
-            check_cuda(g, 'g', (b, h), torch.bfloat16)]
-    if b == 0:
-        return torch.zeros((c * NCH, h), dtype=torch.float32, device=dev)
-    out = torch.empty((c * NCH, h), dtype=torch.float32, device=dev)  # every entry written
-    chunks, chunk = grad_plan(b, c, h, sm_count(dev))
-    partial = torch.empty((chunks if chunks > 1 else 0, c * NCH, h),
+    ptrs = [check_cuda(packed, 'packed', lead + (b, c), torch.int32),
+            check_cuda(g, 'g', lead + (b, h), torch.bfloat16)]
+    if b == 0 or n == 0:
+        return torch.zeros(lead + (c * NCH, h), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (c * NCH, h), dtype=torch.float32, device=dev)  # all written
+    chunks, chunk = grad_plan(b, c, h, sm_count(dev), n)
+    partial = torch.empty((n * chunks if chunks > 1 else 0, c * NCH, h),
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib_fn('mgt_onehot_grad_launch', 4, 5)(
-            *ptrs, partial.data_ptr(), out.data_ptr(), b, c, h, chunks, chunk, _stream(dev))
+        if agents:
+            err = _lib_fn('mgt_onehot_grad_agents_launch', 4, 6)(
+                *ptrs, partial.data_ptr(), out.data_ptr(), n, b, c, h, chunks, chunk,
+                _stream(dev))
+        else:
+            err = _lib_fn('mgt_onehot_grad_launch', 4, 5)(
+                *ptrs, partial.data_ptr(), out.data_ptr(), b, c, h, chunks, chunk,
+                _stream(dev))
     if err != 0:
         raise RuntimeError(f'onehot_linear gradient kernel launch failed: error {err}')
+    return out
+
+
+def _grad_w_counted(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    global grad_launches
+    out = grad_w_cuda(packed, g.to(torch.bfloat16).contiguous())
+    grad_launches += 1
     return out
 
 
 def onehot_linear_grad_w(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``one_hot(packed)ᵀ @ bf16(g)`` → (C·21, H) float32: the kernel for
     CUDA tensors, the plain version for CPU tensors."""
-    global grad_launches
     if packed.device.type == 'cpu':
         return onehot_linear_grad_w_plain(packed, g)
-    out = grad_w_cuda(packed, g.to(torch.bfloat16).contiguous())
-    grad_launches += 1
-    return out
+    _check_shapes(packed, g.shape[-1])
+    return _grad_w_counted(packed, g)
+
+
+def onehot_linear_agents_grad_w(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``one_hot(packed[i])ᵀ @ bf16(g[i])`` for every agent ``i`` → (N,
+    C·21, H) float32 from (N, B, C) cells and (N, B, H) cotangents: one
+    launch of the kernel (and of its partials' sum) over all agents for CUDA
+    tensors, the plain version for CPU tensors."""
+    if packed.device.type == 'cpu':
+        return onehot_linear_agents_grad_w_plain(packed, g)
+    _check_shapes(packed, g.shape[-1], True)
+    return _grad_w_counted(packed, g)
 
 
 class _OneHotLinear(torch.autograd.Function):
@@ -223,17 +298,24 @@ class _OneHotLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, packed, w):
         ctx.save_for_backward(packed)
+        if packed.dim() == 3:
+            return onehot_linear_agents_forward(packed, w)
         return onehot_linear_forward(packed, w)
 
     @staticmethod
     def backward(ctx, g):
         (packed,) = ctx.saved_tensors
-        dw = onehot_linear_grad_w(packed, g) if ctx.needs_input_grad[1] else None
-        return None, dw
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        if packed.dim() == 3:
+            return None, onehot_linear_agents_grad_w(packed, g)
+        return None, onehot_linear_grad_w(packed, g)
 
 
 def onehot_linear(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Differentiable ``one_hot(packed) @ w`` → (B, H) bf16 from (B, C)
-    int32 packed cells and (C·21, H) float32 weights. Its backward is the
-    gradient kernel; ``packed`` (integer data) has no gradient."""
+    int32 packed cells and (C·21, H) float32 weights, or with an agent axis
+    (N, B, H) from (N, B, C) cells and stacked (N, C·21, H) weights (one
+    launch for all agents). Its backward is the gradient kernel;
+    ``packed`` (integer data) has no gradient."""
     return _OneHotLinear.apply(packed, w)

@@ -274,6 +274,153 @@ def test_ppo_loss_kernel_matches_plain(cuda_device, b, h, missions):
         assert torch.equal(metrics[k], again_m[k]), k
 
 
+# ------------------------------------- the agent axis of per-agent policies
+
+
+def _agents(rng, n, b, c, pad=0.0):
+    return torch.stack([_packed(rng, b, c, pad) for _ in range(n)])
+
+
+@pytest.mark.parametrize('n,b,c,h', [(4, 4096, 49, 128), (2, 4096, 49, 128), (3, 1001, 9, 32),
+                                     (2, 77, 25, 100), (4, 4096, 49, 64)])
+def test_onehot_linear_agent_axis_is_n_single_launches(cuda_device, n, b, c, h):
+    """B2 over N agents: one launch, bit-equal to N single-agent launches
+    (each row computed as its agent's own launch computes it), within B2's
+    tolerance of its twin, and equal from run to run."""
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    rng = np.random.default_rng(n + b + c + h)
+    packed = _agents(rng, n, b, c, 0.05).to(cuda_device)
+    w = torch.as_tensor(rng.normal(size=(n, c * fl.NCH, h)).astype(np.float32)).to(cuda_device)
+    launches = fl.launches
+    got = fl.onehot_linear_agents_forward(packed, w)
+    assert fl.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (n, b, h)
+    singles = torch.stack([fl.onehot_linear_forward(packed[i], w[i]) for i in range(n)])
+    assert torch.equal(got, singles)
+    assert _rel_err(got, fl.onehot_linear_agents_plain(packed, w)) < 2e-2
+    assert torch.equal(got, fl.onehot_linear_agents_forward(packed, w))
+
+
+@pytest.mark.parametrize('n,b,c,h', [(4, 65536, 49, 128), (2, 131072, 49, 128),
+                                     (3, 1001, 9, 32), (2, 300, 25, 256), (4, 1, 49, 64)])
+def test_onehot_grad_agent_axis_matches_plain_and_single_launches(cuda_device, n, b, c, h):
+    """B3 over N agents: one launch, each agent's dW within B3's tolerance
+    (1e-4 of the largest entry) of its twin and of its own launch (the
+    chunks differ, so the sums' order does), equal from run to run."""
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    rng = np.random.default_rng(n + b + h)
+    packed = _agents(rng, n, b, c, 0.05).to(cuda_device)
+    g = torch.as_tensor(rng.normal(size=(n, b, h)).astype(np.float32)).to(cuda_device)
+    launches = fl.grad_launches
+    got = fl.onehot_linear_agents_grad_w(packed, g)
+    assert fl.grad_launches == launches + 1
+    assert got.shape == (n, c * fl.NCH, h)
+    want = fl.onehot_linear_agents_grad_w_plain(packed, g)
+    singles = torch.stack([fl.onehot_linear_grad_w(packed[i], g[i]) for i in range(n)])
+    for i in range(n):
+        scale = float(want[i].abs().max()) + 1
+        assert float((got[i] - want[i]).abs().max()) <= 1e-4 * scale, i
+        assert float((got[i] - singles[i]).abs().max()) <= 1e-4 * scale, i
+    assert torch.equal(got, fl.onehot_linear_agents_grad_w(packed, g))
+
+
+def _stacked_ppo_inputs(rng, n, b, h, missions, device):
+    cases = [ppo_inputs(rng, b, 49, h, missions, device) for _ in range(n)]
+    params = {k: torch.stack([p[k] for p, _ in cases]) for k in cases[0][0]}
+    return params, [torch.stack([a[j] for _, a in cases]) for j in range(6)]
+
+
+@pytest.mark.parametrize('n,b,h,missions', [(4, 65536, 128, 0), (2, 131072, 128, 12),
+                                            (3, 1001, 64, 3), (2, 256, 32, 0)])
+def test_ppo_loss_agent_axis_matches_plain_and_single_launches(cuda_device, n, b, h, missions):
+    """B4 over N agents: one launch, each agent's gradients and metrics
+    within B4's tolerance of its twin (bf16 operands) and of its own launch
+    (its blocks sum in another order), equal from run to run."""
+    from multigrid_tpu_torch.ops import fused_ppo
+    params, args = _stacked_ppo_inputs(np.random.default_rng(n + b + missions), n, b, h,
+                                       missions, cuda_device)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
+    launches = fused_ppo.launches
+    grads, metrics = fused_ppo.ppo_mlp_grads_agents(params, *args, **kw)
+    assert fused_ppo.launches == launches + 1
+    want_g, want_m = fused_ppo.ppo_mlp_grads_agents_plain(
+        params, *args, compute_dtype=torch.bfloat16, **kw)
+    singles = [fused_ppo.ppo_mlp_grads({k: v[i] for k, v in params.items()},
+                                       *(a[i] for a in args), **kw) for i in range(n)]
+    for i, (sg, sm) in enumerate(singles):
+        for k in want_g:
+            assert grads[k].shape == want_g[k].shape == (n,) + sg[k].shape, k
+            scale = float(want_g[k][i].abs().max()) + 1e-6
+            assert float((grads[k][i] - want_g[k][i]).abs().max()) / scale < 5e-2, (i, k)
+            assert float((grads[k][i] - sg[k]).abs().max()) / scale < 5e-2, (i, k)
+        for k in want_m:
+            for ref in (want_m[k][i], sm[k]):
+                err = abs(float(metrics[k][i]) - float(ref)) / (abs(float(ref)) + 1e-6)
+                assert err < 5e-2, (i, k, err)
+    again, again_m = fused_ppo.ppo_mlp_grads_agents(params, *args, **kw)
+    for k in grads:
+        assert torch.equal(grads[k], again[k]), k
+    for k in metrics:
+        assert torch.equal(metrics[k], again_m[k]), k
+
+
+def test_agent_axis_wrappers_raise_on_what_they_cannot_take(cuda_device):
+    """No fallback: a shape, rank, width or layout the agent-axis kernels do
+    not take raises ValueError on the card, and nothing launches."""
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    from multigrid_tpu_torch.ops import fused_ppo
+    rng = np.random.default_rng(12)
+    packed = _agents(rng, 2, 64, 49).to(cuda_device)
+    w = torch.randn(2, 49 * fl.NCH, 128, device=cuda_device)
+    g = torch.randn(2, 64, 128, device=cuda_device)
+    params, args = _stacked_ppo_inputs(rng, 2, 64, 32, 0, cuda_device)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
+    before = fl.launches, fl.grad_launches, fused_ppo.launches
+    bad = [lambda: fl.onehot_linear_agents_forward(packed[0], w[0]),     # no agent axis
+           lambda: fl.onehot_linear_agents_forward(packed, w[:, :-21]),  # rows of another C
+           lambda: fl.onehot_linear_agents_forward(packed, w[:1]),       # another N
+           lambda: fl.onehot_linear_agents_forward(packed[:, ::2], w),   # not contiguous
+           lambda: fl.onehot_linear_forward(packed, w),                  # agents to the single
+           lambda: fl.onehot_linear_agents_grad_w(packed, g[..., :100]),  # width not built
+           lambda: fl.onehot_linear_agents_grad_w(packed[0], g[0]),
+           lambda: fl.onehot_linear_grad_w(packed, g),
+           lambda: fused_ppo.ppo_mlp_grads_agents(
+               {k: v[0] for k, v in params.items()}, *(a[0] for a in args), **kw),
+           lambda: fused_ppo.ppo_mlp_grads(params, *args, **kw),
+           lambda: fused_ppo.ppo_mlp_grads_agents(
+               {**params, 'img_kernel': torch.randn(2, 49 * 21, 96, device=cuda_device)},
+               *args, **kw)]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+        assert (fl.launches, fl.grad_launches, fused_ppo.launches) == before, i
+
+
+@pytest.mark.parametrize('gate', [True, False], ids=['loss-kernel', 'gate-off'])
+def test_per_agent_train_step_launches_once_for_all_agents(cuda_device, gate, monkeypatch):
+    """Two per-agent updates on the card (2 agents): one first-layer launch
+    a rollout step for all agents (5 an update) and one loss launch an SGD
+    step; with the gate off one more first-layer launch and one gradient
+    launch an SGD step."""
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.ops import fused_linear as fl
+    from multigrid_tpu_torch.ops import fused_ppo
+    if not gate:
+        monkeypatch.setattr(fused_ppo, 'supports', lambda *a: False)
+    venv = VectorEnv(make('MultiGrid-Empty-8x8-v0', agents=2, device=cuda_device), 64,
+                     packed_obs=True)
+    config = PPOConfig(rollout_steps=4, per_agent_policies=True)
+    state, net, config, tx = ppo_init(venv, 0, config=config, hidden=32,
+                                      net_kwargs=dict(encoder='mlp'))
+    step = make_train_step(venv, net, config, tx)
+    fl.launches = fl.grad_launches = fused_ppo.launches = 0
+    for _ in range(2):
+        state, metrics = step(state)
+    want = (10, 0, 2) if gate else (12, 2, 0)
+    assert (fl.launches, fl.grad_launches, fused_ppo.launches) == want
+    assert all(np.isfinite(float(metrics[k])) for k in ('loss', 'entropy', 'vf_loss'))
+
+
 def test_first_layer_and_loss_kernels_run_on_the_tensor_cores(cuda_device):
     """The SASS of the first-layer kernel (B2) and of the loss kernel (B4),
     every width built, holds tensor-core instructions."""

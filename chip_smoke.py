@@ -10,14 +10,16 @@ Phases, in order; any failure exits non-zero:
                (one nvcc each, in parallel), prints each build's time,
                registers and spills, and the tensor-core instructions in
                each kernel's SASS (cuobjdump; B2, B3, B4 and B5 must have
-               some).
+               some); the general obs kernel's registers and spills (it
+               must not spill).
 3. kernels  — each kernel against its plain PyTorch version on the card.
                The observation kernel also on states of every procedural
                family (BUP N 1/2, RedBlueDoors 6x6/8x8, LockedHallway 2/4/6
                rooms, Playground N 1/2/10; doors in every state, carried
                keys and boxes), and the general obs kernel on views 33, 35
-               and 63, a 250x250 grid and 64 agents with view 31, and
-               against obs_kernel on a shape both take.
+               and 63, 250x250 grids, 64 agents with view 31 and the view-33
+               VectorEnv's shape, and against obs_kernel on a shape both
+               take; its time at five of those shapes beside its bound.
                The observation kernel, ``torch.equal``, on seeded states
                stepped a few times: the flagship shape (E=4096, N=4, 16x16,
                view 7; see through walls off and on; packed and images),
@@ -101,7 +103,7 @@ Phases, in order; any failure exits non-zero:
 13. wide view — views past 31 through the entry points (Empty-16x16, 2
                agents, view 33, 1024 envs): reset and 8 steps on the general
                obs kernel, launch counts exact, observations equal to the
-               plain version.
+               plain version; a step's layers and the obs layer's share.
 14. zoo     — each of the 13 configurations, 2 agents, 4096 envs, on the
                exact reset (reset_pool=False): reset and
                32 random steps with max_steps 16 (every env resets twice),
@@ -206,8 +208,9 @@ Phases, in order; any failure exits non-zero:
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 B1 (images and packed, at the flagship, with 16 agents and at the BUP
-shape), the general obs kernel (view 33, launches alone), B2, B3 (flagship,
-per-agent and critic shapes), B4 (with its stages; and at F 14) and B5 (at
+shape), the general obs kernel (packed, launches alone: view 33 and the
+three shapes of GENERAL_TIMED), B2, B3 (flagship, per-agent and critic
+shapes), B4 (with its stages; and at F 14) and B5 (at
 the seven shapes of its kernel cases) on seeded inputs, with digests of
 B1's and B4's outputs, for comparing two trees in turns within one call
 (copy the script into the other tree, which must have this tree's
@@ -253,6 +256,17 @@ BUP_F = 2 + 12  # direction features and the mission one-hot
 #: One golden trace per procedural family, replayed on the card.
 ZOO_GOLDEN = [('MultiGrid-BlockedUnlockPickup-v0', 0, 2), ('MultiGrid-RedBlueDoors-6x6-v0', 0, 3),
               ('MultiGrid-LockedHallway-2Rooms-v0', 0, 2), ('MultiGrid-Playground-v0', 0, 2)]
+#: The general obs kernel's cases (W, H, N, view, E): views past 31, a grid
+#: past shared memory, 64 agents of view 31, views past 63 (columns of 3, 4
+#: and 6 words; 165 staged in strips); timed with the kernel's first two
+#: timed shapes (250x250 and view 33): the view-33 VectorEnv of the wide
+#: view phase, 64 agents and 250x250 at E 256, and GENERAL_SIDES, one shape
+#: each side of view 63.
+GENERAL_SHAPES = [(32, 32, 2, 33, 256), (32, 32, 2, 35, 256), (64, 64, 1, 63, 64),
+                  (250, 250, 2, 7, 64), (32, 32, 64, 31, 16), (64, 64, 1, 65, 64),
+                  (48, 48, 3, 101, 8), (40, 40, 2, 165, 4)]
+GENERAL_TIMED = [(16, 16, 2, 33, 1024), (32, 32, 64, 31, 256), (250, 250, 2, 7, 256)]
+GENERAL_SIDES = [(64, 64, 1, 63, 64), (64, 64, 1, 65, 64)]
 #: B3's kernels in the profiler: the product and the sum of its partials.
 GRAD_KERNELS = ('onehot_grad_kernel', 'sum_partials_kernel')
 
@@ -436,12 +450,7 @@ def obs_launch_ms(state, vs, stw, packed, reps=200):
             state.agent_carrying.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
     kernel = obs_cuda.check_supported(n, w, h, vs)
-    if kernel == 'obs':
-        args = (*ptrs, e, n, w, h, vs, int(stw), int(packed), stream)
-    else:
-        slots = obs_cuda.table_size(n)
-        table = torch.empty((e, slots if n > 1 else 0, 2), dtype=torch.int32, device=dev)
-        args = (*ptrs, table.data_ptr(), slots, e, n, w, h, vs, int(stw), int(packed), stream)
+    args = (*ptrs, e, n, w, h, vs, int(stw), int(packed), stream)
     fn = obs_cuda._lib_fn(kernel)
 
     def launch():
@@ -645,6 +654,22 @@ def sass_tensor_ops():
         if not found[k]:
             fail(f'no tensor-core instruction in the SASS of the {k} kernel')
     return found
+
+
+def general_resources():
+    """Registers and spills of each instance of obs_general_kernel, from
+    the SASS of its build (ptxas -v); fails on a spill. Printed."""
+    from multigrid_tpu_torch.utils import build
+    usage = {('views past 63' if 'ILb1E' in k else 'views up to 63'): u
+             for k, u in build.resource_usage('obs.cu').items() if 'obs_general_kernel' in k}
+    if sorted(usage) != ['views past 63', 'views up to 63']:
+        fail(f'obs_general_kernel\'s two instances not found in the build log: {sorted(usage)}')
+    for label, u in usage.items():
+        print(f'obs_general_kernel ({label}): {u["registers"]} registers, {u["spill_stores"]} '
+              f'bytes spill stores, {u["spill_loads"]} bytes spill loads, {u["stack"]} bytes stack')
+        if u['spill_stores'] or u['spill_loads']:
+            fail(f'obs_general_kernel ({label}) spills')
+    return usage
 
 
 def obs_cases(device):
@@ -1784,9 +1809,11 @@ def zoo_obs_cases(device):
 
 def general_cases(device):
     """The general obs kernel ≡ the plain version on the shapes obs_kernel
-    does not take (views 33, 35 and 63; a 250x250 grid; 64 agents with view
-    31), and ≡ obs_kernel on a shape both take; then its time at two shapes
-    beside its bound and the plain version's. Launch counts are restored."""
+    does not take (views 33, 35, 63, 65, 101 and 165; 250x250 grids; 64
+    agents with view 31; the view-33 VectorEnv's 1024 envs of 16x16), and
+    ≡ obs_kernel on a shape both take; then its time at seven shapes
+    (packed; the VectorEnv's also as images) beside its bound and the plain
+    version's. Launch counts are restored."""
     import torch
 
     from multigrid_tpu_torch.ops import obs_cuda
@@ -1794,13 +1821,12 @@ def general_cases(device):
 
     counts = _counts()
     max_err, n_cases = 0, 0
-    shapes = [(32, 32, 2, 33, 256), (32, 32, 2, 35, 256), (64, 64, 1, 63, 64),
-              (250, 250, 2, 7, 64), (32, 32, 64, 31, 16)]
+    shapes = GENERAL_SHAPES + GENERAL_TIMED
     states = {}
     for w, h, n, vs, e in shapes:
         if obs_cuda.check_supported(n, w, h, vs) != 'general':
             fail(f'{w}x{h} N={n} view {vs} does not go to the general kernel')
-        st = states[(w, h, n, vs)] = random_state(50 + vs + n, e, w, h, n, device)
+        st = states[(w, h, n, vs, e)] = random_state(50 + vs + n, e, w, h, n, device)
         for stw in (False, True):
             for packed in (False, True):
                 before = obs_cuda.general_launches
@@ -1832,14 +1858,17 @@ def general_cases(device):
             fail('general obs kernel differs from obs_kernel at a shape both take')
     print(f'{n_cases} general-kernel cases equal')
     times = {}
-    for key in [(250, 250, 2, 7), (32, 32, 2, 33)]:
+    timed = [(k, True) for k in [(250, 250, 2, 7, 64), (32, 32, 2, 33, 256)] + GENERAL_TIMED
+             + GENERAL_SIDES]
+    for key, packed in timed + [(GENERAL_TIMED[0], False)]:
         st, vs = states[key], key[3]
-        ms = obs_launch_ms(st, vs, False, True, reps=50)
-        call = event_ms(lambda: obs_cuda.gen_obs_batched(st, vs, False, True), 20)
-        plain = event_ms(lambda: gen_obs_batched_plain(st, vs, False, True), 3)
-        bd, by, nbytes, ops = general_bound(st, vs, True)
-        label = f'{key[0]}x{key[1]} N={key[2]} vs={vs} E={st.num_envs} packed'
-        times[label] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bd, bound_by=by)
+        ms = obs_launch_ms(st, vs, False, packed, reps=50)
+        call = event_ms(lambda: obs_cuda.gen_obs_batched(st, vs, False, packed), 20)
+        plain = event_ms(lambda: gen_obs_batched_plain(st, vs, False, packed), 3)
+        bd, by, nbytes, ops = general_bound(st, vs, packed)
+        label = general_label(key, packed)
+        times[label] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bd, bound_by=by,
+                            share=bd / ms)
         print(f'general obs kernel {label}: launches {ms:.6f} ms (CUDA events), the '
               f'wrapper\'s call {call:.6f} ms; plain {plain:.6f} ms; bound {bd:.6f} ms by {by} '
               f'({nbytes} bytes, {ops} ops); {bd / ms:.4f} of the bound')
@@ -1847,12 +1876,19 @@ def general_cases(device):
     return dict(max_abs_err=max_err, cases=n_cases, times=times)
 
 
+def general_label(key, packed):
+    w, h, n, vs, e = key
+    return f'{w}x{h} N={n} vs={vs} E={e} {"packed" if packed else "images"}'
+
+
 def wide_view_path(device=None, e=1024, steps=8):
     """Views past 31 through the entry points: ``VectorEnv(make(
     'MultiGrid-Empty-16x16-v0', agents=2, agent_view_size=33), 1024)``,
     reset and ``steps`` steps, the launch counts set to 0 just before and
     read just after (one general-kernel launch a call, no obs_kernel), each
-    call's observations equal to the plain version."""
+    call's observations equal to the plain version; then a step's layers
+    (:func:`env_layers`, 16 steps) and the obs layer's share of the step.
+    Returns ``(general launches, {layer: ms a step})``."""
     import torch
 
     from multigrid_tpu_torch import VectorEnv, make
@@ -1877,7 +1913,11 @@ def wide_view_path(device=None, e=1024, steps=8):
         if not torch.equal(image, gen_obs_batched_plain(st, 33, False)):
             fail(f'view-33 VectorEnv: observations differ from the plain version at call {t}')
     print(f'view-33 VectorEnv: all {len(pairs)} observations equal to the plain version')
-    return counts['obs_general']
+    _, _, layers = env_layers(venv, state, steps=16)
+    layers['obs_share'] = layers['obs'] / sum(layers.values())
+    print('view-33 VectorEnv, ms a step (16 steps, synchronized): ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in layers.items()))
+    return counts['obs_general'], layers
 
 
 def fresh_extras_ok(state, fresh):
@@ -3433,6 +3473,10 @@ def kernel_times(device):
     res[key + ' launches'] = obs_launch_ms(bup, VS, False, True)
     wide = random_state(7, 256, 32, 32, 2, device)
     res['obs_general packed (256, 2, 32x32, 33) launches'] = obs_launch_ms(wide, 33, False, True)
+    for w, h, n, vs, e in GENERAL_TIMED + GENERAL_SIDES:
+        st = random_state(8, e, w, h, n, device)
+        res[f'obs_general packed ({e}, {n}, {w}x{h}, {vs}) launches'] = obs_launch_ms(
+            st, vs, False, True)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, num_actions=7)
     for b in (E * N * TRAIN_T, E * TRAIN_T):
         params, args = ppo_inputs(rng, b, C, HIDDEN, 0, device)
@@ -3492,6 +3536,7 @@ def main() -> None:
         kernel_times(device)
         return
     sass = sass_tensor_ops()
+    gen_resources = general_resources()
     phase('kernels')
     obs_err = max(obs_cases(device), zoo_obs_cases(device))
     general = general_cases(device)
@@ -3518,7 +3563,7 @@ def main() -> None:
     phase('variant timing')
     vt = variant_timing(steps)
     phase('wide view')
-    wide_launches = wide_view_path()
+    wide_launches, wide_layers = wide_view_path()
     phase('zoo')
     zoo_res = zoo()
     phase('bup train')
@@ -3614,7 +3659,8 @@ def main() -> None:
                             'gloo_2': [c['policy_sample']
                                        for c in model_axis['launches_fused']]},
                         bup=bt['kernels']['policy_sample']))
-    gen_t = general['times']['250x250 N=2 vs=7 E=64 packed']
+    gen_shape = general_label((250, 250, 2, 7, 64), True)  # the entry's first shape
+    gen_t = general['times'][gen_shape]
     kernels.append(dict(name='obs_general', route='cuda',
                         source='multigrid_tpu_torch/csrc/obs.cu',
                         replaces='multigrid_tpu/ops/obs_pallas.py:176',
@@ -3625,13 +3671,14 @@ def main() -> None:
                         max_abs_err=general['max_abs_err'], equal=general['max_abs_err'] == 0,
                         ms=gen_t['ms'], call_ms=gen_t['call_ms'], plain_ms=gen_t['plain_ms'],
                         bound_ms=gen_t['bound_ms'], bound_by=gen_t['bound_by'],
-                        library_ms=None, shape='250x250 N=2 vs=7 E=64 packed',
-                        times=general['times']))
+                        library_ms=None, shape=gen_shape, times=general['times'],
+                        resources=gen_resources))
     print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate'],
                       'variants_trained_agent_steps_per_s': vt['rates'],
                       'bup_trained_agent_steps_per_s': bt['rate'],
                       'bup_rollout_layers_ms': bt['layers'],
                       'zoo_reset_share': zoo_res['reset_share'],
+                      'wide_view_layers_ms': wide_layers,
                       'pool_layers_ms': pool['layers'], 'bup_pool_timing': pt,
                       'cnn_trained_agent_steps_per_s': {k: v['rate'] for k, v in cnn.items()},
                       'resume': resumed, 'cli_evaluate': cli_row, 'wrapped_step_ms': wt,

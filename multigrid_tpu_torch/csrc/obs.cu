@@ -317,73 +317,148 @@ int launch(const void* grid, const void* agent_pos, const void* agent_dir,
 
 // ---------------------------------------------------------------------------
 // obs_general_kernel: the same function for every shape obs_kernel does not
-// take: any odd view (a view column of any number of 32-bit words) and any
-// grid and team, with no part of the env staged in shared memory.
+// take: any odd view (views of 33 and more), any grid (past a block's shared
+// memory) and any team.
 //
-// One block an env, a warp an agent at a time. The grid is read from global
-// memory (L2 holds it; each view cell is read twice, for the see-through
-// mask and for the output). The overlay is an open-addressing hash table in
-// global scratch, (E, T) slots of (cell, agent), T a power of two >= 2N:
-// the block clears its env's slots, then every live agent claims its
-// cell's slot (atomicCAS) and raises the slot's agent to its own index
-// (atomicMax), so the last live agent in index order wins a shared cell, as
-// the reference's in-order drawing gives. Visibility is the reference's
-// column sweep on columns of ceil(vs/32) words: the lanes ballot a column's
-// see-through mask, one lane runs the forward and the backward spread word
-// by word (the doubling fill of vis_column within a word, a carry between
-// words), and the lanes write the column, unseen cells as 0. A warp's
-// shared memory is four columns: see-through (then visible), lit, and the
-// two spreads.
+// What bounds it on this card: latency. Its bytes are few (at 256 envs of
+// 32x32, view 33, packed: 4.2 MB read and written, 1.2 us at 3.35 TB/s),
+// but each view's visibility is a chain of vs dependent column steps. So
+// the views run side by side: one warp an (env, agent) view, consecutive
+// views on a block's warps, E·N warps in all, and each warp's chain is
+// short:
+//
+// - stage: the warp reads its view's window once, lanes on consecutive
+//   cells along the grid's contiguous y axis (c = x·H + y), four cells a
+//   lane in flight, off-grid cells as walls, and keeps it in shared memory
+//   as one packed uint16 a cell (t<<8|c<<4|s), already rotated
+//   (rot90(window, -k): cell (i, j) of the view at j·vs + i);
+// - overlay: the live agents in rounds of 32, one a lane; an agent inside
+//   the window draws unless a later agent of its round is on its cell
+//   (__match_any_sync), and the rounds draw in order, so the later live
+//   agent wins; then the carried object at the agent's own cell;
+// - sweep: each column's see-through rows from the staged cells, a lane a
+//   column, then one lane runs the columns vs-1..0, each pass of the
+//   reference's sweep (multigrid/utils/obs.py:235-273) an occluded fill by
+//   one carry-propagating add (fill_up; the backward pass on bit-reversed
+//   words): a 64-bit word a column in registers for views up to 63 (1.4-1.9x
+//   faster there than the words form on an H100), ceil(vs/32) words in
+//   shared memory past that (ops/obs.py::vis_column_words is the plain form);
+//   then the unseen cells are set to 0, a lane a column;
+// - write: row-major, consecutive lanes on consecutive output words.
+//
+// A window that does not fit the warp's share of shared memory (views past
+// 163 at four warps a block) goes in strips of columns, right to left, the
+// sweep's lit rows carried from strip to strip (general_plan).
 
-constexpr int kGeneralWarps = 4;
+constexpr int kGeneralMaxWarps = 4;  // warps a block
+constexpr int kNarrowView = 63;      // views whose column is one 64-bit word
 
-// Bytes of shared memory obs_general_kernel takes for `warps` warps at view
-// `vs`: four columns of ceil(vs/32) words a warp.
-int general_smem(int vs, int warps) { return warps * 16 * ((vs + 31) / 32); }
+__host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 
-__device__ __forceinline__ unsigned hash_slot(int key, int mask) {
-  return (static_cast<unsigned>(key) * 2654435761u) & static_cast<unsigned>(mask);
+// Bytes of shared memory one warp takes at view `vs` with strips of `strip`
+// columns: the staged cells, then per strip column its see-through (then
+// visible) rows, a 64-bit word for views up to 63; past that ceil(vs/32)
+// words, and the lit rows and the two fills' words after the strip's.
+__host__ __device__ __forceinline__ int general_warp_bytes(int vs, int strip) {
+  const int words = vs <= kNarrowView ? 2 * strip : (strip + 3) * ((vs + 31) / 32);
+  return round16(round16(2 * vs * strip) + 4 * words);
 }
 
-struct View {
-  int tx, ty, k, carry;
-};
+// The plan at view `vs`: four warps a block, each staging as many of its
+// view's columns as fit a quarter of a block's shared memory (the whole
+// window up to view 163); one warp a block where not even one column fits a
+// quarter (views past about 23,000). Returns the strip's columns and sets
+// `warps`; 0 where one column passes a whole block (views past 92,975).
+int general_plan(int vs, int& warps) {
+  for (warps = kGeneralMaxWarps;; warps = 1) {
+    const int budget = kMaxSmem / warps;
+    int strip = std::min(vs, budget / (2 * vs));
+    while (strip > 0 && general_warp_bytes(vs, strip) > budget) --strip;
+    if (strip > 0 || warps == 1) return strip;
+  }
+}
 
-struct EnvRef {
-  const int32_t* grid;  // this env's (W, H, 3)
-  const int2* table;    // this env's slots, or null without the overlay
-  const int32_t* color; // this env's (N,) agent colors
-  const int32_t* dir;   // this env's (N,) agent directions
-  int mask, w, h;
-};
+constexpr int kStageBatch = 4;       // window cells a lane loads at once
 
-__device__ __forceinline__ int cell_at(const EnvRef& r, int x, int y) {
-  if (x < 0 || x >= r.w || y < 0 || y >= r.h) return kWallPacked;
-  const int c = x * r.h + y;
-  if (r.table != nullptr) {
-    for (unsigned s = hash_slot(c, r.mask);; s = (s + 1) & static_cast<unsigned>(r.mask)) {
-      const int2 t = __ldcg(r.table + s);
-      if (t.x == c) return pack(kTypeAgent, r.color[t.y], r.dir[t.y]);
-      if (t.x == -1) break;
+// Cell (u, v) of the window (world x - tx, y - ty) is cell (i, j) of the
+// view: the inverse of rot90(window, k=-k).
+template <int K>
+__device__ __forceinline__ void view_of_window(int kr, int u, int v, int& i, int& j) {
+  i = K == 0 ? u : K == 1 ? v : K == 2 ? kr - u : kr - v;
+  j = K == 0 ? v : K == 1 ? kr - u : K == 2 ? kr - v : u;
+}
+
+__device__ __forceinline__ void view_of_window(int k, int kr, int u, int v, int& i, int& j) {
+  switch (k) {
+    case 0: view_of_window<0>(kr, u, v, i, j); break;
+    case 1: view_of_window<1>(kr, u, v, i, j); break;
+    case 2: view_of_window<2>(kr, u, v, i, j); break;
+    default: view_of_window<3>(kr, u, v, i, j); break;
+  }
+}
+
+// Stage the window rectangle of one strip (columns j0.. of the view): nu x
+// nv cells from (u0, v0), consecutive lanes on consecutive y, each cell
+// stored at its view cell (i, j) as (j - j0)·vs + i. A lane loads
+// kStageBatch cells at once, unconditionally (off-grid cells read the
+// env's first cell and are replaced by a wall), so their loads are in
+// flight together.
+template <int K>
+__device__ __forceinline__ void stage_strip(const int32_t* __restrict__ g, uint16_t* cells,
+                                            int lane, int w, int h, int vs, int tx, int ty,
+                                            int u0, int v0, int nu, int nv, int j0) {
+  const int su = 32 / nv, sv = 32 % nv;
+  int du = lane / nv, dv = lane % nv;
+  for (int base = 0; base < nu * nv; base += 32 * kStageBatch) {
+    int cell[kStageBatch], at[kStageBatch];
+#pragma unroll
+    for (int b = 0; b < kStageBatch; ++b) {
+      const int u = u0 + du, v = v0 + dv;
+      const int x = tx + u, y = ty + v;
+      const bool in = x >= 0 && x < w && y >= 0 && y < h;
+      const int32_t* p = g + (in ? 3 * (x * h + y) : 0);
+      const int t = __ldg(p), c = __ldg(p + 1), s = __ldg(p + 2);
+      cell[b] = in ? pack(t, c, s) : kWallPacked;
+      int i, j;
+      view_of_window<K>(vs - 1, u, v, i, j);
+      at[b] = du < nu ? (j - j0) * vs + i : -1;
+      du += su;
+      dv += sv;
+      if (dv >= nv) {
+        dv -= nv;
+        ++du;
+      }
     }
+#pragma unroll
+    for (int b = 0; b < kStageBatch; ++b)
+      if (at[b] >= 0) cells[at[b]] = static_cast<uint16_t>(cell[b]);
   }
-  const int32_t* g = r.grid + 3 * c;
-  return pack(g[0], g[1], g[2]);
 }
 
-// Cell (i, j) of an agent's view: rot90(window, k=-k), and the carried
-// object at the agent's own cell.
-__device__ __forceinline__ int view_cell(const EnvRef& r, const View& v, int vs, int i, int j) {
-  const int kr = vs - 1;
-  if (i == vs / 2 && j == kr) return v.carry;
-  int u, w;
-  switch (v.k) {
-    case 0: u = i;      w = j;      break;
-    case 1: u = kr - j; w = i;      break;
-    case 2: u = kr - i; w = kr - j; break;
-    default: u = j;     w = kr - i; break;
-  }
-  return cell_at(r, v.tx + u, v.ty + w);
+__device__ __forceinline__ bool see_through(int c) {
+  const int t = c >> 8, s = c & 15;
+  return !(t == kTypeWall || (t == kTypeDoor && s != kStateOpen));
+}
+
+// The bits of `mask` reached from `seeds` (bits of mask) moving up through
+// its runs of ones: each seed's run from the seed up, by one add whose
+// carry runs to the run's end.
+__device__ __forceinline__ uint64_t fill_up(uint64_t seeds, uint64_t mask) {
+  return (mask & ~(mask + seeds)) | seeds;
+}
+
+// vis_column for a view of up to 63 rows (bit i = row i): the forward pass
+// (rows 0..vs-2 checked, i+1 lit) as fill_up, the backward pass (rows
+// 1..vs-1 checked, i-1 lit) as fill_up on the bit-reversed column.
+__device__ __forceinline__ uint64_t vis_column64(uint64_t x, uint64_t see, int vs,
+                                                 uint64_t& next) {
+  const uint64_t sf = see & ((1ull << (vs - 1)) - 1ull);
+  const uint64_t q = fill_up(x & sf, sf);
+  const uint64_t col = x | (q << 1);
+  const uint64_t sb = see & ~1ull;
+  const uint64_t r = __brevll(fill_up(__brevll(col & sb), __brevll(sb)));
+  next = q | (q << 1) | r | (r >> 1);
+  return col | (r >> 1);
 }
 
 __device__ __forceinline__ uint32_t rows_below(int limit, int word) {
@@ -391,134 +466,194 @@ __device__ __forceinline__ uint32_t rows_below(int limit, int word) {
   return limit <= lo ? 0u : limit >= lo + 32 ? ~0u : (1u << (limit - lo)) - 1u;
 }
 
-// One column's spreads on nw words (bit i of word w = row 32w + i), by one
-// lane: from `see` (see-through rows) and `lit` (its lit rows) to the
-// column's visible rows, left in `see`, and the next column's lit rows,
-// left in `lit`. `q` and `r` hold the forward and backward spreads.
-__device__ void vis_column_words(uint32_t* see, uint32_t* lit, uint32_t* q, uint32_t* r,
-                                 int nw, int vs) {
-  uint32_t carry = 0;  // the forward spread crossing into the next word
+// vis_column64 on a column of nw words (bit i of word w = row 32w + i), by
+// one lane: each fill_up an add over the words with a carry between them,
+// the backward one from the top word down on bit-reversed words. `see` (the
+// see-through rows) becomes the column's visible rows, `lit` (its lit
+// rows) the next column's; `q` and `r` hold the two fills.
+__device__ __forceinline__ void vis_column_words(uint32_t* see, uint32_t* lit, uint32_t* q,
+                                                 uint32_t* r, int nw, int vs) {
+  uint32_t carry = 0;
   for (int w = 0; w < nw; ++w) {
-    const uint32_t sf = see[w] & rows_below(vs - 1, w);  // rows the forward pass checks
-    uint32_t x = (lit[w] | carry) & sf, p = sf;
-#pragma unroll
-    for (int k = 1; k < 32; k <<= 1) {
-      x |= p & (x << k);
-      p &= p << k;
-    }
-    q[w] = x;
-    carry = x >> 31;
+    const uint32_t sf = see[w] & rows_below(vs - 1, w);
+    const uint32_t t = lit[w] & sf;
+    const uint64_t sum = static_cast<uint64_t>(sf) + t + carry;
+    q[w] = (sf & ~static_cast<uint32_t>(sum)) | t;
+    carry = static_cast<uint32_t>(sum >> 32);
   }
-  carry = 0;  // the backward spread crossing into the word below
+  carry = 0;
   for (int w = nw - 1; w >= 0; --w) {
     const uint32_t sb = see[w] & rows_below(vs, w) & (w == 0 ? ~1u : ~0u);
     const uint32_t col = lit[w] | (q[w] << 1) | (w > 0 ? q[w - 1] >> 31 : 0u);
-    uint32_t x = (col | (carry << 31)) & sb, p = sb;
-#pragma unroll
-    for (int k = 1; k < 32; k <<= 1) {
-      x |= p & (x >> k);
-      p &= p >> k;
-    }
-    r[w] = x;
-    carry = x & 1u;
+    const uint32_t rb = __brev(sb), t = __brev(col & sb);
+    const uint64_t sum = static_cast<uint64_t>(rb) + t + carry;
+    r[w] = __brev((rb & ~static_cast<uint32_t>(sum)) | t);
+    carry = static_cast<uint32_t>(sum >> 32);
   }
   for (int w = 0; w < nw; ++w) {
-    const uint32_t up = w > 0 ? q[w - 1] >> 31 : 0u;
-    const uint32_t down = w + 1 < nw ? r[w + 1] << 31 : 0u;
-    see[w] = lit[w] | (q[w] << 1) | up | (r[w] >> 1) | down;
-  }
-  for (int w = 0; w < nw; ++w) {
-    const uint32_t up = w > 0 ? q[w - 1] >> 31 : 0u;
-    const uint32_t down = w + 1 < nw ? r[w + 1] << 31 : 0u;
-    lit[w] = q[w] | (q[w] << 1) | up | r[w] | (r[w] >> 1) | down;
+    const uint32_t up = (q[w] << 1) | (w > 0 ? q[w - 1] >> 31 : 0u);
+    const uint32_t down = (r[w] >> 1) | (w + 1 < nw ? r[w + 1] << 31 : 0u);
+    see[w] = lit[w] | up | down;
+    lit[w] = q[w] | up | r[w] | down;
   }
 }
 
-__device__ __forceinline__ void put(int32_t* o, int q, int val, int packed) {
-  if (packed) {
-    o[q] = val;
-  } else {
-    o[3 * q] = val >> 8;
-    o[3 * q + 1] = (val >> 4) & 15;
-    o[3 * q + 2] = val & 15;
-  }
-}
-
-__global__ void obs_general_kernel(
+// kWide: views past 63, a column of ceil(vs/32) words in shared memory.
+template <bool kWide>
+__global__ void __launch_bounds__(32 * kGeneralMaxWarps) obs_general_kernel(
     const int32_t* __restrict__ grid, const int32_t* __restrict__ agent_pos,
     const int32_t* __restrict__ agent_dir, const int32_t* __restrict__ agent_color,
     const uint8_t* __restrict__ agent_term, const int32_t* __restrict__ carrying,
-    int32_t* __restrict__ out, int2* table, int table_size, int n, int w, int h, int vs,
+    int32_t* __restrict__ out, int views, int n, int w, int h, int vs, int strip,
     int see_through_walls, int packed) {
-  extern __shared__ __align__(16) uint32_t gsm[];
-  const int e = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char gsm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nw = (vs + 31) / 32;
-  int2* tab = n > 1 ? table + static_cast<size_t>(e) * table_size : nullptr;
-
-  if (tab != nullptr) {
-    for (int s = threadIdx.x; s < table_size; s += blockDim.x) tab[s] = make_int2(-1, -1);
-    __syncthreads();
-    for (int a = threadIdx.x; a < n; a += blockDim.x) {
-      const int idx = e * n + a;
-      const int x = agent_pos[2 * idx], y = agent_pos[2 * idx + 1];
-      if (agent_term[idx] || x < 0 || x >= w || y < 0 || y >= h) continue;
-      const int key = x * h + y;
-      for (unsigned s = hash_slot(key, table_size - 1);;
-           s = (s + 1) & static_cast<unsigned>(table_size - 1)) {
-        const int prev = atomicCAS(&tab[s].x, -1, key);
-        if (prev == -1 || prev == key) {
-          atomicMax(&tab[s].y, a);
-          break;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const EnvRef env{grid + static_cast<size_t>(e) * w * h * 3, tab, agent_color + e * n,
-                   agent_dir + e * n, table_size - 1, w, h};
-  uint32_t* see = gsm + warp * 4 * nw;
-  uint32_t* lit = see + nw;
-  uint32_t* q = lit + nw;
-  uint32_t* r = q + nw;
+  const int v = blockIdx.x * (blockDim.x / 32) + warp;  // env v / n, agent v % n
+  if (v >= views) return;  // the whole warp: nothing below waits on other warps
+  const int e = v / n;
   const int half = vs / 2, kr = vs - 1;
-  const size_t cells = static_cast<size_t>(vs) * vs;
-  for (int a = warp; a < n; a += blockDim.x / 32) {
-    const int idx = e * n + a;
-    const int ax = agent_pos[2 * idx], ay = agent_pos[2 * idx + 1], ad = agent_dir[idx];
-    View v;
-    v.tx = ad == 0 ? ax : ad == 1 ? ax - half : ad == 2 ? ax - kr : ax - half;
-    v.ty = ad == 0 ? ay - half : ad == 1 ? ay : ad == 2 ? ay - half : ay - kr;
-    v.k = (ad + 1) & 3;
-    v.carry = pack(carrying[3 * idx], carrying[3 * idx + 1], carrying[3 * idx + 2]);
-    int32_t* o = out + static_cast<size_t>(idx) * cells * (packed ? 1 : 3);
-    if (see_through_walls) {
-      for (int c = lane; c < vs * vs; c += 32) put(o, c, view_cell(env, v, vs, c / vs, c % vs), packed);
-      continue;
+  const int nw = (vs + 31) / 32;
+  unsigned char* mine = gsm + warp * general_warp_bytes(vs, strip);
+  uint16_t* cells = reinterpret_cast<uint16_t*>(mine);  // (strip, vs) column-major
+  uint32_t* cols = reinterpret_cast<uint32_t*>(mine + round16(2 * vs * strip));
+  uint64_t* cols64 = reinterpret_cast<uint64_t*>(cols);  // !kWide: one word a column
+  uint32_t* lit = cols + strip * nw;                      // kWide: lit rows, fills
+  uint32_t* fq = lit + nw;
+  uint32_t* fr = fq + nw;
+
+  const int ax = agent_pos[2 * v], ay = agent_pos[2 * v + 1], ad = agent_dir[v];
+  const int tx = ad == 0 ? ax : ad == 1 ? ax - half : ad == 2 ? ax - kr : ax - half;
+  const int ty = ad == 0 ? ay - half : ad == 1 ? ay : ad == 2 ? ay - half : ay - kr;
+  const int k = (ad + 1) & 3;
+  const int carry = pack(carrying[3 * v], carrying[3 * v + 1], carrying[3 * v + 2]);
+  const int32_t* g = grid + static_cast<size_t>(e) * w * h * 3;
+  // The overlay's first round, loaded beside the agent's own fields: agent
+  // `lane`'s cell, whether it is drawn (live and on the grid), its encoding.
+  int x0 = 0, y0 = 0, enc0 = 0;
+  bool live0 = false;
+  if (n > 1 && lane < n) {
+    const int idx = e * n + lane;
+    x0 = agent_pos[2 * idx];
+    y0 = agent_pos[2 * idx + 1];
+    live0 = !agent_term[idx] && x0 >= 0 && x0 < w && y0 >= 0 && y0 < h;
+    enc0 = pack(kTypeAgent, agent_color[idx], agent_dir[idx]);
+  }
+  const int fields = packed ? 1 : 3;
+  int32_t* o = out + static_cast<size_t>(v) * vs * vs * fields;
+  uint64_t lit64 = 1ull << half;  // !kWide: lane 0's lit rows
+  if (kWide)
+    for (int i = lane; i < nw; i += 32) lit[i] = i == half / 32 ? 1u << (half % 32) : 0u;
+
+  for (int jhi = vs; jhi > 0; jhi -= strip) {
+    const int j0 = max(0, jhi - strip), sw = jhi - j0;  // this strip: columns [j0, jhi)
+    // Stage the strip's window rectangle: (nu, nv) cells from (u0, v0).
+    const int nu = k & 1 ? sw : vs, nv = k & 1 ? vs : sw;
+    const int u0 = k == 1 ? kr + 1 - jhi : k == 3 ? j0 : 0;
+    const int v0 = k == 0 ? j0 : k == 2 ? kr + 1 - jhi : 0;
+    switch (k) {
+      case 0: stage_strip<0>(g, cells, lane, w, h, vs, tx, ty, u0, v0, nu, nv, j0); break;
+      case 1: stage_strip<1>(g, cells, lane, w, h, vs, tx, ty, u0, v0, nu, nv, j0); break;
+      case 2: stage_strip<2>(g, cells, lane, w, h, vs, tx, ty, u0, v0, nu, nv, j0); break;
+      default: stage_strip<3>(g, cells, lane, w, h, vs, tx, ty, u0, v0, nu, nv, j0); break;
     }
-    for (int k = lane; k < nw; k += 32) lit[k] = k == half / 32 ? 1u << (half % 32) : 0u;
-    for (int j = kr; j >= 0; --j) {
-      for (int i0 = 0; i0 < vs; i0 += 32) {
-        const int i = i0 + lane;
-        bool clear = false;
-        if (i < vs) {
-          const int c = view_cell(env, v, vs, i, j);
-          const int t = c >> 8, s = c & 15;
-          clear = !(t == kTypeWall || (t == kTypeDoor && s != kStateOpen));
+    __syncwarp();
+    // One agent sees no other: N = 1 skips the overlay.
+    for (int a0 = 0; n > 1 && a0 < n; a0 += 32) {
+      int x = x0, y = y0, enc = enc0;
+      bool live = live0;
+      if (a0 > 0) {
+        const int idx = e * n + a0 + lane;
+        live = a0 + lane < n;
+        if (live) {
+          x = agent_pos[2 * idx];
+          y = agent_pos[2 * idx + 1];
+          live = !agent_term[idx] && x >= 0 && x < w && y >= 0 && y < h;
+          enc = pack(kTypeAgent, agent_color[idx], agent_dir[idx]);
         }
-        const uint32_t bits = __ballot_sync(kFull, clear);
-        if (lane == 0) see[i0 / 32] = bits;
+      }
+      int key = -1 - lane;  // the agent's staged cell, if it draws one
+      if (live) {
+        const int u = x - tx, wv = y - ty;
+        if (u >= 0 && u < vs && wv >= 0 && wv < vs) {
+          int i, j;
+          view_of_window(k, kr, u, wv, i, j);
+          if (j >= j0 && j < jhi) key = (j - j0) * vs + i;
+        }
+      }
+      const unsigned same = __match_any_sync(kFull, key);
+      if (key >= 0 && (same >> lane) == 1u) cells[key] = static_cast<uint16_t>(enc);
+      __syncwarp();
+    }
+    if (lane == 0 && j0 <= kr && kr < jhi)
+      cells[(kr - j0) * vs + half] = static_cast<uint16_t>(carry);
+    __syncwarp();
+
+    if (!see_through_walls) {
+      // Each column's see-through rows, a lane a column (32 rows a word; a
+      // 64-bit word a column for views up to 63).
+      const int stride = kWide ? nw : 2;
+      for (int jj = lane; jj < sw; jj += 32) {
+        const uint16_t* col = cells + jj * vs;
+        for (int i0 = 0; i0 < 32 * stride; i0 += 32) {
+          uint32_t bits = 0;
+          const int rows = min(32, vs - i0);
+#pragma unroll 8
+          for (int b = 0; b < rows; ++b)
+            bits |= static_cast<uint32_t>(see_through(col[i0 + b])) << b;
+          cols[jj * stride + i0 / 32] = bits;
+        }
       }
       __syncwarp();
-      if (lane == 0) vis_column_words(see, lit, q, r, nw, vs);
+      if (lane == 0) {
+#pragma unroll 4
+        for (int jj = sw - 1; jj >= 0; --jj) {
+          if (kWide) {
+            vis_column_words(cols + jj * nw, lit, fq, fr, nw, vs);
+          } else {
+            uint64_t next;
+            cols64[jj] = vis_column64(lit64, cols64[jj], vs, next);
+            lit64 = next;
+          }
+        }
+      }
       __syncwarp();
-      for (int i = lane; i < vs; i += 32) {
-        const bool visible = (see[i / 32] >> (i % 32)) & 1u;
-        put(o, i * vs + j, visible ? view_cell(env, v, vs, i, j) : 0, packed);
+      // Unseen cells read 0, a lane a column.
+      for (int jj = lane; jj < sw; jj += 32) {
+        uint16_t* col = cells + jj * vs;
+        for (int i0 = 0; i0 < vs; i0 += 32) {
+          const uint32_t seen = kWide ? cols[jj * nw + i0 / 32]
+                                      : static_cast<uint32_t>(cols64[jj] >> i0);
+          const int rows = min(32, vs - i0);
+#pragma unroll 8
+          for (int b = 0; b < rows; ++b)
+            if (!((seen >> b) & 1u)) col[i0 + b] = 0;
+        }
       }
       __syncwarp();
     }
+
+    // Write the strip's rows: lane by lane along each row's sw·fields words.
+    const int wd = sw * fields, si = 32 / wd, sc = 32 % wd;
+    int32_t* os = o + j0 * fields;
+    int i = lane / wd, c = lane % wd;
+#pragma unroll 4
+    while (i < vs) {
+      int val;
+      if (packed) {
+        val = cells[c * vs + i];
+      } else {
+        const int jj = c / 3, f = c - 3 * jj;
+        val = (cells[jj * vs + i] >> (8 - 4 * f)) & (f == 0 ? 255 : 15);
+      }
+      os[static_cast<size_t>(i) * vs * fields + c] = val;
+      i += si;
+      c += sc;
+      if (c >= wd) {
+        c -= wd;
+        ++i;
+      }
+    }
+    __syncwarp();  // the next strip restages the cells
   }
 }
 
@@ -557,28 +692,29 @@ extern "C" int mgt_obs_launch(
 #undef MGT_OBS_CASE
 }
 
-// Launches obs_general_kernel on `stream`, one block an env, and returns
-// cudaGetLastError() (0 on success). `table` is (E, table_size) int2
-// scratch (table_size a power of two >= 2N; unused for N = 1).
+// Launches obs_general_kernel on `stream` (general_plan's warps and strips)
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for a view whose one column passes a block's shared memory.
 extern "C" int mgt_obs_general_launch(
     const void* grid, const void* agent_pos, const void* agent_dir,
     const void* agent_color, const void* agent_term, const void* carrying,
-    void* out, void* table, int table_size, int e, int n, int w, int h, int vs,
-    int see_through_walls, int packed, void* stream) {
-  int warps = std::min(kGeneralWarps, std::max(1, n));
-  while (warps > 1 && general_smem(vs, warps) > kMaxSmem) --warps;
-  const int smem = general_smem(vs, warps);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    void* out, int e, int n, int w, int h, int vs, int see_through_walls, int packed,
+    void* stream) {
+  int warps;
+  const int strip = general_plan(vs, warps);
+  if (strip < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = warps * general_warp_bytes(vs, strip);
+  auto kernel = vs <= kNarrowView ? obs_general_kernel<false> : obs_general_kernel<true>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        obs_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  obs_general_kernel<<<e, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int views = e * n;
+  kernel<<<(views + warps - 1) / warps, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(grid), static_cast<const int32_t*>(agent_pos),
       static_cast<const int32_t*>(agent_dir), static_cast<const int32_t*>(agent_color),
       static_cast<const uint8_t*>(agent_term), static_cast<const int32_t*>(carrying),
-      static_cast<int32_t*>(out), static_cast<int2*>(table), table_size, n, w, h, vs,
-      see_through_walls, packed);
+      static_cast<int32_t*>(out), views, n, w, h, vs, strip, see_through_walls, packed);
   return static_cast<int>(cudaGetLastError());
 }

@@ -123,12 +123,20 @@ def vis_column_bits(lit, see, view_size: int):
     return col | (r >> 1), q | (q << 1) | r | (r >> 1)
 
 
+def _brev32(x: int) -> int:
+    return int(f'{x:032b}'[::-1], 2)
+
+
 def vis_column_words(lit: list[int], see: list[int], view_size: int):
     """:func:`vis_column` as the general CUDA kernel computes it
-    (csrc/obs.cu, ``vis_column_words``): a column of any length as a list of
-    32-bit words (bit i of word w = row 32w + i), each pass a doubling fill
-    within a word and a carry between words; returns (visible, next
-    column's lit cells) as word lists."""
+    (csrc/obs.cu, ``vis_column_words``, and ``vis_column64``, which is the
+    same on two words): a column of any length as a list of 32-bit words
+    (bit i of word w = row 32w + i). Each pass is an occluded fill by one
+    add: the seeds added to the see-through rows carry up through each run
+    of them, so ``mask & ~(mask + seeds) | seeds`` is every run from its
+    seed up; the add runs over the words with a carry between them, the
+    backward pass on bit-reversed words from the top word down. Returns
+    (visible, next column's lit cells) as word lists."""
     nw, full = len(see), 0xFFFFFFFF
 
     def below(limit, w):
@@ -138,25 +146,20 @@ def vis_column_words(lit: list[int], see: list[int], view_size: int):
     q, r, carry = [0] * nw, [0] * nw, 0
     for w in range(nw):
         sf = see[w] & below(view_size - 1, w)
-        x, p = (lit[w] | carry) & sf, sf
-        for k in (1, 2, 4, 8, 16):
-            x |= p & (x << k) & full
-            p &= (p << k) & full
-        q[w], carry = x, x >> 31
+        t = lit[w] & sf
+        total = sf + t + carry
+        q[w], carry = (sf & ~total & full) | t, total >> 32
     carry = 0
     for w in reversed(range(nw)):
         sb = see[w] & below(view_size, w) & (full - 1 if w == 0 else full)
         col = lit[w] | ((q[w] << 1) & full) | (q[w - 1] >> 31 if w else 0)
-        x, p = (col | (carry << 31)) & sb, sb
-        for k in (1, 2, 4, 8, 16):
-            x |= p & (x >> k)
-            p &= p >> k
-        r[w], carry = x, x & 1
-    up = [q[w - 1] >> 31 if w else 0 for w in range(nw)]
-    down = [(r[w + 1] << 31) & full if w + 1 < nw else 0 for w in range(nw)]
-    vis = [lit[w] | ((q[w] << 1) & full) | up[w] | (r[w] >> 1) | down[w] for w in range(nw)]
-    nxt = [q[w] | ((q[w] << 1) & full) | up[w] | r[w] | (r[w] >> 1) | down[w]
-           for w in range(nw)]
+        rb, t = _brev32(sb), _brev32(col & sb)
+        total = rb + t + carry
+        r[w], carry = _brev32((rb & ~total & full) | t), total >> 32
+    up = [((q[w] << 1) & full) | (q[w - 1] >> 31 if w else 0) for w in range(nw)]
+    down = [(r[w] >> 1) | ((r[w + 1] << 31) & full if w + 1 < nw else 0) for w in range(nw)]
+    vis = [lit[w] | up[w] | down[w] for w in range(nw)]
+    nxt = [q[w] | up[w] | r[w] | down[w] for w in range(nw)]
     return vis, nxt
 
 

@@ -11,7 +11,9 @@ CUDA tensors it launches a kernel or raises:
   and visibility columns fit a block's shared memory;
 - ``obs_general_kernel`` for every other odd view and grid and team (views
   of 33 and more, large grids, large teams of wide views), as the JAX
-  package serves them through its XLA path.
+  package serves them through its XLA path: one warp an (env, agent) view,
+  the view's window staged in shared memory (its plan of warps and column
+  strips is the launcher's, ``csrc/obs.cu::general_plan``).
 
 The library is built from the package's sources at first use (see
 :mod:`multigrid_tpu_torch.utils.build`); this module imports without a CUDA
@@ -50,13 +52,8 @@ def _lib_fn(name):
 
         from ..utils import build
         lib = build.load(SOURCE)
-        if name == 'obs':
-            fn = lib.mgt_obs_launch
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        else:
-            fn = lib.mgt_obs_general_launch
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p])
+        fn = lib.mgt_obs_launch if name == 'obs' else lib.mgt_obs_general_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -72,33 +69,24 @@ def smem_bytes(num_agents: int, width: int, height: int, view_size: int) -> int:
     return 4 * (4 * n + round4(width * height) + round4(n * v * v) + round4(n * v))
 
 
-def general_smem_bytes(view_size: int) -> int:
-    """Shared memory one warp takes in ``obs_general_kernel``: four view
-    columns of ceil(vs/32) words (``csrc/obs.cu::general_smem``)."""
-    return 16 * -(-view_size // 32)
-
-
 def check_supported(num_agents: int, width: int, height: int, view_size: int) -> str:
     """The kernel that takes this shape, ``'obs'`` (``obs_kernel``) or
     ``'general'`` (``obs_general_kernel``); ValueError for a view size that
-    is even or under 3 (no config of either package takes one), or more
-    colors or states than the packed cells' 4 bits hold."""
+    is even or under 3 (no config of either package takes one), past
+    464,896 cells, or more colors or states than the packed cells' 4 bits
+    hold. The general kernel's launcher takes views to 92,975 cells, where
+    one column of the staged window fills a block's shared memory, and
+    refuses larger ones (a RuntimeError from :func:`gen_obs_batched`)."""
     if view_size < 3 or view_size % 2 == 0:
         raise ValueError(f'obs kernels take odd view sizes of at least 3, got {view_size}')
     if len(Color) > 16 or len(State) > 16:
         raise ValueError('obs kernels pack colors and states into 4 bits each')
-    if general_smem_bytes(view_size) > MAX_SMEM_BYTES:
+    if 16 * -(-view_size // 32) > MAX_SMEM_BYTES:
         raise ValueError(f'a view column of {view_size} cells passes a block\'s shared memory')
     if view_size in VIEW_SIZES and \
             smem_bytes(num_agents, width, height, view_size) <= MAX_SMEM_BYTES:
         return 'obs'
     return 'general'
-
-
-def table_size(num_agents: int) -> int:
-    """Slots of the general kernel's overlay hash table for one env: the
-    least power of two of at least 2N."""
-    return 1 << max(1, (2 * num_agents - 1).bit_length())
 
 
 def _checked(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype):
@@ -147,14 +135,8 @@ def gen_obs_batched(
     ]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == 'obs':
-            err = _lib_fn('obs')(*ptrs, out.data_ptr(), e, n, w, h, vs,
-                                 int(see_through_walls), int(packed), stream)
-        else:
-            slots = table_size(n)
-            table = torch.empty((e, slots if n > 1 else 0, 2), dtype=torch.int32, device=dev)
-            err = _lib_fn('general')(*ptrs, out.data_ptr(), table.data_ptr(), slots, e, n,
-                                     w, h, vs, int(see_through_walls), int(packed), stream)
+        err = _lib_fn(kernel)(*ptrs, out.data_ptr(), e, n, w, h, vs,
+                              int(see_through_walls), int(packed), stream)
     if err != 0:
         raise RuntimeError(f'obs kernel launch failed: CUDA error {err}')
     if kernel == 'obs':

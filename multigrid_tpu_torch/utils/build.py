@@ -116,6 +116,32 @@ def build_log(source: str) -> str:
     return log.read_text() if log.exists() else ''
 
 
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PROPERTIES = re.compile(r'Function properties for (\S+)')
+_SPILLS = re.compile(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads')
+_REGISTERS = re.compile(r'Used (\d+) registers')
+
+
+def resource_usage(source: str) -> dict[str, dict[str, int]]:
+    """``{kernel: {'registers', 'stack', 'spill_stores', 'spill_loads'}}``
+    for every kernel of ``source``'s library, from what ``-Xptxas -v``
+    printed when it was built (its ``build.log``)."""
+    usage, kernel, props = {}, None, None
+    for line in build_log(source).splitlines():
+        if m := _ENTRY.search(line):
+            kernel = m.group(1)
+            usage[kernel] = {}
+        elif m := _PROPERTIES.search(line):
+            props = m.group(1)
+        elif kernel and props == kernel and (m := _SPILLS.search(line)):
+            usage[kernel].update(zip(('stack', 'spill_stores', 'spill_loads'),
+                                     map(int, m.groups())))
+        elif kernel and (m := _REGISTERS.search(line)):
+            usage[kernel]['registers'] = int(m.group(1))
+            kernel = None
+    return usage
+
+
 _SASS_FUNCTION = re.compile(r'Function : (\S+)')
 _TENSOR_OP = re.compile(r'\b(?:HGMMA|HMMA)\.[\w.]+')
 

@@ -124,6 +124,95 @@ def test_general_kernel_takes_the_other_shapes(cuda_device, stw, packed, monkeyp
                 obs_cuda.gen_obs_batched(_to(state, cuda_device), vs, stw, packed), got)
 
 
+def _overlapping(fields, rng):
+    """``fields`` with agents made to share cells: in every env one agent
+    moved onto another's cell, and in about a third one agent moved off the
+    grid (random_fields already terminates about a fifth)."""
+    pos = fields['agent_pos']
+    e, n, _ = pos.shape
+    w, h = fields['grid'].shape[1:3]
+    for env in range(e if n > 1 else 0):
+        a, b = rng.choice(n, 2, replace=False)
+        pos[env, a] = pos[env, b]
+        if rng.random() < 0.3:
+            pos[env, rng.integers(n)] = (rng.choice([-1, w]), rng.integers(h))
+    return fields
+
+
+@pytest.mark.parametrize('stw', [False, True])
+@pytest.mark.parametrize('packed', [False, True])
+def test_general_kernel_matches_plain_at_the_smoke_shapes(cuda_device, stw, packed):
+    """The general kernel ≡ the plain version on chip_smoke.py's general
+    shapes (views 33, 35, 63, 65, 101, 165; 250x250; 64 agents of view
+    31)."""
+    from chip_smoke import GENERAL_SHAPES
+    for w, h, n, vs, e in GENERAL_SHAPES:
+        state = _to(to_torch(random_fields(w + n + vs, e, w, h, n, has_boxes=False)),
+                    cuda_device)
+        assert obs_cuda.check_supported(n, w, h, vs) == 'general'
+        launches = obs_cuda.general_launches
+        got = obs_cuda.gen_obs_batched(state, vs, stw, packed)
+        assert obs_cuda.general_launches == launches + 1
+        assert torch.equal(got, gen_obs_batched_plain(state, vs, stw, packed)), (w, h, n, vs)
+
+
+@pytest.mark.parametrize('n', [1, 2, 9, 33, 64])
+def test_general_kernel_seeded_sweep(cuda_device, n):
+    """Seeded shapes for each team size: odd views 33..63 (a column of one
+    64-bit word), then 65, 101 and 165 (columns of 3, 4 and 6 words; 165
+    stages its window in strips), grids from 5x5 to 250x250, agents sharing
+    cells, terminated and off the grid, every direction, images and packed,
+    see-through-walls off and on: the general kernel ≡ the plain version."""
+    rng = np.random.default_rng(n)
+    views = [int(rng.choice(np.arange(33, 65, 2))) for _ in range(4)] + [65, 101, 165]
+    for case, vs in enumerate(views):
+        w, h = (250, 250) if case == 0 else rng.integers(5, 80, 2)
+        e = int(rng.integers(1, 9)) if vs < 64 else 4
+        fields = _overlapping(random_fields(int(rng.integers(1 << 30)), e, int(w), int(h), n,
+                                            has_boxes=False), rng)
+        fields['agent_dir'][:] = (np.arange(e * n).reshape(e, n) + rng.integers(4)) % 4
+        state = _to(to_torch(fields), cuda_device)
+        for stw in (False, True):
+            for packed in (False, True):
+                got = obs_cuda.gen_obs_batched(state, vs, stw, packed)
+                want = gen_obs_batched_plain(state, vs, stw, packed)
+                assert torch.equal(got, want), (n, vs, w, h, e, stw, packed)
+
+
+def test_general_kernel_refuses_a_column_past_a_block(cuda_device):
+    """Past 92,975 cells one column of the staged window passes a block's
+    shared memory: the launcher refuses the view, nothing is launched."""
+    vs = 92977
+    assert obs_cuda.check_supported(1, 8, 8, vs) == 'general'
+    state = _to(to_torch(random_fields(3, 1, 8, 8, 1, has_boxes=False)), cuda_device)
+    launches = obs_cuda.general_launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        obs_cuda.gen_obs_batched(state, vs, False, packed=True)
+    assert obs_cuda.general_launches == launches
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize('w,h,n,vs,e', [(16, 16, 4, 7, 4096), (13, 25, 3, 13, 64),
+                                        (8, 8, 1, 3, 64), (32, 32, 33, 31, 8),
+                                        (19, 19, 10, 7, 256)])
+def test_general_kernel_equals_obs_kernel_where_both_take(cuda_device, w, h, n, vs, e,
+                                                          monkeypatch):
+    """On shapes obs_kernel takes, the general kernel, forced, gives the
+    same bits, with agents sharing cells."""
+    assert obs_cuda.check_supported(n, w, h, vs) == 'obs'
+    fields = _overlapping(random_fields(w * h + n, e, w, h, n, has_boxes=False),
+                          np.random.default_rng(vs))
+    state = _to(to_torch(fields), cuda_device)
+    cases = [(stw, packed) for stw in (False, True) for packed in (False, True)]
+    want = [obs_cuda.gen_obs_batched(state, vs, *c) for c in cases]
+    monkeypatch.setattr(obs_cuda, 'check_supported', lambda *a: 'general')
+    launches = obs_cuda.general_launches
+    got = [obs_cuda.gen_obs_batched(state, vs, *c) for c in cases]
+    assert obs_cuda.general_launches == launches + len(cases)
+    for c, a, b in zip(cases, got, want):
+        assert torch.equal(a, b), c
+
+
 def test_vector_env_on_the_card_matches_the_cpu(cuda_device):
     """The same actions and orders give the same trajectory on the card
     (kernel) as on the CPU (plain version), auto-resets included."""

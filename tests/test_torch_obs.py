@@ -221,7 +221,16 @@ def test_general_kernel_takes_the_other_shapes(n, vs, w, h):
     envs whose grid and views do not fit a block's shared memory, go to the
     general kernel; the JAX package serves them all."""
     assert obs_cuda.check_supported(n, w, h, vs) == 'general'
-    assert obs_cuda.table_size(n) >= 2 * n
+
+
+def test_general_route_takes_views_to_464895():
+    """check_supported's route for wide views: to 464,895 cells the general
+    kernel (whose launcher refuses views past 92,975:
+    tests/test_torch_cuda.py), past that ValueError."""
+    for vs in (33, 165, 23001, 92977, 464895):
+        assert obs_cuda.check_supported(1, 8, 8, vs) == 'general'
+    with pytest.raises(ValueError):
+        obs_cuda.check_supported(1, 8, 8, 464897)
 
 
 def test_kernel_takes_its_supported_range():

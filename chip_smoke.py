@@ -205,6 +205,26 @@ Phases, in order; any failure exits non-zero:
 29. profile — python -m multigrid_tpu_torch.profile_env and profile_train
                at the flagship (64 env steps a phase, 2 updates a train
                stage): the JAX scripts' keys, each phase's time.
+30. graphs  — the CUDA graphs that every phase above replays by default
+               (a step, a rollout chunk, an update) against the eager loop
+               (``disable_graphs()``), from the same seeds, bit for bit with
+               equal launch counts: the env flagship's 256-step
+               ``rollout_random``, BUP on the pool for 2 chunks, the view-33
+               path, the trained flagship for 3 updates in each learner
+               variant (default, fused policy, per-agent on B4 and gate
+               off, gate off, centralized critic, the cnn with cuDNN
+               deterministic), one BUP-recipe update and a 64-step
+               ``GymAdapter`` episode; each graph's warm-up and capture time
+               and pool memory; the carry's copy back into a graph's
+               inputs; then in turns (eager, graphed, graphed, eager) the
+               env flagship's agent-steps/s, the trained flagship's and the
+               BUP recipe's trained agent-steps/s and the adapter's steps/s,
+               and a replay's host launch calls and the device's busy share
+               (torch.profiler) beside the eager loop's.
+
+Every phase runs with CUDA graphs on, as the entry points do by default
+(``multigrid_tpu_torch/utils/graphs.py``): launch counts count the launches
+that replays make.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 B1 (images and packed, at the flagship, with 16 agents and at the BUP
@@ -908,6 +928,311 @@ def timing(venv, state):
     return dict(rate=rate, step_ms=step_ms, ms=img['ms'], plain_ms=plain_ms,
                 bound_ms=img['bound_ms'], bound_by=img['bound_by'],
                 call_ms=img['call_ms'], profiler_ms=img['profiler_ms'], packed=pk)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def _trees_equal(a, b):
+    """Whether two trees of tensors (states, parameters, metrics) hold the
+    same tensors bit for bit (NaN where the other has NaN)."""
+    import torch
+
+    from multigrid_tpu_torch.utils.graphs import flatten
+    (la, sa), (lb, sb) = flatten(a), flatten(b)
+    return sa == sb and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            torch.nan_to_num(x) if x.is_floating_point() else x,
+            torch.nan_to_num(y) if y.is_floating_point() else y)
+        and (not x.is_floating_point() or torch.equal(x.isnan(), y.isnan()))
+        for x, y in zip(la, lb))
+
+
+def _captures(owner):
+    """The :class:`~multigrid_tpu_torch.utils.graphs.Graph` objects an
+    entry point's owner (a VectorEnv, an env, a TrainStep) captured."""
+    from multigrid_tpu_torch.utils.graphs import Graph
+
+    def walk(x):
+        if isinstance(x, Graph):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from walk(v)
+        elif isinstance(x, tuple):
+            for v in x:
+                yield from walk(v)
+    return list(walk(owner._graphs))
+
+
+def _print_captures(label, owner):
+    rows = [dict(warmup_s=g.warmup_s, capture_s=g.capture_s, pool_mib=g.pool_bytes / 2**20,
+                 launches=g.launches) for g in _captures(owner)]
+    for r in rows:
+        print(f'  {label}: graph warm-up {r["warmup_s"]:.4f} s, capture {r["capture_s"]:.4f} s, '
+              f'pool {r["pool_mib"]:.2f} MiB, kernel launches a replay {r["launches"]}')
+    return rows
+
+
+def _profiled(fn, count):
+    """``fn()`` under torch.profiler: wall ms, the host's launch calls
+    (kernels and graphs) and the device's busy share, each per ``count``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    launches = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name.startswith(('cudaLaunchKernel', 'cudaGraphLaunch',
+                                          'cuLaunchKernel', 'cudaLaunchCooperative')))
+    graphs = sum(1 for e in events if e.name.startswith('cudaGraphLaunch'))
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
+    return dict(wall_ms=wall / count, host_launches=launches / count,
+                graph_launches=graphs / count, device_kernels=len(kernels) / count,
+                busy_share=None if busy is None else busy / wall)
+
+
+def _in_turns(run, label, unit):
+    """``run(graphed)`` timed eager, graphed, graphed, eager: ``unit`` per
+    second of each, synchronized."""
+    import torch
+
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+    rates = {'eager': [], 'graphed': []}
+    for graphed in (False, True, True, False):
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = run(graphed)
+            torch.cuda.synchronize()
+            rates['graphed' if graphed else 'eager'].append(n / (time.perf_counter() - t0))
+    print(f'{label}, {unit}/s in turns (eager, graphed, graphed, eager): '
+          f'eager {rates["eager"][0]:.6e}, {rates["eager"][1]:.6e}; '
+          f'graphed {rates["graphed"][0]:.6e}, {rates["graphed"][1]:.6e} '
+          f'({sum(rates["graphed"]) / sum(rates["eager"]):.4f}x by sums)')
+    return rates
+
+
+def graphs_path(device=None, e=E, train_t=TRAIN_T, bup_t=BUP_T, env_steps=STEPS):
+    """The main paths replaying CUDA graphs against the eager loop
+    (``disable_graphs()``), each pair from the same seeds: the env flagship
+    (``rollout_random``, ``env_steps`` steps), BUP on the pool (2 chunks),
+    the view-33 path (8 steps), the trained flagship for 3 updates in each
+    learner variant (default, fused policy, per-agent on B4's agent axis
+    and gate off, centralized critic, the cnn on images with cuDNN
+    deterministic), one BUP-recipe update and a ``GymAdapter`` episode:
+    states, pools, observations, parameters, Adam's state, metrics and
+    generators bit for bit, and the launch counts alike. Then, in turns
+    (eager, graphed, graphed, eager): the env flagship's agent-steps/s, the
+    trained flagship's and the BUP recipe's trained agent-steps/s and the
+    adapter's steps/s; a replay's host launches and the device's busy
+    share (torch.profiler) beside the eager loop's; each graph's warm-up,
+    capture time and pool memory. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.adapters import GymAdapter
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.ops import fused_ppo
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+
+    out = {'captures': {}}
+
+    def both(build, run, label):
+        """``run(built)`` graphed and under ``disable_graphs()``, each on
+        its own ``build()``, the launch counts read after each; fails
+        unless the results and counts are equal. Returns the built pair."""
+        results, counts, built = [], [], []
+        for graphed in (True, False):
+            obj = build()
+            with contextlib.nullcontext() if graphed else disable_graphs():
+                _zero_counts()
+                results.append(run(obj))
+                torch.cuda.synchronize()
+                counts.append(_counts())
+            built.append(obj)
+        if counts[0] != counts[1]:
+            fail(f'graphs, {label}: launches {counts[0]} graphed, {counts[1]} eager')
+        if not _trees_equal(results[0], results[1]):
+            fail(f'graphs, {label}: the graphed run differs from the eager run')
+        print(f'graphs, {label}: bit-equal to the eager loop, launches {counts[0]}')
+        return built
+
+    # Env paths: rollout_random from one seed.
+    def env_case(env_id, n, envs, steps, **kw):
+        def build():
+            venv = VectorEnv(make(env_id, agents=n, device=device, **kw), envs)
+            return venv, venv.reset(seed=0)[1]
+
+        def run(b):
+            venv, state = b
+            state, summary = venv.rollout_random(state, steps)
+            return state, summary, venv.observe(state), venv.generator.get_state()
+        return both(build, run, f'{env_id} ({n} agents, {envs} envs{", " if kw else ""}'
+                    f'{", ".join(f"{k} {v}" for k, v in kw.items())}), rollout_random({steps})')
+
+    flag = env_case('MultiGrid-Empty-16x16-v0', N, e, env_steps)
+    out['captures']['env flagship'] = _print_captures('env flagship', flag[0][0])
+    bup_env = env_case(BUP, BUP_N, e, 2 * 16)
+    out['captures']['BUP pool'] = _print_captures('BUP pool', bup_env[0][0])
+    env_case('MultiGrid-Empty-16x16-v0', 2, min(e, 1024), 8, agent_view_size=33)
+
+    # Training: each learner variant, 3 updates from one seed.
+    variants = {'default': {}, 'fused policy': dict(fused=True),
+                'per-agent': dict(per_agent_policies=True),
+                'per-agent, gate off': dict(per_agent_policies=True, gate=False),
+                'gate off': dict(gate=False),
+                'centralized critic': dict(centralized_critic=True),
+                'cnn': dict(encoder='cnn')}
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for name, v in variants.items():
+            v = dict(v)
+            fused, gate = v.pop('fused', False), v.pop('gate', True)
+            encoder = v.pop('encoder', 'mlp')
+
+            def build(v=v, fused=fused, gate=gate, encoder=encoder):
+                venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=N, device=device), e,
+                                 packed_obs=encoder == 'mlp')
+                state, net, cfg, tx = ppo_init(venv, 0, config=PPOConfig(
+                    rollout_steps=train_t, **v), hidden=HIDDEN, net_kwargs=dict(encoder=encoder))
+                saved = fused_ppo.supports, os.environ.get('MULTIGRID_FUSED_POLICY')
+                if not gate:
+                    fused_ppo.supports = lambda *a: False
+                if fused:
+                    os.environ['MULTIGRID_FUSED_POLICY'] = '1'
+                try:
+                    step = make_train_step(venv, net, cfg, tx)
+                finally:
+                    fused_ppo.supports = saved[0]
+                    os.environ.pop('MULTIGRID_FUSED_POLICY', None)
+                if step.fused_policy != fused:
+                    fail(f'graphs, {name}: fused policy {step.fused_policy}')
+                return step, state
+
+            def run(b):
+                step, state = b
+                rows = []
+                for _ in range(3):
+                    state, metrics = step(state)
+                    rows.append(metrics)
+                return (state.params, state.opt_state, state.env_state, state.last_obs,
+                        state.ep_return_acc, rows, state.generator.get_state(),
+                        step.venv.generator.get_state())
+            pair = both(build, run, f'trained flagship, {name}, 3 updates')
+            out['captures'][name] = _print_captures(name, pair[0][0])
+            if name == 'default':
+                flag_train = pair
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+
+    def bup_build():
+        venv = VectorEnv(make(BUP, agents=BUP_N, device=device), e, packed_obs=True)
+        cfg = PPOConfig(rollout_steps=bup_t, epochs=BUP_EPOCHS, minibatches=BUP_MB)
+        state, net, cfg, tx = ppo_init(venv, 0, config=cfg, hidden=HIDDEN,
+                                       net_kwargs=dict(encoder='mlp'))
+        return make_train_step(venv, net, cfg, tx), state
+
+    def bup_run(b):
+        step, state = b
+        state, metrics = step(state)
+        return (state.params, state.opt_state, state.env_state, state.last_obs,
+                state.ep_return_acc, metrics, state.generator.get_state(),
+                step.venv.generator.get_state())
+    bup = both(bup_build, bup_run, 'BUP recipe, 1 update')
+    out['captures']['BUP recipe'] = _print_captures('BUP recipe', bup[0][0])
+
+    # The adapter: one episode of random partial action dicts.
+    def ad_run(ad, steps=64, seed=0):
+        rng = np.random.default_rng(seed)
+        obs, _ = ad.reset(seed=seed)
+        seen = [obs[0]['image'], obs[1]['image']]
+        for _ in range(steps):
+            actions = {i: int(rng.integers(7)) for i in range(BUP_N) if rng.random() < 0.8}
+            obs, rew, term, trunc, _ = ad.step(actions)
+            seen += [obs[0]['image'], obs[1]['image'],
+                     np.array([rew[0], rew[1], term[0], term[1], trunc[0]], np.float32)]
+            if all(term.values()) or any(trunc.values()):
+                obs, _ = ad.reset()
+                seen += [obs[0]['image'], obs[1]['image']]
+        return [torch.as_tensor(x) for x in seen]
+    gym = both(lambda: GymAdapter(make(BUP, agents=BUP_N, device=device)), ad_run,
+               'GymAdapter over BUP, 64 steps')
+    out['captures']['GymAdapter'] = _print_captures('GymAdapter', gym[0].env)
+
+    # The carry's copy back into the graph's inputs, which ends each
+    # replay of a carry graph (the cost that two graphs alternating
+    # buffers would save): the same fused copies, timed alone.
+    from multigrid_tpu_torch.utils.graphs import clone, load
+    copies = {}
+    tstate = flag_train[0][1]
+    zero = torch.zeros((), dtype=torch.int64, device=tstate.ep_return_acc.device)
+    for label, tree in [('env flagship step', (flag[0][1], (zero.float(), zero, zero))),
+                        ('trained flagship update',
+                         (tstate.params, tstate.opt_state, tstate.env_state, tstate.last_obs,
+                          tstate.ep_return_acc))]:
+        dst = clone(tree)
+        copies[label] = event_ms(lambda: load(dst, tree), 50)
+    out['carry_copy_ms'] = copies
+    print('carry copy back into the inputs, ms a replay: ' + ', '.join(
+        f'{k} {v:.6f}' for k, v in copies.items()))
+
+    # Times, in turns, on the objects above (their graphs already captured).
+    venvs = {True: flag[0], False: flag[1]}
+
+    def env_timed(graphed):
+        venv, state = venvs[graphed]
+        venvs[graphed] = (venv, venv.rollout_random(state, env_steps)[0])
+        return e * N * env_steps
+    out['env_agent_steps_per_s'] = _in_turns(env_timed, 'env flagship', 'agent-steps')
+    trains = {True: list(flag_train[0]), False: list(flag_train[1])}
+
+    def train_timed(graphed, updates=2):
+        step, state = trains[graphed]
+        for _ in range(updates):
+            state, _ = step(state)
+        trains[graphed][1] = state
+        return updates * train_t * e * N
+    out['trained_agent_steps_per_s'] = _in_turns(train_timed, 'trained flagship (default)',
+                                                 'trained agent-steps')
+    bups = {True: list(bup[0]), False: list(bup[1])}
+
+    def bup_timed(graphed):
+        step, state = bups[graphed]
+        bups[graphed][1] = step(state)[0]
+        return bup_t * e * BUP_N
+    out['bup_trained_agent_steps_per_s'] = _in_turns(bup_timed, 'BUP recipe',
+                                                     'trained agent-steps')
+    ads = {True: gym[0], False: gym[1]}
+    out['gym_steps_per_s'] = _in_turns(lambda g: (ad_run(ads[g], 128, 1), 128)[1],
+                                       'GymAdapter over BUP', 'steps')
+
+    # One replay under the profiler beside the eager loop's.
+    prof = {}
+    for graphed in (True, False):
+        key = 'graphed' if graphed else 'eager'
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            venv, state = venvs[graphed]
+            prof[f'env step, {key}'] = _profiled(lambda: venv.rollout_random(state, 16), 16)
+            step, state = trains[graphed]
+            prof[f'trained flagship update, {key}'] = _profiled(lambda: step(state), 1)
+            step, state = bups[graphed]
+            prof[f'BUP recipe update, {key}'] = _profiled(lambda: step(state), 1)
+            prof[f'GymAdapter step, {key}'] = _profiled(lambda: ad_run(ads[graphed], 32, 2), 32)
+    for k, v in prof.items():
+        print(f'profiled {k}: wall {v["wall_ms"]:.4f} ms, host launch calls '
+              f'{v["host_launches"]:.1f} ({v["graph_launches"]:.1f} graphs), device kernels '
+              f'{v["device_kernels"]:.1f}, busy ' + (
+                  'not measured' if v['busy_share'] is None else f'{v["busy_share"]:.4f}'))
+    out['profile'] = prof
+    return out
 
 
 # ------------------------------------------------------------ training
@@ -2006,8 +2331,12 @@ def reset_share(layers):
 def obs_checked():
     """Inside, every observation a ``VectorEnv`` or an env's own ``reset``,
     ``step`` and ``observe`` (the adapters' path) make through the kernel
-    is also made by the plain version on the same state; yields the list
-    to which each call that differs adds its env count."""
+    is also made by the plain version on the same state, on the card, and
+    the envs whose observations differ are counted there: the check is
+    captured into the graphs of the steps made inside (and runs at every
+    replay of those graphs, so objects whose graphs were captured inside
+    are not timed after). Yields a list, to which the count of differing
+    envs is added at the end where it is not 0."""
     import torch
 
     from multigrid_tpu_torch.envs import env as env_module
@@ -2016,12 +2345,13 @@ def obs_checked():
 
     kernel = vector.gen_obs_batched
     mismatches = []
+    differ = torch.zeros((), dtype=torch.int64,
+                         device='cuda' if torch.cuda.is_available() else 'cpu')
 
     def checked(state, view_size, see_through_walls, packed=False):
         got = kernel(state, view_size, see_through_walls, packed)
-        if not torch.equal(got, gen_obs_batched_plain(state, view_size, see_through_walls,
-                                                       packed)):
-            mismatches.append(state.num_envs)
+        plain = gen_obs_batched_plain(state, view_size, see_through_walls, packed)
+        differ.add_((got != plain).flatten(1).any(1).sum())
         return got
 
     vector.gen_obs_batched = env_module.gen_obs_batched = checked
@@ -2029,6 +2359,8 @@ def obs_checked():
         yield mismatches
     finally:
         vector.gen_obs_batched = env_module.gen_obs_batched = kernel
+        if int(differ):
+            mismatches.append(int(differ))
 
 
 def zoo(device=None, steps=32):
@@ -2874,6 +3206,8 @@ def adapters_path(device=None, steps=256, checked=32):
         fail(f'adapters: obs {obs[0]["image"].shape}, mission {obs[0]["mission"]!r}')
 
     acts = rng.integers(0, 7, (steps, BUP_N))
+    # A fresh adapter: the checked one's graphs hold the plain version.
+    ad = GymAdapter(make(BUP, agents=BUP_N, device=device))
     ad.reset(seed=1)
     _zero_counts()
     resets = 0
@@ -3597,6 +3931,11 @@ def main() -> None:
         model_axis = model_axis_path(ckdir)
     phase('profile')
     profiles = profile_path()
+    # Last: profiling graph replays left the profiler blind to a later
+    # ctypes launch of B1 alone (the timing phase's profiler time read None
+    # when this phase ran before it).
+    phase('graphs')
+    graph_res = graphs_path()
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
@@ -3690,7 +4029,7 @@ def main() -> None:
                                      if not k.startswith('launches')}},
                       'model_axis': {k: v for k, v in model_axis.items()
                                      if not k.startswith('launches')},
-                      'profile': profiles}))
+                      'profile': profiles, 'graphs': graph_res}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .constants import COLOR_RED, EMPTY_ENCODING, TYPE_AGENT, TYPE_EMPTY
+from ..utils.device import constant
 
 #: Tensor fields in declaration order (``extras`` excluded).
 FIELDS = (
@@ -48,10 +49,19 @@ class ResetPool:
     """A VectorEnv's reserve pool (multigrid_tpu/parallel/vector.py:243-263):
     ``reserve`` holds one pregenerated layout a slot, extras included, and
     ``step`` is the global step ``g`` (env ``i`` consumes slot ``(i + g) mod
-    E``)."""
+    E``): a 0-d int64 tensor on the reserve's device, as the JAX package
+    carries ``_GSTEP`` on the device, so that a captured step reads it there
+    (an int, or a tensor on another device, given here becomes one)."""
 
     reserve: 'MultiGridState'
-    step: int = 0
+    step: torch.Tensor | int = 0
+
+    def __post_init__(self):
+        if not isinstance(self.step, torch.Tensor):
+            self.step = torch.tensor(int(self.step), dtype=torch.int64,
+                                     device=self.reserve.device)
+        elif self.step.device != self.reserve.device:
+            self.step = self.step.to(self.reserve.device)
 
 
 @dataclasses.dataclass
@@ -117,7 +127,8 @@ class MultiGridState:
         the original."""
         def cp(t):
             return t.clone(memory_format=torch.contiguous_format)
-        pool = None if self.pool is None else ResetPool(self.pool.reserve.clone(), self.pool.step)
+        pool = None if self.pool is None else ResetPool(self.pool.reserve.clone(),
+                                                        self.pool.step.clone())
         return self.replace(**{f: cp(getattr(self, f)) for f in FIELDS},
                             extras={k: cp(v) for k, v in self.extras.items()}, pool=pool)
 
@@ -136,7 +147,7 @@ def init_state(
     JAX package does for Box-free environments.
     """
     e, n = num_envs, num_agents
-    empty = torch.as_tensor(EMPTY_ENCODING, dtype=torch.int32, device=device)
+    empty = constant(EMPTY_ENCODING, device, torch.int32)
     bc = (width, height) if has_boxes else (0, 0)
     colors = (torch.arange(n, dtype=torch.int32, device=device) % 6) + COLOR_RED
     return MultiGridState(
@@ -232,11 +243,11 @@ def state_from_arrays(
 def state_to_numpy(state: MultiGridState) -> dict[str, Any]:
     """Batched numpy copies of the state's tensor fields, with its
     ``extras`` (a dict of arrays) and its ``pool`` (None, or the reserve's
-    own ``state_to_numpy`` and the step)."""
+    own ``state_to_numpy`` and the step as an int)."""
     out: dict[str, Any] = {f: getattr(state, f).cpu().numpy() for f in FIELDS}
     out['extras'] = {k: v.cpu().numpy() for k, v in state.extras.items()}
     out['pool'] = None if state.pool is None else {
-        'reserve': state_to_numpy(state.pool.reserve), 'step': state.pool.step}
+        'reserve': state_to_numpy(state.pool.reserve), 'step': int(state.pool.step)}
     return out
 
 

@@ -25,6 +25,7 @@ from ..ops.place import set_cell
 from ..ops.step import apply_success, success_reward
 from . import layout
 from .roomgrid import RoomGrid, encodings
+from ..utils.device import constant
 
 
 class BlockedUnlockPickupEnv(RoomGrid):
@@ -96,7 +97,7 @@ class BlockedUnlockPickupEnv(RoomGrid):
         # The blocking ball (random color) directly left of the door.
         ball_color = self._randint(generator, 0, NUM_BASE_COLORS, (e,))
         state = state.replace(grid=set_cell(
-            state.grid, door_pos - torch.tensor([1, 0], dtype=torch.int32, device=self.device),
+            state.grid, door_pos - constant([1, 0], self.device, torch.int32),
             encodings(TYPE_BALL, ball_color)))
 
         # The key of the door's color, in the left room.

@@ -12,6 +12,14 @@ return:
 The single-env API is the ``E = 1`` case: ``actions`` is ``(E, N)``.
 Subclasses implement ``_gen_grid(num_envs, generator)`` and may override
 ``post_step``.
+
+On the card ``reset`` and ``step`` replay CUDA graphs, as the JAX package
+jits them (env.py:193-232): the caller's state and actions are copied into
+the graph's buffers and the results cloned out, so a kept state is never
+overwritten (:func:`~multigrid_tpu_torch.utils.graphs.call`); one graph
+for each signature and generator. ``step_with_order`` and ``observe`` run
+eagerly, and so does an env whose reset runs on the host
+(:attr:`MultiGridEnv.host_reset`).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from ..core.config import EnvConfig
 from ..core.state import MultiGridState
 from ..ops.obs_cuda import gen_obs_batched
 from ..ops.step import sample_order, step_with_order
+from ..utils import graphs
 from ..utils.device import resolve_device
 
 
@@ -43,6 +52,12 @@ class MultiGridEnv(abc.ABC):
     #: Whether this environment's layouts can ever contain a Box; Box-free
     #: environments carry a zero-sized ``box_contents`` table.
     uses_boxes: bool = True
+
+    #: True where ``reset_core`` generates on the host (the MiniGrid
+    #: builder's imperative ``_gen_grid``): such an env's ``reset`` and a
+    #: ``VectorEnv`` over it run eagerly, since a CUDA graph cannot hold
+    #: host work.
+    host_reset: bool = False
 
     def __init__(
         self,
@@ -75,6 +90,8 @@ class MultiGridEnv(abc.ABC):
             failure_any=(failure_termination_mode == 'any'),
         )
         self.device = resolve_device(device)
+        #: Captured graphs of ``reset`` and ``step`` by signature.
+        self._graphs: dict = {}
 
     # ------------------------------------------------------------------ API
 
@@ -172,7 +189,15 @@ class MultiGridEnv(abc.ABC):
         return self._gen_grid(num_envs, generator)
 
     def reset(self, generator: torch.Generator | None = None, num_envs: int = 1):
-        """Start new episodes. Returns ``(obs, state)`` (base.py:250-301)."""
+        """Start new episodes. Returns ``(obs, state)`` (base.py:250-301).
+        On the card, one graph replay."""
+        if graphs.graphs_on(self.device) and not self.host_reset:
+            return graphs.call(self._graphs, ('reset', num_envs, generator), (),
+                               lambda _: self._reset(generator, num_envs),
+                               generators=[generator], device=self.device)
+        return self._reset(generator, num_envs)
+
+    def _reset(self, generator, num_envs):
         state = self.reset_core(num_envs, generator).clone()
         return self.observe(state), state
 
@@ -185,7 +210,17 @@ class MultiGridEnv(abc.ABC):
     ):
         """Advance one timestep with random agent orders drawn from
         ``generator``. Returns ``(obs, state, rewards, terminations,
-        truncations)``."""
+        truncations)``. On the card, one graph replay."""
+        if graphs.graphs_on(self.device):
+            dev = state.device
+            args = (state, torch.as_tensor(actions, device=dev),
+                    None if action_mask is None else torch.as_tensor(action_mask, device=dev))
+            return graphs.call(self._graphs, ('step', generator), args,
+                               lambda a: self._step(*a, generator),
+                               generators=[generator])
+        return self._step(state, actions, action_mask, generator)
+
+    def _step(self, state, actions, action_mask, generator):
         order = sample_order(generator, state.num_envs, self.num_agents,
                              state.device)
         return self.step_with_order(state, actions, order, action_mask)

@@ -27,6 +27,7 @@ from ..ops.place import place_obj_mask, set_cell, uniform_position
 from ..ops.step import success_reward
 from . import layout
 from .roomgrid import RoomGrid, encodings, forward_cell, place_agents_device
+from ..utils.device import constant
 
 _LEFT, _HALLWAY, _RIGHT = range(3)  # room columns
 
@@ -101,8 +102,8 @@ class LockedHallwayEnv(RoomGrid):
         perm = torch.rand((e, nr), generator=generator, device=dev).argsort(-1)
         door_color = color_sequence.gather(1, perm).flip(-1)     # room r: pop() r
 
-        grid = torch.as_tensor(self._base_grid, device=dev).expand(e, -1, -1, -1).clone()
-        dx, dy = (torch.as_tensor(self._door_pos[:, k], device=dev).long() for k in (0, 1))
+        grid = constant(self._base_grid, dev).expand(e, -1, -1, -1).clone()
+        dx, dy = (constant(self._door_pos[:, k], dev, torch.long) for k in (0, 1))
         grid[:, dx, dy] = encodings(TYPE_DOOR, door_color.reshape(-1), STATE_LOCKED) \
             .reshape(e, nr, 3)
         state = self._init_room_state(e, base_grid=grid)
@@ -118,10 +119,10 @@ class LockedHallwayEnv(RoomGrid):
         # num_hallway_keys keys go in the hallway; the rest come in groups,
         # each in the room opened by the key before the group.
         num_hallway_keys = self._randint(generator, 1, self.max_hallway_keys + 1, (e,))
-        room_tops = torch.as_tensor(self._room_tops, device=dev)
-        hall_top = torch.as_tensor(self._hallway_top, dtype=torch.int32, device=dev)
-        hall_size = torch.as_tensor(self._hallway_size, dtype=torch.int32, device=dev)
-        room_shape = torch.as_tensor(self.geometry.room_shape, dtype=torch.int32, device=dev)
+        room_tops = constant(self._room_tops, dev)
+        hall_top = constant(self._hallway_top, dev, torch.int32)
+        hall_size = constant(self._hallway_size, dev, torch.int32)
+        room_shape = constant(self.geometry.room_shape, dev, torch.int32)
         group_room = torch.zeros((e,), dtype=torch.long, device=dev)
         remaining = torch.zeros((e,), dtype=torch.int32, device=dev)
         grid = state.grid
@@ -159,8 +160,8 @@ class LockedHallwayEnv(RoomGrid):
         if action_mask is None:
             action_mask = torch.ones((e, n), dtype=torch.bool, device=dev)
         unlocked = state.extras['door_unlocked']
-        door_pos = torch.as_tensor(self._door_pos, device=dev)
-        dir_vec = torch.as_tensor(DIR_TO_VEC, device=dev)
+        door_pos = constant(self._door_pos, dev)
+        dir_vec = constant(DIR_TO_VEC, dev)
         reward_value = success_reward(state.step_count, cfg.max_steps)
         # The doors' cells sit at fixed positions: one gather for all.
         door_encs = state.grid[:, door_pos[:, 0].long(), door_pos[:, 1].long()]  # (E, D, 3)

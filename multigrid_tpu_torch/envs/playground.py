@@ -132,7 +132,7 @@ class PlaygroundEnv(RoomGrid):
         doors = (incl.float() @ tab['edges']).reshape(e, w1, C, R, 4) > 0
 
         reach = torch.zeros((e, w1, C, R), dtype=torch.bool, device=dev)
-        reach[:, :, 0, 0] = True
+        reach[:, :, 0, 0].fill_(True)
         pad = torch.nn.functional.pad
         for _ in range(C * R - 1):
             reach = (reach
@@ -219,7 +219,7 @@ class PlaygroundEnv(RoomGrid):
         for a in range(n):
             vpos = valid & arect[:, a] & ~taken
             if a < n - 1:  # agents after a still wait at the middle cell
-                vpos[:, mid_flat] = False
+                vpos[:, mid_flat].fill_(False)
             v4 = (vpos[..., None] & front).reshape(e, -1)
             flat = torch.where(v4, aprio[:, a] + 1.0, 0.0).argmax(-1)
             taken = taken | (iota == (flat // 4)[:, None])

@@ -24,6 +24,7 @@ from ..ops.step import apply_failure, apply_success, success_reward
 from . import layout
 from .env import MultiGridEnv
 from .roomgrid import forward_cell, place_agents_device, randint
+from ..utils.device import constant
 
 
 class RedBlueDoorsEnv(MultiGridEnv):
@@ -75,7 +76,7 @@ class RedBlueDoorsEnv(MultiGridEnv):
         cfg, dev, e = self.cfg, self.device, num_envs
         state = init_state(e, cfg.width, cfg.height, cfg.num_agents, dev,
                            has_boxes=self.uses_boxes)
-        grid = torch.as_tensor(self._layout, device=dev)
+        grid = constant(self._layout, dev)
         state = state.replace(grid=grid.expand(state.grid.shape))
         state = place_agents_device(state, generator, top=self.room_top, size=self.room_size)
         red_y = randint(generator, 1, cfg.height - 1, (e,), dev)
@@ -101,7 +102,7 @@ class RedBlueDoorsEnv(MultiGridEnv):
         red_pos, blue_pos = state.extras['red_pos'], state.extras['blue_pos']
         if action_mask is None:
             action_mask = torch.ones((e, n), dtype=torch.bool, device=dev)
-        dir_vec = torch.as_tensor(DIR_TO_VEC, device=dev)
+        dir_vec = constant(DIR_TO_VEC, dev)
         reward_value = success_reward(state.step_count, cfg.max_steps)
         env = torch.arange(e, device=dev)
         bx, by = blue_pos[:, 0].long(), blue_pos[:, 1].long()

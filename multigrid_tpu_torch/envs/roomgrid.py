@@ -36,6 +36,7 @@ from ..ops.place import (
 )
 from . import layout
 from .env import MultiGridEnv
+from ..utils.device import constant
 
 
 def opposite(direction: int) -> int:
@@ -205,7 +206,7 @@ def place_agents_device(
     for a in range(n):
         # Clear this agent's own stale position first (the reference's
         # place_agent sets pos=(-1,-1) before sampling, base.py:687-691).
-        agent_pos[:, a] = -1
+        agent_pos[:, a].fill_(-1)
         valid = place_obj_mask(state.grid, agent_pos, top, size)
         if check_front:
             agent_pos[:, a], agent_dir[:, a] = uniform_pos_dir(
@@ -290,8 +291,8 @@ class RoomGrid(MultiGridEnv):
         state = init_state(num_envs, cfg.width, cfg.height, cfg.num_agents, dev,
                            has_boxes=self.uses_boxes)
         grid = self._base_grid if base_grid is None else base_grid
-        grid = torch.as_tensor(grid, dtype=torch.int32, device=dev)
-        mid = torch.as_tensor(self.geometry.middle_pos(), dtype=torch.int32, device=dev)
+        grid = constant(grid, dev, torch.int32)
+        mid = constant(self.geometry.middle_pos(), dev, torch.int32)
         return state.replace(
             grid=grid.expand(state.grid.shape),
             agent_pos=mid.expand(num_envs, cfg.num_agents, 2),
@@ -317,8 +318,7 @@ class RoomGrid(MultiGridEnv):
         """Add an object of a given type and color ((E,) tensors or ints) to
         a room (core/roomgrid.py:258-281)."""
         e = state.num_envs
-        enc = encodings(torch.as_tensor(kind, dtype=torch.int32, device=self.device)
-                        .expand(e), color)
+        enc = encodings(constant(kind, self.device, torch.int32).expand(e), color)
         return self.place_in_room(state, generator, enc, col, row)
 
     def add_door(self, state: MultiGridState, generator, col: int, row: int,

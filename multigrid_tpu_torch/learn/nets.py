@@ -67,6 +67,13 @@ def direction_features(direction: torch.Tensor, dtype=DTYPE) -> torch.Tensor:
     return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
 
 
+def mission_one_hot(mission: torch.Tensor, num_missions: int, dtype=DTYPE) -> torch.Tensor:
+    """(…) mission indices → (…, M) one-hot rows, by comparison with an
+    ``arange`` (``F.one_hot`` reads the indices' range on the host)."""
+    return (mission.long()[..., None]
+            == torch.arange(num_missions, device=mission.device)).to(dtype)
+
+
 def dir_mission_features(direction: torch.Tensor, mission: torch.Tensor | None,
                          num_missions: int, dtype=DTYPE) -> torch.Tensor:
     """(…, 2 + M) direction features followed by the mission's one-hot
@@ -74,8 +81,7 @@ def dir_mission_features(direction: torch.Tensor, mission: torch.Tensor | None,
     else the (…, 2) direction features (nets.py:106-112)."""
     dirf = direction_features(direction, dtype)
     if num_missions and mission is not None:
-        one_hot = torch.nn.functional.one_hot(mission.long(), num_missions).to(dtype)
-        dirf = torch.cat([dirf, one_hot], dim=-1)
+        dirf = torch.cat([dirf, mission_one_hot(mission, num_missions, dtype)], dim=-1)
     return dirf
 
 
@@ -305,8 +311,8 @@ class CentralizedCritic(nn.Module):
                          self.packed_obs, self.dtype) + self.Dense_0.bias.to(self.dtype)
         d = direction_features(directions, self.dtype).reshape(lead + (2 * n,))
         if self.num_missions and missions is not None:
-            d = torch.cat([d, torch.nn.functional.one_hot(
-                missions[..., 0].long(), self.num_missions).to(self.dtype)], dim=-1)
+            d = torch.cat([d, mission_one_hot(missions[..., 0], self.num_missions,
+                                              self.dtype)], dim=-1)
         x = torch.relu(h + self.Dense_1(d))
         x = torch.relu(self.Dense_2(x))
         return self.Dense_3(x).float().squeeze(-1)

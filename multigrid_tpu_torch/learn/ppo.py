@@ -72,6 +72,7 @@ from ..ops import fused_policy, fused_ppo
 from ..parallel import distributed
 from ..parallel.mesh import gather_params, shard_params
 from ..parallel.vector import VectorEnv
+from ..utils import graphs
 from .nets import (
     ACTOR,
     CRITIC,
@@ -109,23 +110,33 @@ class PPOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OptState:
-    count: int
+    """Adam's state. The counts are 0-d int32 tensors on the parameters'
+    device, as optax carries them, so that a captured update reads and
+    advances them there."""
+    count: torch.Tensor
     mu: dict[str, torch.Tensor]
     nu: dict[str, torch.Tensor]
     #: The learning-rate schedule's own count (optax's
     #: ``ScaleByScheduleState``), None for a constant rate.
-    schedule_count: int | None = None
+    schedule_count: torch.Tensor | None = None
 
 
 def linear_schedule(init_value: float, end_value: float,
-                    transition_steps: int) -> Callable[[int], float]:
+                    transition_steps: int) -> Callable:
     """``optax.linear_schedule``: ``count -> init + (end - init) ·
     min(count, N) / N``, computed in float32 as optax computes it
-    (``(init - end) · (1 - count / N) + end``, the difference rounded once)."""
+    (``(init - end) · (1 - count / N) + end``, the difference rounded once).
+    An int count gives a float; a tensor count (the optimizer's, on the
+    device) a 0-d float32 tensor beside it."""
     diff, end = np.float32(init_value - end_value), np.float32(end_value)
     n = np.float32(transition_steps)
 
-    def schedule(count: int) -> float:
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            if transition_steps <= 0:
+                return torch.full((), float(np.float32(init_value)), device=count.device)
+            frac = 1 - count.clamp(0, transition_steps).to(torch.float32) / float(n)
+            return frac * float(diff) + float(end)
         if transition_steps <= 0:
             return float(np.float32(init_value))
         frac = np.float32(1) - np.float32(min(max(count, 0), transition_steps)) / n
@@ -164,9 +175,11 @@ class Optimizer:
         self.per_agent, self.critic = per_agent, critic
 
     def init(self, params: dict[str, torch.Tensor]) -> OptState:
-        return OptState(0, {k: torch.zeros_like(v) for k, v in params.items()},
+        device = next(iter(params.values())).device
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        return OptState(count, {k: torch.zeros_like(v) for k, v in params.items()},
                         {k: torch.zeros_like(v) for k, v in params.items()},
-                        0 if callable(self.lr) else None)
+                        count.clone() if callable(self.lr) else None)
 
     def _clip_group(self, grads: dict[str, torch.Tensor], per_agent: bool):
         if per_agent:
@@ -197,10 +210,10 @@ class Optimizer:
         count = state.count + 1
         mu = {k: (1 - self.b1) * g + self.b1 * state.mu[k] for k, g in grads.items()}
         nu = {k: (1 - self.b2) * (g * g) + self.b2 * state.nu[k] for k, g in grads.items()}
-        # The bias corrections in float32, as Python numbers (no copy to
-        # the device).
-        c1 = float(np.float32(1) - np.float32(self.b1) ** count)
-        c2 = float(np.float32(1) - np.float32(self.b2) ** count)
+        # The bias corrections in float32 on the device, as optax computes
+        # them from its int32 count.
+        c1 = 1 - torch.pow(self.b1, count)
+        c2 = 1 - torch.pow(self.b2, count)
         sc = state.schedule_count
         lr = self.lr if sc is None else self.lr(sc)
         updates = {k: -lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps))
@@ -376,6 +389,8 @@ class TrainStep:
     def __init__(self, venv: VectorEnv, net: ActorCritic, config: PPOConfig,
                  tx: Optimizer):
         self.venv, self.net, self.config, self.tx = venv, net, config, tx
+        #: The update's captured graphs by signature and generator.
+        self._graphs: dict = {}
         #: The mesh's env-axis process group (None in one process), and
         #: whether this process holds only part of the env batch.
         self.group = None if venv.mesh is None else venv.mesh.group
@@ -661,7 +676,60 @@ class TrainStep:
         of the global batch); by default they are drawn from
         ``state.generator``. Under a mesh of several env shards, minibatches
         need the global batch: every process gathers it once an update and
-        takes its share of each minibatch's envs."""
+        takes its share of each minibatch's envs.
+
+        On the card (where :meth:`VectorEnv.graphed` holds: outside
+        ``disable_graphs()``, without a mesh) the update is one CUDA graph, captured
+        at the first call for the state's signature and generator (a new
+        config is a new ``TrainStep``, so a new capture, as ``jit``
+        recompiles), with the state copied in and cloned out."""
+        state, rows = self.run(state, 1, shuffle)
+        return state, rows[0]
+
+    def run(self, state: TrainState, updates: int, shuffle=None):
+        """``updates`` updates from ``state``: ``(state, [metrics of each
+        update])``. On the card, replays of one carry graph, the train state
+        staying in the graph's buffers from one update to the next."""
+        if not self.venv.graphed():
+            rows = []
+            for _ in range(updates):
+                state, metrics = self.update(state, shuffle)
+                rows.append(metrics)
+            return state, rows
+        if shuffle is not None:
+            shuffle = [(torch.as_tensor(p, device=self.venv.device),
+                        torch.as_tensor(o, device=self.venv.device)) for p, o in shuffle]
+        args = (self._carry(state), shuffle)
+        key = ('update', state.generator, graphs.signature(args))
+        if key not in self._graphs:
+            buffers = graphs.clone(args)
+            self._graphs[key] = graphs.Graph(
+                lambda a, g=state.generator: self._update_carry(a, g), buffers,
+                generators=[state.generator, self.venv.generator], carry=True)
+        graph = self._graphs[key]
+        graphs.load(graph.inputs, args)
+        rows = [graphs.clone(graph.replay()) for _ in range(updates)]
+        params, opt_state, env_state, last_obs, ep_acc = graphs.clone(graph.inputs[0])
+        return state.replace(params=params, opt_state=opt_state, env_state=env_state,
+                             last_obs=last_obs, ep_return_acc=ep_acc,
+                             update_count=state.update_count + updates), rows
+
+    @staticmethod
+    def _carry(state: TrainState):
+        return (state.params, state.opt_state, state.env_state, state.last_obs,
+                state.ep_return_acc)
+
+    def _update_carry(self, args, generator: torch.Generator):
+        """:meth:`update` on a carried tree: the captured function."""
+        carry, shuffle = args
+        params, opt_state, env_state, last_obs, ep_acc = carry
+        state = TrainState(params, opt_state, env_state, last_obs, generator,
+                           ep_return_acc=ep_acc)
+        state, metrics = self.update(state, shuffle)
+        return (self._carry(state), shuffle), metrics
+
+    def update(self, state: TrainState, shuffle=None):
+        """One update, eagerly: :meth:`__call__`'s body."""
         cfg = self.config
         params, opt_state = gather_params(state.params, self.venv.mesh), state.opt_state
         state, traj, last_value, (ep_sum, ep_cnt, ep_suc) = self.rollout_phase(state, params)
@@ -683,10 +751,11 @@ class TrainStep:
                               for x in batch)
             for epoch in range(cfg.epochs):
                 if shuffle is None:
+                    # The roll stays on the device (a 0-d tensor).
                     perm_t = torch.randperm(t, generator=state.generator,
                                             device=state.generator.device)
-                    off_e = int(torch.randint(e, (), generator=state.generator,
-                                              device=state.generator.device))
+                    off_e = torch.randint(e, (), generator=state.generator,
+                                          device=state.generator.device)
                 else:
                     perm_t, off_e = shuffle[epoch]
                 for tr, adv, tg in minibatches(batch, cfg.minibatches, perm_t, off_e,
@@ -714,12 +783,14 @@ class TrainStep:
 
 
 def minibatches(batch: tuple[Rollout, torch.Tensor, torch.Tensor], count: int,
-                perm_t, off_e: int, shard: int = 0, shards: int = 1):
+                perm_t, off_e, shard: int = 0, shards: int = 1):
     """Split ``(traj, advantages, targets)`` (T, E, ...) into ``count``
-    minibatches: permute T by ``perm_t``, roll the env axis by ``off_e``,
-    then take contiguous env blocks (ppo.py:671-698). With ``shards``,
-    each minibatch's block is split in as many contiguous parts and only
-    part ``shard`` is yielded (a process's share of the minibatch)."""
+    minibatches: permute T by ``perm_t``, roll the env axis by ``off_e``
+    (an int or a 0-d device tensor: the rows are gathered at indices
+    computed on the device), then take contiguous env blocks
+    (ppo.py:671-698). With ``shards``, each minibatch's block is split in
+    as many contiguous parts and only part ``shard`` is yielded (a
+    process's share of the minibatch)."""
     traj, adv, tg = batch
     e = adv.shape[1]
     c = e // count
@@ -736,22 +807,27 @@ def minibatches(batch: tuple[Rollout, torch.Tensor, torch.Tensor], count: int,
 
 
 def make_train_step(venv: VectorEnv, net: ActorCritic, config: PPOConfig,
-                    tx: Optimizer) -> TrainStep:
-    """The PPO update for ``venv`` (see :class:`TrainStep`)."""
+                    tx: Optimizer, per_agent_policies: bool | None = None) -> TrainStep:
+    """The PPO update for ``venv`` (see :class:`TrainStep`).
+    ``per_agent_policies`` is the JAX package's deprecated alias for the
+    config field (multigrid_tpu/learn/ppo.py:235-247)."""
+    if per_agent_policies is not None:
+        config = config.replace(per_agent_policies=per_agent_policies)
     return TrainStep(venv, net, config, tx)
 
 
 def make_train_loop(venv: VectorEnv, net: ActorCritic, config: PPOConfig,
-                    tx: Optimizer, updates_per_call: int):
-    """``updates_per_call`` updates per call; the metrics are their means
-    (NaN-skipping: ``episode_reward`` is NaN where no episode ended)."""
-    train_step = make_train_step(venv, net, config, tx)
+                    tx: Optimizer, updates_per_call: int,
+                    per_agent_policies: bool | None = None):
+    """``updates_per_call`` updates per call (on the card, that many
+    replays of the update's graph, as the JAX package scans them in one
+    jitted call, ppo.py:736-765); the metrics are their means (NaN-skipping:
+    ``episode_reward`` is NaN where no episode ended). ``per_agent_policies``
+    as in :func:`make_train_step`."""
+    train_step = make_train_step(venv, net, config, tx, per_agent_policies)
 
     def train_loop(state: TrainState) -> tuple[TrainState, dict[str, Any]]:
-        rows = []
-        for _ in range(updates_per_call):
-            state, metrics = train_step(state)
-            rows.append(metrics)
+        state, rows = train_step.run(state, updates_per_call)
         return state, {k: torch.nanmean(torch.stack([r[k].float() for r in rows]))
                        for k in rows[0]}
 

@@ -22,16 +22,25 @@ def launch_counts() -> dict[str, int]:
             'ppo_loss': fused_ppo.launches, 'policy_sample': fused_policy.launches}
 
 
+def set_launch_counts(counts: dict[str, int]) -> None:
+    """Set the wrappers' launch counts named in ``counts`` (keys as
+    :func:`launch_counts` gives them)."""
+    from . import fused_linear, fused_policy, fused_ppo, obs_cuda
+    owners = {'obs': (obs_cuda, 'launches'), 'obs_general': (obs_cuda, 'general_launches'),
+              'onehot_linear': (fused_linear, 'launches'),
+              'onehot_linear_grad': (fused_linear, 'grad_launches'),
+              'ppo_loss': (fused_ppo, 'launches'), 'policy_sample': (fused_policy, 'launches')}
+    for name, n in counts.items():
+        setattr(*owners[name], n)
+
+
 def zero_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from . import fused_linear, fused_policy, fused_ppo, obs_cuda
-    obs_cuda.launches = obs_cuda.general_launches = 0
-    fused_linear.launches = fused_linear.grad_launches = 0
-    fused_ppo.launches = fused_policy.launches = 0
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
 
 
 __all__ = [
     'gen_obs', 'gen_obs_batched', 'gen_obs_batched_plain', 'gen_obs_grid',
     'gen_obs_grid_encoding', 'get_vis_mask', 'handle_actions', 'launch_counts',
-    'sample_order', 'step_with_order', 'zero_launch_counts',
+    'sample_order', 'set_launch_counts', 'step_with_order', 'zero_launch_counts',
 ]

@@ -26,9 +26,11 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..core.constants import Color, State, Type
+from ..utils.device import constant
 
 SOURCE = 'fused_linear.cu'
 
@@ -84,16 +86,17 @@ def one_hot_image(image: torch.Tensor, dtype=torch.bfloat16,
     :data:`PAD_CELL`) matches no channel.
     """
     dev = image.device
-    ch = torch.arange(NCH, device=dev)
+    ch = np.arange(NCH)
     t, c = OBS_CHANNELS[0], OBS_CHANNELS[0] + OBS_CHANNELS[1]
-    slot = (ch >= t).long() + (ch >= c).long()          # 0 type, 1 color, 2 state
-    value = ch - torch.tensor([0, t, c], device=dev)[slot]
+    slot = (ch >= t).astype(np.int64) + (ch >= c)      # 0 type, 1 color, 2 state
+    # Tables made on the device once (a graph cannot copy from the host).
+    value = constant(ch - np.array([0, t, c])[slot], dev)
     if packed:
-        shift = torch.tensor([8, 4, 0], device=dev)[slot]
-        mask = torch.tensor([-1, 15, 15], device=dev)[slot]
+        shift = constant(np.array([8, 4, 0])[slot], dev)
+        mask = constant(np.array([-1, 15, 15])[slot], dev)
         field = (image[..., None] >> shift) & mask
     else:
-        field = image[..., slot]
+        field = image[..., constant(slot, dev)]
     return (field == value).to(dtype)
 
 

@@ -33,6 +33,7 @@ from ..core.constants import (
     WALL_ENCODING,
 )
 from ..core.state import MultiGridState
+from ..utils.device import constant
 
 
 def get_view_exts(
@@ -222,7 +223,7 @@ def gen_obs_grid(state: MultiGridState, view_size: int) -> torch.Tensor:
     # Single-agent envs skip the overlay: the agent's own cell is overwritten
     # by the carried object below anyway.
     grid = overlay_agents(state) if n > 1 else state.grid
-    wall = torch.as_tensor(WALL_ENCODING, dtype=torch.int32, device=dev)
+    wall = constant(WALL_ENCODING, dev, torch.int32)
     big = wall.expand(e, w + 2 * vs, h + 2 * vs, 3).clone()
     big[:, vs:vs + w, vs:vs + h] = grid
 
@@ -246,7 +247,7 @@ def gen_obs_grid_encoding(
     if see_through_walls:
         return obs
     vis = get_vis_mask(obs)
-    unseen = torch.as_tensor(UNSEEN_ENCODING, dtype=obs.dtype, device=obs.device)
+    unseen = constant(UNSEEN_ENCODING, obs.device, obs.dtype)
     return torch.where(vis[..., None], obs, unseen)
 
 

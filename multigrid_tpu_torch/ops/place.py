@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.constants import TYPE_EMPTY
+from ..utils.device import constant
 
 
 def agent_occupancy(agent_pos: torch.Tensor, width: int, height: int) -> torch.Tensor:
@@ -69,7 +70,7 @@ def set_cell(grid: torch.Tensor, pos: torch.Tensor, enc) -> torch.Tensor:
     """A copy of the (E, W, H, 3) grid with cell ``pos`` (E, 2) of each env
     set to ``enc`` ((3,) or (E, 3))."""
     e = grid.shape[0]
-    enc = torch.as_tensor(enc, dtype=grid.dtype, device=grid.device).expand(e, 3)
+    enc = constant(enc, grid.device, grid.dtype).expand(e, 3)
     grid = grid.clone(memory_format=torch.contiguous_format)
     env = torch.arange(e, device=grid.device)
     grid[env, pos[:, 0].long(), pos[:, 1].long()] = enc

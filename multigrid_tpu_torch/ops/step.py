@@ -49,6 +49,7 @@ from ..core.constants import (
     TYPE_WALL,
 )
 from ..core.state import MultiGridState
+from ..utils.device import constant
 
 _A_LEFT = int(Action.left)
 _A_RIGHT = int(Action.right)
@@ -158,8 +159,8 @@ def handle_actions(
     actions = actions.to(device=dev, dtype=torch.int32)
     order = order.to(device=dev, dtype=torch.long)
 
-    empty = torch.as_tensor(EMPTY_ENCODING, dtype=torch.int32, device=dev)
-    dir_vec = torch.as_tensor(DIR_TO_VEC, dtype=torch.int32, device=dev)
+    empty = constant(EMPTY_ENCODING, dev, torch.int32)
+    dir_vec = constant(DIR_TO_VEC, dev, torch.int32)
     reward_value = success_reward(state.step_count, cfg.max_steps)
     rewards = torch.zeros((e, n), dtype=torch.float32, device=dev)
 

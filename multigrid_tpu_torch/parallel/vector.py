@@ -15,7 +15,18 @@ step or, in rollout loops, once a chunk of steps.
 
 Randomness (agent orders, random actions, random starts, fresh reserve
 layouts) comes from the VectorEnv's own ``torch.Generator`` on the device,
-seeded by :meth:`reset`. The loop runs eagerly, one step per Python call.
+seeded by :meth:`reset`.
+
+On the card :meth:`step` and :meth:`rollout_random` replay CUDA graphs
+(:mod:`~multigrid_tpu_torch.utils.graphs`), as the JAX package jits them:
+a step is one graph (the caller's state copied in, the results cloned
+out), a random rollout one graph of :attr:`REFRESH_CHUNK` steps and a pool
+refresh replayed chunk after chunk on the device, then a one-step graph
+for the rest. The pool's global step lives on the device, so that every
+replay reads its own. The results are bit-equal to the eager loop's from
+the same generator state, which runs on the CPU, inside
+:func:`~multigrid_tpu_torch.utils.graphs.disable_graphs`, for an env
+whose reset runs on the host (``env.host_reset``) and under a mesh.
 
 Under a process mesh (``mesh=``, :mod:`~multigrid_tpu_torch.parallel.mesh`)
 ``num_envs`` is the global batch and each process steps its own rows. Every
@@ -25,6 +36,7 @@ the unsharded run's, bit for bit (as the JAX package keys every env by
 ``jax.random.split(key, E)``, vector.py:186-191). The reserve pool is
 replicated: every process holds and refreshes the global reserve, and env
 ``i`` of the global batch consumes slot ``(i + g) mod E`` as in one process.
+A mesh's loops run eagerly: capturing its collectives is later work.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from ..core.state import FIELDS, MultiGridState, ResetPool, where_state
 from ..envs.env import MultiGridEnv
 from ..ops.obs_cuda import gen_obs_batched
 from ..ops.step import sample_order
+from ..utils import graphs
 from ..utils.device import resolve_device
 from . import distributed
 from .mesh import Mesh, env_rows, make_mesh, shard_batch
@@ -125,8 +138,11 @@ class VectorEnv:
         self.rows = slice(0, num_envs) if mesh is None else env_rows(num_envs, mesh)
         self.local_envs = self.rows.stop - self.rows.start
         self.generator = torch.Generator(device=self.device)
-        # Slot indices twice over: env i's slot at offset o is ring[o + i].
-        self._ring = torch.arange(2 * num_envs, device=self.device) % num_envs
+        # This process's envs' indices in the global batch, and slot offsets.
+        self._envs = torch.arange(self.rows.start, self.rows.stop, device=self.device)
+        self._slots = torch.arange(num_envs, device=self.device)
+        #: Captured graphs by signature (:func:`graphs.call`).
+        self._graphs: dict = {}
 
     @classmethod
     def sharded(cls, env: MultiGridEnv, num_envs: int, **kwargs) -> 'VectorEnv':
@@ -155,6 +171,13 @@ class VectorEnv:
             state = state.replace(pool=ResetPool(reserve, 0))
         return self.observe(state), state
 
+    def graphed(self) -> bool:
+        """Whether this env's entry points replay CUDA graphs now: on the
+        card, outside ``disable_graphs()``, without a mesh and with a reset
+        that runs on the device."""
+        return graphs.graphs_on(self.device) and self.mesh is None \
+            and not self.env.host_reset
+
     def step(self, state: MultiGridState, actions, *, order=None, refresh: bool = True):
         """Step all envs; auto-reset finished episodes.
 
@@ -167,8 +190,18 @@ class VectorEnv:
         owes one :meth:`refresh_pool` a chunk of such steps.
 
         Returns ``(obs, state, rewards, terminations, truncations, done,
-        success)``.
+        success)``. On the card, one graph replay (:meth:`graphed`).
         """
+        if self.graphed():
+            args = (state, torch.as_tensor(actions, device=self.device),
+                    None if order is None else torch.as_tensor(order, device=self.device))
+            return graphs.call(self._graphs, ('step', refresh, self.auto_reset), args,
+                               lambda a: self._step(*a, refresh=refresh),
+                               generators=[self.generator])
+        return self._step(state, actions, order, refresh=refresh)
+
+    def _step(self, state: MultiGridState, actions, order=None, *, refresh: bool = True):
+        """:meth:`step`'s eager body."""
         pool = state.pool
         obs_state, new_state, rew, term, trunc, done, success = self.step_dynamics(
             state, actions, order=order)
@@ -212,12 +245,11 @@ class VectorEnv:
         """The reserve as the envs read it at the pool's step ``g``: env
         ``i`` gets slot ``(i + g) mod E``, so an env never replays the
         layout it just played (vector.py:392-405), ``i`` counting in the
-        global batch. One gather a tensor."""
-        start = pool.step % self.num_envs + self.rows.start
-        idx = self._ring[start:start + self.local_envs]
+        global batch. One gather a tensor, at indices computed on the device."""
+        idx = (self._envs + pool.step) % self.num_envs
         r = pool.reserve
-        return r.replace(**{f: getattr(r, f)[idx] for f in FIELDS},
-                         extras={k: v[idx] for k, v in r.extras.items()})
+        return r.replace(**{f: getattr(r, f).index_select(0, idx) for f in FIELDS},
+                         extras={k: v.index_select(0, idx) for k, v in r.extras.items()})
 
     def next_pool(self, pool: ResetPool, refresh: bool = True) -> ResetPool:
         """The last stage of :meth:`step` with a pool: this step's slots
@@ -226,28 +258,34 @@ class VectorEnv:
             pool = self._refresh(pool, 1)
         return ResetPool(pool.reserve, pool.step + 1)
 
-    def refresh_slots(self, step: int, chunk: int = 1) -> tuple[int, int]:
+    def refresh_slots(self, step, chunk: int = 1):
         """``(start, count)`` of the slots a refresh at global step ``step``
         regenerates: ``chunk`` steps' worth, ``min(E, ceil(E / period) ·
         chunk)`` slots from cursor ``step // chunk`` (``step`` itself for
         one step), the last slice clamped to end at ``E`` as
-        ``dynamic_slice`` clamps it (vector.py:307-316)."""
+        ``dynamic_slice`` clamps it (vector.py:307-316). ``start`` is an int
+        for an int ``step`` and a device tensor for the pool's."""
         e = self.num_envs
         count = min(e, -(-e // self.reset_pool_period) * chunk)
         cursor = step if chunk == 1 else step // chunk
-        return min((cursor % -(-e // count)) * count, e - count), count
+        start = (cursor % -(-e // count)) * count
+        if isinstance(start, torch.Tensor):
+            return start.clamp(max=e - count), count
+        return min(start, e - count), count
 
     def _refresh(self, pool: ResetPool, chunk: int) -> ResetPool:
         """The pool with ``chunk`` steps' worth of slots regenerated, drawn
-        from the generator; the tensors of ``pool`` are left as they are."""
+        from the generator, scattered at indices computed on the device; the
+        tensors of ``pool`` are left as they are."""
         start, count = self.refresh_slots(pool.step, chunk)
         fresh = self.env.reset_core(count, self.generator)
         if count == self.num_envs:
             return ResetPool(fresh.clone(), pool.step)
         r = pool.reserve
+        idx = self._slots[:count] + start
 
         def put(old, new):
-            return torch.slice_scatter(old, new, dim=0, start=start, end=start + count)
+            return old.index_copy(0, idx, new)
         reserve = r.replace(**{f: put(getattr(r, f), getattr(fresh, f)) for f in FIELDS},
                             extras={k: put(v, fresh.extras[k]) for k, v in r.extras.items()})
         return ResetPool(reserve, pool.step)
@@ -284,24 +322,25 @@ class VectorEnv:
         observation checksum that wraps to int32 as the JAX package's
         does, each summed over the mesh's processes. The summary stays on
         the device until read.
+
+        On the card (:meth:`graphed`) the loop replays a graph of one
+        chunk, steps carried on the device from replay to replay, and a
+        graph of one step for the rest (or every step, without the pool).
         """
-        e, n = self.num_envs, self.num_agents
-        rew_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        episodes = torch.zeros((), dtype=torch.int64, device=self.device)
-        obs_sum = torch.zeros((), dtype=torch.int64, device=self.device)
+        dev = self.device
+        carry = (state, (torch.zeros((), dtype=torch.float32, device=dev),
+                         torch.zeros((), dtype=torch.int64, device=dev),
+                         torch.zeros((), dtype=torch.int64, device=dev)))
         chunk = self.REFRESH_CHUNK
         chunks = steps // chunk if self.reset_pool else 0
-        for t in range(steps):
-            in_chunk = t < chunks * chunk
-            actions = self.local(torch.randint(
-                0, NUM_ACTIONS, (e, n), generator=self.generator,
-                device=self.device, dtype=torch.int32))
-            obs, state, rew, _, _, done, _ = self.step(state, actions, refresh=not in_chunk)
-            if in_chunk and (t + 1) % chunk == 0:
-                state = self.refresh_pool(state, chunk)
-            rew_sum += rew.sum()
-            episodes += done.sum()
-            obs_sum += obs['image'].sum()
+        rest = steps - chunks * chunk
+        if self.graphed():
+            carry = self._rollout_graphed(carry, chunks, rest)
+        else:
+            for _ in range(chunks):
+                carry = self._random_steps(carry, chunk, refresh=False)
+            carry = self._random_steps(carry, rest, refresh=True)
+        state, (rew_sum, episodes, obs_sum) = carry
         if self.mesh is not None:
             group = self.mesh.group
             rew_sum = distributed.all_reduce(rew_sum, group)
@@ -313,3 +352,41 @@ class VectorEnv:
             'episodes': episodes.to(torch.int32),
             'obs_sum': wrapped.to(torch.int32),
         }
+
+    def _random_steps(self, carry, steps: int, *, refresh: bool):
+        """``steps`` random steps from ``carry`` = ``(state, (reward sum,
+        episodes, obs sum))``, then, with ``refresh=False``, one
+        :meth:`refresh_pool` of them: the body of :meth:`rollout_random`."""
+        state, (rew_sum, episodes, obs_sum) = carry
+        e, n = self.num_envs, self.num_agents
+        for _ in range(steps):
+            actions = self.local(torch.randint(
+                0, NUM_ACTIONS, (e, n), generator=self.generator,
+                device=self.device, dtype=torch.int32))
+            obs, state, rew, _, _, done, _ = self._step(state, actions, refresh=refresh)
+            rew_sum = rew_sum + rew.sum()
+            episodes = episodes + done.sum()
+            obs_sum = obs_sum + obs['image'].sum()
+        if not refresh:
+            state = self.refresh_pool(state, steps)
+        return state, (rew_sum, episodes, obs_sum)
+
+    def _rollout_graphed(self, carry, chunks: int, rest: int):
+        """:meth:`rollout_random`'s loop as replays of two carry graphs on
+        one set of buffers: a chunk (``refresh=False``) and one step."""
+        key = ('rollout', self.auto_reset, graphs.signature(carry))
+        if key not in self._graphs:
+            self._graphs[key] = (graphs.clone(carry), {})
+        buffers, by_refresh = self._graphs[key]
+        graphs.load(buffers, carry)
+        for refresh, replays in ((False, chunks), (True, rest)):
+            if not replays:
+                continue
+            if refresh not in by_refresh:
+                steps = 1 if refresh else self.REFRESH_CHUNK
+                by_refresh[refresh] = graphs.Graph(
+                    lambda c, k=steps, r=refresh: (self._random_steps(c, k, refresh=r), None),
+                    buffers, generators=[self.generator], carry=True)
+            for _ in range(replays):
+                by_refresh[refresh].replay()
+        return graphs.clone(buffers)

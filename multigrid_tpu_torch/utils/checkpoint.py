@@ -79,7 +79,12 @@ def _mismatch(where: str, stored, want) -> ValueError:
 def _place(target, stored, where: str):
     """``stored`` laid out like ``target``: the same keys, tensors of the
     same shapes (moved to the target's device and dtype), ints where it has
-    ints and None where it has None."""
+    ints and None where it has None. An int stored where the target holds a
+    0-d tensor (the optimizer's counts and the pool's step, which checkpoints
+    written before they moved onto the device hold as ints) becomes one."""
+    if isinstance(target, torch.Tensor) and target.dim() == 0 \
+            and isinstance(stored, int) and not isinstance(stored, bool):
+        stored = torch.tensor(stored)
     if isinstance(target, torch.Tensor):
         if not isinstance(stored, torch.Tensor) or stored.shape != target.shape:
             raise _mismatch(where, getattr(stored, 'shape', stored), tuple(target.shape))

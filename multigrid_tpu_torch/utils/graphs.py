@@ -1,0 +1,286 @@
+"""CUDA graphs: the port's counterpart of ``jax.jit``.
+
+The JAX package compiles its main paths once and replays the program:
+``VectorEnv.step`` (multigrid_tpu/parallel/vector.py:346-347), the fused
+scan of ``rollout_random`` (:531-590), the single env's ``reset`` and
+``step`` (multigrid_tpu/envs/env.py:193-232) and the PPO update
+(multigrid_tpu/learn/ppo.py:242, 737-765). On the card the port captures
+the same paths as CUDA graphs and replays them: one graph launch takes the
+place of the hundreds of kernel launches that Python issues for a step.
+
+A :class:`Graph`:
+
+- runs its function once on a side stream (the warm-up: the kernels'
+  libraries load, constants reach the device through
+  :func:`~multigrid_tpu_torch.utils.device.constant`, cuBLAS and cuDNN take
+  their workspaces), then sets the generators and the kernel wrappers'
+  launch counts back to where they stood;
+- captures it in a private memory pool, with every generator it draws from
+  registered (``CUDAGraph.register_generator_state``), so that a replay
+  draws the numbers an eager run from the same generator state draws and
+  leaves each generator where that run leaves it;
+- records how far each wrapper's launch count moved during the capture
+  and adds that at every replay, so the counts count the launches that
+  replays make.
+
+Inputs are static buffers. A caller's tensors are copied in (:func:`load`);
+the outputs are the graph's own tensors, which the next replay overwrites
+(:func:`clone` keeps them). A *carry* graph copies its carried outputs
+back into its input buffers at its end, so a loop replays it again with
+nothing between two replays.
+
+A captured function reads nothing from the device on the host (no
+``.item()``, ``int()``, ``nonzero`` or boolean-mask index) and copies no
+host data to the card: the capture raises where it does. Python numbers
+and slice bounds are frozen at capture, so every value that changes from
+call to call lives in a device tensor, and one graph serves every call of
+a signature (:func:`signature`: the shapes, dtypes and devices of the
+inputs and the static values, as ``jit`` caches per static argument).
+
+:func:`disable_graphs` runs the eager loops on the card, as
+``jax.disable_jit`` does. On the CPU nothing is captured: the loops run
+eagerly. Under a process mesh the loops stay eager too (capturing NCCL
+collectives is later work).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+import time
+from collections.abc import Callable
+from typing import Any
+
+import torch
+
+from .. import ops
+
+_local = threading.local()
+
+_TENSOR = '<tensor>'
+_STATIC = '<static>'
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run the port's loops eagerly on the card inside this context: the
+    eager twin that the card tests and the benchmark hold the graphs to,
+    in the role of ``jax.disable_jit()``."""
+    depth = getattr(_local, 'disabled', 0)
+    _local.disabled = depth + 1
+    try:
+        yield
+    finally:
+        _local.disabled = depth
+
+
+def graphs_on(device: torch.device | str) -> bool:
+    """Whether an entry point on ``device`` replays a graph: on a CUDA
+    device, outside :func:`disable_graphs` and outside the function of a
+    graph being warmed up or captured (whose nested entry points run their
+    eager bodies into the one graph)."""
+    return (torch.device(device).type == 'cuda' and not getattr(_local, 'disabled', 0)
+            and not getattr(_local, 'tracing', 0))
+
+
+@contextlib.contextmanager
+def _tracing():
+    depth = getattr(_local, 'tracing', 0)
+    _local.tracing = depth + 1
+    try:
+        yield
+    finally:
+        _local.tracing = depth
+
+
+def flatten(tree) -> tuple[list[torch.Tensor], Any]:
+    """The tensors of ``tree`` in order, and its structure: dicts, lists,
+    tuples and dataclasses are walked, anything else is a static leaf kept
+    in the structure (which is hashable where the static leaves are)."""
+    leaves: list[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return _TENSOR
+        if isinstance(x, dict):
+            return (dict, tuple(x), tuple(walk(v) for v in x.values()))
+        if isinstance(x, (list, tuple)):
+            return (type(x), None, tuple(walk(v) for v in x))
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return (type(x), names, tuple(walk(getattr(x, n)) for n in names))
+        return (_STATIC, x, ())
+
+    return leaves, walk(tree)
+
+
+def unflatten(spec, leaves: list[torch.Tensor]):
+    """The tree of structure ``spec`` (from :func:`flatten`) over ``leaves``."""
+    it = iter(leaves)
+
+    def build(s):
+        if s == _TENSOR:
+            return next(it)
+        kind, names, children = s
+        if kind == _STATIC:
+            return names
+        values = [build(c) for c in children]
+        if kind is dict:
+            return dict(zip(names, values))
+        if names is None:
+            return kind(values)
+        return kind(**dict(zip(names, values)))
+
+    return build(spec)
+
+
+def signature(tree) -> tuple:
+    """What a graph of ``tree``'s inputs is keyed by: its structure with
+    the static leaves, and each tensor's shape, dtype and device."""
+    leaves, spec = flatten(tree)
+    return spec, tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
+
+
+def _copy(dst: list[torch.Tensor], src: list[torch.Tensor]) -> None:
+    """``d.copy_(s)`` for each pair, one fused launch per dtype."""
+    groups: dict[torch.dtype, tuple[list, list]] = {}
+    for d, s in zip(dst, src):
+        if d is not s:
+            if d.shape != s.shape:
+                raise ValueError(f'cannot load a {tuple(s.shape)} tensor into a '
+                                 f'{tuple(d.shape)} buffer')
+            ds, ss = groups.setdefault(d.dtype, ([], []))
+            ds.append(d)
+            ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def load(buffers, values) -> None:
+    """Copy the tensors of ``values`` into those of ``buffers``, a tree of
+    the same structure (a buffer given as its own value is left alone)."""
+    dst, spec = flatten(buffers)
+    src, spec_v = flatten(values)
+    if spec != spec_v:
+        raise ValueError('the values do not have the buffers\' structure')
+    _copy(dst, src)
+
+
+def clone(tree):
+    """``tree`` with every tensor copied into a fresh contiguous one."""
+    leaves, spec = flatten(tree)
+    out = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in leaves]
+    _copy(out, leaves)
+    return unflatten(spec, out)
+
+
+class Graph:
+    """``fn`` captured once on the static input buffers ``inputs`` (a tree
+    of tensors, used as they are) and replayed by :meth:`replay`.
+
+    ``fn(inputs)`` returns the output tree. With ``carry`` it returns
+    ``(carry, out)``: ``carry`` has the structure of ``inputs`` and is
+    copied into them at the end of the graph, and :meth:`replay` returns
+    ``out``. ``generators`` are the ``torch.Generator``s ``fn`` draws from
+    besides the device's default one (which every graph registers).
+    ``device`` is the card's where ``inputs`` holds no tensor.
+
+    After the capture, :attr:`launches` holds each kernel wrapper's
+    launches a replay makes, :attr:`warmup_s` and :attr:`capture_s` the
+    host seconds of the warm-up (synchronized) and of the capture, and
+    :attr:`pool_bytes` the device memory the capture reserved for the
+    graph's private pool.
+    """
+
+    def __init__(self, fn: Callable, inputs, *, generators=(), carry: bool = False,
+                 device: torch.device | None = None):
+        leaves, _ = flatten(inputs)
+        device = torch.device(device if device is not None else leaves[0].device)
+        # A tensor elsewhere would be read once, at the capture, and frozen.
+        away = {str(x.device) for x in leaves if x.device.type != device.type}
+        if away:
+            raise ValueError(f'a graph on {device} takes no input on {sorted(away)}')
+        self.inputs = inputs
+        gens = list(dict.fromkeys(g for g in generators if g is not None))
+        # The warm-up's draws are undone, the device's default generator's
+        # too (which the capture registers by itself).
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        drawn = gens + [torch.cuda.default_generators[index]]
+        rewind = [g.get_state() for g in drawn]
+        counts = ops.launch_counts()
+        stream = torch.cuda.current_stream(device)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side), _tracing():
+            fn(inputs)
+        stream.wait_stream(side)
+        torch.cuda.synchronize(device)
+        self.warmup_s = time.perf_counter() - t0
+        for g, state in zip(drawn, rewind):
+            g.set_state(state)
+        ops.set_launch_counts(counts)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        self.graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            register = getattr(self.graph, 'register_generator_state', None)
+            if register is None:
+                raise RuntimeError(
+                    'this PyTorch has no CUDAGraph.register_generator_state: a graph '
+                    'cannot draw from a torch.Generator of its own (use disable_graphs())')
+            register(g)
+        t0 = time.perf_counter()
+        with torch.cuda.device(device), torch.cuda.graph(self.graph), _tracing():
+            out = fn(inputs)
+            if carry:
+                new, out = out
+                new_leaves, new_spec = flatten(new)
+                if new_spec != flatten(inputs)[1]:
+                    raise ValueError('a carry graph must return its inputs\' structure')
+                # A carried output that is another input's buffer is read
+                # before that buffer is written.
+                ptrs = {x.untyped_storage().data_ptr() for x in leaves if x.numel()}
+                new_leaves = [s.clone() if s is not d and s.numel()
+                              and s.untyped_storage().data_ptr() in ptrs else s
+                              for d, s in zip(leaves, new_leaves)]
+                _copy(leaves, new_leaves)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        after = ops.launch_counts()
+        self.launches = {k: after[k] - counts[k] for k in counts if after[k] != counts[k]}
+        ops.set_launch_counts(counts)
+        self.outputs = out
+
+    def replay(self):
+        """Launch the graph on the current stream; returns its outputs (the
+        graph's own tensors)."""
+        self.graph.replay()
+        if self.launches:
+            counts = ops.launch_counts()
+            ops.set_launch_counts({k: counts[k] + n for k, n in self.launches.items()})
+        return self.outputs
+
+
+def call(cache: dict, key, args, fn: Callable, *, generators=(),
+         device: torch.device | None = None):
+    """``fn(args)`` through the graph cached in ``cache`` under ``key`` and
+    ``args``' :func:`signature` (captured at the first call): ``args`` is
+    copied into the graph's buffers and its outputs are cloned out, so a
+    caller that keeps an earlier call's results never sees them
+    overwritten."""
+    full = (key, signature(args))
+    entry = cache.get(full)
+    if entry is None:
+        buffers = clone(args)
+        entry = cache[full] = (buffers, Graph(fn, buffers, generators=generators,
+                                              device=device))
+    else:
+        load(entry[0], args)
+    return clone(entry[1].replay())
+
+
+__all__ = ['Graph', 'call', 'clone', 'disable_graphs', 'flatten', 'graphs_on', 'load',
+           'signature', 'unflatten']

@@ -221,6 +221,10 @@ class MiniGridCompatEnv(MultiGridEnv):
     against ``minigrid.MiniGridEnv``.
     """
 
+    #: Layouts are built on the host (:meth:`reset_core`), so resets and
+    #: vector envs over this env run eagerly.
+    host_reset = True
+
     def __init__(self, mission_space=None, **kwargs):
         kwargs.setdefault('agents', 1)
         super().__init__(**kwargs)

@@ -1,10 +1,13 @@
 """Tests of the port that need an NVIDIA GPU; they skip without one.
 
-The CUDA kernel has no CPU mode, so these run on the card only. The file
+The CUDA kernel has no CPU mode, so these run on the card only; so do the
+CUDA graphs, held here to the eager loop (``disable_graphs()``). The file
 imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -857,3 +860,127 @@ def test_model_axis_gate_on_the_card_is_one_process(cuda_device):
         assert res['launches'] == {'obs': 6, 'obs_general': 0, 'onehot_linear': 0,
                                    'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0}
 
+
+
+# ----------------------------------------- CUDA graphs against the eager loop
+
+def _states_equal(a, b):
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.extras.keys() == b.extras.keys()
+    for k in a.extras:
+        assert torch.equal(a.extras[k], b.extras[k]), k
+    assert (a.pool is None) == (b.pool is None)
+    if a.pool is not None:
+        assert torch.equal(a.pool.step, b.pool.step)
+        _states_equal(a.pool.reserve, b.pool.reserve)
+
+
+@pytest.mark.parametrize('env_id,agents,steps', [
+    ('MultiGrid-Empty-16x16-v0', 4, 40), ('MultiGrid-BlockedUnlockPickup-v0', 2, 40)],
+    ids=['flagship', 'bup-pool'])
+def test_graphed_rollout_random_equals_eager(cuda_device, env_id, agents, steps):
+    """``rollout_random`` replaying its graphs (the env flagship: a one-step
+    graph; BUP on the reserve pool: two chunk graphs and 8 one-step
+    replays) ≡ the eager loop under ``disable_graphs()`` from the same seed:
+    states with the pool, observations of the final state and the summary,
+    bit for bit; one obs launch a step counted through the replays."""
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+    runs = []
+    for graphed in (True, False):
+        venv = VectorEnv(make(env_id, agents=agents, device=cuda_device), 4096)
+        assert venv.reset_pool == (env_id != 'MultiGrid-Empty-16x16-v0')
+        _, state = venv.reset(seed=3)
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            assert venv.graphed() == graphed
+            launches = obs_cuda.launches
+            state, summary = venv.rollout_random(state, steps)
+            assert obs_cuda.launches == launches + steps
+            state, summary = venv.rollout_random(state, steps)
+        runs.append((state, summary, venv.observe(state), venv.generator.get_state()))
+    (a, sa, oa, ga), (b, sb, ob, gb) = runs
+    _states_equal(a, b)
+    assert all(torch.equal(sa[k], sb[k]) for k in sa), (sa, sb)
+    assert all(torch.equal(oa[k], ob[k]) for k in oa)
+    assert torch.equal(ga, gb)
+
+
+@pytest.mark.parametrize('fused', [False, True], ids=['default', 'fused-policy'])
+def test_graphed_train_updates_equal_eager(cuda_device, fused, monkeypatch):
+    """Three trained-flagship updates (Empty-16x16, 4 agents, 4096 envs,
+    mlp 128 on packed cells, T 16, 2 epochs x 2 minibatches, the rate
+    annealed) replaying the update's graph ≡ three eager updates from the
+    same seed: parameters, Adam's moments and counts, the env state and
+    every metric bit for bit, and the launch counts alike."""
+    from multigrid_tpu_torch.learn import (
+        PPOConfig,
+        linear_schedule,
+        make_train_loop,
+        make_train_step,
+        ppo_init,
+    )
+    from multigrid_tpu_torch.ops import launch_counts, zero_launch_counts
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+    if fused:
+        monkeypatch.setenv('MULTIGRID_FUSED_POLICY', '1')
+    runs = []
+    for graphed in (True, False):
+        venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4, device=cuda_device), 4096,
+                         packed_obs=True)
+        state, net, config, tx = ppo_init(
+            venv, 0, config=PPOConfig(rollout_steps=16, epochs=2, minibatches=2),
+            net_kwargs=dict(encoder='mlp'), lr_schedule=linear_schedule(3e-4, 0.0, 100))
+        step = make_train_step(venv, net, config, tx)
+        loop = make_train_loop(venv, net, config, tx, 2)
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            state, first = step(state)
+            zero_launch_counts()
+            state, means = loop(state)
+            counts = launch_counts()
+        assert step.fused_policy == fused
+        runs.append((state, first, means, counts))
+    (a, fa, ma, ca), (b, fb, mb, cb) = runs
+    assert ca == cb and ca['obs'] == 32 and ca['ppo_loss'] == 8, (ca, cb)
+    assert ca['policy_sample' if fused else 'onehot_linear'] >= 32
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+        assert torch.equal(a.opt_state.mu[k], b.opt_state.mu[k]), k
+        assert torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]), k
+    assert int(a.opt_state.count) == int(b.opt_state.count) == 12
+    assert torch.equal(a.opt_state.schedule_count, b.opt_state.schedule_count)
+    _states_equal(a.env_state, b.env_state)
+    assert torch.equal(a.ep_return_acc, b.ep_return_acc)
+    for x, y in ((fa, fb), (ma, mb)):
+        for k in x:
+            assert torch.equal(x[k], y[k]) or (x[k].isnan() and y[k].isnan()), k
+
+
+def test_graphed_gym_adapter_episode_equals_eager(cuda_device):
+    """A ``GymAdapter`` over BUP replaying the env's reset and step graphs
+    ≡ the same episode under ``disable_graphs()``: every observation,
+    reward and termination, with partial action dicts."""
+    from multigrid_tpu_torch.adapters import GymAdapter
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+    runs = []
+    for graphed in (True, False):
+        ad = GymAdapter(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device=cuda_device))
+        rng = np.random.default_rng(5)
+        out = []
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            obs, _ = ad.reset(seed=4)
+            out.append(obs)
+            for _ in range(80):
+                actions = {i: int(rng.integers(7)) for i in range(2) if rng.random() < 0.8}
+                obs, rew, term, trunc, _ = ad.step(actions)
+                out.append((obs, rew, term, trunc))
+                if all(term.values()) or any(trunc.values()):
+                    out.append(ad.reset()[0])
+        runs.append(out)
+    assert len(runs[0]) == len(runs[1])
+    for x, y in zip(*runs):
+        obs_x, obs_y = (x[0], y[0]) if isinstance(x, tuple) else (x, y)
+        for i in obs_x:
+            np.testing.assert_array_equal(obs_x[i]['image'], obs_y[i]['image'])
+            assert obs_x[i]['direction'] == obs_y[i]['direction']
+        if isinstance(x, tuple):
+            assert x[1:] == y[1:]

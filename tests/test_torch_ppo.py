@@ -347,3 +347,22 @@ def test_cli_takes_the_jax_clis_compat_flags():
     assert plain['num_envs'] == 1024 and plain['save_dir'] == '~/ray_results/'
     with pytest.raises(SystemExit):
         train_cli.parse_args(['--algo', 'IMPALA'])
+
+
+def test_train_step_and_loop_take_the_per_agent_alias():
+    """``make_train_step`` and ``make_train_loop`` take the JAX package's
+    deprecated ``per_agent_policies`` alias of the config field
+    (multigrid_tpu/learn/ppo.py:240, 742): the step they build runs
+    per-agent policies on ``ppo_init``'s per-agent parameters (a leading
+    agent axis), and keeps that axis."""
+    venv = VectorEnv(make(ENV_ID, agents=N, device='cpu'), 8, packed_obs=True)
+    config = ppo.PPOConfig(rollout_steps=2)
+    state, net, _, tx = ppo.ppo_init(venv, 0, config=config, hidden=16,
+                                     net_kwargs=dict(encoder='mlp'), per_agent_policies=True)
+    step = ppo.make_train_step(venv, net, config, tx, per_agent_policies=True)
+    assert step.config.per_agent_policies and not config.per_agent_policies
+    state, metrics = step(state)
+    loop = ppo.make_train_loop(venv, net, config, tx, 2, per_agent_policies=True)
+    state, metrics = loop(state)
+    assert state.update_count == 3 and torch.isfinite(metrics['loss'])
+    assert all(v.shape[0] == N for v in state.params.values())

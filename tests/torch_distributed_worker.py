@@ -78,7 +78,7 @@ def rollout(env_id, env_kwargs, steps, drawn, mesh=None) -> dict:
     state, summary = venv.rollout_random(state, 4)
     rec['summary'] = {k: float(v) for k, v in summary.items()}
     rec['final_grid'] = glob(state.grid)
-    rec['pool_step'] = None if state.pool is None else state.pool.step
+    rec['pool_step'] = None if state.pool is None else int(state.pool.step)
     return rec
 
 

@@ -178,8 +178,12 @@ Phases, in order; any failure exits non-zero:
                versions, frames of BUP's size.
 27. distributed — data-parallel PPO over spawned processes on this card
                (a file-store rendezvous, a join timeout each): NCCL in a
-               world of one (the flagship's metrics equal to the plain
-               path's, then both in turns for trained agent-steps/s); gloo
+               world of one, whose mesh's collectives are real NCCL calls
+               (the flagship's 3 updates on the mesh replaying one graph an
+               update with the collectives inside, and under
+               disable_graphs(), each bit-equal to the plain graphed path;
+               then the three in turns for trained agent-steps/s, and an
+               update's host launch calls under the profiler); gloo
                with two processes sharing the card, 2048 of 4096 envs each
                (the flagship, 2 epochs x 4 minibatches, the BUP recipe on
                the replicated pool, the fused policy; each held to this
@@ -190,7 +194,9 @@ Phases, in order; any failure exits non-zero:
                16, B2 17, B4 1 an update, B5 16 fused); the extra ms a BUP
                step pays a process for the global reserve's draws; and
                torchrun --nproc-per-node 1 -m multigrid_tpu_torch.train
-               --mesh (2 updates, one checkpoint that evaluate reads).
+               --mesh (2 updates replaying graphs, one checkpoint that
+               evaluate reads). Gloo's collectives run on the host, so its
+               processes run eagerly.
 28. model axis — the (env, model) mesh of the JAX dry run, each process
                keeping its columns of the Dense_0 kernels and their Adam
                moments, over gloo processes sharing the card (not a scaling
@@ -214,12 +220,16 @@ Phases, in order; any failure exits non-zero:
                variant (default, fused policy, per-agent on B4 and gate
                off, gate off, centralized critic, the cnn with cuDNN
                deterministic), one BUP-recipe update and a 64-step
-               ``GymAdapter`` episode; each graph's warm-up and capture time
+               ``GymAdapter`` episode, and ``evaluate`` on a flagship
+               checkpoint (one replay of its one-step graph a step, its JSON
+               row equal but the rate, beside its eager loop and its loop
+               with step graphs only); each graph's warm-up and capture time
                and pool memory; the carry's copy back into a graph's
                inputs; then in turns (eager, graphed, graphed, eager) the
                env flagship's agent-steps/s, the trained flagship's and the
-               BUP recipe's trained agent-steps/s and the adapter's steps/s,
-               and a replay's host launch calls and the device's busy share
+               BUP recipe's trained agent-steps/s, the adapter's steps/s
+               and evaluate's agent-steps/s, and a replay's host launch
+               calls and the device's busy share
                (torch.profiler) beside the eager loop's.
 
 Every phase runs with CUDA graphs on, as the entry points do by default
@@ -296,8 +306,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f'== {name}', flush=True)
+    print(f'== {name} (at {time.perf_counter() - _START:.1f} s)', flush=True)
 
 
 # ------------------------------------------------------------------ states
@@ -1018,6 +1031,105 @@ def _in_turns(run, label, unit):
     return rates
 
 
+class _StepGraphsOnly:
+    """``evaluate``'s scan step run as it is, outside any graph of its own:
+    the actor eager and each ``VectorEnv.step`` replaying its one-step
+    graph, the path ``evaluate`` took before its step became one graph. It takes
+    the place of the graphs that ``evaluate`` makes (those made with no
+    key); the graphs made with a key (``VectorEnv.step``'s) stay."""
+
+    real = None
+
+    def __new__(cls, fn, inputs, **kw):
+        if kw.get('key') is not None:
+            return cls.real(fn, inputs, **kw)
+        return super().__new__(cls)
+
+    def __init__(self, fn, inputs, **kw):
+        self.fn, self.inputs = fn, inputs
+
+    def replay(self):
+        from multigrid_tpu_torch.utils.graphs import load
+
+        new, out = self.fn(self.inputs)
+        load(self.inputs, new)
+        return out
+
+
+def evaluate_turns(trained, device=None, e=E, iterations=2):
+    """``python -m multigrid_tpu_torch.evaluate``'s ``main`` on a
+    checkpoint of ``trained`` (a flagship ``(TrainStep, TrainState)``),
+    ``iterations`` of 256 steps over ``e`` envs, three ways in turns (eager,
+    step graphs only, graphed, graphed, step graphs only, eager): the JSON
+    rows equal but the rate and the launch counts equal. Graphed, one
+    replay of ``evaluate``'s one-step graph a step; with step graphs only
+    (:class:`_StepGraphsOnly`: the actor eager), one replay of the env
+    step's graph a step; eager, none. Returns each way's rates (each row's
+    own, timed from before the capture) and the wall seconds of each run
+    (the CLI's set-up included)."""
+    import torch
+
+    from multigrid_tpu_torch import evaluate as evaluate_cli
+    from multigrid_tpu_torch.utils import graphs
+    from multigrid_tpu_torch.utils.checkpoint import save_checkpoint
+
+    step, state = trained
+    real, replay = graphs.Graph, graphs.Graph.replay
+    _StepGraphsOnly.real = real
+    replays = []
+
+    def counted(graph):
+        replays.append(graph)
+        return replay(graph)
+    ways = ('eager', 'step graphs only', 'graphed')
+    steps = iterations * evaluate_cli.STEPS_PER_ITER
+    want = {'eager': 0, 'step graphs only': steps, 'graphed': steps}
+    runs = {way: [] for way in ways}
+    with tempfile.TemporaryDirectory() as ckdir:
+        path = save_checkpoint(os.path.join(ckdir, 'step_3'), state, step.venv)
+        args = ['--env', 'MultiGrid-Empty-16x16-v0', '--num-agents', str(N), '--num-envs',
+                str(e), '--num-steps', str(iterations * evaluate_cli.STEPS_PER_ITER * e * N),
+                '--encoder', 'mlp', '--hidden', str(HIDDEN), '--checkpoint', path] + (
+                    [] if device is None else ['--device', str(device)])
+        real.replay = counted
+        try:
+            for way in ways + ways[::-1]:
+                if way == 'step graphs only':
+                    graphs.Graph = _StepGraphsOnly
+                with graphs.disable_graphs() if way == 'eager' else contextlib.nullcontext():
+                    replays.clear()
+                    _zero_counts()
+                    t0 = time.perf_counter()
+                    row = evaluate_cli.main(args)
+                    torch.cuda.synchronize()
+                    runs[way].append(dict(row=row, counts=_counts(), replays=len(replays),
+                                          wall_s=time.perf_counter() - t0))
+                graphs.Graph = real
+        finally:
+            graphs.Graph, real.replay = real, replay
+    every = [r for way in ways for r in runs[way]]
+    rows = [{k: v for k, v in r['row'].items() if k != 'eval_agent_steps_per_sec'}
+            for r in every]
+    counts = [r['counts'] for r in every]
+    if any(r != rows[0] for r in rows) or any(c != counts[0] for c in counts):
+        fail(f'graphs, evaluate: the three ways differ: {rows} {counts}')
+    got = {way: [r['replays'] for r in runs[way]] for way in ways}
+    if any(n != [want[way]] * 2 for way, n in got.items()):
+        fail(f'graphs, evaluate: graph replays {got}, expected {want} a run')
+    rates = {way: [r['row']['eval_agent_steps_per_sec'] for r in runs[way]] for way in ways}
+    walls = {way: [r['wall_s'] for r in runs[way]] for way in ways}
+    print(f'graphs, evaluate ({iterations} iterations of 256 steps, {e} envs): bit-equal three '
+          f'ways, launches {counts[0]}, graph replays a run {want}; {rows[0]}')
+    print(f'evaluate on {smi_line()}, in turns (eager, step graphs only, graphed, and back): '
+          'agent-steps/s ' + '; '.join(f'{w} {rates[w]}' for w in ways)
+          + '; wall s a run with set-up ' + '; '.join(
+              f'{w} {[round(x, 3) for x in walls[w]]}' for w in ways)
+          + f' (graphed / step graphs only {sum(walls["step graphs only"]) / sum(walls["graphed"]):.4f}x'
+          f', graphed / eager {sum(walls["eager"]) / sum(walls["graphed"]):.4f}x in wall time, '
+          'by sums)')
+    return {'agent_steps_per_s': rates, 'launches': counts[0], 'wall_s': walls}
+
+
 def graphs_path(device=None, e=E, train_t=TRAIN_T, bup_t=BUP_T, env_steps=STEPS):
     """The main paths replaying CUDA graphs against the eager loop
     (``disable_graphs()``), each pair from the same seeds: the env flagship
@@ -1025,10 +1137,11 @@ def graphs_path(device=None, e=E, train_t=TRAIN_T, bup_t=BUP_T, env_steps=STEPS)
     the view-33 path (8 steps), the trained flagship for 3 updates in each
     learner variant (default, fused policy, per-agent on B4's agent axis
     and gate off, centralized critic, the cnn on images with cuDNN
-    deterministic), one BUP-recipe update and a ``GymAdapter`` episode:
-    states, pools, observations, parameters, Adam's state, metrics and
-    generators bit for bit, and the launch counts alike. Then, in turns
-    (eager, graphed, graphed, eager): the env flagship's agent-steps/s, the
+    deterministic), one BUP-recipe update, a ``GymAdapter`` episode and
+    ``evaluate`` on a checkpoint (:func:`evaluate_turns`, which also times
+    it in turns): states, pools, observations, parameters, Adam's state,
+    metrics and generators bit for bit, and the launch counts alike. Then,
+    in turns (eager, graphed, graphed, eager): the env flagship's agent-steps/s, the
     trained flagship's and the BUP recipe's trained agent-steps/s and the
     adapter's steps/s; a replay's host launches and the device's busy
     share (torch.profiler) beside the eager loop's; each graph's warm-up,
@@ -1166,6 +1279,8 @@ def graphs_path(device=None, e=E, train_t=TRAIN_T, bup_t=BUP_T, env_steps=STEPS)
     gym = both(lambda: GymAdapter(make(BUP, agents=BUP_N, device=device)), ad_run,
                'GymAdapter over BUP, 64 steps')
     out['captures']['GymAdapter'] = _print_captures('GymAdapter', gym[0].env)
+
+    out['evaluate'] = evaluate_turns(flag_train[0], device, e)
 
     # The carry's copy back into the graph's inputs, which ends each
     # replay of a carry graph (the cost that two graphs alternating
@@ -3467,15 +3582,88 @@ def _bup_reset_extra_ms(device=None, card='', reps=4):
     return {'global_ms': g, 'half_ms': h, 'extra_ms': g - h}
 
 
+def _sync(device=None):
+    import torch
+    if device is None or torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def nccl_world_of_one(device=None, updates=3, timed=2, e=E, t=TRAIN_T, hidden=HIDDEN):
+    """Run in a spawned world of one (NCCL on the card, gloo in a rehearsal
+    on the CPU), whose mesh's groups are the world's, so its collectives
+    are real calls over one rank. The trained flagship (mlp on packed
+    cells): ``updates`` updates on the mesh replaying graphs, the same under
+    ``disable_graphs()`` and without a mesh, graphed (:func:`ppo_run`
+    results, to be held equal); then the three in turns (graphed mesh,
+    eager mesh, plain, and back), ``timed`` updates each after one that
+    captures; on the card, one update of the mesh graphed and eager under
+    the profiler. Returns JSON values."""
+    import torch
+
+    from multigrid_tpu_torch.envs import make
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.parallel import VectorEnv, make_mesh
+    from multigrid_tpu_torch.parallel.dryrun import ppo_run
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+
+    card = device is None or torch.device(device).type == 'cuda'
+    kw = dict(num_envs=e, updates=updates, env_id='MultiGrid-Empty-16x16-v0', agents=N,
+              hidden=hidden, config=dict(rollout_steps=t), device=device)
+    ways = {'mesh, graphed': (True, True), 'mesh, eager': (True, False),
+            'plain, graphed': (False, True)}
+
+    def mode(graphed):
+        return contextlib.nullcontext() if graphed else disable_graphs()
+    runs = []
+    for sharded, graphed in ways.values():
+        with mode(graphed):
+            runs.append(ppo_run(**kw, sharded=sharded))
+    built = {}
+    for name, (sharded, graphed) in ways.items():
+        venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=N, device=device), e,
+                         packed_obs=True, mesh=make_mesh() if sharded else None)
+        state, net, cfg, tx = ppo_init(venv, 0, config=PPOConfig(rollout_steps=t),
+                                       hidden=hidden, net_kwargs=dict(encoder='mlp'))
+        step = make_train_step(venv, net, cfg, tx)
+        with mode(graphed):
+            if venv.graphed() != (graphed and card):
+                raise RuntimeError(f'{name}: graphed() is {venv.graphed()}')
+            built[name] = [step, step(state)[0]]
+        _sync(device)
+    rates = {name: [] for name in ways}
+    for name in list(ways) + list(ways)[::-1]:
+        step, state = built[name]
+        with mode(ways[name][1]):
+            _sync(device)
+            t0 = time.perf_counter()
+            state, _ = step.run(state, timed)
+            _sync(device)
+        rates[name].append(timed * t * e * N / (time.perf_counter() - t0))
+        built[name][1] = state
+    profile = {}
+    if card:
+        for name in ('mesh, graphed', 'mesh, eager'):
+            step, state = built[name]
+            with mode(ways[name][1]):
+                profile[name] = _profiled(lambda: step(state), 1)
+    return {'runs': runs, 'trained_agent_steps_per_s': rates, 'profile': profile,
+            'captures': {name: [dict(warmup_s=g.warmup_s, capture_s=g.capture_s,
+                                     pool_mib=g.pool_bytes / 2**20)
+                                for g in _captures(built[name][0])] for name in ways}}
+
+
 def distributed_path(tmp, device=None):
     """Data-parallel PPO over processes (``parallel.mesh``, ``parallel.
     distributed``), each process on this card, spawned with a file-store
     rendezvous and a join timeout:
 
-    - NCCL, one process: the flagship sharded over a world of one against
-      the plain path in the same process from the same seed (equal metrics:
-      an all-reduce over one process is the identity), then both in turns
-      for their trained agent-steps/s;
+    - NCCL, one process (:func:`nccl_world_of_one`): the flagship sharded
+      over a world of one, whose collectives are real NCCL calls over one
+      rank, replaying one graph an update and under ``disable_graphs()``,
+      each against the plain graphed path in the same process from the
+      same seed (equal bit for bit: an all-reduce over one process is the
+      identity), then the three in turns for their trained agent-steps/s,
+      and the host's launch calls an update (torch.profiler);
     - gloo, two processes sharing the card (NCCL refuses two on one card),
       each 2048 of the 4096 envs: the flagship (3 updates), one update of
       2 epochs x 4 minibatches (the env-axis roll crosses the processes),
@@ -3498,24 +3686,41 @@ def distributed_path(tmp, device=None):
     from multigrid_tpu_torch.parallel.dryrun import ppo_run, ppo_runs, spawn
 
     out = {}
-    # NCCL, a world of one: sharded and plain in turns, the first pair equal.
+    # NCCL, a world of one: the mesh graphed and eager, each equal to the
+    # plain graphed path, then the three in turns.
     counted = device is None
-    nccl = [dict(_flagship_run(3, device), name='sharded'),
-            dict(_flagship_run(3, device), name='plain', sharded=False)]
-    nccl += [nccl[1], nccl[0]]
+    nccl = [dict(_flagship_run(3, device), name=name)
+            for name in ('mesh, graphed', 'mesh, eager')]
     t0 = time.perf_counter()
-    res = spawn(ppo_runs, 1, ([{k: v for k, v in kw.items() if k != 'name'} for kw in nccl],),
-                backend='nccl' if counted else 'gloo', device=device, timeout=SPAWN_TIMEOUT)
+    res = spawn(nccl_world_of_one, 1, (device, 3, 2, E, TRAIN_T, HIDDEN),
+                backend='nccl' if counted else 'gloo', device=device,
+                timeout=SPAWN_TIMEOUT)[0]
     print(f'nccl, 1 process: {time.perf_counter() - t0:.1f} s with start-up')
-    _checked('nccl, 1 process', res, nccl[:1], single=[res[0][1]], exact=True, counted=counted)
-    rates = {'sharded': [], 'plain': []}
-    for kw, r in zip(nccl, res[0]):
-        rates[kw['name']].append(r['agent_steps'] / r['seconds'])
+    plain = res['runs'][2]
+    _checked('nccl, 1 process', [res['runs'][:2]], nccl, single=[plain, plain], exact=True,
+             counted=counted)
+    if counted and plain['launches'] != _want_launches(nccl[0]):
+        fail(f'nccl, 1 process, plain graphed: launches {plain["launches"]}')
     card = smi_line() if counted else 'the CPU'
-    print(f'nccl, 1 process, on {card}: trained agent-steps/s of 3 updates in turns '
-          '(sharded, plain, plain, sharded): ' + '; '.join(f'{k} ' + ', '.join(f'{x:.6e}' for x in v)
-                                          for k, v in rates.items()))
-    out['nccl_1'] = {'launches': res[0][0]['launches'], 'trained_agent_steps_per_s': rates}
+    rates = res['trained_agent_steps_per_s']
+    sums = {k: sum(v) for k, v in rates.items()}
+    print(f'nccl, 1 process, on {card}: trained agent-steps/s of 2 updates in turns: '
+          + '; '.join(f'{k} ' + ', '.join(f'{x:.6e}' for x in v) for k, v in rates.items())
+          + f' (mesh graphed / plain graphed {sums["mesh, graphed"] / sums["plain, graphed"]:.4f}'
+          f', graphed / eager {sums["mesh, graphed"] / sums["mesh, eager"]:.4f}, by sums)')
+    for k, v in res['profile'].items():
+        print(f'nccl, 1 process, profiled update, {k}: wall {v["wall_ms"]:.4f} ms, host launch '
+              f'calls {v["host_launches"]:.1f} ({v["graph_launches"]:.1f} graphs), device '
+              f'kernels {v["device_kernels"]:.1f}, busy ' + (
+                  'not measured' if v['busy_share'] is None else f'{v["busy_share"]:.4f}'))
+    if counted and res['profile']['mesh, graphed']['graph_launches'] != 1:
+        fail(f'nccl, 1 process: {res["profile"]["mesh, graphed"]["graph_launches"]} graph '
+             'launches in an update, not 1')
+    for k, v in res['captures'].items():
+        print(f'nccl, 1 process, {k}: captures {v}')
+    out['nccl_1'] = {'launches': res['runs'][0]['launches'],
+                     'trained_agent_steps_per_s': rates, 'profile': res['profile'],
+                     'captures': res['captures']}
 
     # gloo, two processes on the one card, against this process.
     bup_cfg = dict(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)

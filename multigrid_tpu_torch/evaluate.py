@@ -8,7 +8,15 @@ sampling its actions, over a lockstep ``VectorEnv`` on the card in
 iterations of 256 steps (with the reserve pool, ``refresh=False`` steps and
 one ``refresh_pool(256)`` an iteration), and prints one JSON row: the
 fraction of finished episodes whose final state met the env's success
-predicate, their mean return, and the evaluation's agent-steps/s:
+predicate, their mean return, and the evaluation's agent-steps/s (timed
+from the first iteration on, the graph's capture included). On the card
+the body of the JAX script's jitted scan (scripts/evaluate.py:111-137) is
+one CUDA graph of one step, captured once and replayed 256 times an
+iteration with the env state carried in its buffers, as the probe does; a
+graph of more steps costs a warm-up and a capture that grow with them
+while a replay gains nothing, since the card is busy through the steps.
+``disable_graphs()`` runs the same steps eagerly, to the same JSON but the
+rate:
 
     python -m multigrid_tpu_torch.evaluate --env MultiGrid-LockedHallway-2Rooms-v0 \\
         --num-agents 2 --encoder mlp --checkpoint ckpt/lh2/best \\
@@ -18,6 +26,7 @@ predicate, their mean return, and the evaluation's agent-steps/s:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pickle
 import sys
@@ -52,11 +61,43 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def start(venv, state):
+    """The carry an iteration starts from (scripts/evaluate.py:128-133):
+    ``(state, its observations, each env's return so far, (episodes,
+    successes, banked return))``, the return and the sums zero."""
+    dev = venv.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return (state, venv.observe(state), torch.zeros(venv.num_envs, device=dev),
+            (zero, zero.clone(), torch.zeros((), device=dev)))
+
+
+@torch.no_grad()
+def scan_step(step, params, generator: torch.Generator, carry):
+    """One step of the JAX script's scan body (scripts/evaluate.py:112-126)
+    from ``carry`` (:func:`start`'s form): the actor of ``step`` (a
+    ``TrainStep``) with ``params`` sampled with noise from ``generator``,
+    one step of ``step.venv``, and its finished episodes added to the sums.
+    Returns the carry after it: the function the card captures."""
+    from multigrid_tpu_torch.learn.ppo import gumbel_noise, sample_actions
+
+    venv = step.venv
+    state, obs, ep_acc, (episodes, successes, banked) = carry
+    logits, _ = step.actor(params, obs['image'], obs['direction'], obs.get('mission'))
+    action = sample_actions(logits, gumbel_noise(logits.shape, generator, venv.device))
+    obs, state, rew, _, _, done, success = venv.step(state, action,
+                                                     refresh=not venv.reset_pool)
+    ep_acc = ep_acc + rew.sum(-1)
+    episodes = episodes + done.sum()
+    successes = successes + (done & success).sum()
+    banked = banked + torch.where(done, ep_acc, 0.0).sum()
+    return state, obs, torch.where(done, 0.0, ep_acc), (episodes, successes, banked)
+
+
 def evaluate(args: argparse.Namespace) -> dict:
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
-    from multigrid_tpu_torch.learn.ppo import gumbel_noise, sample_actions
     from multigrid_tpu_torch.parallel import VectorEnv
+    from multigrid_tpu_torch.utils import graphs
     from multigrid_tpu_torch.utils.checkpoint import latest_checkpoint, restore_params
 
     env = make(args.env, agents=args.num_agents, device=args.device, **args.env_config)
@@ -78,36 +119,31 @@ def evaluate(args: argparse.Namespace) -> dict:
             'must match the training run.') from exc
     print(f'loaded policy from {ckpt}', flush=True)
     step = make_train_step(venv, net, config, tx)
-    dev, e = venv.device, venv.num_envs
-    generator = torch.Generator(device=dev).manual_seed(args.seed + 1)
-
-    @torch.no_grad()
-    def run(state):
-        obs = venv.observe(state)
-        ep_acc = torch.zeros(e, device=dev)
-        episodes = torch.zeros((), dtype=torch.int64, device=dev)
-        successes = torch.zeros((), dtype=torch.int64, device=dev)
-        banked = torch.zeros((), device=dev)
-        for _ in range(STEPS_PER_ITER):
-            logits, _ = step.actor(params, obs['image'], obs['direction'], obs.get('mission'))
-            action = sample_actions(logits, gumbel_noise(logits.shape, generator, dev))
-            obs, state, rew, _, _, done, success = venv.step(
-                state, action, refresh=not venv.reset_pool)
-            ep_acc = ep_acc + rew.sum(-1)
-            episodes += done.sum()
-            successes += (done & success).sum()
-            banked += torch.where(done, ep_acc, 0.0).sum()
-            ep_acc = torch.where(done, 0.0, ep_acc)
-        return venv.refresh_pool(state, STEPS_PER_ITER), (episodes, successes, banked)
-
+    generator = torch.Generator(device=venv.device).manual_seed(args.seed + 1)
+    advance = functools.partial(scan_step, step, params, generator)
     _, env_state = venv.reset(seed=args.seed + 1)
     total = [0.0, 0.0, 0.0]
     steps_done = 0
     t0 = time.perf_counter()
+    carry = graphs.clone(start(venv, env_state))
+    graph = None
+    if venv.graphed():
+        graph = graphs.Graph(lambda c: (advance(c), None), carry, carry=True,
+                             generators=[generator, venv.generator])
     while steps_done < args.num_steps:
-        env_state, acc = run(env_state)
-        total = [t + float(a) for t, a in zip(total, acc)]
-        steps_done += STEPS_PER_ITER * e * venv.num_agents
+        if steps_done:
+            fresh = start(venv, venv.refresh_pool(carry[0], STEPS_PER_ITER))
+            if graph is None:
+                carry = fresh
+            else:
+                graphs.load(carry, fresh)
+        for _ in range(STEPS_PER_ITER):
+            if graph is None:
+                carry = advance(carry)
+            else:
+                graph.replay()
+        total = [t + float(a) for t, a in zip(total, carry[3])]
+        steps_done += STEPS_PER_ITER * venv.num_envs * venv.num_agents
     dt = time.perf_counter() - t0
     episodes, successes, ret = total
     out = {

@@ -39,7 +39,9 @@ draws its noise at the global batch's shape and keeps its rows, normalizes
 advantages over the global batch, and averages its gradients with the other
 processes' before the clip, so the update is the one-process update of the
 global batch up to the order of float sums. Minibatches hold the global
-envs one process would give them; the metrics are global.
+envs one process would give them; the metrics are global. Under NCCL the
+update with its collectives is one graph on every process, as the JAX
+package jits its sharded update; under gloo it runs eagerly.
 
 Under a mesh with a ``'model'`` axis each process holds only its column
 slice of every 2-D ``Dense_0…kernel`` and of that kernel's Adam moments
@@ -290,9 +292,7 @@ def check_replicated(params: dict[str, torch.Tensor], group) -> None:
     if group is None:
         return
     d = params_digest(params)
-    device = next(iter(params.values())).device
-    top = distributed.all_reduce(torch.tensor([d, -d], device=device), group, op='max')
-    if top.tolist() != [d, -d]:
+    if not distributed.agree(d, group, next(iter(params.values())).device):
         raise RuntimeError(f'parameters differ across processes (digest {d} on process '
                            f'{distributed.process_index()})')
 
@@ -679,10 +679,14 @@ class TrainStep:
         takes its share of each minibatch's envs.
 
         On the card (where :meth:`VectorEnv.graphed` holds: outside
-        ``disable_graphs()``, without a mesh) the update is one CUDA graph, captured
-        at the first call for the state's signature and generator (a new
-        config is a new ``TrainStep``, so a new capture, as ``jit``
-        recompiles), with the state copied in and cloned out."""
+        ``disable_graphs()``, without a mesh or under an NCCL one) the
+        update is one CUDA graph, captured at the first call for the
+        state's signature and generator (a new config is a new
+        ``TrainStep``, so a new capture, as ``jit`` recompiles), with the
+        state copied in and cloned out. Under a mesh the graph holds the
+        update's collectives: the column gathers, the advantage moments,
+        the gradients' and metrics' means, the batch's gather and the
+        episode sums."""
         state, rows = self.run(state, 1, shuffle)
         return state, rows[0]
 
@@ -705,7 +709,8 @@ class TrainStep:
             buffers = graphs.clone(args)
             self._graphs[key] = graphs.Graph(
                 lambda a, g=state.generator: self._update_carry(a, g), buffers,
-                generators=[state.generator, self.venv.generator], carry=True)
+                generators=[state.generator, self.venv.generator], carry=True,
+                group=self.venv.capture_group, key=(key[0], key[2]))
         graph = self._graphs[key]
         graphs.load(graph.inputs, args)
         rows = [graphs.clone(graph.replay()) for _ in range(updates)]

@@ -11,9 +11,12 @@ path.
 
 The collectives the port needs live here: a sum (or max) all-reduce, an
 all-gather of env rows and a barrier. Gloo reduces CUDA tensors but
-gathers only host tensors, so under gloo, and only there, the gather goes
-through host memory (two gloo processes may share one card, which NCCL
-refuses). Under NCCL nothing goes through the host.
+gathers only host tensors, so under gloo, and only there, the gather of
+CUDA tensors goes through host memory (two gloo processes may share one
+card, which NCCL refuses). Under NCCL nothing goes through the host: every
+collective is a kernel on the card, which a CUDA graph holds
+(:func:`capturable`), so a sharded loop replays graphs under NCCL and runs
+eagerly under gloo.
 """
 
 from __future__ import annotations
@@ -68,6 +71,18 @@ def initialize(
         init_method = (coordinator_address if '://' in coordinator_address
                        else f'tcp://{coordinator_address}')
         rank, world = process_id, num_processes
+    join(init_method, world, rank, backend=backend, device=device, timeout=timeout)
+
+
+def join(init_method: str, world: int, rank: int, *, backend: str | None = None,
+         device: str | torch.device | None = None,
+         timeout: datetime.timedelta = TIMEOUT) -> None:
+    """Join process ``rank`` of a group of ``world`` at ``init_method``, by
+    :func:`initialize`'s card and backend rules, a world of one included:
+    its collectives are then real calls over one process (on one card, the
+    only NCCL group there can be)."""
+    if dist.is_initialized():
+        raise RuntimeError('torch.distributed is already initialized')
     device = resolve_device(device)
     if device.type == 'cuda':
         local_rank = int(os.environ.get('LOCAL_RANK', rank))
@@ -110,8 +125,22 @@ def process_summary(device: str | torch.device | None = None) -> dict:
     }
 
 
-def _gloo(group) -> bool:
-    return dist.get_backend(group) == 'gloo'
+def capturable(group) -> bool:
+    """Whether a CUDA graph can hold ``group``'s collectives: true for None
+    (one process: no collective) and for an NCCL group, whose collectives
+    are kernels on the card; false for gloo, whose collectives run on the
+    host."""
+    return group is None or dist.get_backend(group) == 'nccl'
+
+
+def agree(value: int, group, device) -> bool:
+    """Whether every process of ``group`` passes the same 63-bit ``value``
+    (one max all-reduce of it and its negation on ``device``, read on the
+    host); true without a group."""
+    if group is None:
+        return True
+    top = all_reduce(torch.tensor([value, -value], device=device), group, op='max')
+    return top.tolist() == [value, -value]
 
 
 def all_reduce(x: torch.Tensor, group, op: str = 'sum') -> torch.Tensor:
@@ -128,15 +157,22 @@ def all_reduce(x: torch.Tensor, group, op: str = 'sum') -> torch.Tensor:
 
 def all_gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every process's ``x`` (all of one shape) concatenated along ``dim``
-    in rank order; ``x`` itself when ``group`` is None."""
+    in rank order, on ``x``'s device; ``x`` itself when ``group`` is None.
+    The parts are gathered into one buffer and permuted to ``dim`` on the
+    device, so nothing is read on the host and a graph holds the gather.
+    Under gloo, which gathers host tensors only, a CUDA tensor goes through
+    host memory."""
     if group is None:
         return x
     src = x.contiguous()
-    if src.is_cuda and _gloo(group):
+    if src.is_cuda and not capturable(group):
         src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    world = dist.get_world_size(group)
+    out = src.new_empty((world * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    shape = list(src.shape)
+    shape[dim] *= world
+    return out.view((world,) + tuple(src.shape)).movedim(0, dim).reshape(shape).to(x.device)
 
 
 def barrier(group) -> None:
@@ -145,5 +181,6 @@ def barrier(group) -> None:
         dist.barrier(group=group)
 
 
-__all__ = ['all_gather_rows', 'all_reduce', 'barrier', 'global_env_batch',
-           'initialize', 'process_count', 'process_index', 'process_summary', 'shutdown']
+__all__ = ['agree', 'all_gather_rows', 'all_reduce', 'barrier', 'capturable',
+           'global_env_batch', 'initialize', 'join', 'process_count', 'process_index',
+           'process_summary', 'shutdown']

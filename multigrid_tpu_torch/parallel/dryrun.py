@@ -50,8 +50,8 @@ JOIN_TIMEOUT = 600.0
 def _child(rank: int, n_procs: int, store: str, backend, device: str, timeout: float,
            fn: Callable, args: tuple, kwargs: dict, out: str) -> None:
     torch.set_num_threads(1)
-    distributed.initialize(f'file://{store}', n_procs, rank, backend=backend, device=device,
-                           timeout=datetime.timedelta(seconds=timeout))
+    distributed.join(f'file://{store}', n_procs, rank, backend=backend, device=device,
+                     timeout=datetime.timedelta(seconds=timeout))
     try:
         result = fn(*args, **kwargs)
     finally:
@@ -64,7 +64,8 @@ def spawn(fn: Callable, n_procs: int, args: tuple = (), kwargs: dict | None = No
           backend: str | None = None, device: str | torch.device | None = None,
           timeout: float = JOIN_TIMEOUT) -> list:
     """``fn(*args, **kwargs)`` in each of ``n_procs`` new processes joined
-    into one process group (``initialize``'s backend and card rules); returns
+    into one process group (``initialize``'s backend and card rules; one
+    process too, so that its collectives are real calls); returns
     each process's result (JSON values), in rank order. ``fn`` is a
     module-level function. Raises if a process exits with an error (the
     others are killed then) or is still running ``timeout`` seconds after

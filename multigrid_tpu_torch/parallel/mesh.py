@@ -12,7 +12,9 @@ columns over ``'model'``, as the JAX dry run places them
 (``__graft_entry__.py:85-92``; :func:`shard_params`, :func:`gather_params`).
 
 One process is a mesh of one shard, with no process group, so
-``VectorEnv(env, E, mesh=make_mesh())`` works without a launcher.
+``VectorEnv(env, E, mesh=make_mesh())`` works without a launcher. A world
+of one that a launcher started (``torchrun --nproc-per-node 1``) has a
+process group, and its mesh's collectives are real calls over it.
 """
 
 from __future__ import annotations
@@ -31,12 +33,14 @@ from . import distributed
 class Mesh:
     """``(env, model)`` process mesh: ``ranks`` (global ranks, env-major)
     laid out as ``shape``, this process's global ``rank``, and its process
-    groups, each None where it would hold one process (whose collectives
-    are the identity): ``group``, the env axis's (the processes with this
-    process's model coordinate: gradient means, advantage moments, episode
-    sums, the env rows' gathers); ``model_group``, the model axis's (the
-    processes with this env coordinate: the column gathers of the
-    parameters); ``mesh_group``, every process of the mesh."""
+    groups, each None where it would hold one process of several or there
+    is no process group (its collectives are then the identity; in a world
+    of one every group is the world's): ``group``, the env axis's (the
+    processes with this process's model coordinate: gradient means,
+    advantage moments, episode sums, the env rows' gathers);
+    ``model_group``, the model axis's (the processes with this env
+    coordinate: the column gathers of the parameters); ``mesh_group``,
+    every process of the mesh."""
 
     shape: tuple[int, int]
     ranks: tuple[int, ...]
@@ -53,6 +57,14 @@ class Mesh:
     @property
     def model_shards(self) -> int:
         return self.shape[1]
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: every
+        group NCCL's, or none
+        (:func:`~multigrid_tpu_torch.parallel.distributed.capturable`)."""
+        return all(distributed.capturable(g)
+                   for g in (self.group, self.model_group, self.mesh_group))
 
     @property
     def coords(self) -> tuple[int, int]:
@@ -89,11 +101,11 @@ def make_mesh(
     groups, made = {}, {}
 
     def group(members: tuple[int, ...]):
-        # One group per member set; None for one process.
-        if len(members) == 1:
-            return None
+        # One group per member set; None for one process of several.
         if len(members) == world:
             return dist.group.WORLD
+        if len(members) == 1:
+            return None
         if members not in made:
             made[members] = dist.new_group(list(members))
         return made[members]

@@ -26,7 +26,8 @@ for the rest. The pool's global step lives on the device, so that every
 replay reads its own. The results are bit-equal to the eager loop's from
 the same generator state, which runs on the CPU, inside
 :func:`~multigrid_tpu_torch.utils.graphs.disable_graphs`, for an env
-whose reset runs on the host (``env.host_reset``) and under a mesh.
+whose reset runs on the host (``env.host_reset``) and under a mesh over
+gloo (whose collectives run on the host).
 
 Under a process mesh (``mesh=``, :mod:`~multigrid_tpu_torch.parallel.mesh`)
 ``num_envs`` is the global batch and each process steps its own rows. Every
@@ -36,7 +37,9 @@ the unsharded run's, bit for bit (as the JAX package keys every env by
 ``jax.random.split(key, E)``, vector.py:186-191). The reserve pool is
 replicated: every process holds and refreshes the global reserve, and env
 ``i`` of the global batch consumes slot ``(i + g) mod E`` as in one process.
-A mesh's loops run eagerly: capturing its collectives is later work.
+Under NCCL every process replays the same graphs (:attr:`capture_group`
+checks their keys at the capture); the rollout's summary is summed over
+the processes after the replays.
 """
 
 from __future__ import annotations
@@ -137,6 +140,9 @@ class VectorEnv:
         #: This process's rows of the global batch (all of it without a mesh).
         self.rows = slice(0, num_envs) if mesh is None else env_rows(num_envs, mesh)
         self.local_envs = self.rows.stop - self.rows.start
+        #: The processes that capture this env's graphs together: the
+        #: mesh's (None in one process).
+        self.capture_group = None if mesh is None else mesh.mesh_group
         self.generator = torch.Generator(device=self.device)
         # This process's envs' indices in the global batch, and slot offsets.
         self._envs = torch.arange(self.rows.start, self.rows.stop, device=self.device)
@@ -173,10 +179,12 @@ class VectorEnv:
 
     def graphed(self) -> bool:
         """Whether this env's entry points replay CUDA graphs now: on the
-        card, outside ``disable_graphs()``, without a mesh and with a reset
-        that runs on the device."""
-        return graphs.graphs_on(self.device) and self.mesh is None \
-            and not self.env.host_reset
+        card, outside ``disable_graphs()``, with a reset that runs on the
+        device, and without a mesh or under one whose collectives a graph
+        holds (NCCL's; a mesh over gloo runs eagerly,
+        :attr:`Mesh.capturable`)."""
+        return graphs.graphs_on(self.device) and not self.env.host_reset \
+            and (self.mesh is None or self.mesh.capturable)
 
     def step(self, state: MultiGridState, actions, *, order=None, refresh: bool = True):
         """Step all envs; auto-reset finished episodes.
@@ -197,7 +205,7 @@ class VectorEnv:
                     None if order is None else torch.as_tensor(order, device=self.device))
             return graphs.call(self._graphs, ('step', refresh, self.auto_reset), args,
                                lambda a: self._step(*a, refresh=refresh),
-                               generators=[self.generator])
+                               generators=[self.generator], group=self.capture_group)
         return self._step(state, actions, order, refresh=refresh)
 
     def _step(self, state: MultiGridState, actions, order=None, *, refresh: bool = True):
@@ -386,7 +394,8 @@ class VectorEnv:
                 steps = 1 if refresh else self.REFRESH_CHUNK
                 by_refresh[refresh] = graphs.Graph(
                     lambda c, k=steps, r=refresh: (self._random_steps(c, k, refresh=r), None),
-                    buffers, generators=[self.generator], carry=True)
+                    buffers, generators=[self.generator], carry=True,
+                    group=self.capture_group, key=key + (refresh,))
             for _ in range(replays):
                 by_refresh[refresh].replay()
         return graphs.clone(buffers)

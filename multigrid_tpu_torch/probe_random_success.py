@@ -5,7 +5,11 @@ it counts, under uniform-random actions over a ``VectorEnv`` (the
 observation kernel every step), the episodes that end in success (the
 env's exact task-completion predicate on the final pre-reset state), in
 failure, and by truncation: the base rate PPO exploration must amplify.
-One JSON row an env:
+One JSON row an env. On the card the scan's body (the draws, the step, the
+classification and the counts, carried on the device) is one CUDA graph
+replayed ``steps`` times, as the JAX script jits its scan
+(scripts/probe_random_success.py:48-55); a graph of all ``steps`` steps
+would cost a capture that grows with them:
 
     python -m multigrid_tpu_torch.probe_random_success \\
         --envs MultiGrid-RedBlueDoors-6x6-v0 --num-envs 1024 --steps 2048
@@ -35,25 +39,43 @@ def classify(done: torch.Tensor, success: torch.Tensor, term: torch.Tensor,
     return win.sum(), (done & ~win & ~tr).sum(), (done & tr).sum()
 
 
+def scan_step(venv, carry):
+    """One step of the probe's scan: ``carry`` = ``(state, counts)``, the
+    counts (3,) of wins, failures and truncations so far. Uniform-random
+    actions from the vector env's generator, one step, its finished
+    episodes classified (:func:`classify`) and added."""
+    from multigrid_tpu_torch.core.actions import NUM_ACTIONS
+
+    state, counts = carry
+    actions = torch.randint(0, NUM_ACTIONS, (venv.num_envs, venv.num_agents),
+                            generator=venv.generator, device=venv.device, dtype=torch.int32)
+    _, state, _, term, trunc, done, success = venv.step(state, actions)
+    return state, counts + torch.stack(classify(done, success, term, trunc))
+
+
 def probe(env_id: str, num_agents: int, num_envs: int, steps: int, seed: int,
           device: str | None = None) -> dict:
     """Random-policy episode outcomes of ``env_id`` over ``steps`` lockstep
     steps of ``num_envs`` envs."""
-    from multigrid_tpu_torch.core.actions import NUM_ACTIONS
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.parallel import VectorEnv
+    from multigrid_tpu_torch.utils import graphs
 
     env = make(env_id, agents=num_agents, device=device)
     venv = VectorEnv(env, num_envs)
     _, state = venv.reset(seed=seed)
-    counts = torch.zeros(3, dtype=torch.int64, device=venv.device)
-    for _ in range(steps):
-        actions = torch.randint(0, NUM_ACTIONS, (num_envs, env.num_agents),
-                                generator=venv.generator, device=venv.device,
-                                dtype=torch.int32)
-        _, state, _, term, trunc, done, success = venv.step(state, actions)
-        counts += torch.stack(classify(done, success, term, trunc))
-    succ, fail, trunc_n = counts.tolist()
+
+    carry = (state, torch.zeros(3, dtype=torch.int64, device=venv.device))
+    if venv.graphed() and steps:
+        graph = graphs.Graph(lambda c: (scan_step(venv, c), None), graphs.clone(carry),
+                             carry=True, generators=[venv.generator])
+        for _ in range(steps):
+            graph.replay()
+        carry = graph.inputs
+    else:
+        for _ in range(steps):
+            carry = scan_step(venv, carry)
+    succ, fail, trunc_n = carry[1].tolist()
     total = succ + fail + trunc_n
     return {
         'env': env_id, 'agents': num_agents, 'episodes': total,

@@ -39,14 +39,26 @@ inputs and the static values, as ``jit`` caches per static argument).
 
 :func:`disable_graphs` runs the eager loops on the card, as
 ``jax.disable_jit`` does. On the CPU nothing is captured: the loops run
-eagerly. Under a process mesh the loops stay eager too (capturing NCCL
-collectives is later work).
+eagerly.
+
+Under a process mesh whose collectives are NCCL's (the card's backend) a
+graph holds them, as the JAX package's sharded programs hold theirs:
+every process captures the same graph at the same call, so their
+collectives match in order. The warm-up runs them once eagerly on every
+process (which creates NCCL's communicator before the capture) and sets
+every process's generators back alike; before the capture the processes
+compare the graph's key (:func:`check_key`) and raise on a mismatch. In a
+process with a process group the capture runs in thread-local mode, so
+that the group's watchdog thread may query its events meanwhile. Gloo's
+collectives run on the host, so a mesh over gloo runs its loops eagerly
+(:attr:`~multigrid_tpu_torch.parallel.mesh.Mesh.capturable`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import threading
 import time
 from collections.abc import Callable
@@ -143,6 +155,36 @@ def signature(tree) -> tuple:
     return spec, tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
 
 
+def key_digest(key) -> int:
+    """A 63-bit digest of a graph's key that every process of a run
+    computes alike: devices by their type (each process holds its own
+    card), classes by their names."""
+    def norm(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(norm(v) for v in x)
+        if isinstance(x, torch.device):
+            return x.type
+        if isinstance(x, type):
+            return f'{x.__module__}.{x.__qualname__}'
+        return repr(x)
+    digest = hashlib.sha256(repr(norm(key)).encode()).digest()
+    return int.from_bytes(digest[:8], 'little') >> 1
+
+
+def check_key(key, group, device) -> None:
+    """Raise unless every process of ``group`` is about to capture a graph
+    of the same ``key`` (by :func:`key_digest`, one all-reduce on
+    ``device``): their collectives must match in order. Nothing without a
+    group."""
+    from ..parallel import distributed
+
+    d = key_digest(key)
+    if not distributed.agree(d, group, device):
+        raise RuntimeError(
+            f'process {distributed.process_index()} captures a graph (key digest {d}) that '
+            'another process of its group does not capture at this call')
+
+
 def _copy(dst: list[torch.Tensor], src: list[torch.Tensor]) -> None:
     """``d.copy_(s)`` for each pair, one fused launch per dtype."""
     groups: dict[torch.dtype, tuple[list, list]] = {}
@@ -185,7 +227,10 @@ class Graph:
     copied into them at the end of the graph, and :meth:`replay` returns
     ``out``. ``generators`` are the ``torch.Generator``s ``fn`` draws from
     besides the device's default one (which every graph registers).
-    ``device`` is the card's where ``inputs`` holds no tensor.
+    ``device`` is the card's where ``inputs`` holds no tensor. ``group`` is
+    the process group whose processes capture this graph together (a
+    mesh's): ``key`` (by default the inputs' :func:`signature`) is checked
+    over it first (:func:`check_key`).
 
     After the capture, :attr:`launches` holds each kernel wrapper's
     launches a replay makes, :attr:`warmup_s` and :attr:`capture_s` the
@@ -195,7 +240,7 @@ class Graph:
     """
 
     def __init__(self, fn: Callable, inputs, *, generators=(), carry: bool = False,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None, group=None, key=None):
         leaves, _ = flatten(inputs)
         device = torch.device(device if device is not None else leaves[0].device)
         # A tensor elsewhere would be read once, at the capture, and frozen.
@@ -203,7 +248,15 @@ class Graph:
         if away:
             raise ValueError(f'a graph on {device} takes no input on {sorted(away)}')
         self.inputs = inputs
-        gens = list(dict.fromkeys(g for g in generators if g is not None))
+        if group is not None:
+            check_key(signature(inputs) if key is None else key, group, device)
+        self._capture(fn, device, list(dict.fromkeys(g for g in generators if g is not None)),
+                      carry)
+
+    def _capture(self, fn: Callable, device: torch.device, gens: list, carry: bool) -> None:
+        """The warm-up of ``fn`` on :attr:`inputs` and its capture."""
+        leaves, _ = flatten(self.inputs)
+        inputs = self.inputs
         # The warm-up's draws are undone, the device's default generator's
         # too (which the capture registers by itself).
         index = device.index if device.index is not None else torch.cuda.current_device()
@@ -232,8 +285,12 @@ class Graph:
                     'this PyTorch has no CUDAGraph.register_generator_state: a graph '
                     'cannot draw from a torch.Generator of its own (use disable_graphs())')
             register(g)
+        # A process group's watchdog thread queries its events on the card.
+        mode = 'thread_local' if torch.distributed.is_available() \
+            and torch.distributed.is_initialized() else 'global'
         t0 = time.perf_counter()
-        with torch.cuda.device(device), torch.cuda.graph(self.graph), _tracing():
+        with torch.cuda.device(device), \
+                torch.cuda.graph(self.graph, capture_error_mode=mode), _tracing():
             out = fn(inputs)
             if carry:
                 new, out = out
@@ -265,22 +322,22 @@ class Graph:
 
 
 def call(cache: dict, key, args, fn: Callable, *, generators=(),
-         device: torch.device | None = None):
+         device: torch.device | None = None, group=None):
     """``fn(args)`` through the graph cached in ``cache`` under ``key`` and
-    ``args``' :func:`signature` (captured at the first call): ``args`` is
-    copied into the graph's buffers and its outputs are cloned out, so a
-    caller that keeps an earlier call's results never sees them
-    overwritten."""
+    ``args``' :func:`signature` (captured at the first call, the key
+    checked over ``group``): ``args`` is copied into the graph's buffers
+    and its outputs are cloned out, so a caller that keeps an earlier
+    call's results never sees them overwritten."""
     full = (key, signature(args))
     entry = cache.get(full)
     if entry is None:
         buffers = clone(args)
         entry = cache[full] = (buffers, Graph(fn, buffers, generators=generators,
-                                              device=device))
+                                              device=device, group=group, key=full))
     else:
         load(entry[0], args)
     return clone(entry[1].replay())
 
 
-__all__ = ['Graph', 'call', 'clone', 'disable_graphs', 'flatten', 'graphs_on', 'load',
-           'signature', 'unflatten']
+__all__ = ['Graph', 'call', 'check_key', 'clone', 'disable_graphs', 'flatten', 'graphs_on',
+           'key_digest', 'load', 'signature', 'unflatten']

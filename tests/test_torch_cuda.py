@@ -984,3 +984,164 @@ def test_graphed_gym_adapter_episode_equals_eager(cuda_device):
             assert obs_x[i]['direction'] == obs_y[i]['direction']
         if isinstance(x, tuple):
             assert x[1:] == y[1:]
+
+
+# ------------------------------- an NCCL mesh's graphs and the CLIs' scans
+
+@pytest.fixture
+def nccl_world(cuda_device, tmp_path):
+    """This process as a world of one over NCCL (the only NCCL group one
+    card holds: NCCL refuses two processes on one card), so that a mesh's
+    collectives are real NCCL calls over one rank."""
+    from multigrid_tpu_torch.parallel import distributed
+    distributed.join(f'file://{tmp_path / "store"}', 1, 0, backend='nccl', device=cuda_device)
+    try:
+        yield cuda_device
+    finally:
+        distributed.shutdown()
+
+
+@pytest.fixture
+def replays(monkeypatch):
+    """The graphs replayed meanwhile, one entry a replay."""
+    from multigrid_tpu_torch.utils import graphs
+    seen, replay = [], graphs.Graph.replay
+
+    def counted(self):
+        seen.append(self)
+        return replay(self)
+    monkeypatch.setattr(graphs.Graph, 'replay', counted)
+    return seen
+
+
+def test_nccl_collectives_replay_in_a_graph(nccl_world):
+    """A sum and a max all-reduce (float32, float64) and the one-buffer
+    gather along dims 0-2, captured in one graph over the world of one:
+    each replay equals the eager collectives on the buffer's values then."""
+    import torch.distributed as dist
+
+    from multigrid_tpu_torch.parallel import distributed
+    from multigrid_tpu_torch.utils.graphs import Graph
+    world = dist.group.WORLD
+
+    def fn(x):
+        return [distributed.all_reduce(x * 2, world),
+                distributed.all_reduce(x.double(), world, op='max')] + [
+            distributed.all_gather_rows(x[:, :, :3] + 1, world, d) for d in range(3)]
+    x = torch.randn(6, 5, 4, device=nccl_world)
+    graph = Graph(fn, x, group=world)
+    for _ in range(2):
+        got, want = graph.replay(), fn(x)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        x.add_(1)
+
+
+@pytest.mark.parametrize('per_agent', [False, True], ids=['default', 'per-agent'])
+def test_nccl_mesh_graphed_updates_equal_eager_and_one_process(nccl_world, replays, per_agent):
+    """``TrainStep.run`` of 3 trained-flagship updates (Empty-16x16, 4
+    agents, 4096 envs, mlp 128 on packed cells, T 16) on an NCCL mesh,
+    replaying one graph an update with the collectives inside ≡ the same
+    under ``disable_graphs()`` ≡ one process's graphed updates: parameters,
+    Adam's state, the env state, the metrics and the generators bit for
+    bit; the launches B1 48, B2 51, B4 3 in each."""
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+    from multigrid_tpu_torch.ops import launch_counts, zero_launch_counts
+    from multigrid_tpu_torch.parallel import make_mesh
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+    runs = []
+    for mesh, graphed in ((make_mesh(), True), (make_mesh(), False), (None, True)):
+        venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4, device=nccl_world), 4096,
+                         packed_obs=True, mesh=mesh)
+        state, net, config, tx = ppo_init(
+            venv, 0, config=PPOConfig(rollout_steps=16, per_agent_policies=per_agent),
+            net_kwargs=dict(encoder='mlp'))
+        step = make_train_step(venv, net, config, tx)
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            assert venv.graphed() == graphed
+            replays.clear()
+            zero_launch_counts()
+            state, rows = step.run(state, 3)
+            counts = launch_counts()
+        assert len(replays) == (3 if graphed else 0) and len(step._graphs) == int(graphed)
+        assert counts == {'obs': 48, 'obs_general': 0, 'onehot_linear': 51,
+                          'onehot_linear_grad': 0, 'ppo_loss': 3, 'policy_sample': 0}, counts
+        runs.append((state, rows, venv.generator.get_state()))
+    a, rows_a, gen_a = runs[-1]
+    for b, rows_b, gen_b in runs[:-1]:
+        for k in a.params:
+            assert torch.equal(a.params[k], b.params[k]), k
+            assert torch.equal(a.opt_state.mu[k], b.opt_state.mu[k]), k
+            assert torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]), k
+        assert torch.equal(a.opt_state.count, b.opt_state.count)
+        _states_equal(a.env_state, b.env_state)
+        assert torch.equal(a.ep_return_acc, b.ep_return_acc)
+        for x, y in zip(rows_a, rows_b):
+            for k in x:
+                assert torch.equal(x[k], y[k]) or (x[k].isnan() and y[k].isnan()), k
+        assert torch.equal(a.generator.get_state(), b.generator.get_state())
+        assert torch.equal(gen_a, gen_b)
+
+
+def test_nccl_mesh_rollout_and_step_replay_graphs(nccl_world, replays):
+    """``rollout_random`` (BUP on the reserve pool, 4096 envs, 40 steps:
+    two chunk replays and 8 one-step replays, the summary's all-reduces
+    after them) and ``step`` on an NCCL mesh ≡ the same under
+    ``disable_graphs()`` ≡ one process's graphed run, bit for bit."""
+    from multigrid_tpu_torch.parallel import make_mesh
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+    runs = []
+    for mesh, graphed in ((make_mesh(), True), (make_mesh(), False), (None, True)):
+        venv = VectorEnv(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device=nccl_world),
+                         4096, mesh=mesh)
+        _, state = venv.reset(seed=3)
+        gen = torch.Generator(device=nccl_world).manual_seed(4)
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            assert venv.graphed() == graphed
+            replays.clear()
+            state, summary = venv.rollout_random(state, 40)
+            actions = torch.randint(0, 7, (4096, 2), generator=gen, device=nccl_world)
+            obs, state, *rest = venv.step(state, actions)
+        assert len(replays) == (2 + 8 + 1 if graphed else 0)
+        runs.append((state, summary, obs, rest, venv.generator.get_state()))
+    (a, sa, oa, ra, ga) = runs[-1]
+    for b, sb, ob, rb, gb in runs[:-1]:
+        _states_equal(a, b)
+        assert all(torch.equal(sa[k], sb[k]) for k in sa), (sa, sb)
+        assert all(torch.equal(oa[k], ob[k]) for k in oa)
+        assert all(torch.equal(x, y) for x, y in zip(ra, rb))
+        assert torch.equal(ga, gb)
+
+
+def test_graphed_evaluate_and_probe_equal_eager(cuda_device, tmp_path, replays):
+    """``evaluate`` (BUP on the pool, 1024 envs, 3 iterations of 256 steps:
+    one replay of its one-step graph a step) and ``probe_random_success.probe`` (BUP,
+    1024 envs, 300 steps: one replay a step) ≡ the same under
+    ``disable_graphs()``: the JSON rows but the rate, bit for bit, and the
+    launches alike."""
+    from multigrid_tpu_torch import evaluate, probe_random_success
+    from multigrid_tpu_torch.learn import ppo_init
+    from multigrid_tpu_torch.ops import launch_counts, zero_launch_counts
+    from multigrid_tpu_torch.utils.checkpoint import save_checkpoint
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+    bup = 'MultiGrid-BlockedUnlockPickup-v0'
+    venv = VectorEnv(make(bup, agents=2, device=cuda_device), 1024, packed_obs=True)
+    state, *_ = ppo_init(venv, 7, net_kwargs=dict(encoder='mlp'))
+    path = save_checkpoint(str(tmp_path / 'step_1'), state, venv)
+    runs = []
+    for graphed in (True, False):
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            replays.clear()
+            zero_launch_counts()
+            row = evaluate.main(['--env', bup, '--num-envs', '1024', '--num-steps',
+                                 str(3 * 256 * 1024 * 2), '--encoder', 'mlp',
+                                 '--checkpoint', path])
+            ev = (len(replays), launch_counts())
+            replays.clear()
+            probed = probe_random_success.probe(bup, 2, 1024, 300, 0)
+        assert len(replays) == (300 if graphed else 0)
+        assert ev[0] == (3 * 256 if graphed else 0)
+        row.pop('eval_agent_steps_per_sec')
+        assert row['episodes'] > 0 and probed['episodes'] > 0
+        runs.append((row, probed, ev[1]))
+    assert runs[0] == runs[1]
+    assert runs[0][2]['obs'] == 3 * 257 + 2  # and the two resets

@@ -8,8 +8,9 @@ non-tensor arguments, reads nothing from the device on the host and copies
 no host data to the device. A ``TorchDispatchMode`` records the aten
 operations of two consecutive calls of each captured function here, after
 one warm-up call as the capture has, with the kernels' plain versions
-recorded as one opaque launch each (on the card they are one kernel), and
-these tests hold the two records equal and free of host reads.
+recorded as one opaque launch each (on the card they are one kernel;
+``tests/torch_capture.py``), and these tests hold the two records equal
+and free of host reads.
 
 The device-tensor forms that make this possible are held to the JAX
 package: the reserve pool's gather and refresh slots over a full period
@@ -19,8 +20,6 @@ as ints (as checkpoints did before they moved onto the device) still
 resumes exactly.
 """
 
-import dataclasses
-import functools
 import os
 
 import jax
@@ -29,136 +28,30 @@ import numpy as np
 import optax
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from multigrid_tpu_torch.core.state import FIELDS, ResetPool
 from multigrid_tpu_torch.envs import CONFIGURATIONS, make
 from multigrid_tpu_torch.learn import PPOConfig, linear_schedule, make_train_step, ppo_init
 from multigrid_tpu_torch.learn.ppo import Optimizer
-from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
+from multigrid_tpu_torch.ops import fused_ppo
 from multigrid_tpu_torch.parallel import VectorEnv
 from multigrid_tpu_torch.utils import graphs
 from multigrid_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+from . import torch_capture
+from .torch_capture import assert_capturable as _assert_capturable
+from .torch_capture import chain as _chain
 
 torch.set_num_threads(1)
 
 BUP = 'MultiGrid-BlockedUnlockPickup-v0'
 
-#: Operations that read the device on the host or copy host data to it:
-#: a capture refuses them, or freezes what they read.
-HOST_READS = {
-    'aten._local_scalar_dense.default', 'aten.item.default', 'aten.equal.default',
-    'aten.is_nonzero.default', 'aten.nonzero.default', 'aten.argwhere.default',
-    'aten.masked_select.default', 'aten._unique2.default', 'aten.unique_dim.default',
-    'aten.unique_consecutive.default', 'aten.bincount.default',
-    'aten.repeat_interleave.Tensor', 'aten.lift_fresh.default',
-    'aten.lift_fresh_copy.default',
-}
-
-#: The kernels' plain versions, which the wrappers take on the CPU: each is
-#: recorded as one launch with its arguments' shapes.
-KERNEL_PLAIN = [
-    (obs_cuda, 'gen_obs_batched_plain'),
-    (fused_linear, 'onehot_linear_plain'), (fused_linear, 'onehot_linear_agents_plain'),
-    (fused_linear, 'onehot_linear_grad_w_plain'),
-    (fused_linear, 'onehot_linear_agents_grad_w_plain'),
-    (fused_ppo, 'ppo_mlp_grads_plain'), (fused_ppo, 'ppo_mlp_grads_agents_plain'),
-    (fused_policy, 'policy_sample_plain'),
-]
-
-
-def _describe(x):
-    """A non-tensor argument as it is; a tensor by its shape and dtype."""
-    if isinstance(x, torch.Tensor):
-        return ('tensor', tuple(x.shape), x.dtype)
-    if isinstance(x, (list, tuple)):
-        return tuple(_describe(v) for v in x)
-    if isinstance(x, dict):
-        return tuple((k, _describe(v)) for k, v in x.items())
-    if dataclasses.is_dataclass(x):
-        return (type(x).__name__,) + tuple(
-            _describe(getattr(x, f.name)) for f in dataclasses.fields(x))
-    if isinstance(x, float) and x != x:
-        return 'nan'
-    if isinstance(x, torch.Generator):
-        return ('generator', x.device)
-    return x
-
-
-class Recorder(TorchDispatchMode):
-    """Records ``(op, non-tensor arguments)`` of every aten operation, and
-    the operations a capture refuses."""
-
-    def __init__(self):
-        super().__init__()
-        self.log, self.host_reads, self.paused = [], [], 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if not self.paused:
-            name = str(func)
-            self.log.append((name, _describe(args), _describe(kwargs)))
-            bool_index = name.startswith(('aten.index.', 'aten.index_put')) and any(
-                isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                for i in (args[1] if len(args) > 1 else ()) or ())
-            if name in HOST_READS or bool_index:
-                self.host_reads.append(name)
-        return func(*args, **kwargs)
-
 
 @pytest.fixture
-def record(monkeypatch):
+def record():
     """``record(fn)``: the records of two consecutive calls of ``fn`` after
     one warm-up call, with the kernels' plain versions opaque."""
-    recorder = None
-
-    def opaque(name, fn):
-        @functools.wraps(fn)
-        def launch(*args, **kwargs):
-            if recorder is None:
-                return fn(*args, **kwargs)
-            recorder.paused += 1
-            try:
-                out = fn(*args, **kwargs)
-            finally:
-                recorder.paused -= 1
-            recorder.log.append(('kernel:' + name, _describe(args), ()))
-            return out
-        return launch
-
-    for module, name in KERNEL_PLAIN:
-        monkeypatch.setattr(module, name, opaque(name, getattr(module, name)))
-
-    def run(fn):
-        nonlocal recorder
-        fn()
-        records = []
-        for _ in range(2):
-            recorder = Recorder()
-            with recorder:
-                fn()
-            records.append(recorder)
-            recorder = None
-        return records
-
-    return run
-
-
-def _assert_capturable(records, what):
-    first, second = records
-    assert first.log, what
-    assert not first.host_reads and not second.host_reads, (what, first.host_reads)
-    assert len(first.log) == len(second.log), (what, len(first.log), len(second.log))
-    for i, (a, b) in enumerate(zip(first.log, second.log)):
-        assert a == b, (what, i, a, b)
-
-
-def _chain(fn, carry):
-    """A no-argument function that runs ``carry = fn(carry)``."""
-    def call():
-        nonlocal carry
-        carry = fn(carry)
-    return call
+    return torch_capture.record
 
 
 # ------------------------------------------------------------ the graphed paths

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build    — builds the four CUDA sources of ``multigrid_tpu_torch/csrc``
+2. build    — builds the five CUDA sources of ``multigrid_tpu_torch/csrc``
                (one nvcc each, in parallel), prints each build's time,
                registers and spills, and the tensor-core instructions in
                each kernel's SASS (cuobjdump; B2, B3, B4 and B5 must have
@@ -43,10 +43,21 @@ Phases, in order; any failure exits non-zero:
                fused rollout policy (B=16384; C 9/25,
                H 32/256, F 2/14, a ragged batch, B=8192 at F 14; a
                constructed tie takes the first index).
+   step kernel — the env step's action loop (``csrc/step.cu``) against its
+               plain version (``ops/step.py::handle_actions_plain``), both on
+               the card, bit for bit (every state field, the rewards' bits):
+               3 chained steps on seeded states (STEP_CASES: the flags on
+               and off, 1 to 16 agents, 64 agents, a 250x250 grid, no box
+               table, the flagship's and BUP's shapes, 4097 envs; agents
+               without a direction or off the grid, actions outside 0-6,
+               masks), 2 on each of the 13 configurations at 4096 envs, one
+               launch a call; then the six golden traces (GOLDEN_TRACES)
+               through it, one launch a step.
 4. main     — ``VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4), 4096)``
                on the default device: reset, then ``rollout_random`` for 256
-               steps, with the kernel's launch count set to 0 just before and
-               read just after (one launch per step, one for the reset).
+               steps, with every launch count set to 0 just before and read
+               just after (the obs kernel once a step and once for the reset,
+               the step kernel once a step, nothing else).
 5. check    — the outputs: finite, the expected shapes, valid states, the
                kernel equal to the plain version on the rollout's final
                state, and two recorded reference traces
@@ -65,6 +76,14 @@ Phases, in order; any failure exits non-zero:
 7. breakdown — each layer's time in a step (step, reset and merge, obs),
                and the device's busy share and kernels per step from
                ``torch.profiler``.
+   step timing — the step kernel at the flagship and at BUP against its
+               plain version, in turns (kernel, plain, plain, kernel): its
+               launches alone, the profiler's kernel time, each eager and
+               each replayed from a CUDA graph of its own, beside the bound;
+               then the graphed env flagship with the kernel and with the
+               plain version in its step (rollouts bit-equal): ms a step in
+               turns, and device kernels, host launch calls and busy share a
+               step under the profiler.
 8. train    — PPO on the flagship with packed observations, mlp 128, T 16:
                3 updates through the fused loss kernel (17 first-layer
                launches and 1 loss launch an update, no gradient kernel);
@@ -234,14 +253,16 @@ Phases, in order; any failure exits non-zero:
 
 Every phase runs with CUDA graphs on, as the entry points do by default
 (``multigrid_tpu_torch/utils/graphs.py``): launch counts count the launches
-that replays make.
+that replays make. Every path that steps an env counts the step kernel's
+launches too: one an env step.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 B1 (images and packed, at the flagship, with 16 agents and at the BUP
 shape), the general obs kernel (packed, launches alone: view 33 and the
 three shapes of GENERAL_TIMED), B2, B3 (flagship, per-agent and critic
-shapes), B4 (with its stages; and at F 14) and B5 (at
-the seven shapes of its kernel cases) on seeded inputs, with digests of
+shapes), B4 (with its stages; and at F 14), B5 (at
+the seven shapes of its kernel cases) and the step kernel (launches alone,
+at the flagship's and BUP's shapes) on seeded inputs, with digests of
 B1's and B4's outputs, for comparing two trees in turns within one call
 (copy the script into the other tree, which must have this tree's
 launchers).
@@ -272,7 +293,7 @@ E, N, SIZE, VS = 4096, 4, 16, 7
 STEPS = 256
 #: The trained flagship: mlp 128 on packed cells, T 16 (scripts/measure_train.py:25-36).
 TRAIN_T, HIDDEN, C = 16, 128, VS * VS
-SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu')
+SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu', 'step.cu')
 #: B5's cases (B, C, H, F, share of pad cells): the rollout's flagship shape
 #: first, then other cell counts, widths, feature counts and ragged batches.
 POLICY_SHAPES = [(E * N, C, HIDDEN, 2, 0.0), (4096, 9, 128, 2, 0.0), (4096, 25, 32, 14, 0.05),
@@ -286,6 +307,9 @@ BUP_F = 2 + 12  # direction features and the mission one-hot
 #: One golden trace per procedural family, replayed on the card.
 ZOO_GOLDEN = [('MultiGrid-BlockedUnlockPickup-v0', 0, 2), ('MultiGrid-RedBlueDoors-6x6-v0', 0, 3),
               ('MultiGrid-LockedHallway-2Rooms-v0', 0, 2), ('MultiGrid-Playground-v0', 0, 2)]
+#: The golden traces the card replays: two of the Empty family, then ZOO_GOLDEN.
+GOLDEN_TRACES = [('MultiGrid-Empty-16x16-v0', 3, 2),
+                 ('MultiGrid-Empty-Random-5x5-v0', 42, 4)] + ZOO_GOLDEN
 #: The general obs kernel's cases (W, H, N, view, E): views past 31, a grid
 #: past shared memory, 64 agents of view 31, views past 63 (columns of 3, 4
 #: and 6 words; 165 staged in strips); timed with the kernel's first two
@@ -762,7 +786,8 @@ def obs_cases(device):
 def team_path(device=None, steps=32):
     """A 16-agent team on the flagship env: reset and ``steps`` steps with
     random actions, the launch counts set to 0 just before and read just
-    after (one obs launch a call, no other kernel), every step's
+    after (one obs launch a call, one step launch a step, no other kernel),
+    every step's
     observations equal to the plain version on the same state (Empty
     observes the merged state). Returns the launch count and the obs
     kernel's time at N=16 (launches alone) beside its bound."""
@@ -784,7 +809,7 @@ def team_path(device=None, steps=32):
         pairs.append((obs['image'], state))
     torch.cuda.synchronize()
     counts = _counts()
-    want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+    want = {**{k: 0 for k in counts}, 'obs': steps + 1, 'step': steps}
     print(f'16-agent VectorEnv, reset + {steps} steps: launches {counts}')
     if counts != want:
         fail(f'16-agent VectorEnv: expected launches {want}, got {counts}')
@@ -800,27 +825,31 @@ def team_path(device=None, steps=32):
 
 
 def main_path(device=None):
+    """The env flagship: reset, then ``rollout_random`` for STEPS steps, the
+    launch counts set to 0 just before and read just after (the obs kernel
+    once at the reset and once a step, the step kernel once a step, no
+    other kernel). Returns the VectorEnv, the reset's observations, the
+    final state, the summary and the counts."""
     import torch
 
     from multigrid_tpu_torch import VectorEnv, make
-    from multigrid_tpu_torch.ops import obs_cuda
 
     env = make('MultiGrid-Empty-16x16-v0', agents=N, device=device)
     if device is None and env.device.type != 'cuda':
         fail(f'default device is {env.device}, not cuda')
     venv = VectorEnv(env, E)
-    obs_cuda.launches = 0
+    _zero_counts()
     obs, state = venv.reset(seed=0)
-    after_reset = obs_cuda.launches
+    after_reset = _counts()
     state, summary = venv.rollout_random(state, STEPS)
     torch.cuda.synchronize()
-    launches = obs_cuda.launches
-    print(f'reset + rollout_random({STEPS}): {launches} obs-kernel launches '
-          f'({after_reset} at reset)')
-    if after_reset != 1 or launches - after_reset != STEPS:
-        fail(f'expected 1 launch at reset and {STEPS} in the rollout, got '
-             f'{after_reset} and {launches - after_reset}')
-    return venv, obs, state, summary, launches
+    counts = _counts()
+    print(f'reset + rollout_random({STEPS}): launches {counts} (at reset {after_reset})')
+    want = {**{k: 0 for k in counts}, 'obs': 1 + STEPS, 'step': STEPS}
+    if after_reset != {**want, 'obs': 1, 'step': 0} or counts != want:
+        fail(f'expected launches {want} (obs 1 at reset), got {counts} '
+             f'({after_reset} at reset)')
+    return venv, obs, state, summary, counts
 
 
 def check_outputs(venv, obs, state, summary, device=None):
@@ -843,25 +872,26 @@ def check_outputs(venv, obs, state, summary, device=None):
     if not torch.equal(final, gen_obs_batched_plain(state, VS, False)):
         fail('kernel differs from plain version on the rollout state')
     # Recorded reference trajectories, replayed through the kernel on the card.
-    for env_id, seed, n in [('MultiGrid-Empty-16x16-v0', 3, 2),
-                            ('MultiGrid-Empty-Random-5x5-v0', 42, 4)]:
+    for env_id, seed, n in GOLDEN_TRACES[:2]:
         replay_golden(env_id, seed, n, device)
 
 
 def replay_golden(env_id, seed, n, device=None):
     """A recorded reference trajectory (tests/golden) through the parity
     runner on the card: observations, terminations and truncations equal,
-    rewards to float32 rounding."""
+    rewards to float32 rounding, the step kernel launched once a step."""
     import numpy as np
 
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.envs.parity import ParityRunner
+    from multigrid_tpu_torch.ops import step_cuda
 
     data = np.load(os.path.join(HERE, 'tests', 'golden', f'{env_id}-s{seed}-n{n}.npz'))
     runner = ParityRunner(make(env_id, agents=n, device=device), seed)
     obs0 = runner.reset()
     images = [np.stack([obs0[i]['image'] for i in range(n)])]
     acts = np.random.default_rng(seed + 1000)
+    launches = step_cuda.launches
     for t in range(len(data['rewards'])):
         o, r, te, tr, _ = runner.step({i: int(acts.integers(0, 7)) for i in range(n)})
         images.append(np.stack([o[i]['image'] for i in range(n)]))
@@ -870,7 +900,11 @@ def replay_golden(env_id, seed, n, device=None):
             fail(f'{env_id} s{seed}: rewards, terminations or truncations differ at step {t}')
     if not np.array_equal(np.stack(images), data['images'].astype(np.int32)):
         fail(f'{env_id} s{seed}: observations differ from the golden trace')
-    print(f'golden {env_id} s{seed} n{n}: {len(images) - 1} steps equal on the card')
+    if step_cuda.launches - launches != len(images) - 1:
+        fail(f'{env_id} s{seed}: {step_cuda.launches - launches} step launches in '
+             f'{len(images) - 1} steps')
+    print(f'golden {env_id} s{seed} n{n}: {len(images) - 1} steps equal on the card, one step '
+          'launch a step')
 
 
 def breakdown(venv, state, steps=32):
@@ -941,6 +975,310 @@ def timing(venv, state):
     return dict(rate=rate, step_ms=step_ms, ms=img['ms'], plain_ms=plain_ms,
                 bound_ms=img['bound_ms'], bound_by=img['bound_by'],
                 call_ms=img['call_ms'], profiler_ms=img['profiler_ms'], packed=pk)
+
+
+# ------------------------------------------------------------ the step kernel
+
+#: The step kernel's cases (label, W, H, N, box table, config overrides, E):
+#: the CPU tests' flags and teams, 16 and 64 agents, a 250x250 grid, the
+#: flagship's and BUP's shapes, and an env count that fills no whole block.
+STEP_CASES = [
+    ('overlap, success any', 7, 6, 3, True, {}, 1024),
+    ('blocked, joint reward, success all, failure any', 7, 6, 3, True,
+     dict(allow_agent_overlap=False, joint_reward=True, success_any=False, failure_any=True),
+     1024),
+    ('12 agents, blocked', 7, 6, 12, True, dict(allow_agent_overlap=False), 1024),
+    ('no box table, 2 agents', 5, 5, 2, False, {}, 1024),
+    ('1 agent, joint reward', 6, 5, 1, True, dict(joint_reward=True), 1024),
+    ('16 agents, blocked, joint reward', SIZE, SIZE, 16, True,
+     dict(allow_agent_overlap=False, joint_reward=True), E),
+    ('64 agents, success all, failure any', 32, 32, 64, True,
+     dict(success_any=False, failure_any=True), 256),
+    ('250x250, blocked', 250, 250, 4, True, dict(allow_agent_overlap=False), 64),
+    ('flagship shape', SIZE, SIZE, N, False, {}, E),
+    ('BUP shape', 11, 6, BUP_N, True, {}, E),
+    ('4097 envs', 11, 6, 2, True, {}, E + 1),
+]
+
+
+def step_pair(cfg, state, generator, mask=True):
+    """The step kernel and its plain version (both on the card) on the same
+    state (its step count advanced), actions (a twentieth outside 0-6),
+    orders and mask. Returns ``(got, want)``."""
+    import torch
+
+    from multigrid_tpu_torch.ops.step import handle_actions, handle_actions_plain
+    e, n = state.agent_dir.shape
+    dev = state.device
+    state = state.replace(step_count=state.step_count + 1)
+    actions = torch.randint(0, 7, (e, n), generator=generator, device=dev)
+    wild = torch.randint(-3, 12, (e, n), generator=generator, device=dev)
+    actions = torch.where(torch.rand((e, n), generator=generator, device=dev) < 0.05, wild,
+                          actions)
+    order = torch.rand((e, n), generator=generator, device=dev).argsort(-1)
+    m = torch.rand((e, n), generator=generator, device=dev) < 0.9 if mask else None
+    return (handle_actions(cfg, state, actions, order, m),
+            handle_actions_plain(cfg, state, actions, order, m))
+
+
+def step_err(got, want):
+    """(equal, largest abs difference) of two ``(state, rewards)``: every
+    state field and the rewards' bits."""
+    import torch
+
+    from multigrid_tpu_torch.core.state import FIELDS
+    (gs, gr), (ws, wr) = got, want
+    equal, err = True, 0.0
+    for a, b in [(getattr(gs, f), getattr(ws, f)) for f in FIELDS] + [(gr, wr)]:
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False, float('inf')
+        if a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        equal &= torch.equal(a, b)
+    return equal, err
+
+
+def step_cases(device):
+    """The step kernel ≡ its plain version bit for bit: 3 chained steps on
+    each of STEP_CASES (seeded states stepped a few times, a tenth of the
+    agents without a direction, half of those off the grid; masks on every
+    other step), then 2 on each of the 13 configurations at 4096 envs after
+    3 random steps; then the six golden traces through the kernel. Returns
+    ``{'max_abs_err', 'cases'}``."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.core.config import EnvConfig
+    from multigrid_tpu_torch.envs import CONFIGURATIONS
+    from multigrid_tpu_torch.ops import step_cuda
+
+    max_err, cases = 0.0, 0
+
+    def chain(label, cfg, state, g, steps):
+        nonlocal max_err, cases
+        for t in range(steps):
+            launches = step_cuda.launches
+            got, want = step_pair(cfg, state, g, mask=t % 2 == 0)
+            torch.cuda.synchronize()
+            equal, err = step_err(got, want)
+            max_err, cases = max(max_err, err), cases + 1
+            print(f'  {"ok  " if equal else "FAIL"} {label}, step {t + 1}: '
+                  f'grid {tuple(state.grid.shape)} max_abs_err={err}')
+            if not equal or step_cuda.launches != launches + 1:
+                fail(f'step kernel differs from the plain version (or launched '
+                     f'{step_cuda.launches - launches} times): {label}, step {t + 1}')
+            state = want[0]
+
+    for i, (label, w, h, n, boxes, over, e) in enumerate(STEP_CASES):
+        cfg = EnvConfig(width=w, height=h, num_agents=n, max_steps=20, **over)
+        state = random_state(30 + i, e, w, h, n, device)
+        g = torch.Generator(device=state.device).manual_seed(30 + i)
+        draw = torch.rand((e, n), generator=g, device=state.device)
+        state = state.replace(
+            agent_dir=torch.where(draw < 0.1, -1, state.agent_dir),
+            agent_pos=torch.where((draw < 0.05)[..., None], -1, state.agent_pos),
+            step_count=torch.randint(0, 20, (e,), generator=g, device=state.device,
+                                     dtype=torch.int32))
+        if not boxes:
+            state = state.replace(box_contents=state.box_contents[:, :0, :0].contiguous())
+        chain(label, cfg, state, g, 3)
+    for env_id in sorted(CONFIGURATIONS):
+        venv = VectorEnv(make(env_id, agents=2, device=device), E, reset_pool=False)
+        _, state = venv.reset(seed=5)
+        for _ in range(3):
+            actions = torch.randint(0, 7, (E, 2), generator=venv.generator, device=venv.device)
+            _, state, *_ = venv.step(state, actions)
+        chain(f'{env_id} (2 agents, {E} envs)', venv.env.cfg, state.replace(pool=None),
+              venv.generator, 2)
+    print(f'{cases} step-kernel cases equal to the plain version, max_abs_err {max_err}')
+    for env_id, seed, n in GOLDEN_TRACES:
+        replay_golden(env_id, seed, n, device)
+    return dict(max_abs_err=max_err, cases=cases)
+
+
+def step_launch_ms(cfg, state, actions, order, reps=200):
+    """CUDA-event time of the step kernel's launches alone, without the
+    wrapper's checks, casts and allocations (outputs allocated once)."""
+    import torch
+
+    from multigrid_tpu_torch.ops import step_cuda
+    from multigrid_tpu_torch.ops.step import success_reward_k
+    e, n = state.agent_dir.shape
+    names = ('grid', 'box_contents', 'agent_pos', 'agent_dir', 'agent_carrying',
+             'agent_carrying_contents', 'agent_terminated')
+    boxes = state.box_contents.numel() > 0
+    ins = [getattr(state, k).contiguous() for k in names]
+    outs = [torch.empty_like(t) for t in ins]
+    rewards = torch.empty((e, n), dtype=torch.float32, device=state.device)
+    a32, o32 = actions.to(torch.int32).contiguous(), order.to(torch.int32).contiguous()
+    ptrs = [t.data_ptr() if boxes or i != 1 else None for i, t in enumerate(ins)] + \
+        [t.data_ptr() if boxes or i != 1 else None for i, t in enumerate(outs)]
+    args = (*ptrs, rewards.data_ptr(), a32.data_ptr(), o32.data_ptr(), None,
+            state.step_count.data_ptr(), e, n, cfg.width, cfg.height,
+            int(cfg.allow_agent_overlap), int(cfg.success_any), int(cfg.failure_any),
+            int(cfg.joint_reward), success_reward_k(cfg.max_steps),
+            torch.cuda.current_stream().cuda_stream)
+    fn = step_cuda._lib_fn()
+
+    def launch():
+        if fn(*args):
+            fail('step kernel launch failed')
+    return event_ms(launch, reps)
+
+
+def step_bound(state):
+    """(bound_ms, bound_by, bytes, ops) of the step kernel: the state read
+    once and written once, actions, orders and step counts read, rewards
+    written, against about 60 integer operations a sub-step and 3 an agent
+    of its occupancy test."""
+    e, n = state.agent_dir.shape
+    fields = (state.grid, state.box_contents, state.agent_pos, state.agent_dir,
+              state.agent_carrying, state.agent_carrying_contents, state.agent_terminated)
+    state_bytes = sum(t.numel() * t.element_size() for t in fields)
+    nbytes = 2 * state_bytes + e * n * 4 * 3 + e * 4
+    ops = e * n * (60 + 3 * n)
+    return (*bound(nbytes, vector_ops=ops), nbytes, ops)
+
+
+def _graph_of(fn):
+    """A CUDA graph of one call of ``fn`` (warmed up on a side stream)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def step_times(label, cfg, state):
+    """The step kernel against its plain version at one shape, in turns
+    (kernel, plain, plain, kernel): the kernel's launches alone, the
+    profiler's kernel time, each eager (the wrapper's whole call) and each
+    replayed from a CUDA graph of its own; beside the bound. Launch counts
+    unchanged. Returns the times in ms."""
+    import torch
+
+    from multigrid_tpu_torch.ops.step import handle_actions, handle_actions_plain
+    counts = _counts()
+    e, n = state.agent_dir.shape
+    g = torch.Generator(device=state.device).manual_seed(7)
+    state = state.replace(step_count=state.step_count + 1, pool=None)
+    actions = torch.randint(0, 7, (e, n), generator=g, device=state.device)
+    order = torch.rand((e, n), generator=g, device=state.device).argsort(-1)
+    fns = {'kernel': lambda: handle_actions(cfg, state, actions, order),
+           'plain': lambda: handle_actions_plain(cfg, state, actions, order)}
+    graphs = {k: _graph_of(f) for k, f in fns.items()}
+    reps = {'kernel': 200, 'plain': 20}
+    eager, graphed = {k: [] for k in fns}, {k: [] for k in fns}
+    for way in ('kernel', 'plain', 'plain', 'kernel'):
+        eager[way].append(event_ms(fns[way], reps[way]))
+        graphed[way].append(event_ms(graphs[way].replay, reps[way]))
+    ms = step_launch_ms(cfg, state, actions, order)
+    dev_ms = kernel_device_ms(fns['kernel'], 'step_kernel')
+    _set_counts(counts)
+    bd, by, nbytes, ops = step_bound(state)
+    out = dict(ms=ms, profiler_ms=dev_ms, call_ms=sum(eager['kernel']) / 2,
+               graph_ms=sum(graphed['kernel']) / 2, plain_ms=sum(eager['plain']) / 2,
+               plain_graph_ms=sum(graphed['plain']) / 2, bound_ms=bd, bound_by=by,
+               bytes=nbytes, shape=f'({e}, {cfg.width}x{cfg.height}, {n} agents)')
+    print(f'step kernel {label} {out["shape"]} on {smi_line()}: launches {ms:.6f} ms, the '
+          f'kernel {dev_ms} ms (torch.profiler); in turns eager call {eager["kernel"]} ms, '
+          f'graphed {graphed["kernel"]} ms; plain version eager {eager["plain"]} ms, graphed '
+          f'{graphed["plain"]} ms; bound {bd:.6f} ms by {by} ({nbytes} bytes, {ops} ops); '
+          f'{bd / ms:.4f} of the bound')
+    return out
+
+
+@contextlib.contextmanager
+def _plain_step(on=True):
+    """Inside (where ``on``), the env step calls the step kernel's plain
+    version: for the comparison of the two on the card only."""
+    from multigrid_tpu_torch.ops import step as step_module
+    real = step_module.handle_actions
+    if on:
+        step_module.handle_actions = step_module.handle_actions_plain
+    try:
+        yield
+    finally:
+        step_module.handle_actions = real
+
+
+def step_before_after(device=None, steps=64):
+    """The graphed env flagship (``rollout_random``, a one-step graph) with
+    the step kernel and with its plain version in the env step, each on its
+    own VectorEnv from one seed: the two rollouts bit-equal, launches
+    exact; ms a step in turns (kernel, plain, plain, kernel) over ``steps``
+    steps; and each under torch.profiler over 16 steps: device kernels a
+    step, host launch calls a step and the device's busy share."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    built, ends = {}, []
+    for way in ('kernel', 'plain'):
+        venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=N, device=device), E)
+        with _plain_step(way == 'plain'):
+            _, state = venv.reset(seed=0)
+            _zero_counts()
+            state, _ = venv.rollout_random(state, 16)
+            torch.cuda.synchronize()
+            counts = _counts()
+        want = {**{k: 0 for k in counts}, 'obs': 16, 'step': 16 if way == 'kernel' else 0}
+        if counts != want:
+            fail(f'step before/after, {way}: launches {counts}, expected {want}')
+        built[way] = [venv, state]
+        ends.append(state)
+    if not _trees_equal(*ends):
+        fail('the graphed flagship rollout through the step kernel differs from the one '
+             'through its plain version')
+    ms = {way: [] for way in built}
+    for way in ('kernel', 'plain', 'plain', 'kernel'):
+        venv, state = built[way]
+        with _plain_step(way == 'plain'):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = venv.rollout_random(state, steps)
+            torch.cuda.synchronize()
+            ms[way].append((time.perf_counter() - t0) / steps * 1e3)
+        built[way][1] = state
+    prof = {}
+    for way, (venv, state) in built.items():
+        with _plain_step(way == 'plain'):
+            prof[way] = _profiled(lambda: venv.rollout_random(state, 16), 16)
+    print(f'graphed env flagship on {smi_line()}, the env step through the step kernel and '
+          f'through its plain version: rollouts bit-equal; ms a step in turns (kernel, plain, '
+          f'plain, kernel) kernel {ms["kernel"]}, plain {ms["plain"]} '
+          f'({sum(ms["plain"]) / sum(ms["kernel"]):.4f}x by sums); profiled 16 steps: '
+          + '; '.join(f'{way} {p["device_kernels"]:.1f} device kernels a step, '
+                      f'{p["host_launches"]:.1f} host launch calls a step, wall '
+                      f'{p["wall_ms"]:.4f} ms a step, busy ' + (
+                          'not measured' if p['busy_share'] is None
+                          else f'{p["busy_share"]:.4f}') for way, p in prof.items()))
+    return dict(ms_a_step=ms, profiled=prof)
+
+
+def step_timing(venv, state, device=None):
+    """The step kernel's times at the flagship (the main path's final
+    state) and at BUP (its reserve-pool VectorEnv after 4 random steps),
+    and the graphed flagship with and without it
+    (:func:`step_before_after`)."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    flag = step_times('flagship', venv.env.cfg, state)
+    bvenv = VectorEnv(make(BUP, agents=BUP_N, device=device), E)
+    _, bstate = bvenv.reset(seed=0)
+    for _ in range(4):
+        actions = torch.randint(0, 7, (E, BUP_N), generator=bvenv.generator, device=bvenv.device)
+        _, bstate, *_ = bvenv.step(bstate, actions)
+    bup = step_times('BUP', bvenv.env.cfg, bstate)
+    return dict(flagship=flag, bup=bup, graphed_flagship=step_before_after(device))
 
 
 # ------------------------------------------------------------ CUDA graphs
@@ -1611,12 +1949,8 @@ def _zero_counts():
 
 
 def _set_counts(counts):
-    from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
-    obs_cuda.launches, fused_linear.launches = counts['obs'], counts['onehot_linear']
-    obs_cuda.general_launches = counts['obs_general']
-    fused_linear.grad_launches, fused_ppo.launches = (counts['onehot_linear_grad'],
-                                                      counts['ppo_loss'])
-    fused_policy.launches = counts['policy_sample']
+    from multigrid_tpu_torch.ops import set_launch_counts
+    set_launch_counts(counts)
 
 
 def _run(step, state, updates):
@@ -1654,12 +1988,13 @@ def _restore(step, snap):
 def _counted(step, snap, updates, label, **want):
     """``updates`` updates from ``snap``, the launch counts set to 0 just
     before and checked exactly just after against ``want`` (one obs launch
-    a rollout step, 0 of any kernel not named)."""
+    and one step launch a rollout step, 0 of any kernel not named)."""
     state = _restore(step, snap)
     _zero_counts()
     state, rows = _run(step, state, updates)
     counts = _counts()
-    want = {**{k: 0 for k in counts}, 'obs': step.config.rollout_steps * updates, **want}
+    steps = step.config.rollout_steps * updates
+    want = {**{k: 0 for k in counts}, 'obs': steps, 'step': steps, **want}
     print(f'{label}, {updates} updates: launches {counts}')
     if counts != want:
         fail(f'{label}: expected launches {want}, got {counts}')
@@ -2345,7 +2680,7 @@ def wide_view_path(device=None, e=1024, steps=8):
         pairs.append((obs['image'], state))
     torch.cuda.synchronize()
     counts = _counts()
-    want = {**{k: 0 for k in counts}, 'obs_general': steps + 1}
+    want = {**{k: 0 for k in counts}, 'obs_general': steps + 1, 'step': steps}
     print(f'view-33 VectorEnv, reset + {steps} steps: launches {counts}')
     if counts != want:
         fail(f'view-33 VectorEnv: expected launches {want}, got {counts}')
@@ -2515,7 +2850,7 @@ def zoo(device=None, steps=32):
                     fail(f'{env_id}: an env that finished at step {t} holds stale extras')
             torch.cuda.synchronize()
         counts = _counts()
-        want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+        want = {**{k: 0 for k in counts}, 'obs': steps + 1, 'step': steps}
         if counts != want:
             fail(f'{env_id}: expected launches {want}, got {counts}')
         if mismatches:
@@ -2783,7 +3118,7 @@ def pool_path(device=None, e=E, steps=48):
                     fail(f'{env_id}: a slot went {stale} steps without a refresh')
             torch.cuda.synchronize()
         counts = _counts()
-        want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+        want = {**{k: 0 for k in counts}, 'obs': steps + 1, 'step': steps}
         if counts != want:
             fail(f'{env_id}: expected launches {want}, got {counts}')
         if mismatches:
@@ -3129,7 +3464,7 @@ def wrappers_path(device=None, steps=32):
                 obs, state, *_ = venv.step(state, actions)
             torch.cuda.synchronize()
         counts = _counts()
-        want = {**{k: 0 for k in counts}, 'obs': steps + 1}
+        want = {**{k: 0 for k in counts}, 'obs': steps + 1, 'step': steps}
         if counts != want:
             fail(f'{name} on {env_id}: expected launches {want}, got {counts}')
         if mismatches:
@@ -3295,9 +3630,9 @@ def adapters_path(device=None, steps=256, checked=32):
     rng = np.random.default_rng(9)
     ad = GymAdapter(make(BUP, agents=BUP_N, device=device))
 
-    def expect(label, want_obs):
+    def expect(label, want_obs, want_steps):
         counts = _counts()
-        want = {**{k: 0 for k in counts}, 'obs': want_obs}
+        want = {**{k: 0 for k in counts}, 'obs': want_obs, 'step': want_steps}
         if counts != want:
             fail(f'adapters {label}: expected launches {want}, got {counts}')
 
@@ -3313,7 +3648,7 @@ def adapters_path(device=None, steps=256, checked=32):
                 obs, _ = ad.reset()
                 calls += 1
         torch.cuda.synchronize()
-    expect('gym checked', calls)
+    expect('gym checked', calls, checked)
     if mismatches or (device is None and ad._state.device.type != 'cuda'):
         fail(f'adapters: {len(mismatches)} observations differ from the plain version '
              f'(state on {ad._state.device})')
@@ -3335,7 +3670,7 @@ def adapters_path(device=None, steps=256, checked=32):
             resets += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    expect('gym loop', steps + resets)
+    expect('gym loop', steps + resets, steps)
     rate = steps / wall
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -3357,7 +3692,7 @@ def adapters_path(device=None, steps=256, checked=32):
     pz.reset(seed=0)
     for t, a in enumerate([2, 2, 1, 2, 2]):
         _, rewards, terms, _, _ = pz.step({'agent_0': a, 'agent_1': 6})
-    expect('pettingzoo', 6)
+    expect('pettingzoo', 6, 5)
     if pz.agents != [] or not terms['agent_0'] or rewards['agent_0'] <= 0:
         fail(f'pettingzoo: live agents {pz.agents} after the goal, rewards {rewards}')
     rl = RLlibWrapper(make('MultiGrid-Empty-5x5-v0', agents=2, device=device))
@@ -3384,7 +3719,7 @@ def adapters_path(device=None, steps=256, checked=32):
         mg.agent_pos, mg.agent_dir = (4, 3), 1
         _, reward, term, _, _ = mg.step(2)
         torch.cuda.synchronize()
-    expect('minigrid', 5)
+    expect('minigrid', 5, 4)
     if mismatches or not term or reward <= 0 or int(mg._state.grid[0, dx, dy, 2]) != STATE_OPEN:
         fail(f'minigrid DoorKey: term {term}, reward {reward}, {len(mismatches)} mismatches')
     print('PettingZoo (live agents drop at the goal), RLlib (__all__) and the MiniGrid facade '
@@ -3410,7 +3745,8 @@ def adapters_path(device=None, steps=256, checked=32):
                'pygame': "render_mode='human'"}
     print('adapters: ' + ('; '.join(f'{m} absent, so {not_run[m]} did not run' for m in absent)
                           if absent else 'gymnasium, pettingzoo and pygame present: all ran'))
-    return dict(launches=calls + steps + resets + 6 + 5, steps_per_s=rate,
+    return dict(launches=calls + steps + resets + 6 + 5, launches_step=checked + steps + 5 + 4,
+                steps_per_s=rate,
                 ms_a_step=wall * 1e3 / steps, obs_launches_a_call=1, device_busy=busy,
                 absent=absent)
 
@@ -3460,7 +3796,7 @@ def visualize_path(ckdir, device=None):
             nets.onehot_linear = kernel
         counts = _counts()
         policy_steps = len(frames) - 2
-        want = {**{k: 0 for k in counts}, 'obs': 1 + len(frames),
+        want = {**{k: 0 for k in counts}, 'obs': 1 + len(frames), 'step': policy_steps,
                 'onehot_linear': policy_steps if label == 'mlp' else 0}
         if counts != want:
             fail(f'visualize {label}: expected launches {want}, got {counts}')
@@ -3474,6 +3810,7 @@ def visualize_path(ckdir, device=None):
               f'to the plain version' + (f', B2 err {b2_err[0]:.3e} (< 2e-2)' if label == 'mlp'
                                          else f', GIF {os.path.getsize(args[-1])} bytes'))
     return dict(launches=out['cnn']['obs'] + out['mlp']['obs'],
+                launches_step=out['cnn']['step'] + out['mlp']['step'],
                 launches_b2=out['mlp']['onehot_linear'], b2_err=b2_err[0])
 
 
@@ -3492,18 +3829,20 @@ def _flagship_run(updates, device=None, **kw):
 
 def _want_launches(kw):
     """The kernels a process launches in the updates of the run ``kw``
-    (:func:`ppo_run`'s keywords), as the single path does: B1 T, B2 T + 1
-    (1 with the fused policy, whose B5 takes the T rollout steps), B4 once
-    an SGD step, each an update; the cnn B1 alone."""
+    (:func:`ppo_run`'s keywords), as the single path does: B1 and the step
+    kernel T, B2 T + 1 (1 with the fused policy, whose B5 takes the T
+    rollout steps), B4 once an SGD step, each an update; the cnn B1 and the
+    step kernel alone."""
     cfg, updates, fused = kw.get('config', {}), kw['updates'], kw.get('fused_policy', False)
     t = cfg.get('rollout_steps', TRAIN_T)
     if kw.get('encoder', 'mlp') == 'cnn':
         return {'obs': t * updates, 'obs_general': 0, 'onehot_linear': 0,
-                'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0}
+                'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0,
+                'step': t * updates}
     return {'obs': t * updates, 'obs_general': 0,
             'onehot_linear': (1 if fused else t + 1) * updates, 'onehot_linear_grad': 0,
             'ppo_loss': cfg.get('epochs', 1) * cfg.get('minibatches', 1) * updates,
-            'policy_sample': t * updates if fused else 0}
+            'policy_sample': t * updates if fused else 0, 'step': t * updates}
 
 
 def _checked(label, results, runs, single=None, exact=False, counted=True):
@@ -4042,6 +4381,14 @@ def kernel_times(device):
             res[key + ' kernel (profiler)'] = kernel_device_ms(
                 lambda: fp.policy_sample_prepared(w, packed, args[1], gumbel),
                 'policy_sample_kernel')
+    from multigrid_tpu_torch.core.config import EnvConfig
+    for label, (w, h, n) in [('flagship', (SIZE, SIZE, N)), ('BUP shape', (11, 6, BUP_N))]:
+        st = random_state(9, E, w, h, n, device)
+        g = torch.Generator(device=device).manual_seed(9)
+        actions = torch.randint(0, 7, (E, n), generator=g, device=device)
+        order = torch.rand((E, n), generator=g, device=device).argsort(-1)
+        res[f'step {label} ({E}, {w}x{h}, {n}) launches'] = step_launch_ms(
+            EnvConfig(width=w, height=h, num_agents=n), st, actions, order)
     for k, v in res.items():
         print(f'{k}: {v}')
     print(json.dumps({'kernel_times_ms': res, 'tree': HERE}))
@@ -4081,8 +4428,10 @@ def main() -> None:
     general = general_cases(device)
     errs = train_kernel_cases(device)
     policy_err = policy_kernel_cases(device)
+    phase('step kernel')
+    step_res = step_cases(device)
     phase('main')
-    venv, obs, state, summary, launches = main_path()
+    venv, obs, state, summary, main_counts = main_path()
     phase('check')
     check_outputs(venv, obs, state, summary)
     phase('team')
@@ -4091,6 +4440,8 @@ def main() -> None:
     t = timing(venv, state)
     phase('breakdown')
     breakdown(venv, state)
+    phase('step timing')
+    st = step_timing(venv, state)
     phase('train')
     tvenv, step, tstate, counts, counts_off = train_path()
     phase('train timing')
@@ -4144,7 +4495,7 @@ def main() -> None:
     print(f'total {time.perf_counter() - t_start:.1f} s')
 
     kernels = [dict(name='obs', route='cuda', source='multigrid_tpu_torch/csrc/obs.cu',
-                    replaces='multigrid_tpu/ops/obs_pallas.py:176', launches=launches,
+                    replaces='multigrid_tpu/ops/obs_pallas.py:176', launches=main_counts['obs'],
                     max_abs_err=obs_err, equal=obs_err == 0, ms=t['ms'],
                     plain_ms=t['plain_ms'], bound_ms=t['bound_ms'], bound_by=t['bound_by'],
                     library_ms=None, sass_tensor_ops=sass['obs'], call_ms=t['call_ms'],
@@ -4217,6 +4568,30 @@ def main() -> None:
                         bound_ms=gen_t['bound_ms'], bound_by=gen_t['bound_by'],
                         library_ms=None, shape=gen_shape, times=general['times'],
                         resources=gen_resources))
+    kernels.append(dict(name='step', route='cuda', source='multigrid_tpu_torch/csrc/step.cu',
+                        replaces='multigrid_tpu/ops/step.py:125',
+                        serves='the env step\'s action loop, which the JAX package leaves to '
+                               'XLA to fuse (no pallas_call; multigrid_tpu/ops/step.py:160-175)',
+                        launches=main_counts['step'],
+                        launches_path=f'env flagship, reset + rollout_random({STEPS})',
+                        max_abs_err=step_res['max_abs_err'],
+                        equal=step_res['max_abs_err'] == 0, cases=step_res['cases'],
+                        ms=st['flagship']['ms'], call_ms=st['flagship']['call_ms'],
+                        profiler_ms=st['flagship']['profiler_ms'],
+                        graph_ms=st['flagship']['graph_ms'],
+                        plain_ms=st['flagship']['plain_ms'],
+                        plain_graph_ms=st['flagship']['plain_graph_ms'],
+                        bound_ms=st['flagship']['bound_ms'],
+                        bound_by=st['flagship']['bound_by'], library_ms=None,
+                        shape=st['flagship']['shape'], bup=st['bup'],
+                        graphed_flagship=st['graphed_flagship'],
+                        launches_train=counts['step'], launches_bup_train=bcounts['step'],
+                        launches_adapters=adapters['launches_step'],
+                        launches_visualize=vis['launches_step'],
+                        launches_distributed={
+                            'path': '3 flagship updates a process',
+                            'nccl_1': dist_res['nccl_1']['launches']['step'],
+                            'gloo_2': [c['step'] for c in dist_res['gloo_2']['launches']]}))
     print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate'],
                       'variants_trained_agent_steps_per_s': vt['rates'],
                       'bup_trained_agent_steps_per_s': bt['rate'],

@@ -1,5 +1,5 @@
-"""Environment functions on batched tensors: transition, observation
-(plain version and CUDA kernel wrapper), placement."""
+"""Environment functions on batched tensors: transition and observation
+(each a plain version and a CUDA kernel wrapper), placement."""
 
 from .obs import (
     gen_obs,
@@ -9,27 +9,29 @@ from .obs import (
     get_vis_mask,
 )
 from .obs_cuda import gen_obs_batched
-from .step import handle_actions, sample_order, step_with_order
+from .step import handle_actions, handle_actions_plain, sample_order, step_with_order
 
 
 def launch_counts() -> dict[str, int]:
     """Each kernel wrapper's launch count in this process (each wrapper adds
     one where it launches its kernel on the card)."""
-    from . import fused_linear, fused_policy, fused_ppo, obs_cuda
+    from . import fused_linear, fused_policy, fused_ppo, obs_cuda, step_cuda
     return {'obs': obs_cuda.launches, 'obs_general': obs_cuda.general_launches,
             'onehot_linear': fused_linear.launches,
             'onehot_linear_grad': fused_linear.grad_launches,
-            'ppo_loss': fused_ppo.launches, 'policy_sample': fused_policy.launches}
+            'ppo_loss': fused_ppo.launches, 'policy_sample': fused_policy.launches,
+            'step': step_cuda.launches}
 
 
 def set_launch_counts(counts: dict[str, int]) -> None:
     """Set the wrappers' launch counts named in ``counts`` (keys as
     :func:`launch_counts` gives them)."""
-    from . import fused_linear, fused_policy, fused_ppo, obs_cuda
+    from . import fused_linear, fused_policy, fused_ppo, obs_cuda, step_cuda
     owners = {'obs': (obs_cuda, 'launches'), 'obs_general': (obs_cuda, 'general_launches'),
               'onehot_linear': (fused_linear, 'launches'),
               'onehot_linear_grad': (fused_linear, 'grad_launches'),
-              'ppo_loss': (fused_ppo, 'launches'), 'policy_sample': (fused_policy, 'launches')}
+              'ppo_loss': (fused_ppo, 'launches'), 'policy_sample': (fused_policy, 'launches'),
+              'step': (step_cuda, 'launches')}
     for name, n in counts.items():
         setattr(*owners[name], n)
 
@@ -41,6 +43,7 @@ def zero_launch_counts() -> None:
 
 __all__ = [
     'gen_obs', 'gen_obs_batched', 'gen_obs_batched_plain', 'gen_obs_grid',
-    'gen_obs_grid_encoding', 'get_vis_mask', 'handle_actions', 'launch_counts',
-    'sample_order', 'set_launch_counts', 'step_with_order', 'zero_launch_counts',
+    'gen_obs_grid_encoding', 'get_vis_mask', 'handle_actions', 'handle_actions_plain',
+    'launch_counts', 'sample_order', 'set_launch_counts', 'step_with_order',
+    'zero_launch_counts',
 ]

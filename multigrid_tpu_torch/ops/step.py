@@ -22,7 +22,9 @@ Exact semantics (the reference is multigrid/base.py):
   (base.py:478-532, 598-602)
 
 The input state is not modified: the step works on copies of the tensors it
-writes.
+writes. :func:`handle_actions` takes :func:`handle_actions_plain` for tensors
+on the CPU and the CUDA kernel (``ops/step_cuda.py``, ``csrc/step.cu``) for
+tensors on the card.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..core.constants import (
 )
 from ..core.state import MultiGridState
 from ..utils.device import constant
+from . import step_cuda
 
 _A_LEFT = int(Action.left)
 _A_RIGHT = int(Action.right)
@@ -113,6 +116,12 @@ def apply_failure(
     return torch.where(fire[:, None], term_on, terminated)
 
 
+def success_reward_k(max_steps: int) -> float:
+    """The success reward's factor ``k = f32(0.9) · f32(1/max_steps)``,
+    rounded to float32 as XLA folds it (see :func:`success_reward`)."""
+    return float(np.float32(0.9) * (np.float32(1.0) / np.float32(max_steps)))
+
+
 def success_reward(step_count: torch.Tensor, max_steps: int) -> torch.Tensor:
     """(E,) float32 success reward ``1 - 0.9·step_count/max_steps``
     (base.py:598-602), rounded as the JAX package computes it.
@@ -124,7 +133,7 @@ def success_reward(step_count: torch.Tensor, max_steps: int) -> torch.Tensor:
     counts. Here the product of two float32 values is exact in float64, and
     the difference is rounded to float32 at the end.
     """
-    k = float(np.float32(0.9) * (np.float32(1.0) / np.float32(max_steps)))
+    k = success_reward_k(max_steps)
     return (1.0 - step_count.to(torch.float64) * k).to(torch.float32)
 
 
@@ -135,7 +144,26 @@ def handle_actions(
     order: torch.Tensor,
     action_mask: torch.Tensor | None = None,
 ) -> tuple[MultiGridState, torch.Tensor]:
-    """Apply all agents' actions sequentially in ``order``.
+    """Apply all agents' actions sequentially in ``order``: on the CPU
+    :func:`handle_actions_plain`; on the card one launch of the CUDA kernel
+    (:func:`multigrid_tpu_torch.ops.step_cuda.handle_actions`), which
+    computes the same bits, or an error. Arguments and results as
+    :func:`handle_actions_plain`'s."""
+    if state.device.type == 'cpu':
+        return handle_actions_plain(cfg, state, actions, order, action_mask)
+    return step_cuda.handle_actions(cfg, state, actions, order, action_mask,
+                                    success_reward_k(cfg.max_steps))
+
+
+def handle_actions_plain(
+    cfg: EnvConfig,
+    state: MultiGridState,
+    actions: torch.Tensor,
+    order: torch.Tensor,
+    action_mask: torch.Tensor | None = None,
+) -> tuple[MultiGridState, torch.Tensor]:
+    """Apply all agents' actions sequentially in ``order``, in batched torch
+    operations: the CUDA kernel's plain version.
 
     Parameters
     ----------

@@ -15,7 +15,7 @@ import torch
 
 from multigrid_tpu_torch.core.state import FIELDS
 from multigrid_tpu_torch.envs import make
-from multigrid_tpu_torch.ops import obs_cuda
+from multigrid_tpu_torch.ops import obs_cuda, step_cuda
 from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
 from multigrid_tpu_torch.parallel import VectorEnv
 
@@ -238,6 +238,156 @@ def test_vector_env_on_the_card_matches_the_cpu(cuda_device):
         states = [c_rest[0], g_rest[0]]
         episodes += int(c_rest[4].sum())
     assert episodes >= 32  # every env truncated at least once
+
+
+# ----------------------------------------------------- the step kernel
+
+#: The step kernel's cases (W, H, N, boxes, config overrides, E): the CPU
+#: tests' grid of flags and teams, 16 and 64 agents, a 250x250 grid.
+STEP_CASES = {
+    'overlap-any': (7, 6, 3, True, {}, 256),
+    'blocked-joint-all': (7, 6, 3, True, dict(allow_agent_overlap=False, joint_reward=True,
+                                              success_any=False, failure_any=True), 256),
+    'twelve-agents-scan': (7, 6, 12, True, dict(allow_agent_overlap=False), 256),
+    'no-boxes-two-agents': (5, 5, 2, False, {}, 256),
+    'one-agent': (6, 5, 1, True, dict(joint_reward=True), 256),
+    'sixteen-agents': (9, 7, 16, True, dict(allow_agent_overlap=False, joint_reward=True), 512),
+    'sixty-four-agents': (32, 32, 64, True, dict(success_any=False, failure_any=True), 64),
+    'grid-250x250': (250, 250, 4, True, dict(allow_agent_overlap=False), 8),
+    'flagship-shape': (16, 16, 4, False, {}, 4096),
+    'odd-env-count': (11, 6, 2, True, {}, 4097),
+}
+
+
+def _step_pair(cfg, state, rng, device, mask=True):
+    """The kernel on the card and the plain version on the CPU from the
+    same state, actions (some outside 0-6), orders and mask."""
+    from multigrid_tpu_torch.ops.step import handle_actions, handle_actions_plain
+    e, n = state.agent_dir.shape
+    state = state.replace(step_count=state.step_count + 1)
+    actions = rng.integers(0, 7, (e, n))
+    actions = np.where(rng.random((e, n)) < 0.05, rng.choice([-3, 7, 100], (e, n)), actions)
+    actions = torch.as_tensor(actions.astype(np.int32))
+    order = torch.as_tensor(np.argsort(rng.random((e, n)), -1))
+    m = torch.as_tensor(rng.random((e, n)) < 0.9) if mask else None
+    want = handle_actions_plain(cfg, state, actions, order, m)
+    got = handle_actions(cfg, _to(state, device), actions.to(device), order.to(device),
+                         None if m is None else m.to(device))
+    return got, want
+
+
+def _assert_step_equal(got, want, what):
+    (gs, gr), (ws, wr) = got, want
+    for k in FIELDS:
+        a, b = getattr(gs, k).cpu(), getattr(ws, k).cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (what, k)
+    assert torch.equal(gr.cpu().view(torch.int32), wr.cpu().view(torch.int32)), (what, 'rewards')
+
+
+@pytest.mark.parametrize('case', list(STEP_CASES))
+def test_step_kernel_matches_plain(cuda_device, case):
+    """``csrc/step.cu`` ≡ ``handle_actions_plain`` bit for bit over chained
+    steps: every state field, the rewards' bits, with and without a mask,
+    agents with no direction and off the grid, one launch a call; the input
+    state is not written."""
+    from multigrid_tpu_torch.core.config import EnvConfig
+    w, h, n, boxes, over, e = STEP_CASES[case]
+    cfg = EnvConfig(width=w, height=h, num_agents=n, max_steps=20, **over)
+    rng = np.random.default_rng(list(STEP_CASES).index(case))
+    fields = random_fields(int(rng.integers(1 << 30)), e, w, h, n, has_boxes=boxes,
+                           max_steps=20)
+    off = rng.random((e, n)) < 0.1
+    fields['agent_dir'] = np.where(off, -1, fields['agent_dir']).astype(np.int32)
+    fields['agent_pos'] = np.where((off & (rng.random((e, n)) < 0.5))[..., None], -1,
+                                   fields['agent_pos']).astype(np.int32)
+    state = to_torch(fields)
+    for t in range(4):
+        before = _to(state, cuda_device)
+        copy = {k: getattr(before, k).clone() for k in FIELDS}
+        launches = step_cuda.launches
+        got, want = _step_pair(cfg, state, rng, cuda_device, mask=t % 2 == 0)
+        assert step_cuda.launches == launches + 1
+        _assert_step_equal(got, want, (case, t))
+        state = want[0]
+    for k in FIELDS:  # the kernel reads its input state only
+        assert torch.equal(getattr(before, k), copy[k]), k
+
+
+@pytest.mark.parametrize('env_id', [
+    'MultiGrid-BlockedUnlockPickup-v0', 'MultiGrid-Empty-5x5-v0', 'MultiGrid-Empty-Random-5x5-v0',
+    'MultiGrid-Empty-6x6-v0', 'MultiGrid-Empty-Random-6x6-v0', 'MultiGrid-Empty-8x8-v0',
+    'MultiGrid-Empty-16x16-v0', 'MultiGrid-LockedHallway-2Rooms-v0',
+    'MultiGrid-LockedHallway-4Rooms-v0', 'MultiGrid-LockedHallway-6Rooms-v0',
+    'MultiGrid-Playground-v0', 'MultiGrid-RedBlueDoors-6x6-v0', 'MultiGrid-RedBlueDoors-8x8-v0'])
+def test_step_kernel_matches_plain_on_the_zoo(cuda_device, env_id):
+    """Each of the 13 configurations at 4096 envs, 2 agents, after a few
+    random steps on the card: the kernel ≡ the plain version (both on the
+    card) over 3 chained steps."""
+    from multigrid_tpu_torch.ops.step import handle_actions, handle_actions_plain
+    venv = VectorEnv(make(env_id, agents=2, device=cuda_device), 4096, reset_pool=False)
+    _, state = venv.reset(seed=5)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    for _ in range(3):
+        _, state, *_ = venv.step(state, torch.randint(0, 7, (4096, 2), generator=g,
+                                                      device=cuda_device))
+    state = state.replace(pool=None)
+    cfg = venv.env.cfg
+    for t in range(3):
+        state = state.replace(step_count=state.step_count + 1)
+        actions = torch.randint(0, 7, (4096, 2), generator=g, device=cuda_device)
+        order = torch.rand((4096, 2), generator=g, device=cuda_device).argsort(-1)
+        want = handle_actions_plain(cfg, state, actions, order)
+        got = handle_actions(cfg, state, actions, order)
+        _assert_step_equal(got, want, (env_id, t))
+        state = got[0]
+
+
+#: The golden traces ``chip_smoke.py`` replays on the card.
+STEP_GOLDEN = [('MultiGrid-Empty-16x16-v0', 3, 2), ('MultiGrid-Empty-Random-5x5-v0', 42, 4),
+               ('MultiGrid-BlockedUnlockPickup-v0', 0, 2), ('MultiGrid-RedBlueDoors-6x6-v0', 0, 3),
+               ('MultiGrid-LockedHallway-2Rooms-v0', 0, 2), ('MultiGrid-Playground-v0', 0, 2)]
+
+
+@pytest.mark.parametrize('env_id,seed,n', STEP_GOLDEN)
+def test_golden_traces_through_the_step_kernel(cuda_device, env_id, seed, n):
+    """A recorded reference trajectory (``tests/golden``) through the
+    parity runner on the card: observations, terminations and truncations
+    equal, rewards to float32 rounding, one step launch a step."""
+    import os
+
+    from multigrid_tpu_torch.envs.parity import ParityRunner
+    data = np.load(os.path.join(os.path.dirname(__file__), 'golden',
+                                f'{env_id}-s{seed}-n{n}.npz'))
+    runner = ParityRunner(make(env_id, agents=n, device=cuda_device), seed)
+    obs0 = runner.reset()
+    images = [np.stack([obs0[i]['image'] for i in range(n)])]
+    acts = np.random.default_rng(seed + 1000)
+    launches = step_cuda.launches
+    steps = len(data['rewards'])
+    for t in range(steps):
+        o, r, te, tr, _ = runner.step({i: int(acts.integers(0, 7)) for i in range(n)})
+        images.append(np.stack([o[i]['image'] for i in range(n)]))
+        for i in range(n):
+            assert te[i] == bool(data['terms'][t, i]) and tr[i] == bool(data['truncs'][t, i])
+            assert abs(r[i] - float(data['rewards'][t, i])) <= 1e-5, (t, i)
+    assert step_cuda.launches == launches + steps
+    np.testing.assert_array_equal(np.stack(images), data['images'].astype(np.int32))
+
+
+def test_step_kernel_rejects_what_it_cannot_take(cuda_device):
+    """A grid of the wrong dtype or shape: ValueError, nothing launched."""
+    from multigrid_tpu_torch.core.config import EnvConfig
+    from multigrid_tpu_torch.ops.step import handle_actions
+    cfg = EnvConfig(width=8, height=8, num_agents=2)
+    state = _to(to_torch(random_fields(0, 4, 8, 8, 2)), cuda_device)
+    actions = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    order = torch.arange(2, device=cuda_device).expand(4, 2)
+    launches = step_cuda.launches
+    for bad in (state.replace(grid=state.grid.to(torch.int64)),
+                state.replace(grid=state.grid[:, :7])):
+        with pytest.raises(ValueError):
+            handle_actions(cfg, bad, actions, order)
+    assert step_cuda.launches == launches
 
 
 # ----------------------------------------------------- training kernels
@@ -842,7 +992,7 @@ def test_sharded_training_on_the_card_matches_one_process(cuda_device, backend, 
     for res in sharded:
         assert res['launches'] == {'obs': 8, 'obs_general': 0, 'onehot_linear': 10,
                                    'onehot_linear_grad': 0, 'ppo_loss': 2,
-                                   'policy_sample': 0}
+                                   'policy_sample': 0, 'step': 8}
 
 
 def test_model_axis_gate_on_the_card_is_one_process(cuda_device):
@@ -858,7 +1008,8 @@ def test_model_axis_gate_on_the_card_is_one_process(cuda_device):
     for res in sharded:
         assert res['encoder'] == 'cnn'
         assert res['launches'] == {'obs': 6, 'obs_general': 0, 'onehot_linear': 0,
-                                   'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0}
+                                   'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0,
+                                   'step': 6}
 
 
 
@@ -884,7 +1035,8 @@ def test_graphed_rollout_random_equals_eager(cuda_device, env_id, agents, steps)
     graph; BUP on the reserve pool: two chunk graphs and 8 one-step
     replays) ≡ the eager loop under ``disable_graphs()`` from the same seed:
     states with the pool, observations of the final state and the summary,
-    bit for bit; one obs launch a step counted through the replays."""
+    bit for bit; one obs launch and one step launch a step counted through
+    the replays."""
     from multigrid_tpu_torch.utils.graphs import disable_graphs
     runs = []
     for graphed in (True, False):
@@ -893,9 +1045,10 @@ def test_graphed_rollout_random_equals_eager(cuda_device, env_id, agents, steps)
         _, state = venv.reset(seed=3)
         with contextlib.nullcontext() if graphed else disable_graphs():
             assert venv.graphed() == graphed
-            launches = obs_cuda.launches
+            launches = obs_cuda.launches, step_cuda.launches
             state, summary = venv.rollout_random(state, steps)
-            assert obs_cuda.launches == launches + steps
+            assert (obs_cuda.launches, step_cuda.launches) == (launches[0] + steps,
+                                                               launches[1] + steps)
             state, summary = venv.rollout_random(state, steps)
         runs.append((state, summary, venv.observe(state), venv.generator.get_state()))
     (a, sa, oa, ga), (b, sb, ob, gb) = runs
@@ -940,7 +1093,7 @@ def test_graphed_train_updates_equal_eager(cuda_device, fused, monkeypatch):
         assert step.fused_policy == fused
         runs.append((state, first, means, counts))
     (a, fa, ma, ca), (b, fb, mb, cb) = runs
-    assert ca == cb and ca['obs'] == 32 and ca['ppo_loss'] == 8, (ca, cb)
+    assert ca == cb and ca['obs'] == ca['step'] == 32 and ca['ppo_loss'] == 8, (ca, cb)
     assert ca['policy_sample' if fused else 'onehot_linear'] >= 32
     for k in a.params:
         assert torch.equal(a.params[k], b.params[k]), k
@@ -1064,7 +1217,8 @@ def test_nccl_mesh_graphed_updates_equal_eager_and_one_process(nccl_world, repla
             counts = launch_counts()
         assert len(replays) == (3 if graphed else 0) and len(step._graphs) == int(graphed)
         assert counts == {'obs': 48, 'obs_general': 0, 'onehot_linear': 51,
-                          'onehot_linear_grad': 0, 'ppo_loss': 3, 'policy_sample': 0}, counts
+                          'onehot_linear_grad': 0, 'ppo_loss': 3, 'policy_sample': 0,
+                          'step': 48}, counts
         runs.append((state, rows, venv.generator.get_state()))
     a, rows_a, gen_a = runs[-1]
     for b, rows_b, gen_b in runs[:-1]:
@@ -1145,3 +1299,4 @@ def test_graphed_evaluate_and_probe_equal_eager(cuda_device, tmp_path, replays):
         runs.append((row, probed, ev[1]))
     assert runs[0] == runs[1]
     assert runs[0][2]['obs'] == 3 * 257 + 2  # and the two resets
+    assert runs[0][2]['step'] == 3 * 256

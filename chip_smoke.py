@@ -47,8 +47,12 @@ Phases, in order; any failure exits non-zero:
                plain version (``ops/step.py::handle_actions_plain``), both on
                the card, bit for bit (every state field, the rewards' bits):
                3 chained steps on seeded states (STEP_CASES: the flags on
-               and off, 1 to 16 agents, 64 agents, a 250x250 grid, no box
-               table, the flagship's and BUP's shapes, 4097 envs; agents
+               and off, 1 to 16 agents, 64 agents, a 250x250 grid and
+               64x64 ones with a box table and without (the global kernel),
+               no box table,
+               the flagship's and BUP's shapes, 4097 envs, 16,384 and 16,387
+               flagship envs (several chunks a warp in the staged
+               kernel); agents
                without a direction or off the grid, actions outside 0-6,
                masks), 2 on each of the 13 configurations at 4096 envs, one
                launch a call; then the six golden traces (GOLDEN_TRACES)
@@ -76,8 +80,12 @@ Phases, in order; any failure exits non-zero:
 7. breakdown — each layer's time in a step (step, reset and merge, obs),
                and the device's busy share and kernels per step from
                ``torch.profiler``.
-   step timing — the step kernel at the flagship and at BUP against its
-               plain version, in turns (kernel, plain, plain, kernel): its
+   step timing — the step kernel at the flagship, at BUP, on
+               random_state's box-table states (4096, 16x16, 4), at 16,384
+               flagship envs and on 250x250 grids (the global kernel), each
+               with the variant that ran, its plan and ptxas's registers and
+               spills, and equal to its plain version; against the plain
+               version in turns (kernel, plain, plain, kernel): its
                launches alone, the profiler's kernel time, each eager and
                each replayed from a CUDA graph of its own, beside the bound;
                then the graphed env flagship with the kernel and with the
@@ -262,10 +270,12 @@ shape), the general obs kernel (packed, launches alone: view 33 and the
 three shapes of GENERAL_TIMED), B2, B3 (flagship, per-agent and critic
 shapes), B4 (with its stages; and at F 14), B5 (at
 the seven shapes of its kernel cases) and the step kernel (launches alone,
-at the flagship's and BUP's shapes) on seeded inputs, with digests of
-B1's and B4's outputs, for comparing two trees in turns within one call
-(copy the script into the other tree, which must have this tree's
-launchers).
+through copies of its buffers that span twice the L2, at the flagship's and
+BUP's shapes and STEP_TIMED's; in a tree with the staged kernel also its
+plans) on seeded inputs,
+with digests of B1's and B4's outputs, for comparing two trees in turns
+within one call (copy the script into the other tree, which must have this
+tree's launchers).
 
 Products in float32 run in full float32 (TF32 off) for the plain versions.
 The line before the last is the kernels' JSON record; the last line is
@@ -275,6 +285,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -603,10 +614,10 @@ def obs_times(state, label, packed, call_reps=200):
     return dict(ms=ms, profiler_ms=dev_ms, call_ms=call_ms, bound_ms=bd, bound_by=by)
 
 
-def kernel_device_ms(fn, name, reps=20):
-    """Device time in ms of the kernels whose names hold ``name`` (a string,
-    or a tuple of strings) in one call of ``fn``, from torch.profiler (None
-    where it sees no device time)."""
+def device_kernels(fn, name, reps=20):
+    """Device time in ms a call of ``fn`` of each kernel whose name holds
+    ``name`` (a string, or a tuple of strings), by the kernel's name, from
+    torch.profiler (``{}`` where it sees no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -616,10 +627,18 @@ def kernel_device_ms(fn, name, reps=20):
             fn()
         torch.cuda.synchronize()
     names = (name,) if isinstance(name, str) else name
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and any(n in e.name for n in names)]
-    return sum(us) / 1e3 / reps if us else None
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names):
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return times
+
+
+def kernel_device_ms(fn, name, reps=20):
+    """Device time in ms of the kernels whose names hold ``name`` in one
+    call of ``fn`` (:func:`device_kernels`; None where it sees none)."""
+    times = device_kernels(fn, name, reps)
+    return sum(times.values()) if times else None
 
 
 def ppo_stages(fn, reps=5):
@@ -998,7 +1017,19 @@ STEP_CASES = [
     ('flagship shape', SIZE, SIZE, N, False, {}, E),
     ('BUP shape', 11, 6, BUP_N, True, {}, E),
     ('4097 envs', 11, 6, 2, True, {}, E + 1),
+    ('16384 envs, flagship shape', SIZE, SIZE, N, False, {}, 4 * E),
+    ('16387 envs, flagship shape', SIZE, SIZE, N, False, {}, 4 * E + 3),
+    ('64x64, box table', 64, 64, N, True, {}, 64),
+    ('64x64, no box table', 64, 64, N, False, {}, 64),
 ]
+#: The step kernel's timed shapes beyond the flagship and BUP (label, W, H,
+#: N, box table, E), on random_state's states: its box-table states at the
+#: flagship's size, the flagship's shape at 16,384 envs (the staged
+#: kernel's warps walking several chunks each), and 250x250 grids (the
+#: global kernel).
+STEP_TIMED = [('random_state box table', SIZE, SIZE, N, True, E),
+              ('flagship shape x4', SIZE, SIZE, N, False, 4 * E),
+              ('250x250', 250, 250, N, True, 64)]
 
 
 def step_pair(cfg, state, generator, mask=True):
@@ -1098,34 +1129,64 @@ def step_cases(device):
     return dict(max_abs_err=max_err, cases=cases)
 
 
-def step_launch_ms(cfg, state, actions, order, reps=200):
-    """CUDA-event time of the step kernel's launches alone, without the
-    wrapper's checks, casts and allocations (outputs allocated once)."""
+#: The card's L2 (50 MB on an H100): timed launches cycle through enough
+#: copies of their buffers (:func:`rotations`) that each launch reads and
+#: writes device memory, not data the launch before left in L2.
+L2_BYTES = 50 * 2**20
+
+
+def rotations(nbytes):
+    """Copies of a launch's buffers (``nbytes`` read and written) for the
+    timed launches to cycle through: enough that the other copies between
+    two uses of one move twice the L2."""
+    return 1 + -(-2 * L2_BYTES // nbytes)
+
+
+def step_launch_ms(cfg, state, actions, order, reps=100, per_graph=20):
+    """Device time of one launch of the step kernel alone, without the
+    wrapper's checks, casts and allocations: CUDA events over ``reps``
+    replays of a CUDA graph of at least ``per_graph`` launches, so that the
+    host's launch calls (ctypes, longer than the kernel) stay out of it.
+    The launches cycle through :func:`rotations` copies of the state,
+    actions, orders, step counts, outputs and rewards, a whole number of
+    rounds a graph, so that each faces device memory (the flagship's 26.6
+    MB would stay in L2 from one launch to the next)."""
     import torch
 
     from multigrid_tpu_torch.ops import step_cuda
     from multigrid_tpu_torch.ops.step import success_reward_k
+    if state.device.type != 'cuda':
+        fail(f'step_launch_ms needs a state on the card, got {state.device}')
     e, n = state.agent_dir.shape
     names = ('grid', 'box_contents', 'agent_pos', 'agent_dir', 'agent_carrying',
              'agent_carrying_contents', 'agent_terminated')
     boxes = state.box_contents.numel() > 0
-    ins = [getattr(state, k).contiguous() for k in names]
-    outs = [torch.empty_like(t) for t in ins]
-    rewards = torch.empty((e, n), dtype=torch.float32, device=state.device)
-    a32, o32 = actions.to(torch.int32).contiguous(), order.to(torch.int32).contiguous()
-    ptrs = [t.data_ptr() if boxes or i != 1 else None for i, t in enumerate(ins)] + \
-        [t.data_ptr() if boxes or i != 1 else None for i, t in enumerate(outs)]
-    args = (*ptrs, rewards.data_ptr(), a32.data_ptr(), o32.data_ptr(), None,
-            state.step_count.data_ptr(), e, n, cfg.width, cfg.height,
-            int(cfg.allow_agent_overlap), int(cfg.success_any), int(cfg.failure_any),
-            int(cfg.joint_reward), success_reward_k(cfg.max_steps),
-            torch.cuda.current_stream().cuda_stream)
+    copies = rotations(step_bound(state)[2])
+    sets = []
+    for _ in range(copies):
+        ins = [getattr(state, k).clone(memory_format=torch.contiguous_format) for k in names]
+        outs = [torch.empty_like(t) for t in ins]
+        rewards = torch.empty((e, n), dtype=torch.float32, device=state.device)
+        a32, o32 = actions.to(torch.int32).clone(), order.to(torch.int32).clone()
+        step_count = state.step_count.clone()
+        ptrs = [t.data_ptr() if boxes or i != 1 else None for i, t in enumerate(ins)] + \
+            [t.data_ptr() if boxes or i != 1 else None for i, t in enumerate(outs)]
+        sets.append((ins, outs, rewards, a32, o32, step_count, (
+            *ptrs, rewards.data_ptr(), a32.data_ptr(), o32.data_ptr(), None,
+            step_count.data_ptr(), e, n, cfg.width, cfg.height, int(cfg.allow_agent_overlap),
+            int(cfg.success_any), int(cfg.failure_any), int(cfg.joint_reward),
+            success_reward_k(cfg.max_steps))))
     fn = step_cuda._lib_fn()
+    count = copies * -(-per_graph // copies)
 
-    def launch():
-        if fn(*args):
-            fail('step kernel launch failed')
-    return event_ms(launch, reps)
+    def launches():
+        stream = torch.cuda.current_stream().cuda_stream
+        for i in range(count):
+            err = fn(*sets[i % copies][-1], stream)
+            if err:
+                fail(f'step kernel launch failed: CUDA error {err}')
+    graph = _graph_of(launches)
+    return event_ms(graph.replay, reps) / count
 
 
 def step_bound(state):
@@ -1140,6 +1201,24 @@ def step_bound(state):
     nbytes = 2 * state_bytes + e * n * 4 * 3 + e * 4
     ops = e * n * (60 + 3 * n)
     return (*bound(nbytes, vector_ops=ops), nbytes, ops)
+
+
+def copy_ms(nbytes, device, reps=100, per_graph=20):
+    """Device time of one torch copy of ``nbytes // 2`` bytes between two
+    buffers (so ``nbytes`` read and written), timed as
+    :func:`step_launch_ms` times the step kernel (cycling through
+    :func:`rotations` pairs of buffers): a yardstick for a kernel that must
+    move those bytes, not the kernel's function."""
+    import torch
+    copies = rotations(nbytes)
+    src = torch.empty((copies, nbytes // 2), dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    count = copies * -(-per_graph // copies)
+
+    def run():
+        for i in range(count):
+            dst[i % copies].copy_(src[i % copies])
+    return event_ms(_graph_of(run).replay, reps) / count
 
 
 def _graph_of(fn):
@@ -1157,12 +1236,40 @@ def _graph_of(fn):
     return graph
 
 
+def step_variant(cfg, state, times):
+    """The step kernel's variant that ran: the one whose name torch.profiler
+    saw (``times``, :func:`device_kernels` of a call on ``state``), which
+    must be the plan's for the state's tensors (``step_cuda.plan``, with
+    their addresses' alignment as the launcher reckons it). With that plan
+    and ptxas's registers and spills of the kernel (``{}`` where ptxas
+    printed none). Fails on a spill, where the profiler saw no step kernel
+    or both, or where the plan names the other."""
+    from multigrid_tpu_torch.ops import step_cuda
+    from multigrid_tpu_torch.utils import build
+    e, n = state.agent_dir.shape
+    boxes = state.box_contents.numel() > 0
+    fields = [state.grid, state.agent_pos, state.agent_dir, state.agent_carrying,
+              state.agent_carrying_contents, state.agent_terminated, state.step_count]
+    aligned = all(t.data_ptr() % 16 == 0 for t in fields + [state.box_contents] * boxes)
+    plan = step_cuda.plan(e, n, cfg.width, cfg.height, boxes, aligned=aligned)
+    ran = [v for v in ('staged', 'global') if any(f'step_kernel_{v}' in k for k in times)]
+    if ran != [plan['variant']]:
+        fail(f'step kernel: torch.profiler saw {sorted(times)}; the plan for these tensors is '
+             f'the {plan["variant"]} kernel')
+    usage = next((u for k, u in build.resource_usage(step_cuda.SOURCE).items()
+                  if f'step_kernel_{plan["variant"]}' in k), {})
+    if usage.get('spill_stores') or usage.get('spill_loads'):
+        fail(f'step_kernel_{plan["variant"]} spills: {usage}')
+    return dict(plan, ptxas=usage)
+
+
 def step_times(label, cfg, state):
-    """The step kernel against its plain version at one shape, in turns
-    (kernel, plain, plain, kernel): the kernel's launches alone, the
-    profiler's kernel time, each eager (the wrapper's whole call) and each
-    replayed from a CUDA graph of its own; beside the bound. Launch counts
-    unchanged. Returns the times in ms."""
+    """The step kernel against its plain version at one shape: the variant
+    that runs it (:func:`step_variant`), one step equal to the plain
+    version's bit for bit, then in turns (kernel, plain, plain, kernel) the
+    kernel's launches alone, the profiler's kernel time, each eager (the
+    wrapper's whole call) and each replayed from a CUDA graph of its own;
+    beside the bound. Launch counts unchanged. Returns the times in ms."""
     import torch
 
     from multigrid_tpu_torch.ops.step import handle_actions, handle_actions_plain
@@ -1174,6 +1281,9 @@ def step_times(label, cfg, state):
     order = torch.rand((e, n), generator=g, device=state.device).argsort(-1)
     fns = {'kernel': lambda: handle_actions(cfg, state, actions, order),
            'plain': lambda: handle_actions_plain(cfg, state, actions, order)}
+    equal, err = step_err(fns['kernel'](), fns['plain']())
+    if not equal:
+        fail(f'step kernel {label}: differs from the plain version (max_abs_err {err})')
     graphs = {k: _graph_of(f) for k, f in fns.items()}
     reps = {'kernel': 200, 'plain': 20}
     eager, graphed = {k: [] for k in fns}, {k: [] for k in fns}
@@ -1181,18 +1291,25 @@ def step_times(label, cfg, state):
         eager[way].append(event_ms(fns[way], reps[way]))
         graphed[way].append(event_ms(graphs[way].replay, reps[way]))
     ms = step_launch_ms(cfg, state, actions, order)
-    dev_ms = kernel_device_ms(fns['kernel'], 'step_kernel')
+    times = device_kernels(fns['kernel'], 'step_kernel')
+    variant = step_variant(cfg, state, times)
+    dev_ms = sum(times.values())
     _set_counts(counts)
     bd, by, nbytes, ops = step_bound(state)
-    out = dict(ms=ms, profiler_ms=dev_ms, call_ms=sum(eager['kernel']) / 2,
+    copy = copy_ms(nbytes, state.device)
+    out = dict(ms=ms, profiler_ms=dev_ms, copy_ms=copy, call_ms=sum(eager['kernel']) / 2,
                graph_ms=sum(graphed['kernel']) / 2, plain_ms=sum(eager['plain']) / 2,
                plain_graph_ms=sum(graphed['plain']) / 2, bound_ms=bd, bound_by=by,
-               bytes=nbytes, shape=f'({e}, {cfg.width}x{cfg.height}, {n} agents)')
-    print(f'step kernel {label} {out["shape"]} on {smi_line()}: launches {ms:.6f} ms, the '
-          f'kernel {dev_ms} ms (torch.profiler); in turns eager call {eager["kernel"]} ms, '
-          f'graphed {graphed["kernel"]} ms; plain version eager {eager["plain"]} ms, graphed '
-          f'{graphed["plain"]} ms; bound {bd:.6f} ms by {by} ({nbytes} bytes, {ops} ops); '
-          f'{bd / ms:.4f} of the bound')
+               bytes=nbytes, share=bd / ms, max_abs_err=err, variant=variant,
+               shape=f'({e}, {cfg.width}x{cfg.height}, {n} agents)')
+    print(f'step kernel {label} {out["shape"]} on {smi_line()}: the {variant["variant"]} '
+          f'kernel ran (torch.profiler; plan {json.dumps(variant)}), equal to the plain '
+          f'version; launches {ms:.6f} ms, the kernel {dev_ms} ms (torch.profiler); in turns '
+          f'eager call '
+          f'{eager["kernel"]} ms, graphed {graphed["kernel"]} ms; plain version eager '
+          f'{eager["plain"]} ms, graphed {graphed["plain"]} ms; bound {bd:.6f} ms by {by} '
+          f'({nbytes} bytes, {ops} ops); {bd / ms:.4f} of the bound; a torch copy of the same '
+          f'bytes {copy:.6f} ms')
     return out
 
 
@@ -1215,7 +1332,7 @@ def step_before_after(device=None, steps=64):
     the step kernel and with its plain version in the env step, each on its
     own VectorEnv from one seed: the two rollouts bit-equal, launches
     exact; ms a step in turns (kernel, plain, plain, kernel) over ``steps``
-    steps; and each under torch.profiler over 16 steps: device kernels a
+    steps, after one untimed rollout of that length each; and each under torch.profiler over 16 steps: device kernels a
     step, host launch calls a step and the device's busy share."""
     import torch
 
@@ -1237,6 +1354,10 @@ def step_before_after(device=None, steps=64):
     if not _trees_equal(*ends):
         fail('the graphed flagship rollout through the step kernel differs from the one '
              'through its plain version')
+    for way, (venv, state) in built.items():  # one untimed rollout of the length timed
+        with _plain_step(way == 'plain'):
+            built[way][1], _ = venv.rollout_random(state, steps)
+    gc.collect()
     ms = {way: [] for way in built}
     for way in ('kernel', 'plain', 'plain', 'kernel'):
         venv, state = built[way]
@@ -1265,12 +1386,15 @@ def step_before_after(device=None, steps=64):
 
 def step_timing(venv, state, device=None):
     """The step kernel's times at the flagship (the main path's final
-    state) and at BUP (its reserve-pool VectorEnv after 4 random steps),
-    and the graphed flagship with and without it
+    state), at BUP (its reserve-pool VectorEnv after 4 random steps) and at
+    STEP_TIMED's shapes; the staged kernel must run the first four, the
+    global one 250x250 (by the kernel's name in torch.profiler, see
+    :func:`step_variant`); then the graphed flagship with and without it
     (:func:`step_before_after`)."""
     import torch
 
     from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.core.config import EnvConfig
     flag = step_times('flagship', venv.env.cfg, state)
     bvenv = VectorEnv(make(BUP, agents=BUP_N, device=device), E)
     _, bstate = bvenv.reset(seed=0)
@@ -1278,7 +1402,19 @@ def step_timing(venv, state, device=None):
         actions = torch.randint(0, 7, (E, BUP_N), generator=bvenv.generator, device=bvenv.device)
         _, bstate, *_ = bvenv.step(bstate, actions)
     bup = step_times('BUP', bvenv.env.cfg, bstate)
-    return dict(flagship=flag, bup=bup, graphed_flagship=step_before_after(device))
+    shapes = {}
+    for label, w, h, n, boxes, e in STEP_TIMED:
+        st = random_state(9, e, w, h, n, state.device)
+        if not boxes:
+            st = st.replace(box_contents=st.box_contents[:, :0, :0].contiguous())
+        shapes[label] = step_times(label, EnvConfig(width=w, height=h, num_agents=n), st)
+    for label, res, want in [('flagship', flag, 'staged'), ('BUP', bup, 'staged'),
+                             *[(k, v, 'global' if k == '250x250' else 'staged')
+                               for k, v in shapes.items()]]:
+        if res['variant']['variant'] != want:
+            fail(f'step kernel {label}: the {res["variant"]["variant"]} kernel ran, '
+                 f'expected the {want} one')
+    return dict(flagship=flag, bup=bup, shapes=shapes, graphed_flagship=step_before_after(device))
 
 
 # ------------------------------------------------------------ CUDA graphs
@@ -4381,17 +4517,47 @@ def kernel_times(device):
             res[key + ' kernel (profiler)'] = kernel_device_ms(
                 lambda: fp.policy_sample_prepared(w, packed, args[1], gumbel),
                 'policy_sample_kernel')
-    from multigrid_tpu_torch.core.config import EnvConfig
-    for label, (w, h, n) in [('flagship', (SIZE, SIZE, N)), ('BUP shape', (11, 6, BUP_N))]:
-        st = random_state(9, E, w, h, n, device)
-        g = torch.Generator(device=device).manual_seed(9)
-        actions = torch.randint(0, 7, (E, n), generator=g, device=device)
-        order = torch.rand((E, n), generator=g, device=device).argsort(-1)
-        res[f'step {label} ({E}, {w}x{h}, {n}) launches'] = step_launch_ms(
-            EnvConfig(width=w, height=h, num_agents=n), st, actions, order)
+    res.update(step_kernel_times(device))
     for k, v in res.items():
         print(f'{k}: {v}')
     print(json.dumps({'kernel_times_ms': res, 'tree': HERE}))
+
+
+def step_kernel_times(device):
+    """``--kernel-times``' step kernel: its launches alone at the flagship's
+    and BUP's shapes and at STEP_TIMED's, on random_state's states (the
+    flagship's shape without its box table), each with the digest of its
+    outputs and a torch copy of its bytes (:func:`copy_ms`), and in a tree
+    with the staged kernel (``step_cuda.plan``) the plan it takes."""
+    import hashlib
+
+    import torch
+
+    from multigrid_tpu_torch.core.config import EnvConfig
+    from multigrid_tpu_torch.core.state import FIELDS
+    from multigrid_tpu_torch.ops import step_cuda
+    from multigrid_tpu_torch.ops.step import handle_actions
+    res = {}
+    shapes = [('flagship shape', SIZE, SIZE, N, False, E), ('BUP shape', 11, 6, BUP_N, True, E),
+              *STEP_TIMED]
+    for label, w, h, n, boxes, e in shapes:
+        st = random_state(9, e, w, h, n, device)
+        if not boxes:
+            st = st.replace(box_contents=st.box_contents[:, :0, :0].contiguous())
+        cfg = EnvConfig(width=w, height=h, num_agents=n)
+        g = torch.Generator(device=device).manual_seed(9)
+        actions = torch.randint(0, 7, (e, n), generator=g, device=device)
+        order = torch.rand((e, n), generator=g, device=device).argsort(-1)
+        key = f'step {label} ({e}, {w}x{h}, {n})'
+        res[key + ' launches'] = step_launch_ms(cfg, st, actions, order)
+        res[key + ' torch copy of its bytes'] = copy_ms(step_bound(st)[2], device)
+        got, rewards = handle_actions(cfg, st, actions, order)
+        res[key + ' digest'] = hashlib.sha256(b''.join(
+            t.contiguous().cpu().numpy().tobytes()
+            for t in [getattr(got, f) for f in FIELDS] + [rewards])).hexdigest()[:16]
+        if hasattr(step_cuda, 'plan'):
+            res[key + ' plan'] = step_cuda.plan(e, n, w, h, boxes)
+    return res
 
 
 def main() -> None:
@@ -4583,7 +4749,8 @@ def main() -> None:
                         plain_graph_ms=st['flagship']['plain_graph_ms'],
                         bound_ms=st['flagship']['bound_ms'],
                         bound_by=st['flagship']['bound_by'], library_ms=None,
-                        shape=st['flagship']['shape'], bup=st['bup'],
+                        shape=st['flagship']['shape'], variant=st['flagship']['variant'],
+                        bup=st['bup'], shapes=st['shapes'],
                         graphed_flagship=st['graphed_flagship'],
                         launches_train=counts['step'], launches_bup_train=bcounts['step'],
                         launches_adapters=adapters['launches_step'],

@@ -1,11 +1,12 @@
 // One env's action loop: every agent's action applied in the env's order.
 //
-// The per-env body of csrc/step.cu's step_kernel, and the same semantics as
+// The per-env body of csrc/step.cu's kernels, and the same semantics as
 // ops/step.py::handle_actions_plain, bit for bit (base.py:396-532 of the
-// reference). It reads and writes one env's rows of the output state, which
-// hold a copy of the input state when it starts; later agents see what
-// earlier agents did in the same step (moved positions, written cells,
-// termination flags).
+// reference). step_rows reads and writes one env's rows (EnvRows), which
+// hold a copy of the input state when it starts: the staged kernel points
+// them into shared memory, step_env into the output tensors. Later agents
+// see what earlier agents did in the same step (moved positions, written
+// cells, termination flags).
 //
 // The header compiles as CUDA (host and device functions) and as plain C++
 // (a host compiler without CUDA, as the CPU test of the logic builds it:
@@ -45,6 +46,13 @@ constexpr int32_t kPickup = 3;
 constexpr int32_t kDrop = 4;
 constexpr int32_t kToggle = 5;
 
+// The step's shape and flags.
+struct StepConfig {
+  int n, w, h;
+  int allow_agent_overlap, success_any, failure_any, joint_reward;
+  double k;  // the success reward's 0.9 / max_steps, as ops/step.py rounds it
+};
+
 // The output state (already a copy of the input) and the step's inputs,
 // each with a leading env axis and contiguous.
 struct StepArgs {
@@ -60,9 +68,25 @@ struct StepArgs {
   const int32_t* order;       // (E, N)
   const uint8_t* mask;        // (E, N) bool, or null: every agent acts
   const int32_t* step_count;  // (E,), already incremented
-  int n, w, h;
-  int allow_agent_overlap, success_any, failure_any, joint_reward;
-  double k;  // the success reward's 0.9 / max_steps, as ops/step.py rounds it
+  StepConfig cfg;
+};
+
+// One env's rows of the same fields, wherever they lie: in the output
+// tensors (step_env) or in a copy staged in shared memory (csrc/step.cu's
+// staged kernel).
+struct EnvRows {
+  int32_t* grid;        // (W, H, 3)
+  int32_t* box;         // (W, H, 3), or null
+  int32_t* pos;         // (N, 2)
+  int32_t* dir;         // (N,)
+  int32_t* carrying;    // (N, 3)
+  int32_t* contents;    // (N, 3)
+  uint8_t* term;        // (N,)
+  float* rew;           // (N,)
+  const int32_t* actions;
+  const int32_t* order;
+  const uint8_t* mask;  // or null
+  int32_t step_count;
 };
 
 // torch's int32 arithmetic wraps; C's signed overflow is undefined.
@@ -98,23 +122,22 @@ MGT_STEP_FN void set3(int32_t* dst, int32_t a, int32_t b, int32_t c) {
   dst[2] = c;
 }
 
-// Applies env `env`'s N sub-steps in its order, writing its rows of the
+// Applies one env's N sub-steps in its order, writing its rows of the
 // output state and its rewards. An order entry outside [0, N) is skipped.
-MGT_STEP_FN void step_env(const StepArgs& a, int64_t env) {
+MGT_STEP_FN void step_rows(const StepConfig& a, const EnvRows& r) {
   const int n = a.n, w = a.w, h = a.h;
-  const int64_t cells = static_cast<int64_t>(w) * h;
-  int32_t* grid = a.grid + env * cells * 3;
-  int32_t* box = a.box ? a.box + env * cells * 3 : nullptr;
-  int32_t* pos = a.pos + env * n * 2;
-  int32_t* dir = a.dir + env * n;
-  int32_t* carrying = a.carrying + env * n * 3;
-  int32_t* contents = a.contents + env * n * 3;
-  uint8_t* term = a.terminated + env * n;
-  float* rew = a.rewards + env * n;
-  const int32_t* actions = a.actions + env * n;
-  const int32_t* order = a.order + env * n;
-  const uint8_t* mask = a.mask ? a.mask + env * n : nullptr;
-  const float value = success_reward(a.step_count[env], a.k);
+  int32_t* grid = r.grid;
+  int32_t* box = r.box;
+  int32_t* pos = r.pos;
+  int32_t* dir = r.dir;
+  int32_t* carrying = r.carrying;
+  int32_t* contents = r.contents;
+  uint8_t* term = r.term;
+  float* rew = r.rew;
+  const int32_t* actions = r.actions;
+  const int32_t* order = r.order;
+  const uint8_t* mask = r.mask;
+  const float value = success_reward(r.step_count, a.k);
   for (int j = 0; j < n; ++j) rew[j] = 0.0f;
 
   for (int t = 0; t < n; ++t) {
@@ -224,5 +247,25 @@ MGT_STEP_FN void step_env(const StepArgs& a, int64_t env) {
     }
   }
 }
+
+// Env `env`'s rows of the output tensors.
+MGT_STEP_FN EnvRows env_rows(const StepArgs& a, int64_t env) {
+  const int64_t n = a.cfg.n, cells = static_cast<int64_t>(a.cfg.w) * a.cfg.h * 3;
+  return EnvRows{a.grid + env * cells,
+                 a.box ? a.box + env * cells : nullptr,
+                 a.pos + env * n * 2,
+                 a.dir + env * n,
+                 a.carrying + env * n * 3,
+                 a.contents + env * n * 3,
+                 a.terminated + env * n,
+                 a.rewards + env * n,
+                 a.actions + env * n,
+                 a.order + env * n,
+                 a.mask ? a.mask + env * n : nullptr,
+                 a.step_count[env]};
+}
+
+// Env `env`'s action loop on the output tensors themselves.
+MGT_STEP_FN void step_env(const StepArgs& a, int64_t env) { step_rows(a.cfg, env_rows(a, env)); }
 
 }  // namespace mgt_step

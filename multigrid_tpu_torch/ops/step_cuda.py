@@ -2,8 +2,11 @@
 
 Counterpart of ``multigrid_tpu.ops.step.handle_actions``, which XLA fuses
 into a few elementwise passes over the env batch: ``csrc/step.cu`` applies
-every agent's action in its env's order in one launch, bit-equal to the
-plain version :func:`multigrid_tpu_torch.ops.step.handle_actions_plain`.
+every agent's action in its env's order in one launch (the staged kernel,
+or the global one where two of its stages do not fit a block or a tensor's
+address is no multiple of 16; :func:`plan` says which), bit-equal to the
+plain version
+:func:`multigrid_tpu_torch.ops.step.handle_actions_plain`.
 :func:`multigrid_tpu_torch.ops.step.handle_actions` is the entry point; it
 takes the plain version for tensors on the CPU and :func:`handle_actions`
 here for CUDA tensors, which launches the kernel or raises.
@@ -22,8 +25,8 @@ from ..core.state import MultiGridState
 
 SOURCE = 'step.cu'
 
-#: Launches of ``step_kernel`` since the count was last set to 0; nothing
-#: else adds to it.
+#: Launches of the step kernel (either variant) since the count was last
+#: set to 0; nothing else adds to it.
 launches = 0
 
 _fn = None
@@ -41,6 +44,28 @@ def _lib_fn():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+PLAN_KEYS = ('staged', 'chunk', 'warps', 'depth', 'blocks', 'threads', 'chunks', 'stage_bytes',
+             'smem_bytes')
+
+
+def plan(e: int, n: int, w: int, h: int, boxes: bool, mask: bool = False,
+         aligned: bool = True) -> dict:
+    """The plan a launch takes on the current card (``csrc/step_plan.cuh``):
+    ``variant`` ``'staged'`` or ``'global'``, and ``PLAN_KEYS`` past the
+    first (for the global kernel ``chunk`` is its envs a block);
+    ``aligned``: whether every tensor's address is a multiple of 16."""
+    import ctypes
+
+    from ..utils import build
+    fn = build.load(SOURCE).mgt_step_plan
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    fn(e, n, w, h, int(boxes), int(mask), int(aligned), out)
+    res = dict(zip(PLAN_KEYS, out))
+    return {'variant': 'staged' if res.pop('staged') else 'global', **res}
 
 
 def _checked(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype) -> int:
@@ -62,7 +87,7 @@ def handle_actions(
     k: float,
 ) -> tuple[MultiGridState, torch.Tensor]:
     """``(state, rewards)`` after every agent's action, from one launch of
-    ``step_kernel`` on the current stream; ``k`` is the success reward's
+    the step kernel on the current stream; ``k`` is the success reward's
     factor (:func:`multigrid_tpu_torch.ops.step.success_reward_k`).
 
     The state's fields must be CUDA tensors of their documented dtypes

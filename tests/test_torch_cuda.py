@@ -243,7 +243,11 @@ def test_vector_env_on_the_card_matches_the_cpu(cuda_device):
 # ----------------------------------------------------- the step kernel
 
 #: The step kernel's cases (W, H, N, boxes, config overrides, E): the CPU
-#: tests' grid of flags and teams, 16 and 64 agents, a 250x250 grid.
+#: tests' grid of flags and teams, 16 and 64 agents, BUP's shape (792-byte
+#: grid rows, no multiple of 16), 16,384 envs (several chunks a warp in the
+#: staged kernel; also at an env count its chunks do not divide), and the
+#: global kernel's shapes (two least stages past a block: a 250x250 grid,
+#: 64x64 with a box table and without).
 STEP_CASES = {
     'overlap-any': (7, 6, 3, True, {}, 256),
     'blocked-joint-all': (7, 6, 3, True, dict(allow_agent_overlap=False, joint_reward=True,
@@ -256,7 +260,14 @@ STEP_CASES = {
     'grid-250x250': (250, 250, 4, True, dict(allow_agent_overlap=False), 8),
     'flagship-shape': (16, 16, 4, False, {}, 4096),
     'odd-env-count': (11, 6, 2, True, {}, 4097),
+    'bup-shape': (11, 6, 2, True, {}, 4096),
+    'flagship-16384': (16, 16, 4, False, {}, 16384),
+    'flagship-16387': (16, 16, 4, False, {}, 16387),
+    'global-64x64-boxes': (64, 64, 4, True, dict(allow_agent_overlap=False), 64),
+    'global-64x64': (64, 64, 4, False, {}, 64),
 }
+#: The cases the global kernel takes; the staged one takes the rest.
+STEP_GLOBAL = ('grid-250x250', 'global-64x64-boxes', 'global-64x64')
 
 
 def _step_pair(cfg, state, rng, device, mask=True):
@@ -292,6 +303,9 @@ def test_step_kernel_matches_plain(cuda_device, case):
     state is not written."""
     from multigrid_tpu_torch.core.config import EnvConfig
     w, h, n, boxes, over, e = STEP_CASES[case]
+    for mask in (False, True):
+        assert step_cuda.plan(e, n, w, h, boxes, mask)['variant'] == \
+            ('global' if case in STEP_GLOBAL else 'staged')
     cfg = EnvConfig(width=w, height=h, num_agents=n, max_steps=20, **over)
     rng = np.random.default_rng(list(STEP_CASES).index(case))
     fields = random_fields(int(rng.integers(1 << 30)), e, w, h, n, has_boxes=boxes,
@@ -311,6 +325,29 @@ def test_step_kernel_matches_plain(cuda_device, case):
         state = want[0]
     for k in FIELDS:  # the kernel reads its input state only
         assert torch.equal(getattr(before, k), copy[k]), k
+
+
+def test_step_kernel_views_match_plain(cuda_device):
+    """State fields that are views at an offset no multiple of 16 (the
+    global kernel) ≡ the plain version bit for bit, at BUP's shape and an
+    env count no chunk divides; one launch."""
+    from multigrid_tpu_torch.core.config import EnvConfig
+    from multigrid_tpu_torch.ops.step import handle_actions, handle_actions_plain
+    w, h, n, e = 11, 6, 2, 4099
+    cfg = EnvConfig(width=w, height=h, num_agents=n, max_steps=20)
+    rng = np.random.default_rng(17)
+    state = _to(to_torch(random_fields(17, e + 1, w, h, n, max_steps=20)), cuda_device)
+    actions = torch.as_tensor(rng.integers(0, 7, (e + 1, n)).astype(np.int32), device=cuda_device)
+    order = torch.as_tensor(np.argsort(rng.random((e + 1, n)), -1).astype(np.int32),
+                            device=cuda_device)
+    # Rows 1.. of each field: 792-byte grid rows put the views off 16.
+    view = state.replace(**{k: getattr(state, k)[1:] for k in FIELDS})
+    assert view.grid.data_ptr() % 16 and view.grid.is_contiguous()
+    assert step_cuda.plan(e, n, w, h, True, aligned=False)['variant'] == 'global'
+    want = handle_actions_plain(cfg, view, actions[1:], order[1:])
+    launches = step_cuda.launches
+    _assert_step_equal(handle_actions(cfg, view, actions[1:], order[1:]), want, 'views')
+    assert step_cuda.launches == launches + 1
 
 
 @pytest.mark.parametrize('env_id', [

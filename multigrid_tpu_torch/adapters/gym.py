@@ -32,6 +32,7 @@ from ..core.actions import Action
 from ..core.mission import Mission, MissionSpace
 from ..envs import CONFIGURATIONS
 from ..envs.env import MultiGridEnv
+from ..utils import prng
 
 try:
     from gymnasium import Env as _Env
@@ -63,9 +64,10 @@ class GymMissionSpace(_Space):
 class GymAdapter(_Env):
     """Stateful Gymnasium view over one env of a batched environment.
 
-    It holds an ``E = 1`` state on the env's device and its own
-    ``torch.Generator`` there (agent orders and resets), seeded by
-    ``reset(seed=...)``.
+    It holds an ``E = 1`` state on the env's device (whose ``rng`` draws
+    the agents' orders) and a key there for its resets, ``key(seed)`` at
+    ``reset(seed=...)``, split at each reset as the JAX adapter's
+    (adapters/gym.py:112-118).
 
     >>> env = GymAdapter(make('MultiGrid-Empty-8x8-v0', agents=2))
     >>> obs, infos = env.reset(seed=0)
@@ -77,8 +79,7 @@ class GymAdapter(_Env):
     def __init__(self, env: MultiGridEnv, render_mode: str | None = None):
         self.env = env
         self.render_mode = render_mode or getattr(env, 'render_mode', None)
-        self._generator = torch.Generator(device=env.device)
-        self._generator.manual_seed(int(np.random.SeedSequence().generate_state(1)[0]))
+        self._key = prng.key(int(np.random.SeedSequence().generate_state(1)[0]), env.device)
         self._state = None
         self._mission: Mission = Mission(env.mission)
         self._window = None
@@ -130,9 +131,10 @@ class GymAdapter(_Env):
         if _Env is not object:
             super().reset(seed=seed)
         if seed is not None:
-            self._generator.manual_seed(seed)
+            self._key = prng.key(seed, self.env.device)
             self.env.mission_space.seed(seed)
-        obs, self._state = self.env.reset(self._generator)
+        self._key, k = prng.split(self._key).unbind(0)
+        obs, self._state = self.env.reset(k)
         mission = self.env.mission_of(self._state)
         if isinstance(mission, Mission):
             self._mission = mission
@@ -157,8 +159,7 @@ class GymAdapter(_Env):
             mask[0, int(i)] = True
         dev = self._state.device
         obs, self._state, rew, term, trunc = self.env.step(
-            self._state, torch.as_tensor(act, device=dev), self._generator,
-            torch.as_tensor(mask, device=dev))
+            self._state, torch.as_tensor(act, device=dev), torch.as_tensor(mask, device=dev))
         rew = rew[0].cpu().numpy()
         term = term[0].cpu().numpy()
         trunc = trunc[0].cpu().numpy()

@@ -15,10 +15,12 @@ Layouts and dtypes (the same as the JAX package's, with the ``E`` axis):
 * ``agent_terminated``        — ``(E, N)`` bool.
 * ``agent_carrying``, ``agent_carrying_contents`` — ``(E, N, 3)`` int32.
 * ``step_count``              — ``(E,)`` int32.
-
-There is no per-env ``rng`` field. Randomness (agent order, random starts)
-comes from a ``torch.Generator`` that the caller passes to the function that
-draws, so a state is plain data.
+* ``rng``                     — ``(E, 2)`` int64: each env's threefry2x32
+                                key, two uint32 words (``jax.random.key_data``
+                                of the JAX package's ``rng``). The env's step
+                                splits it for its agents' order and the
+                                auto-reset folds it
+                                (:mod:`~multigrid_tpu_torch.utils.prng`).
 
 A :class:`~multigrid_tpu_torch.parallel.VectorEnv` with a reserve pool
 carries it in ``pool`` (:class:`ResetPool`): batch-level state, never
@@ -36,12 +38,18 @@ import torch
 from .constants import COLOR_RED, EMPTY_ENCODING, TYPE_AGENT, TYPE_EMPTY
 from ..utils.device import constant
 
-#: Tensor fields in declaration order (``extras`` excluded).
+#: The layout and agent tensor fields in declaration order (``rng`` and
+#: ``extras`` excluded): the JAX ``MultiGridState``'s fields but its key.
 FIELDS = (
     'grid', 'box_contents', 'agent_pos', 'agent_dir', 'agent_color',
     'agent_terminated', 'agent_carrying', 'agent_carrying_contents',
     'step_count',
 )
+
+#: Every tensor field (``extras`` excluded): :data:`FIELDS` and the envs'
+#: keys.
+STATE_FIELDS = FIELDS + ('rng',)
+
 
 
 @dataclasses.dataclass
@@ -51,17 +59,23 @@ class ResetPool:
     ``step`` is the global step ``g`` (env ``i`` consumes slot ``(i + g) mod
     E``): a 0-d int64 tensor on the reserve's device, as the JAX package
     carries ``_GSTEP`` on the device, so that a captured step reads it there
-    (an int, or a tensor on another device, given here becomes one)."""
+    (an int, or a tensor on another device, given here becomes one).
+    ``keys`` (E, 2) is each slot's key stream (``_RKEY``): a refresh at
+    step ``g`` regenerates a slot from ``fold_in(keys[slot], g)``; None
+    where the slots are given without one (a refresh then raises)."""
 
     reserve: 'MultiGridState'
     step: torch.Tensor | int = 0
+    keys: torch.Tensor | None = None
 
     def __post_init__(self):
+        dev = self.reserve.device
         if not isinstance(self.step, torch.Tensor):
-            self.step = torch.tensor(int(self.step), dtype=torch.int64,
-                                     device=self.reserve.device)
-        elif self.step.device != self.reserve.device:
-            self.step = self.step.to(self.reserve.device)
+            self.step = torch.tensor(int(self.step), dtype=torch.int64, device=dev)
+        elif self.step.device != dev:
+            self.step = self.step.to(dev)
+        if self.keys is not None and self.keys.device != dev:
+            self.keys = self.keys.to(dev)
 
 
 @dataclasses.dataclass
@@ -77,6 +91,7 @@ class MultiGridState:
     agent_carrying: torch.Tensor
     agent_carrying_contents: torch.Tensor
     step_count: torch.Tensor
+    rng: torch.Tensor
     #: Env-specific extra state (door flags, target encodings, mission
     #: color): tensors with the leading env axis, merged per env like the
     #: fields above.
@@ -118,7 +133,7 @@ class MultiGridState:
 
         def ex(t):
             return t.expand((num_envs,) + t.shape[1:])
-        return self.replace(**{f: ex(getattr(self, f)) for f in FIELDS},
+        return self.replace(**{f: ex(getattr(self, f)) for f in STATE_FIELDS},
                             extras={k: ex(v) for k, v in self.extras.items()})
 
     def clone(self) -> 'MultiGridState':
@@ -127,9 +142,10 @@ class MultiGridState:
         the original."""
         def cp(t):
             return t.clone(memory_format=torch.contiguous_format)
-        pool = None if self.pool is None else ResetPool(self.pool.reserve.clone(),
-                                                        self.pool.step.clone())
-        return self.replace(**{f: cp(getattr(self, f)) for f in FIELDS},
+        pool = None if self.pool is None else ResetPool(
+            self.pool.reserve.clone(), self.pool.step.clone(),
+            None if self.pool.keys is None else self.pool.keys.clone())
+        return self.replace(**{f: cp(getattr(self, f)) for f in STATE_FIELDS},
                             extras={k: cp(v) for k, v in self.extras.items()}, pool=pool)
 
 
@@ -141,7 +157,8 @@ def init_state(
     device: str | torch.device,
     has_boxes: bool = True,
 ) -> MultiGridState:
-    """Blank states: empty grid, agents unplaced at (-1, -1), dir -1.
+    """Blank states: empty grid, agents unplaced at (-1, -1), dir -1,
+    every key ``[0, 0]``.
 
     ``has_boxes=False`` allocates a zero-sized ``box_contents`` table, as the
     JAX package does for Box-free environments.
@@ -160,6 +177,7 @@ def init_state(
         agent_carrying=empty.expand(e, n, 3).clone(),
         agent_carrying_contents=empty.expand(e, n, 3).clone(),
         step_count=torch.zeros((e,), dtype=torch.int32, device=device),
+        rng=torch.zeros((e, 2), dtype=torch.int64, device=device),
     )
 
 
@@ -214,14 +232,15 @@ def state_from_arrays(
     *,
     extras: dict[str, Any] | None = None,
 ) -> MultiGridState:
-    """State from a dict of numpy arrays named like :data:`FIELDS`.
+    """State from a dict of numpy arrays named like :data:`FIELDS` (and ``rng``).
 
     Carries state across from the JAX package: pass the fields of a
     ``jax.device_get``-ed ``MultiGridState``, batched (leading ``E`` axis)
     or single (no env axis, giving ``E = 1``), and its ``extras`` the same
     way: each extra is converted per env, integer extras to int32 and
-    boolean ones kept bool. Other keys of ``fields`` (the JAX ``rng``) are
-    ignored.
+    boolean ones kept bool. ``rng`` holds the keys' uint32 words
+    (``jax.random.key_data`` of the JAX state's ``rng``); without it every
+    key is ``[0, 0]``. Other keys of ``fields`` are ignored.
     """
     single = np.ndim(fields['grid']) == 3
 
@@ -234,20 +253,30 @@ def state_from_arrays(
     def kind(a):
         return bool if np.asarray(a).dtype == bool else np.int32
 
+    dtypes = {'agent_terminated': bool, 'rng': np.int64}
+    fields = dict(fields)
+    if fields.get('rng') is None:
+        e = () if single else np.shape(fields['grid'])[:1]
+        fields['rng'] = np.zeros(e + (2,), np.int64)
+    else:
+        fields['rng'] = np.asarray(fields['rng']).astype(np.uint32)
     return MultiGridState(
-        **{f: conv(fields[f], bool if f == 'agent_terminated' else np.int32)
-           for f in FIELDS},
+        **{f: conv(fields[f], dtypes.get(f, np.int32)) for f in STATE_FIELDS},
         extras={k: conv(v, kind(v)) for k, v in (extras or {}).items()})
 
 
 def state_to_numpy(state: MultiGridState) -> dict[str, Any]:
-    """Batched numpy copies of the state's tensor fields, with its
-    ``extras`` (a dict of arrays) and its ``pool`` (None, or the reserve's
-    own ``state_to_numpy`` and the step as an int)."""
-    out: dict[str, Any] = {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+    """Batched numpy copies of the state's tensor fields (``rng`` as uint32
+    words, ``jax.random.key_data``'s layout), with its ``extras`` (a dict of
+    arrays) and its ``pool`` (None, or the reserve's own ``state_to_numpy``,
+    the step as an int and the slots' keys as uint32 words or None)."""
+    out: dict[str, Any] = {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}
+    out['rng'] = out['rng'].astype(np.uint32)
     out['extras'] = {k: v.cpu().numpy() for k, v in state.extras.items()}
-    out['pool'] = None if state.pool is None else {
-        'reserve': state_to_numpy(state.pool.reserve), 'step': int(state.pool.step)}
+    pool = state.pool
+    out['pool'] = None if pool is None else {
+        'reserve': state_to_numpy(pool.reserve), 'step': int(pool.step),
+        'keys': None if pool.keys is None else pool.keys.cpu().numpy().astype(np.uint32)}
     return out
 
 
@@ -263,6 +292,5 @@ def where_state(
 
     if a.extras.keys() != b.extras.keys():
         raise ValueError(f'extras differ: {sorted(a.extras)} and {sorted(b.extras)}')
-    return b.replace(**{f: sel(getattr(a, f), getattr(b, f)) for f in FIELDS},
+    return b.replace(**{f: sel(getattr(a, f), getattr(b, f)) for f in STATE_FIELDS},
                      extras={k: sel(a.extras[k], v) for k, v in b.extras.items()})
-

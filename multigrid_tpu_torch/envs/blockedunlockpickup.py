@@ -25,7 +25,9 @@ from ..ops.place import set_cell
 from ..ops.step import apply_success, success_reward
 from . import layout
 from .roomgrid import RoomGrid, encodings
+from ..utils import prng
 from ..utils.device import constant
+
 
 
 class BlockedUnlockPickupEnv(RoomGrid):
@@ -75,36 +77,38 @@ class BlockedUnlockPickupEnv(RoomGrid):
             ordered_placeholders=[[c.value for c in Color], ['box', 'key']],
         )
 
-    def _gen_grid(self, num_envs: int, generator) -> MultiGridState:
+    def _gen_grid(self, keys: torch.Tensor) -> MultiGridState:
         """Batched layouts (envs/blockedunlockpickup.py:142-164): box in the
         right room, locked door between the rooms, a ball left of the door
         blocking it, the matching key in the left room, agents in the left
-        room."""
-        geom, e = self.geometry, num_envs
+        room; draw ``i`` from key ``i`` of ``split(keys, 7 + N)``, as the JAX
+        package splits them (blockedunlockpickup.py:79-129)."""
+        e = keys.shape[0]
+        k = prng.split(keys, 7 + self.cfg.num_agents)
         # Agents start at the middle room's center, so the next-to-agent
         # filter sees them while objects are placed (core/roomgrid.py:231-236).
         state = self._init_room_state(e)
 
         # Box (random color) in the right room.
-        box_color = self._randint(generator, 0, NUM_BASE_COLORS, (e,))
-        state, _ = self.add_object(state, generator, 1, 0, TYPE_BOX, box_color)
+        box_color = prng.randint(k[:, 0], (), 0, NUM_BASE_COLORS)
+        state, _ = self.add_object(state, k[:, 1], 1, 0, TYPE_BOX, box_color)
 
         # Locked door (random color, random height) on the shared wall.
-        door_color = self._randint(generator, 0, NUM_BASE_COLORS, (e,))
-        state, door_pos = self.add_door(state, generator, 0, 0, Direction.right,
+        door_color = prng.randint(k[:, 2], (), 0, NUM_BASE_COLORS)
+        state, door_pos = self.add_door(state, k[:, 3], 0, 0, Direction.right,
                                         door_color, locked=True)
 
         # The blocking ball (random color) directly left of the door.
-        ball_color = self._randint(generator, 0, NUM_BASE_COLORS, (e,))
+        ball_color = prng.randint(k[:, 4], (), 0, NUM_BASE_COLORS)
         state = state.replace(grid=set_cell(
             state.grid, door_pos - constant([1, 0], self.device, torch.int32),
             encodings(TYPE_BALL, ball_color)))
 
         # The key of the door's color, in the left room.
-        state, _ = self.add_object(state, generator, 0, 0, TYPE_KEY, door_color)
+        state, _ = self.add_object(state, k[:, 5], 0, 0, TYPE_KEY, door_color)
 
         # Agents in the left room, with the front-cell retry.
-        state = self.place_agents_in_room(state, generator, 0, 0)
+        state = self.place_agents_in_room(state, k[:, 6], 0, 0)
         box_enc = encodings(TYPE_BOX, box_color)
         return state.replace(extras={'target_enc': box_enc, 'mission_color': box_color})
 

@@ -64,16 +64,15 @@ class EmptyEnv(MultiGridEnv):
     def _fixed_start(self) -> bool:
         return self.agent_start_pos is not None and self.agent_start_dir is not None
 
-    def _gen_grid(
-        self, num_envs: int, generator: torch.Generator | None
-    ) -> MultiGridState:
-        state = self._template.expand(num_envs)
+    def _gen_grid(self, keys: torch.Tensor) -> MultiGridState:
+        state = self._template.expand(keys.shape[0])
         if self._fixed_start:
             return state
         # Random starts: sequential uniform placement over free cells
         # (base.py:680-697), one fixed-cost draw per agent.
         from .roomgrid import place_agents_device
-        return place_agents_device(state, generator)
+        return place_agents_device(state, keys)
+
 
     # ------------------------------------------------------------ parity mode
 

@@ -5,19 +5,23 @@ static configuration and its device; episode state lives in a batched
 :class:`MultiGridState` (leading env axis ``E``) that the methods take and
 return:
 
-    reset(generator)                              -> (obs, state)
-    step(state, actions, generator)               -> (obs, state, rewards, terms, truncs)
+    reset(keys)                                   -> (obs, state)
+    step(state, actions)                          -> (obs, state, rewards, terms, truncs)
     step_with_order(state, actions, order)        -> the same, deterministic
 
 The single-env API is the ``E = 1`` case: ``actions`` is ``(E, N)``.
-Subclasses implement ``_gen_grid(num_envs, generator)`` and may override
-``post_step``.
+``keys`` are threefry2x32 keys, ``(E, 2)`` (or one key ``(2,)``, or an int
+seed, for one env; :mod:`~multigrid_tpu_torch.utils.prng`): env ``i``'s
+layout and its state's ``rng`` come from key ``i`` as the JAX package's
+``reset(key)`` makes them, and each step splits the state's ``rng`` for
+the agents' order, bit-equal to the JAX package's streams. Subclasses
+implement ``_gen_grid(keys)`` and may override ``post_step``.
 
 On the card ``reset`` and ``step`` replay CUDA graphs, as the JAX package
-jits them (env.py:193-232): the caller's state and actions are copied into
-the graph's buffers and the results cloned out, so a kept state is never
-overwritten (:func:`~multigrid_tpu_torch.utils.graphs.call`); one graph
-for each signature and generator. ``step_with_order`` and ``observe`` run
+jits them (env.py:193-232): the caller's state, keys and actions are copied
+into the graph's buffers and the results cloned out, so a kept state is
+never overwritten (:func:`~multigrid_tpu_torch.utils.graphs.call`); one
+graph for each signature. ``step_with_order`` and ``observe`` run
 eagerly, and so does an env whose reset runs on the host
 (:attr:`MultiGridEnv.host_reset`).
 """
@@ -31,8 +35,8 @@ import torch
 from ..core.config import EnvConfig
 from ..core.state import MultiGridState
 from ..ops.obs_cuda import gen_obs_batched
-from ..ops.step import sample_order, step_with_order
-from ..utils import graphs
+from ..ops.step import step_with_order
+from ..utils import graphs, prng
 from ..utils.device import resolve_device
 
 
@@ -108,11 +112,9 @@ class MultiGridEnv(abc.ABC):
         return self.cfg.height
 
     @abc.abstractmethod
-    def _gen_grid(
-        self, num_envs: int, generator: torch.Generator | None
-    ) -> MultiGridState:
-        """Fresh layouts for ``num_envs`` envs. The tensors may be broadcast
-        views: callers copy before writing."""
+    def _gen_grid(self, keys: torch.Tensor) -> MultiGridState:
+        """Fresh layouts, one from each key of ``keys`` (E, 2). The tensors
+        may be broadcast views: callers copy before writing."""
 
     def mission_of(self, state: MultiGridState, env: int = 0) -> str | None:
         """Host-side mission string of env ``env`` of a state."""
@@ -181,49 +183,59 @@ class MultiGridEnv(abc.ABC):
 
     # -------------------------------------------------------------- core fns
 
-    def reset_core(
-        self, num_envs: int = 1, generator: torch.Generator | None = None
-    ) -> MultiGridState:
+    def keys(self, keys) -> torch.Tensor:
+        """``keys`` as an (E, 2) int64 tensor on this env's device: one key
+        (2,) or an int seed is one env's."""
+        return prng.as_key(keys, self.device).reshape(-1, 2)
+
+    def reset_core(self, keys) -> MultiGridState:
         """Fresh episode states without observations (tensors may be
-        broadcast views)."""
-        return self._gen_grid(num_envs, generator)
+        broadcast views): ``gen_key, rng = split(key)`` for each env, the
+        layout from ``gen_key`` and the state's ``rng`` the other
+        (env.py:185-191)."""
+        pair = prng.split(self.keys(keys))
+        return self.reset_from(pair[:, 0], pair[:, 1])
 
-    def reset(self, generator: torch.Generator | None = None, num_envs: int = 1):
-        """Start new episodes. Returns ``(obs, state)`` (base.py:250-301).
-        On the card, one graph replay."""
+    def reset_from(self, gen_keys: torch.Tensor, rngs: torch.Tensor) -> MultiGridState:
+        """:meth:`reset_core` from keys already split: the layouts from
+        ``gen_keys`` and ``rngs`` the states' keys (each (E, 2))."""
+        state = self._gen_grid(gen_keys)
+        return state.replace(rng=rngs, step_count=torch.zeros_like(state.step_count))
+
+    def reset(self, keys=0):
+        """Start new episodes, one from each key (by default one env from
+        ``key(0)``). Returns ``(obs, state)`` (base.py:250-301). On the
+        card, one graph replay."""
+        keys = self.keys(keys)
         if graphs.graphs_on(self.device) and not self.host_reset:
-            return graphs.call(self._graphs, ('reset', num_envs, generator), (),
-                               lambda _: self._reset(generator, num_envs),
-                               generators=[generator], device=self.device)
-        return self._reset(generator, num_envs)
+            return graphs.call(self._graphs, 'reset', keys, self._reset)
+        return self._reset(keys)
 
-    def _reset(self, generator, num_envs):
-        state = self.reset_core(num_envs, generator).clone()
+    def _reset(self, keys):
+        state = self.reset_core(keys).clone()
         return self.observe(state), state
 
     def step(
         self,
         state: MultiGridState,
         actions,
-        generator: torch.Generator | None = None,
         action_mask: torch.Tensor | None = None,
     ):
-        """Advance one timestep with random agent orders drawn from
-        ``generator``. Returns ``(obs, state, rewards, terminations,
-        truncations)``. On the card, one graph replay."""
+        """Advance one timestep, each env's agents in a random order drawn
+        from its ``rng``, which the step splits (env.py:210-217). Returns
+        ``(obs, state, rewards, terminations, truncations)``. On the card,
+        one graph replay."""
         if graphs.graphs_on(self.device):
             dev = state.device
             args = (state, torch.as_tensor(actions, device=dev),
                     None if action_mask is None else torch.as_tensor(action_mask, device=dev))
-            return graphs.call(self._graphs, ('step', generator), args,
-                               lambda a: self._step(*a, generator),
-                               generators=[generator])
-        return self._step(state, actions, action_mask, generator)
+            return graphs.call(self._graphs, 'step', args, lambda a: self._step(*a))
+        return self._step(state, actions, action_mask)
 
-    def _step(self, state, actions, action_mask, generator):
-        order = sample_order(generator, state.num_envs, self.num_agents,
-                             state.device)
-        return self.step_with_order(state, actions, order, action_mask)
+    def _step(self, state, actions, action_mask=None):
+        order, rng, _, _ = prng.step_draws(state.rng, self.num_agents)
+        return self.step_with_order(state.replace(rng=rng), actions, order, action_mask)
+
 
     def step_with_order(
         self,

@@ -27,7 +27,9 @@ from ..ops.place import place_obj_mask, set_cell, uniform_position
 from ..ops.step import success_reward
 from . import layout
 from .roomgrid import RoomGrid, encodings, forward_cell, place_agents_device
+from ..utils import prng
 from ..utils.device import constant
+
 
 _LEFT, _HALLWAY, _RIGHT = range(3)  # room columns
 
@@ -85,21 +87,22 @@ class LockedHallwayEnv(RoomGrid):
             geom.room_top(_LEFT if r % 2 == 0 else _RIGHT, r // 2)
             for r in range(num_rooms)], dtype=np.int32)
 
-    def _gen_grid(self, num_envs: int, generator) -> MultiGridState:
+    def _gen_grid(self, keys: torch.Tensor) -> MultiGridState:
         """Batched layouts (locked_hallway.py:149-194): a shuffled color
         sequence, one locked door per room, chained key placement, agents in
-        the hallway."""
-        e, nr, dev = num_envs, self.num_rooms, self.device
+        the hallway; from the keys of ``split(keys, 6)`` as the JAX package
+        splits them (locked_hallway.py:98-200)."""
+        e, nr, dev = keys.shape[0], self.num_rooms, self.device
+        k_seq, k_doors, k_nhall, k_group, k_place, k_agents = prng.split(keys, 6).unbind(1)
         # color_sequence: a shuffled cycle of colors, cut to num_rooms
         # (locked_hallway.py:159-160).
         reps = ceil(nr / NUM_BASE_COLORS)
         pool = torch.arange(NUM_BASE_COLORS, dtype=torch.int32, device=dev).repeat(reps)
-        perm = torch.rand((e, pool.numel()), generator=generator, device=dev).argsort(-1)
-        color_sequence = pool[perm[:, :nr]]                        # (E, nr)
+        color_sequence = pool[prng.permutation(k_seq, pool.numel())[:, :nr]]   # (E, nr)
         # Door colors: an independent shuffle of the sequence, given to the
         # rooms in creation order by popping from its end
         # (locked_hallway.py:166-174).
-        perm = torch.rand((e, nr), generator=generator, device=dev).argsort(-1)
+        perm = prng.permutation(k_doors, nr)
         door_color = color_sequence.gather(1, perm).flip(-1)     # room r: pop() r
 
         grid = constant(self._base_grid, dev).expand(e, -1, -1, -1).clone()
@@ -118,7 +121,8 @@ class LockedHallwayEnv(RoomGrid):
         # Chained keys (locked_hallway.py:176-190): the first
         # num_hallway_keys keys go in the hallway; the rest come in groups,
         # each in the room opened by the key before the group.
-        num_hallway_keys = self._randint(generator, 1, self.max_hallway_keys + 1, (e,))
+        num_hallway_keys = prng.randint(k_nhall, (), 1, self.max_hallway_keys + 1)
+        group_keys, place_keys = prng.split(k_group, nr), prng.split(k_place, nr)
         room_tops = constant(self._room_tops, dev)
         hall_top = constant(self._hallway_top, dev, torch.int32)
         hall_size = constant(self._hallway_size, dev, torch.int32)
@@ -129,22 +133,24 @@ class LockedHallwayEnv(RoomGrid):
         for k in range(nr):
             in_hallway = k < num_hallway_keys
             start_group = ~in_hallway & (remaining == 0)
-            size_draw = self._randint(generator, 1, self.max_keys_per_room + 1, (e,))
+            size_draw = prng.randint(group_keys[:, k], (), 1, self.max_keys_per_room + 1)
             prev_color = color_sequence[:, max(k - 1, 0)].long()
             prev_room = room_of_color.gather(1, prev_color[:, None])[:, 0]
             group_room = torch.where(start_group, prev_room, group_room)
             remaining = torch.where(start_group, size_draw, remaining)
             top = torch.where(in_hallway[:, None], hall_top, room_tops[group_room])
             size = torch.where(in_hallway[:, None], hall_size, room_shape)
-            pos = uniform_position(generator, place_obj_mask(grid, state.agent_pos, top, size))
+            pos = uniform_position(place_keys[:, k],
+                                   place_obj_mask(grid, state.agent_pos, top, size))
             grid = set_cell(grid, pos, encodings(TYPE_KEY, color_sequence[:, k]))
             remaining = torch.where(in_hallway, remaining, remaining - 1)
         state = state.replace(grid=grid)
 
         # Agents in the hallway (plain placement, no front-cell retry:
         # locked_hallway.py:192-194 calls MultiGridEnv.place_agent).
-        state = place_agents_device(state, generator, top=self._hallway_top,
+        state = place_agents_device(state, k_agents, top=self._hallway_top,
                                     size=self._hallway_size)
+
         return state.replace(extras={
             'door_unlocked': torch.zeros((e, nr), dtype=torch.bool, device=dev)})
 

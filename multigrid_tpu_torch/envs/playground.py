@@ -18,6 +18,8 @@ from ..core.constants import (
 )
 from ..core.state import MultiGridState
 from . import layout
+from ..ops.place import argmax_bits
+from ..utils import prng
 from .roomgrid import RoomGrid, front_ok_mask, next_to_agent_mask
 
 
@@ -90,7 +92,7 @@ class PlaygroundEnv(RoomGrid):
                 edges=torch.as_tensor(edges, device=dev))
         return self._tables
 
-    def _connect_all_device(self, grid: torch.Tensor, generator,
+    def _connect_all_device(self, grid: torch.Tensor, keys: torch.Tensor,
                             max_itrs: int = 256) -> torch.Tensor:
         """Batched ``connect_all`` (core/roomgrid.py:406-452): keep adding
         doors between random room pairs until every room is reachable from
@@ -111,11 +113,14 @@ class PlaygroundEnv(RoomGrid):
         tab = self._device_tables()
         num_walls, offs = tab['num_walls'], rs - 2
 
-        cols = self._randint(generator, 0, C, (e, K)).long()
-        rows = self._randint(generator, 0, R, (e, K)).long()
-        ds = self._randint(generator, 0, 4, (e, K)).long()
-        colors = self._randint(generator, 0, NUM_BASE_COLORS, (e, K))
-        offsets = self._randint(generator, 1, rs - 1, (e, K))
+        # The proposals' draws, each from a key of split(keys, 5)
+        # (playground.py:124-129).
+        k = prng.split(keys, 5)
+        cols = prng.randint(k[:, 0], (K,), 0, C).long()
+        rows = prng.randint(k[:, 1], (K,), 0, R).long()
+        ds = prng.randint(k[:, 2], (K,), 0, 4).long()
+        colors = prng.randint(k[:, 3], (K,), 0, NUM_BASE_COLORS)
+        offsets = prng.randint(k[:, 4], (K,), 1, rs - 1)
 
         wid = tab['wall_id'][cols, rows, ds]                      # (E, K), -1: no wall
         # The first proposal of each wall wins (later ones find a door).
@@ -160,24 +165,28 @@ class PlaygroundEnv(RoomGrid):
             (slot_vals > 0)[..., None], door, cells)
         return grid
 
-    def _gen_grid(self, num_envs: int, generator) -> MultiGridState:
+    def _gen_grid(self, keys: torch.Tensor) -> MultiGridState:
         """Batched layouts (envs/playground.py:121-137): connect all rooms,
         scatter 12 random objects, place agents anywhere with the front-cell
         retry. Each placement is uniform over its valid cells, as the
         reference's rejection loops are; the valid set is kept as one mask
-        that each placement takes its cell out of."""
-        geom, cfg, dev, e = self.geometry, self.cfg, self.device, num_envs
+        that each placement takes its cell out of. The draws are the JAX
+        package's, from the same splits of each env's key
+        (playground.py:249-335)."""
+        geom, cfg, dev, e = self.geometry, self.cfg, self.device, keys.shape[0]
         rs, W, H = geom.room_size, cfg.width, cfg.height
+        k_connect, k_objs, k_agents = prng.split(keys, 3).unbind(1)
 
         state = self._init_room_state(e)
-        grid = self._connect_all_device(state.grid, generator)
+        grid = self._connect_all_device(state.grid, k_connect)
 
         # The 12 objects' draws (playground.py:130-133).
-        cols = self._randint(generator, 0, geom.num_cols, (e, 12))
-        rows = self._randint(generator, 0, geom.num_rows, (e, 12))
-        kinds = TYPE_KEY + self._randint(generator, 0, 3, (e, 12))
-        colors = self._randint(generator, 0, NUM_BASE_COLORS, (e, 12))
-        prio = torch.rand((e, 12, W * H), generator=generator, device=dev)
+        kc, kr, kk, kcol, kp = prng.split(k_objs, 5).unbind(1)
+        cols = prng.randint(kc, (12,), 0, geom.num_cols)
+        rows = prng.randint(kr, (12,), 0, geom.num_rows)
+        kinds = TYPE_KEY + prng.randint(kk, (12,), 0, 3)
+        colors = prng.randint(kcol, (12,), 0, NUM_BASE_COLORS)
+        prio = prng.bits(kp, (12, W, H)).reshape(e, 12, W * H)
         gx = torch.arange(W, device=dev)[None, None, :, None]
         gy = torch.arange(H, device=dev)[None, None, None, :]
 
@@ -193,7 +202,7 @@ class PlaygroundEnv(RoomGrid):
         placed = torch.zeros((e, W * H), dtype=torch.int32, device=dev)  # kind<<4|color, +1
         iota = torch.arange(W * H, device=dev)
         for i in range(12):
-            pick = torch.where(valid & rect[:, i], prio[:, i] + 1.0, 0.0).argmax(-1)
+            pick = argmax_bits(prio[:, i], valid & rect[:, i])
             oh = iota == pick[:, None]
             placed = torch.where(oh, ((kinds[:, i] << 4) | colors[:, i])[:, None] + 1, placed)
             valid = valid & ~oh
@@ -206,9 +215,10 @@ class PlaygroundEnv(RoomGrid):
         # (core/roomgrid.py:373-404). Placed agents, and the middle cell
         # where the agents not yet placed wait, block cells.
         n = cfg.num_agents
-        acols = self._randint(generator, 0, geom.num_cols, (e, n))
-        arows = self._randint(generator, 0, geom.num_rows, (e, n))
-        aprio = torch.rand((e, n, W * H * 4), generator=generator, device=dev)
+        kar, kap = prng.split(k_agents).unbind(1)
+        room = prng.randint(kar, (n, 2), 0, [geom.num_cols, geom.num_rows])
+        acols, arows = room[..., 0], room[..., 1]
+        aprio = prng.bits(kap, (n, W, H, 4)).reshape(e, n, W * H * 4)
         front = front_ok_mask(grid).reshape(e, W * H, 4)
         arect = rooms(acols, arows).reshape(e, n, W * H)
         mid = geom.middle_pos()
@@ -221,7 +231,7 @@ class PlaygroundEnv(RoomGrid):
             if a < n - 1:  # agents after a still wait at the middle cell
                 vpos[:, mid_flat].fill_(False)
             v4 = (vpos[..., None] & front).reshape(e, -1)
-            flat = torch.where(v4, aprio[:, a] + 1.0, 0.0).argmax(-1)
+            flat = argmax_bits(aprio[:, a], v4)
             taken = taken | (iota == (flat // 4)[:, None])
             agent_pos[:, a] = torch.stack([flat // (H * 4), (flat // 4) % H], -1).to(torch.int32)
             agent_dir[:, a] = (flat % 4).to(torch.int32)

@@ -23,8 +23,10 @@ from ..ops.place import set_cell
 from ..ops.step import apply_failure, apply_success, success_reward
 from . import layout
 from .env import MultiGridEnv
-from .roomgrid import forward_cell, place_agents_device, randint
+from .roomgrid import forward_cell, place_agents_device
+from ..utils import prng
 from ..utils.device import constant
+
 
 
 class RedBlueDoorsEnv(MultiGridEnv):
@@ -69,18 +71,20 @@ class RedBlueDoorsEnv(MultiGridEnv):
         self._red_x = self.room_top[0]
         self._blue_x = self.room_top[0] + self.room_size[0] - 1
 
-    def _gen_grid(self, num_envs: int, generator) -> MultiGridState:
+    def _gen_grid(self, keys: torch.Tensor) -> MultiGridState:
         """Agents inside the room, then the two doors at random heights of
         its walls (envs/redbluedoors.py:155-168; agents are placed first, so
-        the door cells are walls while they are)."""
-        cfg, dev, e = self.cfg, self.device, num_envs
+        the door cells are walls while they are), from the keys of
+        ``split(keys, 3)`` (redbluedoors.py:74-95)."""
+        cfg, dev, e = self.cfg, self.device, keys.shape[0]
+        k = prng.split(keys, 3)
         state = init_state(e, cfg.width, cfg.height, cfg.num_agents, dev,
                            has_boxes=self.uses_boxes)
         grid = constant(self._layout, dev)
         state = state.replace(grid=grid.expand(state.grid.shape))
-        state = place_agents_device(state, generator, top=self.room_top, size=self.room_size)
-        red_y = randint(generator, 1, cfg.height - 1, (e,), dev)
-        blue_y = randint(generator, 1, cfg.height - 1, (e,), dev)
+        state = place_agents_device(state, k[:, 0], top=self.room_top, size=self.room_size)
+        red_y = prng.randint(k[:, 1], (), 1, cfg.height - 1)
+        blue_y = prng.randint(k[:, 2], (), 1, cfg.height - 1)
         red_pos = torch.stack([torch.full_like(red_y, self._red_x), red_y], -1)
         blue_pos = torch.stack([torch.full_like(blue_y, self._blue_x), blue_y], -1)
         grid = set_cell(state.grid, red_pos, layout.door(COLOR_RED, STATE_CLOSED))

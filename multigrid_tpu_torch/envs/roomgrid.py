@@ -4,8 +4,9 @@ Counterpart of ``multigrid_tpu.envs.roomgrid`` (the reference ``RoomGrid``,
 multigrid/core/roomgrid.py:139): the static room lattice is built on the
 host once; the random parts of a layout (door positions and colors, object
 placement, agent placement with the front-cell retry) are batched draws over
-the env axis, or host-side in parity mode, consuming numpy draws in the
-reference's exact order.
+the env axis from each env's key, split as the JAX package splits it, so a
+layout is bit-equal to the JAX package's from the same key; or host-side in
+parity mode, consuming numpy draws in the reference's exact order.
 """
 
 from __future__ import annotations
@@ -29,11 +30,12 @@ from ..core.constants import (
 from ..core.state import MultiGridState, init_state
 from ..ops.place import (
     agent_occupancy,
+    argmax_bits,
     place_obj_mask,
     set_cell,
-    uniform_index,
     uniform_position,
 )
+from ..utils import prng
 from . import layout
 from .env import MultiGridEnv
 from ..utils.device import constant
@@ -42,12 +44,6 @@ from ..utils.device import constant
 def opposite(direction: int) -> int:
     """The direction facing ``direction`` (roomgrid.py:35)."""
     return (direction + 2) % 4
-
-
-def randint(generator, low, high, shape, device) -> torch.Tensor:
-    """int32 draws uniform in ``[low, high)``."""
-    return torch.randint(low, high, shape, generator=generator, device=device,
-                         dtype=torch.int32)
 
 
 class RoomGeometry:
@@ -178,19 +174,21 @@ def front_ok_mask(grid: torch.Tensor) -> torch.Tensor:
     return (fronts == TYPE_EMPTY) | (fronts == TYPE_WALL)
 
 
-def uniform_pos_dir(generator, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def uniform_pos_dir(keys: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(position (E, 2), direction (E,)) drawn uniformly over each env's
-    (W, H, 4) validity mask — the distribution of the reference's
-    redraw-until-the-front-cell-is-ok loop (core/roomgrid.py:396-402)."""
-    e, w, h, _ = valid.shape
-    flat = uniform_index(generator, valid.reshape(e, -1))
+    (W, H, 4) validity mask from its key (E, 2) — the distribution of the
+    reference's redraw-until-the-front-cell-is-ok loop
+    (core/roomgrid.py:396-402); the argmax of bits (W, H, 4) as the JAX
+    package draws it (roomgrid.py:177-191)."""
+    _, w, h, _ = valid.shape
+    flat = argmax_bits(prng.bits(keys, (w, h, 4)), valid)
     pos = torch.stack([flat // (h * 4), (flat // 4) % h], dim=-1).to(torch.int32)
     return pos, (flat % 4).to(torch.int32)
 
 
 def place_agents_device(
     state: MultiGridState,
-    generator: torch.Generator | None,
+    keys: torch.Tensor,
     top=None,
     size=None,
     check_front: bool = False,
@@ -198,8 +196,10 @@ def place_agents_device(
     """Place all agents one after another, each uniform over the free cells
     with a random direction (base.py:680-697); with ``check_front``, the
     roomgrid variant that redraws until the front cell is empty or a wall
-    (core/roomgrid.py:373-404)."""
-    e, n = state.agent_dir.shape
+    (core/roomgrid.py:373-404). Agent ``a`` draws from the ``a``-th key of
+    ``split(keys, N)`` (roomgrid.py:194-230)."""
+    n = state.num_agents
+    agent_keys = prng.split(keys, n)
     agent_pos = state.agent_pos.clone(memory_format=torch.contiguous_format)
     agent_dir = state.agent_dir.clone(memory_format=torch.contiguous_format)
     front = front_ok_mask(state.grid) if check_front else None
@@ -210,28 +210,29 @@ def place_agents_device(
         valid = place_obj_mask(state.grid, agent_pos, top, size)
         if check_front:
             agent_pos[:, a], agent_dir[:, a] = uniform_pos_dir(
-                generator, valid[..., None] & front)
+                agent_keys[:, a], valid[..., None] & front)
         else:
-            agent_pos[:, a] = uniform_position(generator, valid)
-            agent_dir[:, a] = randint(generator, 0, 4, (e,), state.device)
+            pair = prng.split(agent_keys[:, a])
+            agent_pos[:, a] = uniform_position(pair[:, 0], valid)
+            agent_dir[:, a] = prng.randint(pair[:, 1], (), 0, 4)
     return state.replace(agent_pos=agent_pos, agent_dir=agent_dir)
 
 
 def place_object_device(
     state: MultiGridState,
-    generator: torch.Generator | None,
+    keys: torch.Tensor,
     obj_enc,
     top=None,
     size=None,
     reject_next_to: bool = False,
 ) -> tuple[MultiGridState, torch.Tensor]:
     """Place an object ((3,) or (E, 3) encoding) uniformly over the valid
-    cells; returns ``(state, pos)``."""
+    cells, from each env's key; returns ``(state, pos)``."""
     _, w, h, _ = state.grid.shape
     valid = place_obj_mask(state.grid, state.agent_pos, top, size)
     if reject_next_to:
         valid = valid & ~next_to_agent_mask(state.agent_pos, w, h)
-    pos = uniform_position(generator, valid)
+    pos = uniform_position(keys, valid)
     return state.replace(grid=set_cell(state.grid, pos, obj_enc)), pos
 
 
@@ -298,38 +299,37 @@ class RoomGrid(MultiGridEnv):
             agent_pos=mid.expand(num_envs, cfg.num_agents, 2),
             agent_dir=torch.zeros_like(state.agent_dir))
 
-    def _randint(self, generator, low, high, shape) -> torch.Tensor:
-        return randint(generator, low, high, shape, self.device)
-
     # ------------------------------------------------- batched builders
     # The layout-building API for custom environments, mirroring the
-    # reference RoomGrid methods (core/roomgrid.py:238-495) on batches.
+    # reference RoomGrid methods (core/roomgrid.py:238-495) on batches; each
+    # draws from the envs' keys (E, 2) as the JAX package's does from one.
 
-    def place_in_room(self, state: MultiGridState, generator, obj_enc,
+    def place_in_room(self, state: MultiGridState, keys, obj_enc,
                       col: int, row: int) -> tuple[MultiGridState, torch.Tensor]:
         """Place an object at a random empty position in a room, rejecting
         cells next to agents (core/roomgrid.py:238-256)."""
         return place_object_device(
-            state, generator, obj_enc, top=self.geometry.room_top(col, row),
+            state, keys, obj_enc, top=self.geometry.room_top(col, row),
             size=self.geometry.room_shape, reject_next_to=True)
 
-    def add_object(self, state: MultiGridState, generator, col: int, row: int,
+    def add_object(self, state: MultiGridState, keys, col: int, row: int,
                    kind, color) -> tuple[MultiGridState, torch.Tensor]:
         """Add an object of a given type and color ((E,) tensors or ints) to
         a room (core/roomgrid.py:258-281)."""
         e = state.num_envs
         enc = encodings(constant(kind, self.device, torch.int32).expand(e), color)
-        return self.place_in_room(state, generator, enc, col, row)
+        return self.place_in_room(state, keys, enc, col, row)
 
-    def add_door(self, state: MultiGridState, generator, col: int, row: int,
+    def add_door(self, state: MultiGridState, keys, col: int, row: int,
                  direction: int, color, locked: bool = False,
                  rand_pos: bool = True) -> tuple[MultiGridState, torch.Tensor]:
         """Add a door on a room wall (core/roomgrid.py:283-331): at a random
-        or the midpoint position of the wall, returning ``(state, pos)``."""
+        (``randint(keys)``) or the midpoint position of the wall, returning
+        ``(state, pos)``."""
         e, geom = state.num_envs, self.geometry
         if rand_pos:
             axis, fixed, lo, hi = geom.door_wall_span(col, row, direction)
-            coord = self._randint(generator, lo, hi, (e,))
+            coord = prng.randint(keys, (), lo, hi)
             fixed = torch.full_like(coord, fixed)
             pos = torch.stack([fixed, coord] if axis == 'x' else [coord, fixed], -1)
         else:
@@ -339,32 +339,34 @@ class RoomGrid(MultiGridEnv):
         enc = encodings(TYPE_DOOR, color, STATE_LOCKED if locked else STATE_CLOSED)
         return state.replace(grid=set_cell(state.grid, pos, enc)), pos
 
-    def place_agents_in_room(self, state: MultiGridState, generator, col: int,
+    def place_agents_in_room(self, state: MultiGridState, keys, col: int,
                              row: int) -> MultiGridState:
         """Place all agents in a room with the front-cell retry
         (core/roomgrid.py:373-404)."""
         return place_agents_device(
-            state, generator, top=self.geometry.room_top(col, row),
+            state, keys, top=self.geometry.room_top(col, row),
             size=self.geometry.room_shape, check_front=True)
 
-    def add_distractors(self, state: MultiGridState, generator,
+    def add_distractors(self, state: MultiGridState, keys,
                         num_distractors: int = 10) -> MultiGridState:
         """Scatter random objects (ball, key or box of a random color) into
         random rooms (core/roomgrid.py:454-495, which crashes in the
-        reference on a latent ``set.append``; correct here)."""
-        e, geom = state.num_envs, self.geometry
-        kinds = torch.tensor([TYPE_BALL, TYPE_KEY, TYPE_BOX], dtype=torch.int32,
-                             device=self.device)
+        reference on a latent ``set.append``; correct here). Distractor
+        ``d`` draws from keys ``4d .. 4d + 3`` of ``split(keys, 4·n)``
+        (roomgrid.py:366-392)."""
+        geom = self.geometry
+        kinds = constant([TYPE_BALL, TYPE_KEY, TYPE_BOX], self.device, torch.int32)
         rs = geom.room_size
-        for _ in range(num_distractors):
-            kind = kinds[self._randint(generator, 0, 3, (e,)).long()]
-            color = self._randint(generator, 0, NUM_BASE_COLORS, (e,))
-            room = torch.stack([self._randint(generator, 0, geom.num_cols, (e,)),
-                                self._randint(generator, 0, geom.num_rows, (e,))], -1)
+        sub = prng.split(keys, 4 * num_distractors)
+        for d in range(num_distractors):
+            kind = kinds[prng.randint(sub[:, 4 * d], (), 0, 3).long()]
+            color = prng.randint(sub[:, 4 * d + 1], (), 0, NUM_BASE_COLORS)
+            room = prng.randint(sub[:, 4 * d + 2], (2,), 0, [geom.num_cols, geom.num_rows])
             state, _ = place_object_device(
-                state, generator, encodings(kind, color), top=room * (rs - 1),
+                state, sub[:, 4 * d + 3], encodings(kind, color), top=room * (rs - 1),
                 size=(rs, rs), reject_next_to=True)
         return state
+
 
     # ----------------------------------------------------------- parity side
 

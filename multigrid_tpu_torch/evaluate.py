@@ -61,43 +61,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def start(venv, state):
+def start(venv, state, key):
     """The carry an iteration starts from (scripts/evaluate.py:128-133):
-    ``(state, its observations, each env's return so far, (episodes,
-    successes, banked return))``, the return and the sums zero."""
+    ``(state, its observations, the iteration's key, each env's return so
+    far, (episodes, successes, banked return))``, the return and the sums
+    zero."""
     dev = venv.device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    return (state, venv.observe(state), torch.zeros(venv.num_envs, device=dev),
+    return (state, venv.observe(state), key, torch.zeros(venv.local_envs, device=dev),
             (zero, zero.clone(), torch.zeros((), device=dev)))
 
 
 @torch.no_grad()
-def scan_step(step, params, generator: torch.Generator, carry):
+def scan_step(step, params, carry):
     """One step of the JAX script's scan body (scripts/evaluate.py:112-126)
-    from ``carry`` (:func:`start`'s form): the actor of ``step`` (a
-    ``TrainStep``) with ``params`` sampled with noise from ``generator``,
-    one step of ``step.venv``, and its finished episodes added to the sums.
-    Returns the carry after it: the function the card captures."""
-    from multigrid_tpu_torch.learn.ppo import gumbel_noise, sample_actions
+    from ``carry`` (:func:`start`'s form): ``key, ka = split(key)``, the
+    actor of ``step`` (a ``TrainStep``) with ``params`` sampling
+    ``categorical(ka, logits)``, one step of ``step.venv``, and its
+    finished episodes added to the sums. Returns the carry after it: the
+    function the card captures."""
+    from multigrid_tpu_torch.learn.ppo import sample_actions
+    from multigrid_tpu_torch.utils import prng
 
     venv = step.venv
-    state, obs, ep_acc, (episodes, successes, banked) = carry
+    state, obs, key, ep_acc, (episodes, successes, banked) = carry
+    key, ka = prng.split(key).unbind(0)
     logits, _ = step.actor(params, obs['image'], obs['direction'], obs.get('mission'))
-    action = sample_actions(logits, gumbel_noise(logits.shape, generator, venv.device))
+    noise = prng.gumbel(ka, (venv.num_envs,) + tuple(logits.shape[1:]), rows=venv.rows)
+    action = sample_actions(logits, noise)
     obs, state, rew, _, _, done, success = venv.step(state, action,
                                                      refresh=not venv.reset_pool)
     ep_acc = ep_acc + rew.sum(-1)
     episodes = episodes + done.sum()
     successes = successes + (done & success).sum()
     banked = banked + torch.where(done, ep_acc, 0.0).sum()
-    return state, obs, torch.where(done, 0.0, ep_acc), (episodes, successes, banked)
+    return state, obs, key, torch.where(done, 0.0, ep_acc), (episodes, successes, banked)
 
 
 def evaluate(args: argparse.Namespace) -> dict:
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
     from multigrid_tpu_torch.parallel import VectorEnv
-    from multigrid_tpu_torch.utils import graphs
+    from multigrid_tpu_torch.utils import graphs, prng
     from multigrid_tpu_torch.utils.checkpoint import latest_checkpoint, restore_params
 
     env = make(args.env, agents=args.num_agents, device=args.device, **args.env_config)
@@ -119,20 +124,21 @@ def evaluate(args: argparse.Namespace) -> dict:
             'must match the training run.') from exc
     print(f'loaded policy from {ckpt}', flush=True)
     step = make_train_step(venv, net, config, tx)
-    generator = torch.Generator(device=venv.device).manual_seed(args.seed + 1)
-    advance = functools.partial(scan_step, step, params, generator)
-    _, env_state = venv.reset(seed=args.seed + 1)
+    advance = functools.partial(scan_step, step, params)
+    key, rk = prng.split(prng.key(args.seed + 1, venv.device)).unbind(0)
+    _, env_state = venv.reset(rk)
     total = [0.0, 0.0, 0.0]
     steps_done = 0
     t0 = time.perf_counter()
-    carry = graphs.clone(start(venv, env_state))
+    key, k = prng.split(key).unbind(0)
+    carry = graphs.clone(start(venv, env_state, k))
     graph = None
     if venv.graphed():
-        graph = graphs.Graph(lambda c: (advance(c), None), carry, carry=True,
-                             generators=[generator, venv.generator])
+        graph = graphs.Graph(lambda c: (advance(c), None), carry, carry=True)
     while steps_done < args.num_steps:
         if steps_done:
-            fresh = start(venv, venv.refresh_pool(carry[0], STEPS_PER_ITER))
+            key, k = prng.split(key).unbind(0)
+            fresh = start(venv, venv.refresh_pool(carry[0], STEPS_PER_ITER), k)
             if graph is None:
                 carry = fresh
             else:
@@ -142,7 +148,7 @@ def evaluate(args: argparse.Namespace) -> dict:
                 carry = advance(carry)
             else:
                 graph.replay()
-        total = [t + float(a) for t, a in zip(total, carry[3])]
+        total = [t + float(a) for t, a in zip(total, carry[4])]
         steps_done += STEPS_PER_ITER * venv.num_envs * venv.num_agents
     dt = time.perf_counter() - t0
     episodes, successes, ret = total

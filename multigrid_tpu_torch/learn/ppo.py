@@ -27,15 +27,18 @@ with ``refresh=False`` and refreshes the pool once at its end
 
 Parameters and optimizer state are plain dicts of tensors, updated
 functionally: no tensor of a ``TrainState`` is written in place, so a caller
-can keep one and run from it again, after restoring the generators' states.
-Randomness comes from ``torch.Generator``s: the vector env's (agent orders,
-resets) and the train state's (actions, minibatch shuffles); they give other
-numbers than ``jax.random``.
+can keep one and run from it again. Randomness comes from threefry2x32 keys
+(:mod:`~multigrid_tpu_torch.utils.prng`), as in the JAX package: the env
+state's (agent orders, resets) and the train state's ``key`` (a step's
+``key, k_act = split(key)`` for its actions, an update's ``key, k_perm =
+split(key)`` for its minibatch shuffles, ppo.py:397-400, 667-675), bit-equal
+to ``jax.random``'s draws from the same keys (Gumbel noise up to the ulp
+of ``log``).
 
 On a vector env sharded over a process mesh (``VectorEnv(mesh=...)``) the
 update is data-parallel with the semantics of the JAX package's sharded
-``train_step``: every process holds the same parameters and generators,
-draws its noise at the global batch's shape and keeps its rows, normalizes
+``train_step``: every process holds the same parameters and key, draws
+its rows of the noise of the global batch's shape, normalizes
 advantages over the global batch, and averages its gradients with the other
 processes' before the clip, so the update is the one-process update of the
 global batch up to the order of float sums. Minibatches hold the global
@@ -74,7 +77,7 @@ from ..ops import fused_policy, fused_ppo
 from ..parallel import distributed
 from ..parallel.mesh import gather_params, shard_params
 from ..parallel.vector import VectorEnv
-from ..utils import graphs
+from ..utils import graphs, prng
 from .nets import (
     ACTOR,
     CRITIC,
@@ -229,8 +232,9 @@ class TrainState:
     opt_state: OptState
     env_state: MultiGridState
     last_obs: dict[str, torch.Tensor]
-    #: Draws the actions and the minibatch shuffles.
-    generator: torch.Generator
+    #: (2,) int64 threefry2x32 key: draws the actions and the minibatch
+    #: shuffles (the JAX ``TrainState.key``).
+    key: torch.Tensor
     update_count: int = 0
     #: (E,) return of each env's running episode (all agents summed),
     #: carried across updates so ``episode_reward`` is exact.
@@ -270,10 +274,11 @@ def sample_actions(logits: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
     return (logits + gumbel).argmax(dim=-1).to(torch.int32)
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(-log(u))``, ``u`` uniform in (0, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
-    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+def _seed_of(key: torch.Tensor) -> int:
+    """A torch seed from a key's two words, for the nets' initialization,
+    which stays torch's."""
+    words = key.tolist()
+    return (int(words[0]) << 32) | int(words[1])
 
 
 def params_digest(params: dict[str, torch.Tensor]) -> int:
@@ -297,16 +302,20 @@ def check_replicated(params: dict[str, torch.Tensor], group) -> None:
                            f'{distributed.process_index()})')
 
 
-def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
+def ppo_init(venv: VectorEnv, key=0, *, config: PPOConfig | None = None,
              hidden: int = 128, dtype=torch.bfloat16, net: ActorCritic | None = None,
              net_kwargs: dict | None = None,
              lr_schedule: Callable[[int], float] | None = None,
              per_agent_policies: bool | None = None):
     """``(train_state, net, config, optimizer)`` for training on ``venv``.
 
-    The env, the net's weights, the train state's generator and the critic
-    get independent seeds derived from ``seed``; per-agent policies get one
-    net each, from seeds derived from the net's. ``net_kwargs`` (``hidden``,
+    ``key`` (a key or an int seed) splits as the JAX package's does:
+    ``k_env, k_net, k_train = split(key, 3)`` (ppo.py:169), the env reset
+    from ``k_env``, the train state's key ``k_train``; the net's weights are
+    torch's initialization seeded from ``k_net`` (per-agent policies: from
+    the keys of ``split(k_net, N)``; the critic from ``fold_in(k_net, 1)``),
+    so they differ from flax's (``params_from_flax`` carries those across).
+    ``net_kwargs`` (``hidden``,
     ``dtype``, ``encoder``: ``'cnn'``, the default, as in the JAX package,
     or ``'mlp'``) build the net, over ``hidden`` and ``dtype`` (the nets'
     compute type). The net conditions on the mission where the env has
@@ -320,17 +329,17 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
     ``per_agent_policies`` is the JAX package's deprecated alias for the
     config field.
 
-    On a sharded vector env every process derives the same seeds, so its
-    parameters and generators start alike; a digest all-reduce checks the
+    On a sharded vector env every process derives the same keys, so its
+    parameters and keys start alike; a digest all-reduce checks the
     parameters. Under a ``'model'`` axis each process then keeps its
     columns of the ``Dense_0`` kernels, and its moments start as those.
     """
     config = config or PPOConfig()
     if per_agent_policies is not None:
         config = config.replace(per_agent_policies=per_agent_policies)
-    env_seed, net_seed, train_seed, critic_seed = (
-        int(s) for s in np.random.SeedSequence(seed).generate_state(4))
-    obs, env_state = venv.reset(seed=env_seed)
+    k_env, k_net, k_train = prng.split(prng.as_key(key, venv.device), 3).unbind(0)
+    net_seed = _seed_of(k_net)
+    obs, env_state = venv.reset(k_env)
     num_missions = len(venv.env.mission_space) if 'mission' in obs else 0
     vs = venv.env.cfg.view_size
     if net is None:
@@ -351,13 +360,14 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
         kw = dict(hidden=net.hidden, packed_obs=net.packed_obs, dtype=net.dtype,
                   num_missions=net.num_missions, encoder=net.encoder)
     if config.per_agent_policies:
-        seeds = np.random.SeedSequence(net_seed).generate_state(venv.num_agents)
-        nets = [ActorCritic(vs * vs, seed=int(s), **kw).state_dict() for s in seeds]
+        seeds = [_seed_of(k) for k in prng.split(k_net, venv.num_agents)]
+        nets = [ActorCritic(vs * vs, seed=s, **kw).state_dict() for s in seeds]
         params = {k: torch.stack([sd[k] for sd in nets]).to(venv.device) for k in nets[0]}
     else:
         params = {k: v.detach().clone() for k, v in net.state_dict().items()}
     if config.centralized_critic:
-        critic = make_centralized_critic(net, venv.num_agents, critic_seed)
+        critic = make_centralized_critic(net, venv.num_agents,
+                                         _seed_of(prng.fold_in(k_net, 1)))
         params = {**{ACTOR + k: v for k, v in params.items()},
                   **{CRITIC + k: v.detach().to(venv.device)
                      for k, v in critic.state_dict().items()}}
@@ -368,8 +378,7 @@ def ppo_init(venv: VectorEnv, seed: int = 0, *, config: PPOConfig | None = None,
         params = shard_params(params, venv.mesh)
     state = TrainState(
         params=params, opt_state=tx.init(params), env_state=env_state,
-        last_obs=obs,
-        generator=torch.Generator(device=venv.device).manual_seed(train_seed),
+        last_obs=obs, key=k_train.clone(),
         ep_return_acc=torch.zeros(venv.local_envs, device=venv.device))
     return state, net, config, tx
 
@@ -389,7 +398,7 @@ class TrainStep:
     def __init__(self, venv: VectorEnv, net: ActorCritic, config: PPOConfig,
                  tx: Optimizer):
         self.venv, self.net, self.config, self.tx = venv, net, config, tx
-        #: The update's captured graphs by signature and generator.
+        #: The update's captured graphs by signature.
         self._graphs: dict = {}
         #: The mesh's env-axis process group (None in one process), and
         #: whether this process holds only part of the env batch.
@@ -465,16 +474,16 @@ class TrainStep:
         rollout takes that kernel; else None."""
         return fused_policy.prepare(params) if self.fused_policy else None
 
-    def policy_step(self, params, prepped, obs, generator: torch.Generator):
+    def policy_step(self, params, prepped, obs, key: torch.Tensor):
         """One rollout step's ``(action, log_prob, value)``, each (E, N): the
         fused-policy kernel on ``prepped`` (from :meth:`prepare_policy`)
-        where it is not None, else :meth:`policy` and Gumbel-max sampling.
-        Both paths draw the same noise, of one shape from one generator (the
-        global batch's, of which this process keeps its rows)."""
+        where it is not None, else :meth:`policy` and Gumbel-max sampling
+        (``jax.random.categorical``). Both paths draw the same noise,
+        ``gumbel(key, (E, N, A))`` of the global batch, this process's rows
+        only (ppo.py:364-381)."""
         lead, a = obs['direction'].shape, self.net.num_actions
         venv = self.venv
-        gumbel = venv.local(gumbel_noise((venv.num_envs,) + lead[1:] + (a,), generator,
-                                         venv.device))
+        gumbel = prng.gumbel(key, (venv.num_envs,) + lead[1:] + (a,), rows=venv.rows)
         if prepped is None:
             logits, value = self.policy(params, obs)
             action = sample_actions(logits, gumbel)
@@ -493,7 +502,7 @@ class TrainStep:
         ``(state, traj, last_value, (ep_sum, ep_cnt, ep_suc))``."""
         venv = self.venv
         params = gather_params(state.params, venv.mesh) if params is None else params
-        env_state, obs = state.env_state, state.last_obs
+        env_state, obs, key = state.env_state, state.last_obs, state.key
         ep_acc = state.ep_return_acc
         ep_sum = torch.zeros((), device=venv.device)
         ep_cnt = torch.zeros((), dtype=torch.int64, device=venv.device)
@@ -501,7 +510,8 @@ class TrainStep:
         steps = []
         prepped = self.prepare_policy(params)
         for _ in range(self.config.rollout_steps):
-            action, log_prob, value = self.policy_step(params, prepped, obs, state.generator)
+            key, k_act = prng.split(key).unbind(0)
+            action, log_prob, value = self.policy_step(params, prepped, obs, k_act)
             # With the pool, its refresh runs once a rollout (below).
             next_obs, env_state, reward, term, _, done, success = venv.step(
                 env_state, action, refresh=not venv.reset_pool)
@@ -518,7 +528,7 @@ class TrainStep:
                          for f in dataclasses.fields(Rollout)))
         env_state = venv.refresh_pool(env_state, self.config.rollout_steps)
         last_value = self.policy(params, obs)[1]
-        state = state.replace(env_state=env_state, last_obs=obs, ep_return_acc=ep_acc)
+        state = state.replace(env_state=env_state, last_obs=obs, key=key, ep_return_acc=ep_acc)
         return state, traj, last_value, (ep_sum, ep_cnt, ep_suc)
 
     @torch.no_grad()
@@ -673,15 +683,15 @@ class TrainStep:
     def __call__(self, state: TrainState, shuffle=None):
         """One update. ``shuffle`` fixes each epoch's minibatch shuffle as a
         list of ``(perm_t, off_e)`` (a T-permutation and an env-axis roll
-        of the global batch); by default they are drawn from
-        ``state.generator``. Under a mesh of several env shards, minibatches
+        of the global batch); by default they are drawn from ``state.key``
+        as the JAX package draws them. Under a mesh of several env shards, minibatches
         need the global batch: every process gathers it once an update and
         takes its share of each minibatch's envs.
 
         On the card (where :meth:`VectorEnv.graphed` holds: outside
         ``disable_graphs()``, without a mesh or under an NCCL one) the
         update is one CUDA graph, captured at the first call for the
-        state's signature and generator (a new config is a new
+        state's signature (a new config is a new
         ``TrainStep``, so a new capture, as ``jit`` recompiles), with the
         state copied in and cloned out. Under a mesh the graph holds the
         update's collectives: the column gathers, the advantage moments,
@@ -704,31 +714,30 @@ class TrainStep:
             shuffle = [(torch.as_tensor(p, device=self.venv.device),
                         torch.as_tensor(o, device=self.venv.device)) for p, o in shuffle]
         args = (self._carry(state), shuffle)
-        key = ('update', state.generator, graphs.signature(args))
+        key = ('update', graphs.signature(args))
         if key not in self._graphs:
             buffers = graphs.clone(args)
             self._graphs[key] = graphs.Graph(
-                lambda a, g=state.generator: self._update_carry(a, g), buffers,
-                generators=[state.generator, self.venv.generator], carry=True,
-                group=self.venv.capture_group, key=(key[0], key[2]))
+                self._update_carry, buffers, carry=True,
+                group=self.venv.capture_group, key=key)
         graph = self._graphs[key]
         graphs.load(graph.inputs, args)
         rows = [graphs.clone(graph.replay()) for _ in range(updates)]
-        params, opt_state, env_state, last_obs, ep_acc = graphs.clone(graph.inputs[0])
+        params, opt_state, env_state, last_obs, ep_acc, key = graphs.clone(graph.inputs[0])
         return state.replace(params=params, opt_state=opt_state, env_state=env_state,
-                             last_obs=last_obs, ep_return_acc=ep_acc,
+                             last_obs=last_obs, ep_return_acc=ep_acc, key=key,
                              update_count=state.update_count + updates), rows
 
     @staticmethod
     def _carry(state: TrainState):
         return (state.params, state.opt_state, state.env_state, state.last_obs,
-                state.ep_return_acc)
+                state.ep_return_acc, state.key)
 
-    def _update_carry(self, args, generator: torch.Generator):
+    def _update_carry(self, args):
         """:meth:`update` on a carried tree: the captured function."""
         carry, shuffle = args
-        params, opt_state, env_state, last_obs, ep_acc = carry
-        state = TrainState(params, opt_state, env_state, last_obs, generator,
+        params, opt_state, env_state, last_obs, ep_acc, key = carry
+        state = TrainState(params, opt_state, env_state, last_obs, key,
                            ep_return_acc=ep_acc)
         state, metrics = self.update(state, shuffle)
         return (self._carry(state), shuffle), metrics
@@ -754,13 +763,16 @@ class TrainStep:
                 shard, shards = mesh.coords[0], mesh.env_shards
                 batch = tuple(x.map(self._gather) if isinstance(x, Rollout) else self._gather(x)
                               for x in batch)
+            key, k_perm = prng.split(state.key).unbind(0)
+            state = state.replace(key=key)
+            epoch_keys = prng.split(k_perm, cfg.epochs)
             for epoch in range(cfg.epochs):
                 if shuffle is None:
-                    # The roll stays on the device (a 0-d tensor).
-                    perm_t = torch.randperm(t, generator=state.generator,
-                                            device=state.generator.device)
-                    off_e = torch.randint(e, (), generator=state.generator,
-                                          device=state.generator.device)
+                    # k_t, k_e = split(epoch key) (ppo.py:673-675); the roll
+                    # stays on the device (a 0-d tensor).
+                    k_t, k_e = prng.split(epoch_keys[epoch]).unbind(0)
+                    perm_t = prng.permutation(k_t, t)
+                    off_e = prng.randint(k_e, (), 0, e)
                 else:
                     perm_t, off_e = shuffle[epoch]
                 for tr, adv, tg in minibatches(batch, cfg.minibatches, perm_t, off_e,
@@ -840,5 +852,5 @@ def make_train_loop(venv: VectorEnv, net: ActorCritic, config: PPOConfig,
 
 
 __all__ = ['OptState', 'Optimizer', 'PPOConfig', 'Rollout', 'TrainState',
-           'TrainStep', 'gumbel_noise', 'linear_schedule', 'make_train_loop',
+           'TrainStep', 'linear_schedule', 'make_train_loop',
            'make_train_step', 'minibatches', 'ppo_init', 'sample_actions']

@@ -15,23 +15,25 @@ from .step import handle_actions, handle_actions_plain, sample_order, step_with_
 def launch_counts() -> dict[str, int]:
     """Each kernel wrapper's launch count in this process (each wrapper adds
     one where it launches its kernel on the card)."""
-    from . import fused_linear, fused_policy, fused_ppo, obs_cuda, step_cuda
+    from . import fused_linear, fused_policy, fused_ppo, obs_cuda, prng_cuda, step_cuda
     return {'obs': obs_cuda.launches, 'obs_general': obs_cuda.general_launches,
             'onehot_linear': fused_linear.launches,
             'onehot_linear_grad': fused_linear.grad_launches,
             'ppo_loss': fused_ppo.launches, 'policy_sample': fused_policy.launches,
-            'step': step_cuda.launches}
+            'step': step_cuda.launches, 'threefry': prng_cuda.launches,
+            'step_draws': prng_cuda.step_launches}
 
 
 def set_launch_counts(counts: dict[str, int]) -> None:
     """Set the wrappers' launch counts named in ``counts`` (keys as
     :func:`launch_counts` gives them)."""
-    from . import fused_linear, fused_policy, fused_ppo, obs_cuda, step_cuda
+    from . import fused_linear, fused_policy, fused_ppo, obs_cuda, prng_cuda, step_cuda
     owners = {'obs': (obs_cuda, 'launches'), 'obs_general': (obs_cuda, 'general_launches'),
               'onehot_linear': (fused_linear, 'launches'),
               'onehot_linear_grad': (fused_linear, 'grad_launches'),
               'ppo_loss': (fused_ppo, 'launches'), 'policy_sample': (fused_policy, 'launches'),
-              'step': (step_cuda, 'launches')}
+              'step': (step_cuda, 'launches'), 'threefry': (prng_cuda, 'launches'),
+              'step_draws': (prng_cuda, 'step_launches')}
     for name, n in counts.items():
         setattr(*owners[name], n)
 

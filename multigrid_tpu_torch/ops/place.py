@@ -3,10 +3,11 @@
 The reference places objects and agents by rejection sampling over a
 rectangle, accepting the first valid cell (multigrid/base.py:604-670). That
 is the same distribution as one uniform draw over the valid cells, which is
-what :func:`uniform_position` makes: one fixed-cost draw per env, no loop.
-The draws come from a ``torch.Generator`` and cannot match ``jax.random``;
-bit-exact parity with the reference's numpy draws is the job of the host
-generators in :mod:`multigrid_tpu_torch.envs.parity`.
+what :func:`uniform_position` makes: one fixed-cost draw per env, no loop,
+from each env's key, bit-equal to the JAX package's
+(multigrid_tpu/ops/place.py:48-66). Bit-exact parity with the reference's
+numpy draws is the job of the host generators in
+:mod:`multigrid_tpu_torch.envs.parity`.
 
 A rectangle's ``top`` and ``size`` are Python pairs (the same for every env)
 or ``(E, 2)`` integer tensors (one rectangle per env).
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.constants import TYPE_EMPTY
+from ..utils import prng
 from ..utils.device import constant
 
 
@@ -47,23 +49,24 @@ def rect_mask(width: int, height: int, top, size, device) -> torch.Tensor:
             & (ys >= ty) & (ys < ty + _coord(size, 1)))
 
 
-def uniform_position(
-    generator: torch.Generator | None, valid: torch.Tensor
-) -> torch.Tensor:
+def uniform_position(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(E, 2) int32 cell drawn uniformly from the True entries of each env's
-    (W, H) mask. An env with no valid cell gets cell (0, 0); callers must
-    guarantee a valid cell, as the reference does by looping forever."""
+    (W, H) mask, from each env's key (E, 2): the argmax of random bits over
+    the valid cells. An env with no valid cell gets cell (0, 0); callers
+    must guarantee a valid cell, as the reference does by looping forever."""
     e, w, h = valid.shape
-    flat = uniform_index(generator, valid.reshape(e, w * h))
+    flat = argmax_bits(prng.bits(keys, (w, h)), valid).reshape(e)
     return torch.stack([flat // h, flat % h], dim=-1).to(torch.int32)
 
 
-def uniform_index(generator: torch.Generator | None, valid: torch.Tensor) -> torch.Tensor:
-    """(E,) int64 index drawn uniformly from the True entries of each row
-    of an (E, K) mask (index 0 for a row with none)."""
-    u = torch.rand(valid.shape, generator=generator, device=valid.device)
-    # Valid entries score in [1, 2), invalid ones 0: the argmax is valid.
-    return torch.where(valid, u + 1.0, 0.0).argmax(dim=-1)
+def argmax_bits(bits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The flat index, over all axes after the first, of the largest of
+    ``bits`` (uint32 values) among the True entries of ``valid``: the top
+    bit is set on valid entries, so one always wins (index 0 where none
+    is), first index on ties, as ``jnp.argmax`` takes it."""
+    g = torch.where(valid, (bits >> 1) | 2**31, 0)
+    return g.reshape(g.shape[0], -1).argmax(dim=-1)
+
 
 
 def set_cell(grid: torch.Tensor, pos: torch.Tensor, enc) -> torch.Tensor:

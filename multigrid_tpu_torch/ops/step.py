@@ -51,8 +51,10 @@ from ..core.constants import (
     TYPE_WALL,
 )
 from ..core.state import MultiGridState
+from ..utils import prng
 from ..utils.device import constant
 from . import step_cuda
+
 
 _A_LEFT = int(Action.left)
 _A_RIGHT = int(Action.right)
@@ -334,18 +336,18 @@ def step_with_order(
     return state, rewards, state.agent_terminated, truncations
 
 
-def sample_order(
-    generator: torch.Generator | None,
-    num_envs: int,
-    num_agents: int,
-    device: str | torch.device,
-) -> torch.Tensor:
-    """(E, N) random agent action orders, one permutation per env.
+def sample_order(keys: torch.Tensor, num_agents: int) -> torch.Tensor:
+    """(E, N) int32 random agent action orders, one permutation per env,
+    from each env's order key (E, 2): the stable argsort of
+    ``uniform(key, (N,))`` (multigrid_tpu/ops/step.py:363-371).
 
     The reference draws ``np_random.random(N).argsort()`` (base.py:396-399);
-    single-agent environments use ``(0,)`` and consume no randomness.
+    single-agent environments use ``(0,)`` and consume no randomness. A step
+    draws its order with the rest of its draws, one launch of the
+    step-draws kernel on the card
+    (:func:`multigrid_tpu_torch.utils.prng.step_draws`).
     """
     if num_agents == 1:
-        return torch.zeros((num_envs, 1), dtype=torch.long, device=device)
-    u = torch.rand((num_envs, num_agents), generator=generator, device=device)
-    return u.argsort(dim=-1)
+        return torch.zeros((keys.shape[0], 1), dtype=torch.int32, device=keys.device)
+    u = prng.uniform(keys, (num_agents,))
+    return torch.argsort(u, dim=-1, stable=True).to(torch.int32)

@@ -132,25 +132,35 @@ def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: 
             env_kwargs: dict | None = None, config: dict | None = None, hidden: int = 128,
             encoder: str = 'mlp', float32: bool = False, fused_policy: bool = False,
             sharded: bool = True, model_shards: int = 1, mesh=None,
-            device: str | None = None) -> dict:
+            device: str | None = None, save_params: str | None = None,
+            load_params: str | None = None) -> dict:
     """``updates`` PPO updates (seed 0) of the mlp on packed cells, or of
     the cnn (``encoder='cnn'``) on ``(vs, vs, 3)`` images as the JAX gate
     trains it, on a global batch of ``num_envs`` envs: over a mesh of every
     process of the run with ``model_shards`` on ``'model'`` (``sharded``),
     over ``mesh``, or in this process alone. Returns each update's metrics,
     its rollout's :func:`rollout_checksums` (the rollout run once more from
-    the update's state and generator states, untimed), the full parameters'
+    the update's state and keys, untimed), the full parameters'
     digest after each update, the kernels' launches in the updates and
     their seconds (on the host's clock, to the metrics' copy to the host).
-    cuDNN runs deterministic meanwhile, so that the cnn's processes compute
-    the same bits."""
+    cuDNN runs deterministic meanwhile, and the CPU on one thread as each
+    spawned process does, so that the cnn's processes compute the same
+    bits.
+
+    With ``save_params`` (a directory) the first process writes the full
+    parameters and Adam's first moments before the first update and after
+    each (``params{u}.pt``);
+    with ``load_params`` every update from the second on starts from the
+    parameters written there after the update before, in place of this
+    run's own: a one-process run that follows a sharded run's parameters
+    (:func:`dryrun_multichip`)."""
     from collections import Counter
 
     from ..envs import make
     from ..learn import PPOConfig, make_train_step, ppo_init
     from ..learn.ppo import params_digest
     from ..ops import launch_counts, zero_launch_counts
-    from .mesh import gather_params, make_mesh
+    from .mesh import gather_params, make_mesh, shard_params
     from .vector import VectorEnv
 
     env = make(env_id, agents=agents, device=device, **(env_kwargs or {}))
@@ -176,14 +186,19 @@ def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: 
     if fused_policy and not step.fused_policy:
         raise RuntimeError('the fused-policy rollout is off for this configuration')
     rows, rollouts, digests, seconds, launches = [], [], [], 0.0, Counter()
-    deterministic = torch.backends.cudnn.deterministic
+    deterministic, threads = torch.backends.cudnn.deterministic, torch.get_num_threads()
     torch.backends.cudnn.deterministic = True
+    if venv.device.type == 'cpu':
+        torch.set_num_threads(1)
     try:
-        for _ in range(updates):
-            gens = state.generator.get_state(), venv.generator.get_state()
+        _save_params(save_params, 0, state, venv)
+        for u in range(updates):
+            if load_params is not None and u:
+                state = state.replace(params=shard_params(
+                    {k: v.to(state.params[k].device) for k, v in _load_params(
+                        load_params, u)['params'].items()}, venv.mesh))
+            # The keys are the state's: the rollout again leaves them as they are.
             rollouts.append(rollout_checksums(step.rollout_phase(state)[1], venv))
-            state.generator.set_state(gens[0])
-            venv.generator.set_state(gens[1])
             if venv.device.type == 'cuda':
                 torch.cuda.synchronize()
             zero_launch_counts()
@@ -193,8 +208,10 @@ def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: 
             seconds += time.perf_counter() - t0
             launches.update(launch_counts())
             digests.append(params_digest(gather_params(state.params, venv.mesh)))
+            _save_params(save_params, u + 1, state, venv)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        torch.set_num_threads(threads)
     return {'metrics': rows, 'rollouts': rollouts, 'params_digests': digests,
             'launches': {k: launches[k] for k in launch_counts()}, 'seconds': seconds,
             'agent_steps': updates * cfg.rollout_steps * num_envs * agents,
@@ -203,25 +220,65 @@ def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: 
             'encoder': net.encoder}
 
 
+def _params_path(folder: str, update: int) -> str:
+    return os.path.join(folder, f'params{update}.pt')
+
+
+def _save_params(folder: str | None, update: int, state, venv) -> None:
+    """The full parameters and Adam's first moments after ``update``
+    updates into ``folder``, by the first process (every process joins the
+    gathers)."""
+    if folder is None:
+        return
+    from .mesh import gather_params
+    full = {name: {k: v.detach().cpu() for k, v in gather_params(tree, venv.mesh).items()}
+            for name, tree in (('params', state.params), ('mu', state.opt_state.mu))}
+    if distributed.process_index() == 0:
+        torch.save(full, _params_path(folder, update))
+
+
+def _load_params(folder: str, update: int) -> dict[str, dict[str, torch.Tensor]]:
+    return torch.load(_params_path(folder, update), weights_only=True)
+
+
+def gradient_error(sharded: str, single: str, updates: int) -> list[float]:
+    """How far each update's gradients in a one-process run that follows a
+    sharded run's parameters (``ppo_run``'s ``load_params``) are from the
+    sharded run's: after update ``u``, ``|m_single - m_sharded| /
+    |m_sharded|`` of Adam's first moments ``m`` (each a running mean of its
+    run's clipped gradients; Euclidean norms over all parameters, float64).
+    Rounding alone leaves it under bfloat16's precision; gradients of
+    other samples move it to the order of 1. Both runs must start from the
+    same parameters."""
+    first, other = _load_params(single, 0)['params'], _load_params(sharded, 0)['params']
+    if any(not torch.equal(first[k], v) for k, v in other.items()):
+        raise AssertionError('the sharded and the one-process runs start from other '
+                             'parameters')
+    out = []
+    for u in range(1, updates + 1):
+        a, b = _load_params(single, u)['mu'], _load_params(sharded, u)['mu']
+        num = sum(float(torch.sum((a[k].double() - b[k].double()) ** 2)) for k in b)
+        den = sum(float(torch.sum(b[k].double() ** 2)) for k in b)
+        out.append(math.sqrt(num / den) if den else math.inf)
+    return out
+
+
 def ppo_runs(runs: list[dict]) -> list[dict]:
     """:func:`ppo_run` for each keyword dict of ``runs``, in order."""
     return [ppo_run(**kw) for kw in runs]
 
 
 def assert_consistent(sharded: list[dict], single: dict, label: str = 'sharded run',
-                      rtol: float = 1e-4, atol: float = 1e-6, flips: bool = False) -> dict:
+                      rtol: float = 1e-4, atol: float = 1e-6) -> None:
     """Hold every process's :func:`ppo_run` result to the one-process run's.
 
     Every process's parameters (digests, after every update) and metrics
-    equal the first process's; the first rollout, before any update, is
-    bit-equal; every metric of an update whose rollout is bit-equal agrees
-    within ``rtol``/``atol`` (NaN where NaN). A later update's rollout may
-    differ where the parameters' rounding differs (the gradients are summed
-    in another order, and a bfloat16 logit near a tie then picks another
-    action): that is a failure unless ``flips``, which reports the first
-    differing update and step instead and compares no metric from that
-    update on. Returns ``{'compared_updates', 'first_flip'}`` (``first_flip``
-    is ``[update, step]``, both from 1, or None)."""
+    equal the first process's; every update's rollout is bit-equal to one
+    process's (its first differing step is reported); every metric agrees
+    within ``rtol``/``atol`` (NaN where NaN). Where several env shards sum
+    the gradients in another order, the one process follows the sharded
+    run's parameters (``ppo_run``'s ``load_params``), so that a bfloat16
+    logit near a tie picks the same action."""
     for rank, res in enumerate(sharded):
         if res['params_digests'] != sharded[0]['params_digests']:
             raise AssertionError(f'{label}: the parameters of process {rank} differ from '
@@ -230,33 +287,30 @@ def assert_consistent(sharded: list[dict], single: dict, label: str = 'sharded r
             raise AssertionError(f'{label}: process {rank} reports other metrics than '
                                  f'process 0: {res["metrics"]} vs {sharded[0]["metrics"]}')
     got = sharded[0]
-    flip = None
     for u, (a, b) in enumerate(zip(got['rollouts'], single['rollouts'])):
         if a != b:
             step = min(next(t for t, (x, y) in enumerate(zip(a[k], b[k])) if x != y)
                        for k in b if a[k] != b[k])
-            flip = [u + 1, step + 1]
-            where = (f'{label}: the rollout of update {u + 1} first differs from one '
-                     f"process's at step {step + 1}")
-            if u == 0:
-                raise AssertionError(where + ' (the first rollout must be bit-equal)')
-            if not flips:
-                raise AssertionError(where)
-            break
+            raise AssertionError(f'{label}: the rollout of update {u + 1} first differs from '
+                                 f"one process's at step {step + 1}")
         for k in sorted(single['metrics'][u]):
             np.testing.assert_allclose(
                 got['metrics'][u][k], single['metrics'][u][k], rtol=rtol, atol=atol,
                 equal_nan=True,
                 err_msg=f'{label}: metric {k!r} of update {u + 1} diverges between '
                         f'{got["process_count"]} processes and one')
-    compared = len(single['metrics']) if flip is None else flip[0] - 1
-    return {'compared_updates': compared, 'first_flip': flip}
 
 
 def _nan_equal(a: dict, b: dict) -> bool:
     return all(x.keys() == y.keys() and all(
         x[k] == y[k] or (math.isnan(x[k]) and math.isnan(y[k])) for k in x)
         for x, y in zip(a['metrics'], b['metrics']))
+
+
+#: The most :func:`gradient_error` a sharded update may show: each env
+#: shard's gradients are rounded to bfloat16 (relative 2^-8) before their
+#: mean, one process's once after the whole batch's sum; 2e-3 on the CPU.
+GRADIENT_RTOL = 2e-2
 
 
 def dryrun_multichip(n_procs: int, *, backend: str | None = None,
@@ -266,20 +320,44 @@ def dryrun_multichip(n_procs: int, *, backend: str | None = None,
     flagship over ``n_procs`` spawned processes, on an ``(n/2, 2)`` mesh
     where ``n_procs`` is even (else ``(n, 1)``), and the same global batch
     (``num_envs_per_proc · n_procs`` envs) in this process, held together
-    by :func:`assert_consistent`. Returns ``(sharded, single)``: each
-    process's :func:`ppo_run` result and this process's."""
+    by :func:`assert_consistent` with every rollout bit-equal. From the
+    second update on this process starts each update from the sharded
+    run's parameters (``ppo_run``'s ``load_params``): several env shards sum
+    the gradients in another order, so the bfloat16 parameters would round
+    otherwise and a later rollout could pick another action. The gradients
+    are held to the sharded run's too: with one env shard the parameters
+    after every update are the same bits, with several Adam's moments
+    agree within :data:`GRADIENT_RTOL` (:func:`gradient_error`). Returns
+    ``(sharded, single)``: each process's :func:`ppo_run` result and this
+    process's, the latter with its ``gradient_error``."""
     device = str(resolve_device(device))
     n_model = 2 if n_procs % 2 == 0 else 1
     num_envs = num_envs_per_proc * n_procs
     kw = dict(updates=3, encoder='cnn', config=dict(rollout_steps=rollout_steps),
               device=device)
-    sharded = spawn(ppo_run, n_procs, (num_envs,), dict(kw, model_shards=n_model),
-                    backend=backend, device=device, timeout=timeout)
-    single = ppo_run(num_envs, sharded=False, **kw)
-    assert_consistent(sharded, single, f'dryrun_multichip({n_procs})')
-    print(f'dryrun_multichip({n_procs}): ok: 3 updates on the '
-          f'{tuple(sharded[0]["mesh_shape"])} (env, model) mesh consistent with one process, '
-          f'every rollout bit-equal; metrics {sharded[0]["metrics"][-1]}', flush=True)
+    label = f'dryrun_multichip({n_procs})'
+    with tempfile.TemporaryDirectory(prefix='mgt-gate-') as tmp:
+        shard_dir, single_dir = os.path.join(tmp, 'sharded'), os.path.join(tmp, 'single')
+        os.makedirs(shard_dir)
+        os.makedirs(single_dir)
+        sharded = spawn(ppo_run, n_procs, (num_envs,),
+                        dict(kw, model_shards=n_model, save_params=shard_dir),
+                        backend=backend, device=device, timeout=timeout)
+        single = ppo_run(num_envs, sharded=False, load_params=shard_dir,
+                         save_params=single_dir, **kw)
+        errors = gradient_error(shard_dir, single_dir, kw['updates'])
+    assert_consistent(sharded, single, label)
+    if n_procs == n_model:
+        if single['params_digests'] != sharded[0]['params_digests']:
+            raise AssertionError(f'{label}: one env shard, and the parameters differ from '
+                                 "one process's after an update")
+    elif not max(errors) < GRADIENT_RTOL:
+        raise AssertionError(f"{label}: the gradients differ from one process's: Adam's "
+                             f'moments at relative errors {errors} (limit {GRADIENT_RTOL})')
+    single['gradient_error'] = errors
+    print(f'{label}: ok: 3 updates on the {tuple(sharded[0]["mesh_shape"])} (env, model) '
+          f'mesh consistent with one process, every rollout bit-equal, Adam\'s moments at '
+          f'relative errors {errors}; metrics {sharded[0]["metrics"][-1]}', flush=True)
     return sharded, single
 
 

@@ -25,7 +25,7 @@ from typing import Any, ClassVar
 import torch
 import torch.distributed as dist
 
-from ..core.state import FIELDS, MultiGridState
+from ..core.state import STATE_FIELDS, MultiGridState
 from . import distributed
 
 
@@ -137,7 +137,7 @@ def _map_rows(tree, fn):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, MultiGridState):
-        return tree.replace(**{f: fn(getattr(tree, f)) for f in FIELDS},
+        return tree.replace(**{f: fn(getattr(tree, f)) for f in STATE_FIELDS},
                             extras={k: fn(v) for k, v in tree.extras.items()})
     if isinstance(tree, dict):
         return {k: _map_rows(v, fn) for k, v in tree.items()}

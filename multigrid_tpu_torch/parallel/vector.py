@@ -13,9 +13,14 @@ holds one pregenerated layout, a finished env takes slot ``(i + g) mod E``
 at global step ``g``, and a rotating slice of slots is regenerated each
 step or, in rollout loops, once a chunk of steps.
 
-Randomness (agent orders, random actions, random starts, fresh reserve
-layouts) comes from the VectorEnv's own ``torch.Generator`` on the device,
-seeded by :meth:`reset`.
+Randomness comes from threefry2x32 keys, as in the JAX package
+(:mod:`~multigrid_tpu_torch.utils.prng`): :meth:`reset` splits its key
+into one key an env (``split(key, E)``, vector.py:186-191) and the pool's;
+each step splits every env's ``state.rng`` for its agents' order and folds
+it for the auto-reset (vector.py:377-411); a reserve slot is regenerated
+from ``fold_in(slot key, g)`` (vector.py:265-320); the random rollout draws
+its actions from the key it is given (vector.py:531-551). The streams are
+the JAX package's, bit for bit: the same key gives the same states.
 
 On the card :meth:`step` and :meth:`rollout_random` replay CUDA graphs
 (:mod:`~multigrid_tpu_torch.utils.graphs`), as the JAX package jits them:
@@ -24,17 +29,17 @@ out), a random rollout one graph of :attr:`REFRESH_CHUNK` steps and a pool
 refresh replayed chunk after chunk on the device, then a one-step graph
 for the rest. The pool's global step lives on the device, so that every
 replay reads its own. The results are bit-equal to the eager loop's from
-the same generator state, which runs on the CPU, inside
+the same keys, which runs on the CPU, inside
 :func:`~multigrid_tpu_torch.utils.graphs.disable_graphs`, for an env
 whose reset runs on the host (``env.host_reset``) and under a mesh over
 gloo (whose collectives run on the host).
 
 Under a process mesh (``mesh=``, :mod:`~multigrid_tpu_torch.parallel.mesh`)
-``num_envs`` is the global batch and each process steps its own rows. Every
-draw over the env axis is made at the global shape from a generator seeded
-alike on every process, which keeps its rows, so a sharded run's envs are
-the unsharded run's, bit for bit (as the JAX package keys every env by
-``jax.random.split(key, E)``, vector.py:186-191). The reserve pool is
+``num_envs`` is the global batch and each process steps its own rows. Each
+process makes only its own rows' draws over the env axis (``rows=`` of the
+global draw: its envs' keys, its random actions), so a sharded run's envs
+are the unsharded run's, bit for bit, as the JAX package's partitionable
+threefry computes each device's rows alone. The reserve pool is
 replicated: every process holds and refreshes the global reserve, and env
 ``i`` of the global batch consumes slot ``(i + g) mod E`` as in one process.
 Under NCCL every process replays the same graphs (:attr:`capture_group`
@@ -48,11 +53,10 @@ import torch
 
 from ..core.actions import NUM_ACTIONS
 from ..core.constants import Color, State
-from ..core.state import FIELDS, MultiGridState, ResetPool, where_state
+from ..core.state import STATE_FIELDS, MultiGridState, ResetPool, where_state
 from ..envs.env import MultiGridEnv
 from ..ops.obs_cuda import gen_obs_batched
-from ..ops.step import sample_order
-from ..utils import graphs
+from ..utils import graphs, prng
 from ..utils.device import resolve_device
 from . import distributed
 from .mesh import Mesh, env_rows, make_mesh, shard_batch
@@ -64,7 +68,7 @@ class VectorEnv:
     Usage::
 
         venv = VectorEnv(make('MultiGrid-Empty-8x8-v0', agents=2), 4096)
-        obs, state = venv.reset(seed=0)
+        obs, state = venv.reset(prng.key(0))   # or reset(seed=0)
         obs, state, rew, term, trunc, done, success = venv.step(state, actions)
 
     All returned tensors have a leading ``(num_envs, ...)`` axis. ``done``
@@ -143,7 +147,6 @@ class VectorEnv:
         #: The processes that capture this env's graphs together: the
         #: mesh's (None in one process).
         self.capture_group = None if mesh is None else mesh.mesh_group
-        self.generator = torch.Generator(device=self.device)
         # This process's envs' indices in the global batch, and slot offsets.
         self._envs = torch.arange(self.rows.start, self.rows.stop, device=self.device)
         self._slots = torch.arange(num_envs, device=self.device)
@@ -161,21 +164,34 @@ class VectorEnv:
         return self.env.num_agents
 
     def local(self, tree):
-        """This process's rows of a global ``(E, ...)`` draw (a tensor or a
-        state); the draw itself without a mesh of several env shards."""
+        """This process's rows of a global ``(E, ...)`` tensor or state; the
+        tree itself without a mesh of several env shards."""
         if self.local_envs == self.num_envs:
             return tree
         return shard_batch(tree, self.mesh)
 
-    def reset(self, seed: int = 0):
-        """Seed the generator and reset all envs (then draw the reserve,
-        where the pool is on). Returns ``(obs, state)``."""
-        self.generator.manual_seed(seed)
-        state = self.local(self.env.reset_core(self.num_envs, self.generator)).clone()
+    def reset(self, key=None, *, seed: int | None = None):
+        """Reset all envs from ``key`` (a key, or an int seed; ``seed=`` is
+        ``key(seed)``, the default ``key(0)``): ``key, pool_key =
+        split(key)``, env ``i`` from key ``i`` of ``split(key, E)`` (this
+        process's rows only), then, where the pool is on, the reserve from
+        ``pool_key`` (vector.py:186-196, 265-280). Returns ``(obs, state)``."""
+        if key is None:
+            key = 0 if seed is None else seed
+        key, pool_key = prng.split(prng.as_key(key, self.device)).unbind(0)
+        state = self.env.reset_core(prng.split(key, self.num_envs, rows=self.rows)).clone()
         if self.reset_pool:
-            reserve = self.env.reset_core(self.num_envs, self.generator).clone()
-            state = state.replace(pool=ResetPool(reserve, 0))
+            state = state.replace(pool=self.new_pool(pool_key))
         return self.observe(state), state
+
+    def new_pool(self, key: torch.Tensor) -> ResetPool:
+        """The reserve pool drawn from ``key``: ``k_res, k_stream =
+        split(key)``, slot ``i`` from key ``i`` of ``split(k_res, E)`` and
+        its key stream key ``i`` of ``split(k_stream, E)`` (vector.py:265-280),
+        the global step 0."""
+        k_res, k_stream = prng.split(key).unbind(0)
+        reserve = self.env.reset_core(prng.split(k_res, self.num_envs)).clone()
+        return ResetPool(reserve, 0, prng.split(k_stream, self.num_envs))
 
     def graphed(self) -> bool:
         """Whether this env's entry points replay CUDA graphs now: on the
@@ -190,7 +206,8 @@ class VectorEnv:
         """Step all envs; auto-reset finished episodes.
 
         ``order`` (E, N) fixes the agents' action order; by default it is
-        drawn from the generator. Observations are made once, through the
+        drawn from each env's ``rng`` (which is split either way).
+        Observations are made once, through the
         kernel, on the merged state: finished envs observe their fresh
         layout, running envs their post-action pre-hook state (base.py:337).
         With the pool, ``refresh=False`` skips this step's regeneration of
@@ -205,45 +222,53 @@ class VectorEnv:
                     None if order is None else torch.as_tensor(order, device=self.device))
             return graphs.call(self._graphs, ('step', refresh, self.auto_reset), args,
                                lambda a: self._step(*a, refresh=refresh),
-                               generators=[self.generator], group=self.capture_group)
+                               group=self.capture_group)
         return self._step(state, actions, order, refresh=refresh)
 
     def _step(self, state: MultiGridState, actions, order=None, *, refresh: bool = True):
         """:meth:`step`'s eager body."""
         pool = state.pool
-        obs_state, new_state, rew, term, trunc, done, success = self.step_dynamics(
+        obs_state, new_state, rew, term, trunc, done, success, fresh = self.step_dynamics(
             state, actions, order=order)
         if self.auto_reset:
-            obs_state, new_state = self.reset_done(done, obs_state, new_state, pool)
+            obs_state, new_state = self.reset_done(done, obs_state, new_state, fresh, pool)
         obs = self.observe(obs_state)
         if pool is not None:
             new_state = new_state.replace(pool=self.next_pool(pool, refresh))
         return obs, new_state, rew, term, trunc, done, success
 
     def step_dynamics(self, state: MultiGridState, actions, *, order=None):
-        """The first stage of :meth:`step`: the agents' orders, the env's
-        dynamics and hook, and each env's ``done`` and ``success``, on the
-        state without its pool. Returns ``(obs_state, new_state, rewards,
-        terminations, truncations, done, success)``."""
-        e, n = self.num_envs, self.num_agents
-        if order is None:
-            order = self.local(sample_order(self.generator, e, n, self.device))
+        """The first stage of :meth:`step`: every env's step draws (one
+        launch of the step-draws kernel on the card: the split of its
+        ``rng``, its agents' order and the auto-reset's fresh keys), the
+        env's dynamics and hook, and each env's ``done`` and ``success``, on
+        the state without its pool. Returns ``(obs_state, new_state,
+        rewards, terminations, truncations, done, success, fresh)``, where
+        ``fresh`` is ``(gen_key, rng)`` of the episodes an auto-reset would
+        start (``gen_key`` None with the pool; both None without
+        ``auto_reset``)."""
+        mode = (prng.STEP_ONLY if not self.auto_reset
+                else prng.STEP_EXACT if state.pool is None else prng.STEP_POOL)
+        drawn, rng, gen, fresh_rng = prng.step_draws(state.rng, self.num_agents, mode)
         obs_state, new_state, rew, term, trunc = self.env.step_core(
-            state.replace(pool=None), actions, order)
+            state.replace(pool=None, rng=rng), actions, drawn if order is None else order)
         done = term.all(dim=-1) | trunc.any(dim=-1)
         # Task completion on the final state, before the reset erases it.
         success = self.env.success(new_state)
-        return obs_state, new_state, rew, term, trunc, done, success
+        return obs_state, new_state, rew, term, trunc, done, success, (gen, fresh_rng)
 
     def reset_done(self, done: torch.Tensor, obs_state: MultiGridState,
-                   new_state: MultiGridState, pool: ResetPool | None = None):
+                   new_state: MultiGridState, fresh, pool: ResetPool | None = None):
         """The second stage of :meth:`step` (with ``auto_reset``): the fresh
-        layouts, kept where ``done``, with their extras (mission, doors).
-        From ``pool`` where there is one (:meth:`consume`), else one exact
-        reset for every env (the JAX package's ``reset_pool=False``).
-        Returns ``(obs_state, state)``."""
-        fresh = (self.local(self.env.reset_core(self.num_envs, self.generator))
-                 if pool is None else self.consume(pool))
+        episodes, kept where ``done``, with their extras (mission, doors)
+        and keys (``fresh`` from :meth:`step_dynamics`). From ``pool`` where
+        there is one (:meth:`consume`, its slots' keys replaced by the
+        folded ones), else one exact reset of this process's envs from
+        their keys (the JAX package's ``reset_pool=False``). Returns
+        ``(obs_state, state)``."""
+        gen, rng = fresh
+        fresh = (self.env.reset_from(gen, rng) if pool is None
+                 else self.consume(pool).replace(rng=rng))
         merged = where_state(done, fresh, new_state)
         obs_state = merged if obs_state is new_state \
             else where_state(done, fresh, obs_state)
@@ -256,7 +281,7 @@ class VectorEnv:
         global batch. One gather a tensor, at indices computed on the device."""
         idx = (self._envs + pool.step) % self.num_envs
         r = pool.reserve
-        return r.replace(**{f: getattr(r, f).index_select(0, idx) for f in FIELDS},
+        return r.replace(**{f: getattr(r, f).index_select(0, idx) for f in STATE_FIELDS},
                          extras={k: v.index_select(0, idx) for k, v in r.extras.items()})
 
     def next_pool(self, pool: ResetPool, refresh: bool = True) -> ResetPool:
@@ -264,7 +289,7 @@ class VectorEnv:
         regenerated where ``refresh``, then the global step advanced."""
         if refresh:
             pool = self._refresh(pool, 1)
-        return ResetPool(pool.reserve, pool.step + 1)
+        return ResetPool(pool.reserve, pool.step + 1, pool.keys)
 
     def refresh_slots(self, step, chunk: int = 1):
         """``(start, count)`` of the slots a refresh at global step ``step``
@@ -282,21 +307,26 @@ class VectorEnv:
         return min(start, e - count), count
 
     def _refresh(self, pool: ResetPool, chunk: int) -> ResetPool:
-        """The pool with ``chunk`` steps' worth of slots regenerated, drawn
-        from the generator, scattered at indices computed on the device; the
-        tensors of ``pool`` are left as they are."""
+        """The pool with ``chunk`` steps' worth of slots regenerated, slot
+        ``s`` from ``fold_in(pool.keys[s], g)`` at the pool's step ``g``
+        (vector.py:316-320), scattered at indices computed on the device;
+        the tensors of ``pool`` are left as they are."""
+        if pool.keys is None:
+            raise ValueError('a pool without slot keys cannot be refreshed')
         start, count = self.refresh_slots(pool.step, chunk)
-        fresh = self.env.reset_core(count, self.generator)
         if count == self.num_envs:
-            return ResetPool(fresh.clone(), pool.step)
-        r = pool.reserve
+            fresh = self.env.reset_core(prng.fold_in(pool.keys, pool.step))
+            return ResetPool(fresh.clone(), pool.step, pool.keys)
         idx = self._slots[:count] + start
+        fresh = self.env.reset_core(prng.fold_in(pool.keys.index_select(0, idx), pool.step))
+        r = pool.reserve
 
         def put(old, new):
             return old.index_copy(0, idx, new)
-        reserve = r.replace(**{f: put(getattr(r, f), getattr(fresh, f)) for f in FIELDS},
+        reserve = r.replace(**{f: put(getattr(r, f), getattr(fresh, f)) for f in STATE_FIELDS},
                             extras={k: put(v, fresh.extras[k]) for k, v in r.extras.items()})
-        return ResetPool(reserve, pool.step)
+        return ResetPool(reserve, pool.step, pool.keys)
+
 
     def refresh_pool(self, state: MultiGridState, chunk: int) -> MultiGridState:
         """Regenerate ``chunk`` steps' worth of reserve slots in one burst,
@@ -319,8 +349,11 @@ class VectorEnv:
             {'image': image, 'direction': state.agent_dir}, state)
         return self.env.transform_obs(obs, state)
 
-    def rollout_random(self, state: MultiGridState, steps: int):
-        """Advance ``steps`` lockstep steps with uniform-random actions.
+    def rollout_random(self, state: MultiGridState, key, steps: int):
+        """Advance ``steps`` lockstep steps with uniform-random actions,
+        drawn from ``key`` (a key or an int seed) as the JAX package draws
+        them: ``key, ak = split(key)``, then ``randint(ak, (E, N))`` a step
+        (vector.py:547-553; this process's rows only).
 
         The throughput benchmark core. With the pool, steps run in chunks
         of :attr:`REFRESH_CHUNK` with ``refresh=False``, each followed by
@@ -336,9 +369,10 @@ class VectorEnv:
         graph of one step for the rest (or every step, without the pool).
         """
         dev = self.device
-        carry = (state, (torch.zeros((), dtype=torch.float32, device=dev),
-                         torch.zeros((), dtype=torch.int64, device=dev),
-                         torch.zeros((), dtype=torch.int64, device=dev)))
+        carry = (state, prng.as_key(key, dev),
+                 (torch.zeros((), dtype=torch.float32, device=dev),
+                  torch.zeros((), dtype=torch.int64, device=dev),
+                  torch.zeros((), dtype=torch.int64, device=dev)))
         chunk = self.REFRESH_CHUNK
         chunks = steps // chunk if self.reset_pool else 0
         rest = steps - chunks * chunk
@@ -348,7 +382,7 @@ class VectorEnv:
             for _ in range(chunks):
                 carry = self._random_steps(carry, chunk, refresh=False)
             carry = self._random_steps(carry, rest, refresh=True)
-        state, (rew_sum, episodes, obs_sum) = carry
+        state, _, (rew_sum, episodes, obs_sum) = carry
         if self.mesh is not None:
             group = self.mesh.group
             rew_sum = distributed.all_reduce(rew_sum, group)
@@ -362,22 +396,21 @@ class VectorEnv:
         }
 
     def _random_steps(self, carry, steps: int, *, refresh: bool):
-        """``steps`` random steps from ``carry`` = ``(state, (reward sum,
-        episodes, obs sum))``, then, with ``refresh=False``, one
+        """``steps`` random steps from ``carry`` = ``(state, key, (reward
+        sum, episodes, obs sum))``, then, with ``refresh=False``, one
         :meth:`refresh_pool` of them: the body of :meth:`rollout_random`."""
-        state, (rew_sum, episodes, obs_sum) = carry
+        state, key, (rew_sum, episodes, obs_sum) = carry
         e, n = self.num_envs, self.num_agents
         for _ in range(steps):
-            actions = self.local(torch.randint(
-                0, NUM_ACTIONS, (e, n), generator=self.generator,
-                device=self.device, dtype=torch.int32))
+            key, ak = prng.split(key).unbind(0)
+            actions = prng.randint(ak, (e, n), 0, NUM_ACTIONS, rows=self.rows)
             obs, state, rew, _, _, done, _ = self._step(state, actions, refresh=refresh)
             rew_sum = rew_sum + rew.sum()
             episodes = episodes + done.sum()
             obs_sum = obs_sum + obs['image'].sum()
         if not refresh:
             state = self.refresh_pool(state, steps)
-        return state, (rew_sum, episodes, obs_sum)
+        return state, key, (rew_sum, episodes, obs_sum)
 
     def _rollout_graphed(self, carry, chunks: int, rest: int):
         """:meth:`rollout_random`'s loop as replays of two carry graphs on
@@ -394,8 +427,7 @@ class VectorEnv:
                 steps = 1 if refresh else self.REFRESH_CHUNK
                 by_refresh[refresh] = graphs.Graph(
                     lambda c, k=steps, r=refresh: (self._random_steps(c, k, refresh=r), None),
-                    buffers, generators=[self.generator], carry=True,
-                    group=self.capture_group, key=key + (refresh,))
+                    buffers, carry=True, group=self.capture_group, key=key + (refresh,))
             for _ in range(replays):
                 by_refresh[refresh].replay()
         return graphs.clone(buffers)

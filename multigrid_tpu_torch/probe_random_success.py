@@ -40,17 +40,20 @@ def classify(done: torch.Tensor, success: torch.Tensor, term: torch.Tensor,
 
 
 def scan_step(venv, carry):
-    """One step of the probe's scan: ``carry`` = ``(state, counts)``, the
-    counts (3,) of wins, failures and truncations so far. Uniform-random
-    actions from the vector env's generator, one step, its finished
-    episodes classified (:func:`classify`) and added."""
+    """One step of the probe's scan: ``carry`` = ``(state, key, counts)``,
+    the counts (3,) of wins, failures and truncations so far. ``key, ak =
+    split(key)``, uniform-random actions ``randint(ak, (E, N))``
+    (probe_random_success.py:33-37), one step, its finished episodes
+    classified (:func:`classify`) and added."""
     from multigrid_tpu_torch.core.actions import NUM_ACTIONS
+    from multigrid_tpu_torch.utils import prng
 
-    state, counts = carry
-    actions = torch.randint(0, NUM_ACTIONS, (venv.num_envs, venv.num_agents),
-                            generator=venv.generator, device=venv.device, dtype=torch.int32)
+    state, key, counts = carry
+    key, ak = prng.split(key).unbind(0)
+    actions = prng.randint(ak, (venv.num_envs, venv.num_agents), 0, NUM_ACTIONS,
+                           rows=venv.rows)
     _, state, _, term, trunc, done, success = venv.step(state, actions)
-    return state, counts + torch.stack(classify(done, success, term, trunc))
+    return state, key, counts + torch.stack(classify(done, success, term, trunc))
 
 
 def probe(env_id: str, num_agents: int, num_envs: int, steps: int, seed: int,
@@ -59,23 +62,24 @@ def probe(env_id: str, num_agents: int, num_envs: int, steps: int, seed: int,
     steps of ``num_envs`` envs."""
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.parallel import VectorEnv
-    from multigrid_tpu_torch.utils import graphs
+    from multigrid_tpu_torch.utils import graphs, prng
 
     env = make(env_id, agents=num_agents, device=device)
     venv = VectorEnv(env, num_envs)
-    _, state = venv.reset(seed=seed)
+    rkey, key = prng.split(prng.key(seed, env.device)).unbind(0)
+    _, state = venv.reset(rkey)
 
-    carry = (state, torch.zeros(3, dtype=torch.int64, device=venv.device))
+    carry = (state, key, torch.zeros(3, dtype=torch.int64, device=venv.device))
     if venv.graphed() and steps:
         graph = graphs.Graph(lambda c: (scan_step(venv, c), None), graphs.clone(carry),
-                             carry=True, generators=[venv.generator])
+                             carry=True)
         for _ in range(steps):
             graph.replay()
         carry = graph.inputs
     else:
         for _ in range(steps):
             carry = scan_step(venv, carry)
-    succ, fail, trunc_n = carry[1].tolist()
+    succ, fail, trunc_n = carry[2].tolist()
     total = succ + fail + trunc_n
     return {
         'env': env_id, 'agents': num_agents, 'episodes': total,

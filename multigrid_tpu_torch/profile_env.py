@@ -64,6 +64,7 @@ def main(argv=None) -> list[dict]:
     from multigrid_tpu_torch.core.actions import NUM_ACTIONS
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.parallel import VectorEnv
+    from multigrid_tpu_torch.utils import prng
 
     env = make(args.env_id, agents=args.agents, device=args.device)
     venv = VectorEnv(env, args.num_envs, reset_pool_period=args.reset_pool_period)
@@ -82,7 +83,7 @@ def main(argv=None) -> list[dict]:
               'agent_steps_per_sec': e * n / per_step})
 
     def rollout(v, state):
-        return lambda: v.rollout_random(state, steps)[1]['obs_sum'].item()
+        return lambda: v.rollout_random(state, 1, steps)[1]['obs_sum'].item()
 
     if 'full' in phases:
         emit_step('full_step', timed(rollout(venv, state0), device))
@@ -107,14 +108,12 @@ def main(argv=None) -> list[dict]:
     # envs have their step count and terminations cleared in place of a
     # reset, so the batch keeps stepping.
     if 'dynamics' in phases:
-        gen = torch.Generator(device=device).manual_seed(2)
-
         def dynamics():
-            state = state0.replace(pool=None)
+            state, key = state0.replace(pool=None), prng.key(2, device)
             for _ in range(steps):
-                actions = torch.randint(0, NUM_ACTIONS, (e, n), generator=gen, device=device,
-                                        dtype=torch.int32)
-                _, state, _, _, _, done, _ = venv.step_dynamics(state, actions)
+                key, ak = prng.split(key).unbind(0)
+                actions = prng.randint(ak, (e, n), 0, NUM_ACTIONS)
+                _, state, _, _, _, done, _, _ = venv.step_dynamics(state, actions)
                 state = state.replace(
                     step_count=torch.where(done, 0, state.step_count),
                     agent_terminated=state.agent_terminated & ~done[:, None])
@@ -122,11 +121,11 @@ def main(argv=None) -> list[dict]:
     # A full batch of procedural resets, scaled to the pool's slice a step.
     if 'reset' in phases:
         reps = max(1, steps // 16)
-        gen = torch.Generator(device=device).manual_seed(3)
+        keys = prng.split(prng.key(3, device), e)
 
         def resets():
             for _ in range(reps):
-                env.reset_core(e, gen)
+                env.reset_core(keys)
         per_env = timed(resets, device) / (reps * e)
         period = venv.reset_pool_period if venv.reset_pool else None
         emit({'phase': 'reset_core', 'us_per_env_reset': per_env * 1e6,

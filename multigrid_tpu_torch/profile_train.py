@@ -48,6 +48,7 @@ def main(argv=None) -> dict[str, float]:
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.learn import PPOConfig, make_train_loop, make_train_step, ppo_init
     from multigrid_tpu_torch.parallel import VectorEnv
+    from multigrid_tpu_torch.utils import prng
 
     env = make(args.env_id, agents=args.agents, device=args.device)
     venv = VectorEnv(env, args.num_envs)
@@ -66,16 +67,17 @@ def main(argv=None) -> dict[str, float]:
     if 'A' in args.stages:
         env_state = venv.reset(seed=1)[1]
         emit('A_env_only', timed(
-            lambda: venv.rollout_random(env_state, steps_per_call)[1]['obs_sum'].item(),
+            lambda: venv.rollout_random(env_state, 1, steps_per_call)[1]['obs_sum'].item(),
             device))
 
     @torch.no_grad()
     def rollout_nostore():
         params = state.params
         prepped = step.prepare_policy(params)
-        env_state, obs, acc = state.env_state, state.last_obs, 0.0
+        env_state, obs, key, acc = state.env_state, state.last_obs, state.key, 0.0
         for _ in range(steps_per_call):
-            action, _, value = step.policy_step(params, prepped, obs, state.generator)
+            key, k_act = prng.split(key).unbind(0)
+            action, _, value = step.policy_step(params, prepped, obs, k_act)
             obs, env_state, reward, *_ = venv.step(env_state, action)
             acc = acc + reward.sum() + value.sum()
         return float(acc)

@@ -24,7 +24,7 @@ from .core.constants import (
     Color,
     Type,
 )
-from .core.state import FIELDS, MultiGridState
+from .core.state import STATE_FIELDS, MultiGridState
 from .ops.obs import gen_obs_grid_encoding, get_view_exts, get_vis_mask
 from .utils.rendering import (
     downsample,
@@ -144,7 +144,7 @@ def host_env(state: MultiGridState, index: int = 0) -> MultiGridState:
     """Env ``index`` of a batched state as an ``E = 1`` state on the CPU:
     one copy to the host per field (extras and pool left out)."""
     return MultiGridState(
-        **{f: getattr(state, f)[index:index + 1].cpu() for f in FIELDS})
+        **{f: getattr(state, f)[index:index + 1].cpu() for f in STATE_FIELDS})
 
 
 def _visible_mask(cfg, one: MultiGridState) -> np.ndarray:

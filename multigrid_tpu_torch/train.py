@@ -17,8 +17,9 @@ there is ``--encoder mlp --num-agents 2 --num-envs 4096 --rollout-steps 128
 
 Checkpoints go to ``--save-dir`` (``step_<update>``, and ``best`` with
 ``--save-best``); ``--load-dir`` resumes from the latest one, exactly: the
-parameters, the optimizer, the env batch with its pool and both
-generators. ``--lr-anneal`` decays the rate linearly to 0 over the run's
+parameters, the optimizer, the env batch with its pool, and the keys.
+``--lr-anneal``
+ decays the rate linearly to 0 over the run's
 updates, read once per SGD step as optax reads it (so with E epochs of M
 minibatches it reaches 0 after 1/(E·M) of the run, as in the JAX package);
 ``--ent-anneal`` lowers the entropy bonus in 4 stages.

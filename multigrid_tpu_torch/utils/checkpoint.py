@@ -3,11 +3,12 @@
 Counterpart of ``multigrid_tpu.utils.checkpoint`` (which saves through
 orbax): one file holds the whole training state (parameters, the
 optimizer's count, moments and schedule count, the env batch with its
-extras and its reserve pool, the last observations, the running episode
-returns, the update count) and the states of both generators, the train
-state's (actions, shuffles) and the vector env's (orders, resets, reserve
-layouts), so a resumed run continues exactly where the saved one stood.
-A checkpoint written by the JAX package is not read here.
+extras, its keys and its reserve pool with its slots' keys, the last
+observations, the running episode returns, the update count, and the
+train state's key, which draws the actions and shuffles), so a resumed run
+continues exactly where the saved one stood, as the JAX package's
+checkpoint carries its keys. A checkpoint written by the JAX package is
+not read here.
 
 A sharded run's checkpoint holds the global state, as the JAX package's
 holds global arrays: the columns of the ``Dense_0`` kernels and of their
@@ -26,7 +27,7 @@ from typing import Any
 
 import torch
 
-from ..core.state import FIELDS, MultiGridState, ResetPool
+from ..core.state import STATE_FIELDS, MultiGridState, ResetPool
 from ..learn.ppo import OptState, TrainState
 from ..parallel import distributed
 from ..parallel.mesh import gather_batch, gather_params, shard_params
@@ -34,17 +35,17 @@ from ..parallel.vector import VectorEnv
 
 
 def _state_tree(s: MultiGridState) -> dict[str, Any]:
-    return {**{f: getattr(s, f) for f in FIELDS}, 'extras': dict(s.extras),
+    return {**{f: getattr(s, f) for f in STATE_FIELDS}, 'extras': dict(s.extras),
             'pool': None if s.pool is None else {'reserve': _state_tree(s.pool.reserve),
-                                                 'step': s.pool.step}}
+                                                 'step': s.pool.step, 'keys': s.pool.keys}}
 
 
 def _state_from_tree(t: dict[str, Any]) -> MultiGridState:
     pool = t['pool']
     return MultiGridState(
-        **{f: t[f] for f in FIELDS}, extras=t['extras'],
+        **{f: t[f] for f in STATE_FIELDS}, extras=t['extras'],
         pool=None if pool is None else ResetPool(_state_from_tree(pool['reserve']),
-                                                 pool['step']))
+                                                 pool['step'], pool['keys']))
 
 
 def _train_tree(state: TrainState) -> dict[str, Any]:
@@ -57,7 +58,7 @@ def _train_tree(state: TrainState) -> dict[str, Any]:
         'last_obs': dict(state.last_obs),
         'ep_return_acc': state.ep_return_acc,
         'update_count': state.update_count,
-        'generator': state.generator.get_state(),
+        'key': state.key,
     }
 
 
@@ -123,15 +124,15 @@ def _local_part(tree: dict[str, Any], venv: VectorEnv) -> dict[str, Any]:
         raise _mismatch('train_state.ep_return_acc', stored, (venv.num_envs,))
     rows, env = venv.rows, tree['env_state']
     return {**tree,
-            'env_state': {**{f: env[f][rows] for f in FIELDS}, 'pool': env['pool'],
+            'env_state': {**{f: env[f][rows] for f in STATE_FIELDS}, 'pool': env['pool'],
                           'extras': {k: v[rows] for k, v in env['extras'].items()}},
             'last_obs': {k: v[rows] for k, v in tree['last_obs'].items()},
             'ep_return_acc': tree['ep_return_acc'][rows]}
 
 
 def save_checkpoint(path: str, state: TrainState, venv: VectorEnv) -> str:
-    """Atomically write ``state`` and ``venv``'s generator to the file
-    ``path`` (a temporary file in the same directory, then a rename).
+    """Atomically write ``state`` to the file ``path`` (a temporary file
+    in the same directory, then a rename).
     Under a mesh every process calls it: the kernels' columns and the env
     rows are gathered, the mesh's first process writes, and all return once
     the file is there. Returns the absolute path."""
@@ -158,8 +159,7 @@ def _write(path: str, state: TrainState, venv: VectorEnv) -> str:
     path = os.path.abspath(path)
     directory = os.path.dirname(path)
     os.makedirs(directory, exist_ok=True)
-    tree = {'train_state': _to_cpu(_train_tree(state)),
-            'env_generator': venv.generator.get_state()}
+    tree = {'train_state': _to_cpu(_train_tree(state))}
     fd, tmp = tempfile.mkstemp(dir=directory, prefix=f'.{os.path.basename(path)}.')
     try:
         with os.fdopen(fd, 'wb') as f:
@@ -178,15 +178,11 @@ def restore_checkpoint(path: str, target: TrainState, venv: VectorEnv) -> TrainS
     freshly initialized ``TrainState`` for the same configuration: its
     tensors give the shapes, devices and dtypes; under a mesh, this
     process's rows of the stored global batch and its columns of the
-    stored ``Dense_0`` kernels and moments), with the saved states set
-    into ``target.generator`` and ``venv.generator``. Any difference of
-    structure or shape raises ``ValueError`` (checkpoint/env-config
-    mismatch)."""
+    stored ``Dense_0`` kernels and moments) and the saved keys. Any
+    difference of structure or shape raises ``ValueError``
+    (checkpoint/env-config mismatch)."""
     raw = _load(path)
     tree = _place(_train_tree(target), _local_part(raw['train_state'], venv), 'train_state')
-    env_gen = _place(venv.generator.get_state(), raw['env_generator'], 'env_generator')
-    target.generator.set_state(tree['generator'])
-    venv.generator.set_state(env_gen)
     opt = tree['opt_state']
     return target.replace(
         params=tree['params'],
@@ -194,7 +190,9 @@ def restore_checkpoint(path: str, target: TrainState, venv: VectorEnv) -> TrainS
         env_state=_state_from_tree(tree['env_state']),
         last_obs=tree['last_obs'],
         ep_return_acc=tree['ep_return_acc'],
+        key=tree['key'],
         update_count=tree['update_count'])
+
 
 
 def restore_params(path: str, target_params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:

@@ -13,12 +13,12 @@ A :class:`Graph`:
 - runs its function once on a side stream (the warm-up: the kernels'
   libraries load, constants reach the device through
   :func:`~multigrid_tpu_torch.utils.device.constant`, cuBLAS and cuDNN take
-  their workspaces), then sets the generators and the kernel wrappers'
-  launch counts back to where they stood;
-- captures it in a private memory pool, with every generator it draws from
-  registered (``CUDAGraph.register_generator_state``), so that a replay
-  draws the numbers an eager run from the same generator state draws and
-  leaves each generator where that run leaves it;
+  their workspaces), then sets the device's default generator and the
+  kernel wrappers' launch counts back to where they stood;
+- captures it in a private memory pool. The port's randomness is keyed
+  (:mod:`~multigrid_tpu_torch.utils.prng`): keys are tensors carried in the
+  inputs, like any state, so a replay draws what an eager run from the
+  same keys draws, and no ``torch.Generator`` is registered;
 - records how far each wrapper's launch count moved during the capture
   and adds that at every replay, so the counts count the launches that
   replays make.
@@ -45,8 +45,8 @@ Under a process mesh whose collectives are NCCL's (the card's backend) a
 graph holds them, as the JAX package's sharded programs hold theirs:
 every process captures the same graph at the same call, so their
 collectives match in order. The warm-up runs them once eagerly on every
-process (which creates NCCL's communicator before the capture) and sets
-every process's generators back alike; before the capture the processes
+process (which creates NCCL's communicator before the capture); before the
+capture the processes
 compare the graph's key (:func:`check_key`) and raise on a mismatch. In a
 process with a process group the capture runs in thread-local mode, so
 that the group's watchdog thread may query its events meanwhile. Gloo's
@@ -225,9 +225,7 @@ class Graph:
     ``fn(inputs)`` returns the output tree. With ``carry`` it returns
     ``(carry, out)``: ``carry`` has the structure of ``inputs`` and is
     copied into them at the end of the graph, and :meth:`replay` returns
-    ``out``. ``generators`` are the ``torch.Generator``s ``fn`` draws from
-    besides the device's default one (which every graph registers).
-    ``device`` is the card's where ``inputs`` holds no tensor. ``group`` is
+    ``out``. ``device`` is the card's where ``inputs`` holds no tensor. ``group`` is
     the process group whose processes capture this graph together (a
     mesh's): ``key`` (by default the inputs' :func:`signature`) is checked
     over it first (:func:`check_key`).
@@ -239,7 +237,7 @@ class Graph:
     graph's private pool.
     """
 
-    def __init__(self, fn: Callable, inputs, *, generators=(), carry: bool = False,
+    def __init__(self, fn: Callable, inputs, *, carry: bool = False,
                  device: torch.device | None = None, group=None, key=None):
         leaves, _ = flatten(inputs)
         device = torch.device(device if device is not None else leaves[0].device)
@@ -250,18 +248,17 @@ class Graph:
         self.inputs = inputs
         if group is not None:
             check_key(signature(inputs) if key is None else key, group, device)
-        self._capture(fn, device, list(dict.fromkeys(g for g in generators if g is not None)),
-                      carry)
+        self._capture(fn, device, carry)
 
-    def _capture(self, fn: Callable, device: torch.device, gens: list, carry: bool) -> None:
+    def _capture(self, fn: Callable, device: torch.device, carry: bool) -> None:
         """The warm-up of ``fn`` on :attr:`inputs` and its capture."""
         leaves, _ = flatten(self.inputs)
         inputs = self.inputs
-        # The warm-up's draws are undone, the device's default generator's
-        # too (which the capture registers by itself).
+        # Any draw of the warm-up from the device's default generator is
+        # undone (the capture registers that generator by itself).
         index = device.index if device.index is not None else torch.cuda.current_device()
-        drawn = gens + [torch.cuda.default_generators[index]]
-        rewind = [g.get_state() for g in drawn]
+        default = torch.cuda.default_generators[index]
+        rewind = default.get_state()
         counts = ops.launch_counts()
         stream = torch.cuda.current_stream(device)
         t0 = time.perf_counter()
@@ -272,19 +269,11 @@ class Graph:
         stream.wait_stream(side)
         torch.cuda.synchronize(device)
         self.warmup_s = time.perf_counter() - t0
-        for g, state in zip(drawn, rewind):
-            g.set_state(state)
+        default.set_state(rewind)
         ops.set_launch_counts(counts)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         self.graph = torch.cuda.CUDAGraph()
-        for g in gens:
-            register = getattr(self.graph, 'register_generator_state', None)
-            if register is None:
-                raise RuntimeError(
-                    'this PyTorch has no CUDAGraph.register_generator_state: a graph '
-                    'cannot draw from a torch.Generator of its own (use disable_graphs())')
-            register(g)
         # A process group's watchdog thread queries its events on the card.
         mode = 'thread_local' if torch.distributed.is_available() \
             and torch.distributed.is_initialized() else 'global'
@@ -321,7 +310,7 @@ class Graph:
         return self.outputs
 
 
-def call(cache: dict, key, args, fn: Callable, *, generators=(),
+def call(cache: dict, key, args, fn: Callable, *,
          device: torch.device | None = None, group=None):
     """``fn(args)`` through the graph cached in ``cache`` under ``key`` and
     ``args``' :func:`signature` (captured at the first call, the key
@@ -332,8 +321,8 @@ def call(cache: dict, key, args, fn: Callable, *, generators=(),
     entry = cache.get(full)
     if entry is None:
         buffers = clone(args)
-        entry = cache[full] = (buffers, Graph(fn, buffers, generators=generators,
-                                              device=device, group=group, key=full))
+        entry = cache[full] = (buffers, Graph(fn, buffers, device=device, group=group,
+                                              key=full))
     else:
         load(entry[0], args)
     return clone(entry[1].replay())

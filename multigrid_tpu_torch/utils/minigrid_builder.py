@@ -17,8 +17,8 @@ run through the batched step and the observation kernel.
 Host-side generation means a ported env is for the Gymnasium adapter and
 :class:`~multigrid_tpu_torch.utils.minigrid_interface.MiniGridInterface`
 (single-env, the reference's usage); under a ``VectorEnv`` every reset runs
-the generator once per env on the host — re-implement ``_gen_grid(num_envs,
-generator)`` on the device for batched speed (see envs/empty.py).
+the generator once per env on the host — re-implement ``_gen_grid(keys)`` on
+the device for batched speed (see envs/empty.py).
 """
 
 from __future__ import annotations
@@ -51,6 +51,8 @@ from ..core.constants import (
 from ..core.state import MultiGridState, state_from_arrays
 from ..envs import layout
 from ..envs.env import MultiGridEnv
+from . import prng
+
 
 
 def _color_index(color) -> int:
@@ -215,7 +217,7 @@ class MiniGridCompatEnv(MultiGridEnv):
     """Base class for ported single-agent MiniGrid environments.
 
     Subclasses keep their imperative ``_gen_grid(self, width, height)``
-    (overriding the batched ``_gen_grid(num_envs, generator)`` slot — this
+    (overriding the batched ``_gen_grid(keys)`` slot — this
     class bridges in :meth:`reset_core`), their ``_rand_*`` calls, and their
     ``place_obj``/``put_obj``/``place_agent`` calls, exactly as written
     against ``minigrid.MiniGridEnv``.
@@ -338,16 +340,21 @@ class MiniGridCompatEnv(MultiGridEnv):
                     agent_pos=self._build_agent_pos.reshape(1, 2),
                     agent_dir=np.asarray([self._build_agent_dir], dtype=np.int32))
 
-    def reset_core(self, num_envs: int = 1,
-                   generator: torch.Generator | None = None) -> MultiGridState:
-        """Host-side generation: one numpy stream per env, each seeded from
-        a draw of ``generator`` (the JAX package seeds it from the key's
-        data, minigrid_builder.py:319-323), runs :meth:`build_layout`, then
-        uploads the stacked arrays in one ``state_from_arrays`` call."""
-        seeds = torch.randint(0, 2**62, (num_envs,), generator=generator,
-                              device=self.device).tolist()
-        rows = [self.build_layout(np.random.default_rng(s)) for s in seeds]
-        e = num_envs
+    def reset_core(self, keys) -> MultiGridState:
+        """Host-side generation: one numpy stream per env, seeded with its
+        key's two words, its state's ``rng`` the second key of
+        ``split(key)``, as the JAX package's (minigrid_builder.py:319-338)."""
+        keys = self.keys(keys)
+        return self.reset_from(keys, prng.split(keys)[:, 1])
+
+    def reset_from(self, gen_keys, rngs) -> MultiGridState:
+        """:meth:`build_layout` for each env from a numpy stream seeded
+        with the two words of its key of ``gen_keys``, ``rngs`` the states'
+        keys; the stacked arrays uploaded in one ``state_from_arrays``
+        call."""
+        words = gen_keys.tolist()
+        rows = [self.build_layout(np.random.default_rng([int(w) for w in k])) for k in words]
+        e = len(words)
         empty = np.broadcast_to(EMPTY_ENCODING, (e, 1, 3))
         fields = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
         return state_from_arrays(dict(
@@ -357,7 +364,9 @@ class MiniGridCompatEnv(MultiGridEnv):
             agent_carrying=empty,
             agent_carrying_contents=empty,
             step_count=np.zeros((e,), np.int32),
+            rng=prng.key_data(rngs),
         ), self.device)
+
 
     def mission_of(self, state: MultiGridState, env: int = 0) -> str | None:
         return getattr(self, 'mission', None) or type(self).mission
@@ -368,7 +377,7 @@ class MiniGridCompatEnv(MultiGridEnv):
             return self._mission_space
         return MultiGridEnv.mission_space.fget(self)
 
-    # The batched `_gen_grid(num_envs, generator)` slot is intentionally NOT
+    # The batched `_gen_grid(keys)` slot is intentionally NOT
     # implemented: subclasses override `_gen_grid(self, width, height)`
     # imperatively, and `build_layout` above calls it with (width, height).
     # If something calls the batched form on a compat env, fail loudly.

@@ -20,6 +20,7 @@ import torch
 from ..adapters.gym import GymAdapter
 from ..core.constants import DIR_TO_VEC, TYPE_EMPTY
 from ..envs.env import MultiGridEnv
+from . import prng
 
 
 class MiniGridInterface(GymAdapter):
@@ -117,7 +118,9 @@ class MiniGridInterface(GymAdapter):
         max_tries: float = math.inf,
     ) -> tuple[int, int]:
         """Place the agent at a random empty position, drawn from the
-        adapter's generator (minigrid_interface.py:184-188 → base.py:680-697).
+        adapter's key: ``key, k1, k2 = split(key, 3)``, the cell from
+        ``k1`` and the direction from ``k2``, as the JAX interface draws them
+        (minigrid_interface.py:184-188 → base.py:680-697).
 
         Speed-mode distribution: uniform over valid cells (identical to the
         reference's rejection loop conditioned on acceptance).
@@ -129,12 +132,10 @@ class MiniGridInterface(GymAdapter):
         state = self._state.replace(
             agent_pos=torch.full((1, 1, 2), -1, dtype=torch.int32, device=dev))
         valid = place_obj_mask(state.grid, state.agent_pos, top, size)
-        pos = uniform_position(self._generator, valid)
-        dirn = (
-            torch.randint(0, 4, (1, 1), generator=self._generator, device=dev,
-                          dtype=torch.int32)
-            if rand_dir else self._state.agent_dir
-        )
+        self._key, k1, k2 = prng.split(self._key, 3).unbind(0)
+        pos = uniform_position(k1[None], valid)
+        dirn = (prng.randint(k2[None], (), 0, 4).reshape(1, 1)
+                if rand_dir else self._state.agent_dir)
         self._state = state.replace(agent_pos=pos.reshape(1, 1, 2), agent_dir=dirn)
         x, y = pos[0].tolist()
         return (int(x), int(y))

@@ -54,7 +54,8 @@ def restored_policy(venv, args):
     """``policy(obs) -> actions`` (1, N) of the checkpoint's actors on
     ``venv``'s packed cells, sampling from their logits."""
     from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
-    from multigrid_tpu_torch.learn.ppo import gumbel_noise, sample_actions
+    from multigrid_tpu_torch.learn.ppo import sample_actions
+    from multigrid_tpu_torch.utils import prng
     from multigrid_tpu_torch.utils.checkpoint import latest_checkpoint, restore_params
 
     config = PPOConfig(per_agent_policies=args.per_agent_policies,
@@ -79,14 +80,13 @@ def restored_policy(venv, args):
         ) from exc
     print(f'loaded policy from {ckpt}', flush=True)
     step = make_train_step(venv, net, config, tx)
-    generator = torch.Generator(device=venv.device).manual_seed(args.seed + 1)
 
     @torch.no_grad()
-    def policy(obs):
+    def policy(key, obs):
         # The actors only: with the centralized critic, step.actor takes
-        # the actor.* parameters.
+        # the actor.* parameters. categorical(key, logits) (visualize.py:100-114).
         logits, _ = step.actor(params, obs['image'], obs['direction'], obs.get('mission'))
-        return sample_actions(logits, gumbel_noise(logits.shape, generator, venv.device))
+        return sample_actions(logits, prng.gumbel(key, logits.shape))
 
     return policy
 
@@ -98,24 +98,28 @@ def visualize(args: argparse.Namespace) -> list[np.ndarray]:
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.parallel import VectorEnv
     from multigrid_tpu_torch.render import render_state
+    from multigrid_tpu_torch.utils import prng
 
     env = make(args.env, agents=args.num_agents, device=args.device)
     restore = bool(args.load_dir or args.checkpoint)
     venv = VectorEnv(env, 1, auto_reset=False, packed_obs=restore)
     policy = restored_policy(venv, args) if restore else None
-    generator = torch.Generator(device=venv.device).manual_seed(args.seed)
+    # One key chain, as the JAX script's (visualize.py:117-129): a split for
+    # each episode's reset and each step's actions.
+    key = prng.key(args.seed, venv.device)
 
     frames: list[np.ndarray] = []
     for ep in range(args.num_episodes):
-        obs, state = venv.reset(seed=args.seed + ep)
+        key, reset_key = prng.split(key).unbind(0)
+        obs, state = venv.reset(reset_key)
         frames.append(render_state(env, state, tile_size=args.tile_size))
         total = np.zeros(env.num_agents)
         for t in range(args.max_steps):
+            key, act_key = prng.split(key).unbind(0)
             if policy is None:
-                actions = torch.randint(0, NUM_ACTIONS, (1, env.num_agents),
-                                        generator=generator, device=venv.device)
+                actions = prng.randint(act_key, (1, env.num_agents), 0, NUM_ACTIONS)
             else:
-                actions = policy(obs)
+                actions = policy(act_key, obs)
             obs, state, rew, _, _, done, _ = venv.step(state, actions)
             frames.append(render_state(env, state, tile_size=args.tile_size))
             total += rew[0].cpu().numpy()

@@ -75,14 +75,14 @@ class ObservationWrapper:
         the Gym/RLlib/PettingZoo adapters report."""
         return self.observation_space(self.env.transform_space(agent_space))
 
-    def reset(self, generator: torch.Generator | None = None, num_envs: int = 1):
-        obs, state = self.env.reset(generator, num_envs)
+    def reset(self, keys):
+        obs, state = self.env.reset(keys)
         return self.observation(obs, state), state
 
-    def step(self, state: MultiGridState, actions, generator: torch.Generator | None = None,
-             action_mask: torch.Tensor | None = None):
-        obs, state, rew, term, trunc = self.env.step(state, actions, generator, action_mask)
+    def step(self, state: MultiGridState, actions, action_mask: torch.Tensor | None = None):
+        obs, state, rew, term, trunc = self.env.step(state, actions, action_mask)
         return self.observation(obs, state), state, rew, term, trunc
+
 
     def step_with_order(self, state, actions, order, action_mask=None):
         obs, state, rew, term, trunc = self.env.step_with_order(

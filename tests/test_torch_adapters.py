@@ -1,10 +1,10 @@
 """The port's host-side adapters ≡ the JAX package's (multigrid_tpu/adapters):
 Gymnasium, PettingZoo, the RLlib protocol, the MiniGrid facade.
 
-The dicts of ``GymAdapter.reset``/``step`` equal the JAX adapter's on the
-same states (the JAX reset's state carried across, the agents' orders the
-JAX step draws fed to the port), partial action dicts and wrapped envs
-included; then the JAX package's adapter tests, on the port.
+The dicts of ``GymAdapter.reset``/``step`` equal the JAX adapter's from the
+same seed (the same keys give the same layouts and agent orders), partial
+action dicts and wrapped envs included; then the JAX package's adapter
+tests, on the port.
 """
 
 import inspect
@@ -21,7 +21,6 @@ import torch
 from multigrid_tpu import wrappers as jax_wrappers
 from multigrid_tpu.adapters import GymAdapter as JaxGymAdapter
 from multigrid_tpu.envs import make as jax_make
-from multigrid_tpu.ops.step import sample_order as jax_sample_order
 from multigrid_tpu_torch import wrappers
 from multigrid_tpu_torch.adapters import (
     GymAdapter,
@@ -32,9 +31,8 @@ from multigrid_tpu_torch.adapters import (
     to_rllib_env,
 )
 from multigrid_tpu_torch.core.mission import Mission
-from multigrid_tpu_torch.core.state import FIELDS, state_from_arrays
+from multigrid_tpu_torch.core.state import FIELDS
 from multigrid_tpu_torch.envs import CONFIGURATIONS, make
-from multigrid_tpu_torch.envs import env as env_module
 from multigrid_tpu_torch.envs.empty import EmptyEnv
 from multigrid_tpu_torch.render import render_state
 from multigrid_tpu_torch.utils.minigrid_interface import MiniGridInterface
@@ -53,12 +51,6 @@ def _pair(env_id, wrapper):
     if wrapper is not None:
         jenv, env = getattr(jax_wrappers, wrapper)(jenv), getattr(wrappers, wrapper)(env)
     return JaxGymAdapter(jenv), GymAdapter(env)
-
-
-def _carried(jstate):
-    host = jax.device_get(jstate)
-    return state_from_arrays({k: getattr(host, k) for k in FIELDS}, 'cpu',
-                             extras=dict(host.extras))
 
 
 def _assert_dicts_equal(ours, theirs, where):
@@ -82,21 +74,16 @@ def _assert_dicts_equal(ours, theirs, where):
 @pytest.mark.parametrize('env_id,wrapper', [(EMPTY, None), (BUP, None),
                                             (EMPTY, 'ImgObsWrapper'),
                                             (BUP, 'OneHotObsWrapper')])
-def test_gym_adapter_dicts_match_jax(env_id, wrapper, monkeypatch):
+def test_gym_adapter_dicts_match_jax(env_id, wrapper):
+    """The same seed gives the JAX adapter's episode: its reset key, its
+    layout, and each step's agent order drawn from the state's key, so
+    every dict and every state field, ``rng`` included, is equal."""
     jad, ad = _pair(env_id, wrapper)
     jobs, jinfo = jad.reset(seed=7)
-    state = _carried(jad._state)
-    inner = ad.env.env if wrapper is not None else ad.env
-    monkeypatch.setattr(inner, 'reset', lambda generator=None, num_envs=1: (
-        inner.observe(state), state))
     obs, info = ad.reset(seed=7)
     _assert_dicts_equal(obs, jobs, 'reset')
     assert info == jinfo
-    order = {}
-    monkeypatch.setattr(env_module, 'sample_order', lambda *a: order['next'])
     for t, actions in enumerate(SCRIPT):
-        order['next'] = torch.as_tensor(np.array(
-            jax_sample_order(jax.random.split(jad._state.rng)[0], 2)))[None]
         jout = jad.step(actions)
         out = ad.step(actions)
         for k, (ours, theirs) in enumerate(zip(out, jout)):
@@ -105,6 +92,9 @@ def test_gym_adapter_dicts_match_jax(env_id, wrapper, monkeypatch):
         for k in FIELDS:
             np.testing.assert_array_equal(getattr(ad._state, k)[0].numpy(), getattr(want, k),
                                           err_msg=f't={t} {k}')
+        np.testing.assert_array_equal(ad._state.rng[0].numpy(),
+                                      np.asarray(jax.random.key_data(jad._state.rng)))
+
 
 
 def test_gym_adapter_api():

@@ -1,6 +1,7 @@
 """Checkpoints of the port (``multigrid_tpu_torch/utils/checkpoint.py``):
-a ``TrainState`` with extras, the reserve pool and both generators round
-trips; training resumes exactly (K updates, save, restore into freshly
+a ``TrainState`` with extras, the reserve pool and its keys (the envs',
+the pool slots' and the train state's) round trips; training resumes
+exactly (K updates, save, restore into freshly
 built objects, N - K more ≡ N straight, bit for bit on the CPU); a
 params-only restore crosses ``--lr-anneal``; mismatches raise the JAX
 package's "checkpoint/env-config mismatch" (multigrid_tpu/utils/checkpoint.py).
@@ -11,7 +12,7 @@ import os
 import pytest
 import torch
 
-from multigrid_tpu_torch.core.state import FIELDS
+from multigrid_tpu_torch.core.state import STATE_FIELDS
 from multigrid_tpu_torch.envs import make
 from multigrid_tpu_torch.learn import PPOConfig, linear_schedule, make_train_step, ppo_init
 from multigrid_tpu_torch.parallel import VectorEnv
@@ -38,7 +39,7 @@ def _setup(seed=0, e=4, encoder='mlp', hidden=16, schedule=True, max_steps=5):
 
 
 def _assert_env_equal(a, b):
-    for f in FIELDS:
+    for f in STATE_FIELDS:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert a.extras.keys() == b.extras.keys()
     for k in a.extras:
@@ -57,13 +58,13 @@ def _assert_same(a, b, venv_a, venv_b):
     assert (a.env_state.pool is None) == (b.env_state.pool is None)
     if a.env_state.pool is not None:
         assert a.env_state.pool.step == b.env_state.pool.step
+        assert torch.equal(a.env_state.pool.keys, b.env_state.pool.keys)
         _assert_env_equal(a.env_state.pool.reserve, b.env_state.pool.reserve)
     for k in a.last_obs:
         assert torch.equal(a.last_obs[k], b.last_obs[k]), k
     assert torch.equal(a.ep_return_acc, b.ep_return_acc)
     assert a.update_count == b.update_count
-    assert torch.equal(a.generator.get_state(), b.generator.get_state())
-    assert torch.equal(venv_a.generator.get_state(), venv_b.generator.get_state())
+    assert torch.equal(a.key, b.key)
 
 
 def test_round_trip_keeps_extras_pool_and_generators(tmp_path):
@@ -83,12 +84,11 @@ def test_resume_is_exact(tmp_path, encoder):
     """3 updates straight ≡ 1 update, a checkpoint, a restore into freshly
     built objects and 2 more: BUP with episodes of 5 steps, so resets come
     from the pool across the checkpoint, 2 epochs x 2 minibatches (the
-    shuffles draw the train state's generator) and an annealed rate."""
+    shuffles draw the train state's key) and an annealed rate."""
     venv, state, step = _setup(encoder=encoder)
     straight = state
     for _ in range(3):
         straight, _ = step(straight)
-    want_venv_gen = venv.generator.get_state()
 
     venv, state, step = _setup(encoder=encoder)
     state, _ = step(state)
@@ -98,8 +98,8 @@ def test_resume_is_exact(tmp_path, encoder):
     for _ in range(2):
         resumed, _ = step2(resumed)
     assert resumed.update_count == 3 and resumed.env_state.pool.step == 12
-    assert torch.equal(venv2.generator.get_state(), want_venv_gen)
     _assert_same(resumed, straight, venv2, venv2)
+
 
 
 def test_restore_params_crosses_lr_anneal(tmp_path):

@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from multigrid_tpu_torch.core.state import FIELDS
+from multigrid_tpu_torch.core.state import FIELDS, STATE_FIELDS
 from multigrid_tpu_torch.envs import make
 from multigrid_tpu_torch.ops import obs_cuda, step_cuda
 from multigrid_tpu_torch.ops.obs import gen_obs_batched_plain
 from multigrid_tpu_torch.parallel import VectorEnv
+from multigrid_tpu_torch.utils import prng
 
 from .test_torch_states import random_fields, to_torch
 
@@ -837,17 +838,18 @@ def test_policy_sample_kernel_takes_the_first_index_on_a_tie(cuda_device):
 def _state_to(state, device):
     """A batched state, extras and pool included, on ``device``."""
     from multigrid_tpu_torch.core.state import ResetPool
-    pool = state.pool and ResetPool(_state_to(state.pool.reserve, device), state.pool.step)
-    return state.replace(**{k: getattr(state, k).to(device) for k in FIELDS},
+    pool = state.pool and ResetPool(_state_to(state.pool.reserve, device), state.pool.step,
+                                    None if state.pool.keys is None else state.pool.keys.to(device))
+    return state.replace(**{k: getattr(state, k).to(device) for k in STATE_FIELDS},
                          extras={k: v.to(device) for k, v in state.extras.items()}, pool=pool)
 
 
 def test_pool_consumption_on_the_card_matches_the_cpu(cuda_device):
-    """BUP, 64 envs, episodes of 3 steps, from the same state and reserve
-    on both devices, the same actions and orders, ``refresh=False``: every
-    step's state (fields, extras, pool step) and observations equal the
-    CPU path's, three rounds of resets from the reserve included."""
-    from multigrid_tpu_torch.ops.step import sample_order
+    """BUP, 64 envs, episodes of 3 steps, from the same state, keys and
+    reserve on both devices, the same actions, ``refresh=False``: every
+    step's state (fields with the keys, extras, pool step) and observations
+    equal the CPU path's, the orders drawn from the keys (R2 on the card),
+    three rounds of resets from the reserve included."""
     env_id, e = 'MultiGrid-BlockedUnlockPickup-v0', 64
     cpu = VectorEnv(make(env_id, agents=2, max_steps=3, device='cpu'), e, packed_obs=True)
     card = VectorEnv(make(env_id, agents=2, max_steps=3, device=cuda_device), e,
@@ -859,12 +861,10 @@ def test_pool_consumption_on_the_card_matches_the_cpu(cuda_device):
     dones = 0
     for t in range(9):
         actions = torch.randint(0, 7, (e, 2), generator=g)
-        order = sample_order(g, e, 2, 'cpu')
-        obs, state, *_, done, _ = cpu.step(state, actions, order=order, refresh=False)
-        gobs, gstate, *_, gdone, _ = card.step(gstate, actions.to(cuda_device),
-                                              order=order.to(cuda_device), refresh=False)
+        obs, state, *_, done, _ = cpu.step(state, actions, refresh=False)
+        gobs, gstate, *_, gdone, _ = card.step(gstate, actions.to(cuda_device), refresh=False)
         assert torch.equal(gdone.cpu(), done) and torch.equal(gobs['image'].cpu(), obs['image'])
-        for k in FIELDS:
+        for k in STATE_FIELDS:
             assert torch.equal(getattr(gstate, k).cpu(), getattr(state, k)), (t, k)
         for k, v in state.extras.items():
             assert torch.equal(gstate.extras[k].cpu(), v), (t, k)
@@ -924,10 +924,11 @@ def test_resume_on_the_card_is_exact(cuda_device, tmp_path):
     resumed, _ = step2(restore_checkpoint(path, fresh, venv2))
     for k in straight.params:
         assert torch.equal(resumed.params[k], straight.params[k]), k
-    for k in FIELDS:
+    for k in STATE_FIELDS:
         assert torch.equal(getattr(resumed.env_state, k), getattr(straight.env_state, k)), k
     assert torch.equal(resumed.env_state.pool.reserve.grid, straight.env_state.pool.reserve.grid)
-    assert torch.equal(venv2.generator.get_state(), venv.generator.get_state())
+    assert torch.equal(resumed.env_state.pool.keys, straight.env_state.pool.keys)
+    assert torch.equal(resumed.key, straight.key)
 
 
 # ------------------------------------------------ the user-facing surface
@@ -949,10 +950,9 @@ def _obs_equal(a, b):
 def test_wrapped_vector_env_on_the_card_matches_the_cpu(cuda_device, name):
     """BUP on the pool under each wrapper, 64 envs, episodes of 3 steps,
     from the same state and reserve on both devices, the same actions and
-    orders, ``refresh=False``: every step's wrapped observations equal the
-    CPU path's, one obs launch a step."""
+    orders (drawn from the same keys), ``refresh=False``: every step's
+    wrapped observations equal the CPU path's, one obs launch a step."""
     from multigrid_tpu_torch import wrappers
-    from multigrid_tpu_torch.ops.step import sample_order
     env_id, e = 'MultiGrid-BlockedUnlockPickup-v0', 64
     cpu, card = (VectorEnv(getattr(wrappers, name)(make(env_id, agents=2, max_steps=3,
                                                         device=d)), e)
@@ -964,11 +964,9 @@ def test_wrapped_vector_env_on_the_card_matches_the_cpu(cuda_device, name):
     dones = 0
     for t in range(9):
         actions = torch.randint(0, 7, (e, 2), generator=g)
-        order = sample_order(g, e, 2, 'cpu')
-        obs, state, *_, done, _ = cpu.step(state, actions, order=order, refresh=False)
+        obs, state, *_, done, _ = cpu.step(state, actions, refresh=False)
         launches = obs_cuda.launches
-        gobs, gstate, *_ = card.step(gstate, actions.to(cuda_device),
-                                     order=order.to(cuda_device), refresh=False)
+        gobs, gstate, *_ = card.step(gstate, actions.to(cuda_device), refresh=False)
         assert obs_cuda.launches == launches + 1
         assert _obs_equal(_obs_to(gobs, 'cpu'), obs), t
         dones += int(done.sum())
@@ -1017,7 +1015,8 @@ def test_sharded_training_on_the_card_matches_one_process(cuda_device, backend, 
     NCCL in a world of one equals the plain path; two gloo processes
     sharing the card (NCCL refuses two on one card) match one process at
     rtol 1e-4 with the first rollout bit-equal. Each process launches B1 T,
-    B2 T + 1 and B4 once an update."""
+    B2 T + 1 and B4 once an update, R2 once a rollout step and R1 twice
+    (the key's split and the Gumbel noise of its rows)."""
     from multigrid_tpu_torch.parallel.dryrun import assert_consistent, ppo_run, spawn
 
     kw = dict(num_envs=512, updates=2, env_id='MultiGrid-Empty-16x16-v0', agents=4,
@@ -1029,14 +1028,16 @@ def test_sharded_training_on_the_card_matches_one_process(cuda_device, backend, 
     for res in sharded:
         assert res['launches'] == {'obs': 8, 'obs_general': 0, 'onehot_linear': 10,
                                    'onehot_linear_grad': 0, 'ppo_loss': 2,
-                                   'policy_sample': 0, 'step': 8}
+                                   'policy_sample': 0, 'step': 8, 'threefry': 16,
+                                   'step_draws': 8}
 
 
 def test_model_axis_gate_on_the_card_is_one_process(cuda_device):
     """``dryrun_multichip(2)`` on the card, two gloo processes sharing it:
     the JAX gate's (1, 2) mesh and cnn, each process holding half of
     Dense_0's columns, bit for bit against one process; B1 T an update
-    a process (the cnn launches no other kernel)."""
+    a process, R2 once a step and R1 twice (the cnn launches no other
+    kernel)."""
     from multigrid_tpu_torch.parallel.dryrun import assert_consistent, dryrun_multichip
 
     sharded, single = dryrun_multichip(2, backend='gloo', device='cuda', timeout=300)
@@ -1046,14 +1047,14 @@ def test_model_axis_gate_on_the_card_is_one_process(cuda_device):
         assert res['encoder'] == 'cnn'
         assert res['launches'] == {'obs': 6, 'obs_general': 0, 'onehot_linear': 0,
                                    'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0,
-                                   'step': 6}
+                                   'step': 6, 'threefry': 12, 'step_draws': 6}
 
 
 
 # ----------------------------------------- CUDA graphs against the eager loop
 
 def _states_equal(a, b):
-    for f in FIELDS:
+    for f in STATE_FIELDS:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert a.extras.keys() == b.extras.keys()
     for k in a.extras:
@@ -1061,6 +1062,7 @@ def _states_equal(a, b):
     assert (a.pool is None) == (b.pool is None)
     if a.pool is not None:
         assert torch.equal(a.pool.step, b.pool.step)
+        assert torch.equal(a.pool.keys, b.pool.keys)
         _states_equal(a.pool.reserve, b.pool.reserve)
 
 
@@ -1083,16 +1085,15 @@ def test_graphed_rollout_random_equals_eager(cuda_device, env_id, agents, steps)
         with contextlib.nullcontext() if graphed else disable_graphs():
             assert venv.graphed() == graphed
             launches = obs_cuda.launches, step_cuda.launches
-            state, summary = venv.rollout_random(state, steps)
+            state, summary = venv.rollout_random(state, 4, steps)
             assert (obs_cuda.launches, step_cuda.launches) == (launches[0] + steps,
                                                                launches[1] + steps)
-            state, summary = venv.rollout_random(state, steps)
-        runs.append((state, summary, venv.observe(state), venv.generator.get_state()))
-    (a, sa, oa, ga), (b, sb, ob, gb) = runs
+            state, summary = venv.rollout_random(state, 5, steps)
+        runs.append((state, summary, venv.observe(state)))
+    (a, sa, oa), (b, sb, ob) = runs
     _states_equal(a, b)
     assert all(torch.equal(sa[k], sb[k]) for k in sa), (sa, sb)
     assert all(torch.equal(oa[k], ob[k]) for k in oa)
-    assert torch.equal(ga, gb)
 
 
 @pytest.mark.parametrize('fused', [False, True], ids=['default', 'fused-policy'])
@@ -1140,6 +1141,7 @@ def test_graphed_train_updates_equal_eager(cuda_device, fused, monkeypatch):
     assert torch.equal(a.opt_state.schedule_count, b.opt_state.schedule_count)
     _states_equal(a.env_state, b.env_state)
     assert torch.equal(a.ep_return_acc, b.ep_return_acc)
+    assert torch.equal(a.key, b.key)
     for x, y in ((fa, fb), (ma, mb)):
         for k in x:
             assert torch.equal(x[k], y[k]) or (x[k].isnan() and y[k].isnan()), k
@@ -1232,8 +1234,8 @@ def test_nccl_mesh_graphed_updates_equal_eager_and_one_process(nccl_world, repla
     agents, 4096 envs, mlp 128 on packed cells, T 16) on an NCCL mesh,
     replaying one graph an update with the collectives inside ≡ the same
     under ``disable_graphs()`` ≡ one process's graphed updates: parameters,
-    Adam's state, the env state, the metrics and the generators bit for
-    bit; the launches B1 48, B2 51, B4 3 in each."""
+    Adam's state, the env state with its keys, the metrics and the
+    learner's key bit for bit; the launches B1 48, B2 51, B4 3 in each."""
     from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
     from multigrid_tpu_torch.ops import launch_counts, zero_launch_counts
     from multigrid_tpu_torch.parallel import make_mesh
@@ -1253,12 +1255,13 @@ def test_nccl_mesh_graphed_updates_equal_eager_and_one_process(nccl_world, repla
             state, rows = step.run(state, 3)
             counts = launch_counts()
         assert len(replays) == (3 if graphed else 0) and len(step._graphs) == int(graphed)
+        # R1: split and Gumbel noise a rollout step; R2 once a step.
         assert counts == {'obs': 48, 'obs_general': 0, 'onehot_linear': 51,
                           'onehot_linear_grad': 0, 'ppo_loss': 3, 'policy_sample': 0,
-                          'step': 48}, counts
-        runs.append((state, rows, venv.generator.get_state()))
-    a, rows_a, gen_a = runs[-1]
-    for b, rows_b, gen_b in runs[:-1]:
+                          'step': 48, 'threefry': 96, 'step_draws': 48}, counts
+        runs.append((state, rows))
+    a, rows_a = runs[-1]
+    for b, rows_b in runs[:-1]:
         for k in a.params:
             assert torch.equal(a.params[k], b.params[k]), k
             assert torch.equal(a.opt_state.mu[k], b.opt_state.mu[k]), k
@@ -1269,8 +1272,7 @@ def test_nccl_mesh_graphed_updates_equal_eager_and_one_process(nccl_world, repla
         for x, y in zip(rows_a, rows_b):
             for k in x:
                 assert torch.equal(x[k], y[k]) or (x[k].isnan() and y[k].isnan()), k
-        assert torch.equal(a.generator.get_state(), b.generator.get_state())
-        assert torch.equal(gen_a, gen_b)
+        assert torch.equal(a.key, b.key)
 
 
 def test_nccl_mesh_rollout_and_step_replay_graphs(nccl_world, replays):
@@ -1289,18 +1291,17 @@ def test_nccl_mesh_rollout_and_step_replay_graphs(nccl_world, replays):
         with contextlib.nullcontext() if graphed else disable_graphs():
             assert venv.graphed() == graphed
             replays.clear()
-            state, summary = venv.rollout_random(state, 40)
+            state, summary = venv.rollout_random(state, 4, 40)
             actions = torch.randint(0, 7, (4096, 2), generator=gen, device=nccl_world)
             obs, state, *rest = venv.step(state, actions)
         assert len(replays) == (2 + 8 + 1 if graphed else 0)
-        runs.append((state, summary, obs, rest, venv.generator.get_state()))
-    (a, sa, oa, ra, ga) = runs[-1]
-    for b, sb, ob, rb, gb in runs[:-1]:
+        runs.append((state, summary, obs, rest))
+    (a, sa, oa, ra) = runs[-1]
+    for b, sb, ob, rb in runs[:-1]:
         _states_equal(a, b)
         assert all(torch.equal(sa[k], sb[k]) for k in sa), (sa, sb)
         assert all(torch.equal(oa[k], ob[k]) for k in oa)
         assert all(torch.equal(x, y) for x, y in zip(ra, rb))
-        assert torch.equal(ga, gb)
 
 
 def test_graphed_evaluate_and_probe_equal_eager(cuda_device, tmp_path, replays):
@@ -1337,3 +1338,65 @@ def test_graphed_evaluate_and_probe_equal_eager(cuda_device, tmp_path, replays):
     assert runs[0] == runs[1]
     assert runs[0][2]['obs'] == 3 * 257 + 2  # and the two resets
     assert runs[0][2]['step'] == 3 * 256
+
+
+# ------------------------------------------------ the keyed draws (R1, R2)
+
+
+@pytest.mark.parametrize('mode', [prng.PAIR, prng.BITS, prng.UNIFORM, prng.GUMBEL,
+                                  prng.RANDINT])
+@pytest.mark.parametrize('k,count,offset', [(4096, 2, 0), (1, 16384, 0), (1, 16384, 16384),
+                                            (16387, 4, 2**32 + 3), (37, 1024, 5)])
+def test_threefry_kernel_matches_plain(cuda_device, mode, k, count, offset):
+    """R1 ≡ its plain version, both on the card, ``torch.equal``, in every
+    mode, with offsets (a process's rows, an index past 2**32), one launch
+    a call."""
+    from multigrid_tpu_torch.ops import prng_cuda
+    keys = prng.split(prng.key(k + count, cuda_device), k)
+    spans = torch.tensor([7, 4, 1000, 0], device=cuda_device)
+    kw = dict(spans=spans, minval=-2, fmin=-1.0, fmax=2.5)
+    launches = prng_cuda.launches
+    got = prng_cuda.draw(keys, count, offset, mode, **kw)
+    assert prng_cuda.launches == launches + 1
+    assert torch.equal(got, prng.draw_plain(keys, count, offset, mode, **kw))
+
+
+def test_threefry_kernel_reads_its_offset_on_the_device(cuda_device):
+    """``fold_in`` by a 0-d device tensor (the pool's step), in a CUDA graph
+    replayed after the step changed: the draw follows the device value."""
+    from multigrid_tpu_torch.utils.graphs import Graph
+    keys = prng.split(prng.key(3, cuda_device), 64)
+    step = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    graph = Graph(lambda s: prng.fold_in(keys, s), step)
+    for g in (0, 5, 2**31 + 7):
+        step.fill_(g)
+        assert torch.equal(graph.replay(), prng.fold_in(keys.cpu(), g).to(cuda_device))
+
+
+@pytest.mark.parametrize('mode', [prng.STEP_ONLY, prng.STEP_EXACT, prng.STEP_POOL])
+@pytest.mark.parametrize('e,n', [(4096, 4), (4096, 2), (16387, 4), (2048, 64), (33, 1)])
+def test_step_draws_kernel_matches_plain(cuda_device, mode, e, n):
+    """R2 ≡ its plain version on the card, ``torch.equal`` (orders with
+    ties at 64 agents, keys), one launch a call; and ≡ the CPU's."""
+    from multigrid_tpu_torch.ops import prng_cuda
+    rng = prng.split(prng.key(e + n, cuda_device), e)
+    launches = prng_cuda.step_launches
+    got = prng_cuda.step_draws(rng, n, mode)
+    assert prng_cuda.step_launches == launches + 1
+    for g, w, c in zip(got, prng.step_draws_plain(rng, n, mode),
+                       prng.step_draws_plain(rng.cpu(), n, mode)):
+        assert (g is None) == (w is None) == (c is None)
+        if g is not None:
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+    with pytest.raises(ValueError):
+        prng_cuda.step_draws(rng, prng.MAX_STEP_AGENTS + 1, mode)
+
+
+def test_streams_on_the_card_are_the_jax_packages(cuda_device):
+    """The runs of ``tests/torch_jax_streams.json`` on the card: every
+    step's digest the JAX package's (the file's)."""
+    from . import torch_streams
+    want = torch_streams.load()['runs']
+    for name in torch_streams.RUNS:
+        got = torch_streams.port_run(name, cuda_device)
+        assert got['steps'] == want[name]['steps'], name

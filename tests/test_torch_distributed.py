@@ -8,7 +8,7 @@ run of it:
 
 - rollouts bit for bit (the counterpart of tests/test_multichip.py:41-56 and
   :59-75): grids, observations, rewards and dones, with actions fixed and
-  drawn from the generator, on Empty and on BlockedUnlockPickup's reserve
+  drawn from a key, on Empty and on BlockedUnlockPickup's reserve
   pool;
 - PPO updates at ``rtol=1e-4, atol=1e-6`` (the JAX gate's tolerance,
   __graft_entry__.py:122-127) with the first rollout's integer checksums
@@ -17,8 +17,8 @@ run of it:
   the global shapes and resumed bit for bit on two.
 
 No JAX train step is compiled: the single-process port is held to the JAX
-package by tests/test_torch_ppo.py. ``dryrun_multichip(2)`` spawns its own
-processes; ``train --mesh`` runs here as a world of one.
+package by tests/test_torch_ppo.py. ``dryrun_multichip(2)`` and ``(4)``
+spawn their own processes; ``train --mesh`` runs here as a world of one.
 """
 
 import json
@@ -43,6 +43,7 @@ from multigrid_tpu_torch.parallel import (
     shard_batch,
 )
 from multigrid_tpu_torch.parallel.dryrun import (
+    GRADIENT_RTOL,
     assert_consistent,
     dryrun_multichip,
     ppo_run,
@@ -213,6 +214,20 @@ def test_dryrun_multichip_on_two_processes():
     assert sharded[0]['agent_steps'] == 3 * 2 * 32 * 4
     assert [r['mesh_shape'] for r in sharded] == [[1, 2], [1, 2]]
     assert {r['encoder'] for r in sharded} == {single['encoder']} == {'cnn'}
+    # One env shard: the same gradients, so the same parameters bit for bit.
+    assert single['gradient_error'] == [0.0, 0.0, 0.0]
+    assert single['params_digests'] == sharded[0]['params_digests']
+
+
+def test_dryrun_multichip_on_four_processes():
+    """The JAX gate on a (2, 2) mesh: every rollout bit-equal to one
+    process that starts each update from the sharded run's parameters, the
+    metrics at rtol 1e-4 and Adam's moments within ``GRADIENT_RTOL``."""
+    sharded, single = dryrun_multichip(4, device='cpu', num_envs_per_proc=16,
+                                       timeout=TIMEOUT)
+    assert [r['mesh_shape'] for r in sharded] == [[2, 2]] * 4
+    assert sharded[0]['rollouts'] == single['rollouts'] and len(single['rollouts']) == 3
+    assert max(single['gradient_error']) < GRADIENT_RTOL
 
 
 def test_probe_classification_is_the_jax_scripts():

@@ -5,9 +5,10 @@ procedural zoo: BlockedUnlockPickup, RedBlueDoors, LockedHallway,
 Playground) replays
 bit-exactly through the port's ``ParityRunner`` on the CPU (images,
 directions, terminations, truncations; rewards to float32 rounding as in
-tests/test_parity_empty.py). The speed-mode reset draws from a
-``torch.Generator`` and cannot match ``jax.random``, so invariant tests
-cover it.
+tests/test_parity_empty.py). Invariant tests cover the speed-mode reset
+here; tests/test_torch_streams.py holds it bit-equal to the JAX package's
+from the same key.
+
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from multigrid_tpu_torch.core.constants import TYPE_EMPTY, TYPE_GOAL, TYPE_WALL
 from multigrid_tpu_torch.envs import CONFIGURATIONS, make
 from multigrid_tpu_torch.envs.parity import ParityRunner
 from multigrid_tpu_torch.parallel import VectorEnv
+from multigrid_tpu_torch.utils import prng
 
 from .ref_loader import GoldenReference
 
@@ -102,8 +104,8 @@ def test_random_reset_invariants(env_id, agents):
     """Speed-mode random starts: agents on distinct free cells inside the
     walls, directions in 0..3, layouts untouched, reproducible per seed."""
     env = make(env_id, agents=agents, device='cpu')
-    g = torch.Generator().manual_seed(0)
-    state = env.reset_core(512, g)
+    keys = prng.split(prng.key(0), 512)
+    state = env.reset_core(keys)
     pos = state.agent_pos.numpy()
     grid = state.grid.numpy()
     e = np.arange(512)[:, None]
@@ -116,7 +118,7 @@ def test_random_reset_invariants(env_id, agents):
     # Every free cell is drawn: uniform over the free interior.
     free = (env._layout[..., 0] == TYPE_EMPTY).sum()
     assert len({tuple(p) for p in pos[:, 0]}) == free
-    again = env.reset_core(512, torch.Generator().manual_seed(0))
+    again = env.reset_core(prng.split(prng.key(0), 512))
     assert torch.equal(again.agent_pos, state.agent_pos)
     assert torch.equal(again.agent_dir, state.agent_dir)
 
@@ -137,9 +139,8 @@ def test_scripted_goal_reach_single_env():
     forward reaches the goal on step 5 with reward 1 - 0.9·5/100."""
     env = make('MultiGrid-Empty-5x5-v0', agents=1, device='cpu')
     _, state = env.reset()
-    g = torch.Generator().manual_seed(0)
     for t, a in enumerate([2, 2, 1, 2, 2]):
-        _, state, rew, term, trunc = env.step(state, [[a]], g)
+        _, state, rew, term, trunc = env.step(state, [[a]])
         assert bool(term[0, 0]) == (t == 4)
     assert rew[0, 0].item() == np.float32(1.0 - 0.9 * 5 / 100)
     assert env.success(state).tolist() == [True]
@@ -153,8 +154,9 @@ def test_vector_random_start_auto_reset():
     venv = VectorEnv(env, 16)
     _, state = venv.reset(seed=3)
     episodes = 0
+    g = torch.Generator().manual_seed(3)
     for _ in range(12):
-        acts = torch.randint(0, 7, (16, 2), generator=venv.generator)
+        acts = torch.randint(0, 7, (16, 2), generator=g)
         _, state, _, _, _, done, _ = venv.step(state, acts)
         episodes += int(done.sum())
         assert (state.step_count <= 5).all()

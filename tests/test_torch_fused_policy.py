@@ -99,7 +99,6 @@ def test_fused_rollout_matches_unfused(monkeypatch):
     state, net, config, tx = ppo.ppo_init(venv, 0, config=ppo.PPOConfig(rollout_steps=4),
                                           hidden=32, dtype=torch.float32,
                                           net_kwargs=dict(encoder='mlp'))
-    gens = state.generator.get_state(), venv.generator.get_state()
     plain = ppo.make_train_step(venv, net, config, tx)
     monkeypatch.setenv('MULTIGRID_FUSED_POLICY', '1')
     fused = ppo.make_train_step(venv, net, config, tx)
@@ -109,11 +108,8 @@ def test_fused_rollout_matches_unfused(monkeypatch):
         assert not ppo.make_train_step(venv, net, config.replace(**kw), tx).fused_policy
     runs = []
     for step in (fused, plain):
-        state.generator.set_state(gens[0])
-        venv.generator.set_state(gens[1])
+        # The keys are the state's: each run starts from the same ones.
         runs.append(step.rollout_phase(state)[1])
-        state.generator.set_state(gens[0])
-        venv.generator.set_state(gens[1])
         runs.append(step(state)[1])
     (traj_f, m_f), (traj_p, m_p) = runs[:2], runs[2:]
     assert torch.equal(traj_f.action, traj_p.action)

@@ -29,7 +29,7 @@ import optax
 import pytest
 import torch
 
-from multigrid_tpu_torch.core.state import FIELDS, ResetPool
+from multigrid_tpu_torch.core.state import STATE_FIELDS, ResetPool
 from multigrid_tpu_torch.envs import CONFIGURATIONS, make
 from multigrid_tpu_torch.learn import PPOConfig, linear_schedule, make_train_step, ppo_init
 from multigrid_tpu_torch.learn.ppo import Optimizer
@@ -37,6 +37,7 @@ from multigrid_tpu_torch.ops import fused_ppo
 from multigrid_tpu_torch.parallel import VectorEnv
 from multigrid_tpu_torch.utils import graphs
 from multigrid_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from multigrid_tpu_torch.utils import prng
 
 from . import torch_capture
 from .torch_capture import assert_capturable as _assert_capturable
@@ -59,7 +60,7 @@ def record():
 def _random_carry(venv, seed):
     _, state = venv.reset(seed=seed)
     zero = torch.zeros((), dtype=torch.int64)
-    return state, (torch.zeros(()), zero, zero.clone())
+    return state, prng.key(seed + 1), (torch.zeros(()), zero, zero.clone())
 
 
 def test_rollout_step_body_is_capturable(record):
@@ -122,12 +123,12 @@ def test_env_reset_and_step_are_capturable(record):
     """``MultiGridEnv.reset`` and ``step`` (the single-call graphs that the
     adapters replay), on BUP with an action mask."""
     env = make(BUP, agents=2, device='cpu')
-    gen = torch.Generator().manual_seed(0)
-    _assert_capturable(record(lambda: env._reset(gen, 1)), 'reset')
-    _, state = env.reset(gen)
+    keys = env.keys(0)
+    _assert_capturable(record(lambda: env._reset(keys)), 'reset')
+    _, state = env.reset(keys)
     mask = torch.tensor([[True, False]])
     actions = torch.tensor([[2, 0]], dtype=torch.int32)
-    body = _chain(lambda s: env._step(s, actions, mask, gen)[1], state)
+    body = _chain(lambda s: env._step(s, actions, mask)[1], state)
     _assert_capturable(record(body), 'step')
 
 
@@ -188,7 +189,7 @@ def test_trees_flatten_load_and_clone():
     _, other = venv.reset(seed=1)
     buffers = graphs.clone(tree)
     graphs.load(buffers, (other, opt, None, {'x': torch.zeros(2)}))
-    for f in FIELDS:
+    for f in STATE_FIELDS:
         assert torch.equal(getattr(buffers[0], f), getattr(other, f)), f
     assert torch.equal(buffers[0].pool.reserve.grid, other.pool.reserve.grid)
     assert not buffers[3]['x'].any()
@@ -242,7 +243,8 @@ def test_pool_slots_on_the_device_match_jax_over_a_period(e, period, chunk):
         got = venv.consume(ResetPool(tagged, torch.tensor(g))).grid[:, 0, 0, 0].tolist()
         want = np.asarray(jnp.roll(jnp.arange(e), -(g % e))).tolist()
         assert got == want, (g, got, want)
-        new = venv._refresh(ResetPool(blank, torch.tensor(g)), chunk).reserve.grid
+        new = venv._refresh(ResetPool(blank, torch.tensor(g), state.pool.keys),
+                            chunk).reserve.grid
         changed = (new != -1).flatten(1).any(1).numpy()
         c = min(e, max(1, -(-e // period)) * chunk)
         cursor = g if chunk == 1 else g // chunk
@@ -309,12 +311,12 @@ def test_checkpoint_with_int_counts_resumes_exactly(tmp_path):
         assert int(resumed.opt_state.count) == 4 and int(resumed.env_state.pool.step) == 4
         for _ in range(2):
             resumed, _ = step2(resumed)
-        results.append((resumed, venv2.generator.get_state()))
-    (a, ga), (b, gb) = results
-    assert torch.equal(ga, gb)
+        results.append(resumed)
+    a, b = results
+    assert torch.equal(a.key, b.key)
     for k in a.params:
         assert torch.equal(a.params[k], b.params[k]), k
     assert int(a.opt_state.count) == int(b.opt_state.count) == 12
-    for f in FIELDS:
+    for f in STATE_FIELDS:
         assert torch.equal(getattr(a.env_state, f), getattr(b.env_state, f)), f
     assert os.path.exists(old)

@@ -35,11 +35,12 @@ from multigrid_tpu_torch import probe_random_success
 from multigrid_tpu_torch.core.actions import NUM_ACTIONS
 from multigrid_tpu_torch.envs import make
 from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
-from multigrid_tpu_torch.learn.ppo import gumbel_noise, sample_actions
+from multigrid_tpu_torch.learn.ppo import sample_actions
 from multigrid_tpu_torch.parallel import VectorEnv, distributed, make_mesh
 from multigrid_tpu_torch.parallel.dryrun import assert_consistent, ppo_run, spawn
 from multigrid_tpu_torch.utils import graphs
 from multigrid_tpu_torch.utils.checkpoint import restore_params, save_checkpoint
+from multigrid_tpu_torch.utils import prng
 
 from . import torch_capture
 from . import torch_mesh_graphs_worker as worker
@@ -173,8 +174,9 @@ def _eval_args(path, iterations=2):
 
 def test_evaluate_gives_its_eager_loops_results(tmp_path, capsys, short_iterations):
     """``evaluate`` (BUP on the reserve pool, 2 iterations) ≡ its loop as
-    it ran before its steps became a graph's body: each step's actor,
-    Gumbel draw, step and sums, then the pool's refresh."""
+    it ran before its steps became a graph's body: each iteration's key,
+    each step's split of it, actor, Gumbel draw, step and sums, then the
+    pool's refresh (scripts/evaluate.py:111-148's key chain)."""
     path = _checkpoint(tmp_path)
     got = evaluate_cli.main(_eval_args(path))
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == got
@@ -185,16 +187,18 @@ def test_evaluate_gives_its_eager_loops_results(tmp_path, capsys, short_iteratio
                                     net_kwargs=dict(hidden=16, encoder='mlp'))
     params = restore_params(path, tmp.params)
     step = make_train_step(venv, net, config, tx)
-    generator = torch.Generator().manual_seed(args.seed + 1)
-    _, state = venv.reset(seed=args.seed + 1)
+    key, rk = prng.split(prng.key(args.seed + 1)).unbind(0)
+    _, state = venv.reset(rk)
     total = [0.0, 0.0, 0.0]
     for _ in range(2):
+        key, k = prng.split(key).unbind(0)
         obs = venv.observe(state)
         ep_acc, acc = torch.zeros(8), [torch.zeros((), dtype=torch.int64),
                                        torch.zeros((), dtype=torch.int64), torch.zeros(())]
         for _ in range(evaluate_cli.STEPS_PER_ITER):
+            k, ka = prng.split(k).unbind(0)
             logits, _ = step.actor(params, obs['image'], obs['direction'], obs.get('mission'))
-            action = sample_actions(logits, gumbel_noise(logits.shape, generator, 'cpu'))
+            action = sample_actions(logits, prng.gumbel(ka, logits.shape))
             obs, state, rew, _, _, done, success = venv.step(state, action, refresh=False)
             ep_acc = ep_acc + rew.sum(-1)
             acc[0] += done.sum()
@@ -215,11 +219,12 @@ def test_probe_gives_its_eager_loops_results():
     loop as it ran before its step became a graph's body."""
     got = probe_random_success.probe('MultiGrid-RedBlueDoors-6x6-v0', 2, 16, 40, 3, 'cpu')
     venv = VectorEnv(make('MultiGrid-RedBlueDoors-6x6-v0', agents=2, device='cpu'), 16)
-    _, state = venv.reset(seed=3)
+    rk, key = prng.split(prng.key(3)).unbind(0)
+    _, state = venv.reset(rk)
     counts = torch.zeros(3, dtype=torch.int64)
     for _ in range(40):
-        actions = torch.randint(0, NUM_ACTIONS, (16, 2), generator=venv.generator,
-                                dtype=torch.int32)
+        key, ak = prng.split(key).unbind(0)
+        actions = prng.randint(ak, (16, 2), 0, NUM_ACTIONS)
         _, state, _, term, trunc, done, success = venv.step(state, actions)
         counts += torch.stack(probe_random_success.classify(done, success, term, trunc))
     succ, fail, trunc_n = counts.tolist()
@@ -236,12 +241,11 @@ def test_evaluate_iteration_and_probe_step_are_capturable(tmp_path, short_iterat
     venv = VectorEnv(make(BUP, agents=2, device='cpu', max_steps=20), 8, packed_obs=True)
     tmp, net, config, tx = ppo_init(venv, 0, hidden=16, net_kwargs=dict(encoder='mlp'))
     step = make_train_step(venv, net, config, tx)
-    params, generator = restore_params(path, tmp.params), torch.Generator().manual_seed(1)
-    run = torch_capture.chain(lambda c: evaluate_cli.scan_step(step, params, generator, c),
-                              evaluate_cli.start(venv, tmp.env_state))
+    params = restore_params(path, tmp.params)
+    run = torch_capture.chain(lambda c: evaluate_cli.scan_step(step, params, c),
+                              evaluate_cli.start(venv, tmp.env_state, prng.key(1)))
     torch_capture.assert_capturable(torch_capture.record(run), 'evaluate step')
     probe_venv = VectorEnv(make(BUP, agents=2, device='cpu', max_steps=6), 8)
-    carry = (probe_venv.reset(seed=0)[1], torch.zeros(3, dtype=torch.int64))
+    carry = (probe_venv.reset(seed=0)[1], prng.key(2), torch.zeros(3, dtype=torch.int64))
     body = torch_capture.chain(lambda c: probe_random_success.scan_step(probe_venv, c), carry)
     torch_capture.assert_capturable(torch_capture.record(body), 'probe step')
-

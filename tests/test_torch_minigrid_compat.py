@@ -28,7 +28,7 @@ from multigrid_tpu_torch.core.constants import (
     TYPE_KEY,
     Color,
 )
-from multigrid_tpu_torch.core.state import FIELDS, state_to_numpy
+from multigrid_tpu_torch.core.state import FIELDS, STATE_FIELDS, state_to_numpy
 from multigrid_tpu_torch.parallel import VectorEnv
 from multigrid_tpu_torch.utils.minigrid_builder import (
     Door,
@@ -38,6 +38,7 @@ from multigrid_tpu_torch.utils.minigrid_builder import (
     MiniGridCompatEnv,
 )
 from multigrid_tpu_torch.utils.minigrid_interface import MiniGridInterface
+from multigrid_tpu_torch.utils import prng
 
 from .test_minigrid_compat import DoorKeyEnv as JaxDoorKeyEnv
 
@@ -250,17 +251,20 @@ def test_rand_color_is_name(env):
 
 
 def test_reset_core_draws_each_env_from_the_generator():
-    """Each env's numpy stream is seeded by a draw of the generator: the
-    same generator state gives the same batch, and env i of the batch is
-    :meth:`build_layout` of the i-th draw, uploaded in one state."""
+    """Each env's numpy stream is seeded with its key's two words (as the
+    JAX builder seeds it from the key's data): the same keys give the same
+    batch, env i of the batch is :meth:`build_layout` of key i's stream,
+    uploaded in one state, and its ``rng`` the second key of
+    ``split(key)``."""
     env = DoorKeyEnv(size=8, device='cpu')
-    a = env.reset_core(4, torch.Generator().manual_seed(9))
-    b = env.reset_core(4, torch.Generator().manual_seed(9))
+    keys = prng.split(prng.key(9), 4)
+    a = env.reset_core(keys)
+    b = env.reset_core(prng.split(prng.key(9), 4))
     assert a.grid.shape == (4, 8, 8, 3) and a.agent_pos.shape == (4, 1, 2)
-    for k in FIELDS:
+    for k in STATE_FIELDS:
         assert torch.equal(getattr(a, k), getattr(b, k)), k
-    seeds = torch.randint(0, 2**62, (4,), generator=torch.Generator().manual_seed(9)).tolist()
-    for i, s in enumerate(seeds):
+    assert torch.equal(a.rng, prng.split(keys)[:, 1])
+    for i, s in enumerate(keys.tolist()):
         layout = env.build_layout(np.random.default_rng(s))
         np.testing.assert_array_equal(a.grid[i].numpy(), layout['grid'])
         np.testing.assert_array_equal(a.agent_pos[i].numpy(), layout['agent_pos'])

@@ -29,6 +29,7 @@ from multigrid_tpu_torch.learn import ppo
 from multigrid_tpu_torch.learn.nets import ActorCritic, CentralizedCritic, params_from_flax
 from multigrid_tpu_torch.ops import fused_ppo
 from multigrid_tpu_torch.parallel import VectorEnv
+from multigrid_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -251,8 +252,8 @@ def test_fused_policy_takes_fourteen_features(monkeypatch):
     obs = state.last_obs
     outs = []
     for step in (fused, plain):
-        g = torch.Generator().manual_seed(5)
-        outs.append(step.policy_step(state.params, step.prepare_policy(state.params), obs, g))
+        outs.append(step.policy_step(state.params, step.prepare_policy(state.params), obs,
+                                     prng.key(5)))
     assert torch.equal(outs[0][0], outs[1][0])
     for a, b in zip(outs[0][1:], outs[1][1:]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -119,8 +119,8 @@ def test_grid_run_matches_one_process(four_procs, encoder):
     single = ppo_run(**worker.RUNS[encoder], sharded=False)
     runs = [res['grid'][encoder] for res in four_procs[0]]
     assert all(r['mesh_shape'] == [2, 2] and r['process_count'] == 2 for r in runs)
-    assert assert_consistent(runs, single, f'(2, 2) {encoder}') == \
-        {'compared_updates': 3, 'first_flip': None}
+    assert len(single['rollouts']) == 3
+    assert_consistent(runs, single, f'(2, 2) {encoder}')
 
 
 @pytest.mark.parametrize('encoder', list(worker.RUNS))

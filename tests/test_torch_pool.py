@@ -18,9 +18,10 @@ from multigrid_tpu.ops.step import sample_order as jax_sample_order
 from multigrid_tpu.parallel import VectorEnv as JaxVectorEnv
 from multigrid_tpu.parallel.vector import _GSTEP, _RESERVE
 from multigrid_tpu_torch.core.constants import STATE_CLOSED, TYPE_BOX, TYPE_DOOR
-from multigrid_tpu_torch.core.state import FIELDS, ResetPool, state_from_arrays
+from multigrid_tpu_torch.core.state import FIELDS, STATE_FIELDS, ResetPool, state_from_arrays
 from multigrid_tpu_torch.envs import CONFIGURATIONS, make
 from multigrid_tpu_torch.parallel import VectorEnv
+from multigrid_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -190,19 +191,24 @@ def test_refresh_slots_match_the_jax_formula(e, period):
 def test_refresh_rewrites_only_its_slots():
     """E 6 at period 4 (2 slots a step; a chunk of 2 takes 4 slots, whose
     second slice is clamped to slots 2-5): exactly the slots named by
-    ``refresh_slots`` change."""
+    ``refresh_slots`` change. A slot's layout is ``fold_in(its key, g)``'s,
+    so the steps are chosen to give each refresh another ``g`` than the
+    slot's last, and a refresh again at the same ``g`` changes nothing."""
     venv = VectorEnv(make(BUP, agents=2, device='cpu'), 6, reset_pool_period=4)
     _, state = venv.reset(seed=2)
-    for step, chunk in [(0, 1), (1, 1), (2, 1), (3, 1), (2, 2), (3, 2), (4, 2)]:
-        state = state.replace(pool=ResetPool(state.pool.reserve, step))
+    for step, chunk in [(10, 1), (11, 1), (12, 1), (13, 1), (2, 2), (3, 2), (4, 2)]:
+        state = state.replace(pool=ResetPool(state.pool.reserve, step, state.pool.keys))
         new = venv.refresh_pool(state, chunk)
         start, count = venv.refresh_slots(step, chunk)
         changed = ~_per_env_equal(new.pool.reserve.grid, state.pool.reserve.grid)
         want = torch.zeros(6, dtype=torch.bool)
         want[start:start + count] = True
         assert torch.equal(changed, want), (step, chunk, changed)
+        again = venv.refresh_pool(new, chunk)
+        assert _per_env_equal(again.pool.reserve.grid, new.pool.reserve.grid).all()
         state = new
     assert venv.refresh_slots(2, 2) == (2, 4) and venv.refresh_slots(4, 2) == (0, 4)
+
 
 
 # ------------------------------------------------- extras from the reserve
@@ -249,16 +255,18 @@ def test_rollout_random_refreshes_in_chunks():
     env = make(BUP, agents=2, max_steps=6, device='cpu')
     venv = VectorEnv(env, 4)
     _, state = venv.reset(seed=1)
-    end, summary = venv.rollout_random(state, 40)
+    end, summary = venv.rollout_random(state, prng.key(2), 40)
     assert end.pool.step == 40 and int(summary['episodes']) > 0
     hand = VectorEnv(env, 4)
     _, s = hand.reset(seed=1)
+    key = prng.key(2)
     for t in range(40):
-        actions = torch.randint(0, 7, (4, 2), generator=hand.generator, dtype=torch.int32)
+        key, ak = prng.split(key).unbind(0)
+        actions = prng.randint(ak, (4, 2), 0, 7)
         _, s, *_ = hand.step(s, actions, refresh=t >= 32)
         if t in (15, 31):
             s = hand.refresh_pool(s, 16)
-    for f in FIELDS:
+    for f in STATE_FIELDS:
         assert torch.equal(getattr(s, f), getattr(end, f)), f
     assert torch.equal(s.pool.reserve.grid, end.pool.reserve.grid)
 

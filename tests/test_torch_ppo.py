@@ -30,6 +30,7 @@ from multigrid_tpu_torch.learn import ppo
 from multigrid_tpu_torch.learn.nets import ActorCritic, params_from_flax
 from multigrid_tpu_torch.ops import fused_linear, fused_ppo
 from multigrid_tpu_torch.parallel import VectorEnv
+from multigrid_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -201,7 +202,7 @@ def test_gumbel_max_is_jax_categorical():
     noise = np.asarray(jax.random.gumbel(key, logits.shape))
     got = ppo.sample_actions(torch.as_tensor(logits), torch.tensor(noise))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    g = ppo.gumbel_noise((4096,), torch.Generator().manual_seed(0), 'cpu')
+    g = prng.gumbel(prng.key(0), (4096,))
     assert abs(float(g.mean()) - 0.5772) < 0.05  # Euler-Mascheroni
 
 
@@ -271,12 +272,9 @@ def test_train_loop_means_its_updates():
     venv = VectorEnv(make(ENV_ID, agents=2, device='cpu'), 8, packed_obs=True)
     state, net, config, tx = ppo.ppo_init(venv, 2, config=ppo.PPOConfig(rollout_steps=4),
                                           hidden=32, net_kwargs=dict(encoder='mlp'))
-    gen = state.generator.get_state(), venv.generator.get_state()
     loop = ppo.make_train_loop(venv, net, config, tx, 3)
     after, metrics = loop(state)
     assert after.update_count == 3
-    state.generator.set_state(gen[0])
-    venv.generator.set_state(gen[1])
     step, rows = ppo.make_train_step(venv, net, config, tx), []
     for _ in range(3):
         state, m = step(state)

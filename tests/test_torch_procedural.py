@@ -7,9 +7,10 @@ LockedHallway, Playground) against the JAX package.
   ``step_core`` (its dynamics and ``post_step``) and the port's with the
   same actions, masks and orders: every state field, every extra, the
   rewards (bit for bit), terminations and truncations must be equal.
-- The speed-mode resets draw from a ``torch.Generator`` and cannot match
-  ``jax.random``: each family's layout invariants and the step invariants
-  of tests/test_invariants.py hold them.
+- The speed-mode resets: each family's layout invariants and the step
+  invariants of tests/test_invariants.py hold them here
+  (tests/test_torch_streams.py holds them bit-equal to the JAX package's
+  from the same keys).
 - The success predicates of tests/test_success.py.
 - An env that finishes takes the fresh layout's extras (its mission, its
   doors), and a cloned state shares no extras tensor with its original.
@@ -44,6 +45,7 @@ from multigrid_tpu_torch.core.constants import (
 )
 from multigrid_tpu_torch.core.state import FIELDS, state_from_arrays
 from multigrid_tpu_torch.envs import make
+from multigrid_tpu_torch.utils import prng
 from multigrid_tpu_torch.parallel import VectorEnv
 
 from .test_torch_states import jax_fields
@@ -304,15 +306,15 @@ def test_speed_reset_and_step_invariants(name):
     env_id, n = FAMILIES[name]
     env = make(env_id, agents=n, device='cpu')
     g = torch.Generator().manual_seed(17)
-    state = env.reset_core(64, g).clone()
-    again = env.reset_core(64, torch.Generator().manual_seed(17))
+    state = env.reset_core(prng.split(prng.key(17), 64)).clone()
+    again = env.reset_core(prng.split(prng.key(17), 64))
     assert torch.equal(again.grid, state.grid) and torch.equal(again.agent_pos, state.agent_pos)
     _LAYOUT[name](env, state, env.observe(state))
 
     initial = _counts(state)
     for t in range(40):
         actions = torch.randint(0, 7, (64, n), generator=g)
-        _, state, rew, _, _ = env.step(state, actions, g)
+        _, state, rew, _, _ = env.step(state, actions)
         grid = state.grid.numpy()
         assert grid[..., 0].min() >= 0 and grid[..., 0].max() < len(Type)
         assert grid[..., 1].min() >= 0 and grid[..., 1].max() < len(Color)
@@ -342,10 +344,11 @@ def test_room_builders_place_within_their_rooms(rand_pos):
     room facing an empty cell or a wall."""
     env = make('MultiGrid-Playground-v0', agents=2, device='cpu')
     geom, e, g = env.geometry, 32, torch.Generator().manual_seed(11)
+    keys = prng.split(prng.key(11), (4, e))
     state = env._init_room_state(e)
     start = state.grid.clone()
     color = torch.randint(0, 6, (e,), generator=g, dtype=torch.int32)
-    state, door = env.add_door(state, g, 1, 1, Direction.down, color, locked=True,
+    state, door = env.add_door(state, keys[0], 1, 1, Direction.down, color, locked=True,
                                rand_pos=rand_pos)
     axis, fixed, lo, hi = geom.door_wall_span(1, 1, Direction.down)
     assert axis == 'y' and (door[:, 1] == fixed).all()
@@ -358,7 +361,7 @@ def test_room_builders_place_within_their_rooms(rand_pos):
     assert torch.equal(cell, torch.stack([torch.full_like(color, TYPE_DOOR), color,
                                           torch.full_like(color, STATE_LOCKED)], -1))
 
-    state, pos = env.add_object(state, g, 2, 0, TYPE_KEY, 3)
+    state, pos = env.add_object(state, keys[1], 2, 0, TYPE_KEY, 3)
     tx, ty = geom.room_top(2, 0)
     rs = geom.room_size
     assert ((pos[:, 0] > tx) & (pos[:, 0] < tx + rs - 1)
@@ -366,7 +369,7 @@ def test_room_builders_place_within_their_rooms(rand_pos):
     cell = state.grid[env_i, pos[:, 0].long(), pos[:, 1].long()]
     assert (cell == torch.tensor([TYPE_KEY, 3, 0], dtype=torch.int32)).all()
 
-    state = env.add_distractors(state, g, num_distractors=10)
+    state = env.add_distractors(state, keys[2], num_distractors=10)
     grid = state.grid
     added = (grid != start).any(-1)
     assert (added.sum((1, 2)) == 12).all()  # the door, the key, 10 distractors
@@ -380,7 +383,7 @@ def test_room_builders_place_within_their_rooms(rand_pos):
     near = ((xs - mid[0]).abs() + (ys - mid[1]).abs()) <= 1
     assert not (added & near).any()
 
-    state = env.place_agents_in_room(state, g, 0, 2)
+    state = env.place_agents_in_room(state, keys[3], 0, 2)
     ax, ay = state.agent_pos[..., 0], state.agent_pos[..., 1]
     tx, ty = geom.room_top(0, 2)
     assert ((ax > tx) & (ax < tx + rs - 1) & (ay > ty) & (ay < ty + rs - 1)).all()
@@ -392,7 +395,7 @@ def test_room_builders_place_within_their_rooms(rand_pos):
 # ------------------------------------------------------- success predicates
 
 def _rbd_facing_blue(env):
-    _, state = env.reset(torch.Generator().manual_seed(3))
+    _, state = env.reset(3)
     bx, by = state.extras['blue_pos'][0].tolist()
     pos = state.agent_pos.clone()
     pos[0, 0] = torch.tensor([bx - 1, by])
@@ -424,7 +427,7 @@ def test_redbluedoors_success_requires_red_first():
 def test_locked_hallway_success_is_all_doors():
     """Success ⇔ every door unlocked; some doors bank reward, not success."""
     env = make('MultiGrid-LockedHallway-2Rooms-v0', agents=2, device='cpu')
-    _, state = env.reset(torch.Generator().manual_seed(5))
+    _, state = env.reset(5)
     assert not env.success(state).any()
     for unlocked, want in (([True, False], False), ([True, True], True)):
         s = state.replace(extras={**state.extras,
@@ -436,7 +439,7 @@ def test_bup_success_is_termination():
     """Agents terminate only through the box-pickup success, so any agent
     terminated is exact."""
     env = make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device='cpu')
-    _, state = env.reset(torch.Generator().manual_seed(7))
+    _, state = env.reset(7)
     assert not env.success(state).any()
     done = state.replace(agent_terminated=torch.ones_like(state.agent_terminated))
     assert env.success(done).all()
@@ -494,7 +497,7 @@ def test_done_env_takes_the_fresh_layouts_extras(env_id):
 
 def test_clone_shares_no_extras():
     env = make('MultiGrid-LockedHallway-2Rooms-v0', agents=2, device='cpu')
-    state = env.reset_core(4, torch.Generator().manual_seed(0)).clone()
+    state = env.reset_core(prng.split(prng.key(0), 4)).clone()
     copy = state.clone()
     copy.extras['door_unlocked'][0, 0] = True
     assert not state.extras['door_unlocked'].any()

@@ -26,6 +26,7 @@ from multigrid_tpu_torch import render, visualize
 from multigrid_tpu_torch.core.state import FIELDS, state_to_numpy
 from multigrid_tpu_torch.envs import make
 from multigrid_tpu_torch.utils.pprint import state_to_string
+from multigrid_tpu_torch.utils import prng
 
 from .test_torch_states import random_fields, to_torch
 
@@ -48,10 +49,11 @@ def _states(env_id, steps=6):
     steps (2 agents, on the CPU)."""
     env = make(env_id, agents=2, device='cpu')
     g = torch.Generator().manual_seed(len(env_id))
-    _, state = env.reset(g, num_envs=2)
+    _, state = env.reset(prng.split(prng.key(len(env_id)), 2))
     out = [state]
     for _ in range(steps):
-        _, state, *_ = env.step(state, torch.randint(0, 7, (2, 2), generator=g), g)
+        _, state, *_ = env.step(state, torch.randint(0, 7, (2, 2), generator=g))
+
     return env, out + [state]
 
 

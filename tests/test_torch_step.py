@@ -18,6 +18,7 @@ from multigrid_tpu.ops.step import step_with_order as jax_step_with_order
 from multigrid_tpu_torch.core.config import EnvConfig
 from multigrid_tpu_torch.core.state import FIELDS
 from multigrid_tpu_torch.ops.step import sample_order, step_with_order
+from multigrid_tpu_torch.utils import prng
 
 from .test_torch_states import jax_fields, random_fields, to_jax, to_torch
 
@@ -68,7 +69,7 @@ def test_step_matches_jax(case):
 
 
 def test_sample_order_is_a_permutation():
-    g = torch.Generator().manual_seed(0)
-    order = sample_order(g, 64, 5, 'cpu')
-    assert torch.equal(order.sort(-1).values, torch.arange(5).expand(64, 5))
-    assert sample_order(g, 3, 1, 'cpu').tolist() == [[0], [0], [0]]
+    keys = prng.split(prng.key(0), 64)
+    order = sample_order(keys, 5)
+    assert torch.equal(order.sort(-1).values, torch.arange(5, dtype=torch.int32).expand(64, 5))
+    assert sample_order(keys[:3], 1).tolist() == [[0], [0], [0]]

@@ -16,9 +16,10 @@ import torch
 from multigrid_tpu.envs import make as jax_make
 from multigrid_tpu.ops.step import sample_order as jax_sample_order
 from multigrid_tpu.parallel import VectorEnv as JaxVectorEnv
-from multigrid_tpu_torch.core.state import FIELDS
+from multigrid_tpu_torch.core.state import FIELDS, STATE_FIELDS
 from multigrid_tpu_torch.envs import make
 from multigrid_tpu_torch.parallel import VectorEnv
+from multigrid_tpu_torch.utils import prng
 
 from .test_torch_states import jax_fields
 
@@ -33,6 +34,8 @@ def _assert_state_equal(ours, theirs, t):
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(ours, k).numpy(), want[k],
                                       err_msg=f't={t} {k}')
+    np.testing.assert_array_equal(ours.rng.numpy(), np.asarray(jax.random.key_data(theirs.rng)),
+                                  err_msg=f't={t} rng')
 
 
 def test_vector_step_matches_jax():
@@ -78,26 +81,26 @@ def test_vector_step_matches_jax():
 
 
 def test_rollout_random_is_the_step_loop():
-    """``rollout_random`` equals stepping by hand with the same generator
+    """``rollout_random`` equals stepping by hand with the same key's
     draws; its obs checksum wraps to int32."""
     venv = VectorEnv(make('MultiGrid-Empty-Random-6x6-v0', agents=3,
                           max_steps=6, device='cpu'), 16)
     _, state = venv.reset(seed=5)
-    final, summary = venv.rollout_random(state, 9)
+    final, summary = venv.rollout_random(state, prng.key(6), 9)
 
     _, state = venv.reset(seed=5)
     rew, episodes, obs_sum = 0.0, 0, 0
+    key = prng.key(6)
     for _ in range(9):
-        actions = torch.randint(0, 7, (16, 3), generator=venv.generator,
-                                dtype=torch.int32)
+        key, ak = prng.split(key).unbind(0)
+        actions = prng.randint(ak, (16, 3), 0, 7)
         obs, state, r, _, _, done, _ = venv.step(state, actions)
         rew += float(r.sum())
         episodes += int(done.sum())
         obs_sum += int(obs['image'].sum())
-    for k in FIELDS:
+    for k in STATE_FIELDS:
         assert torch.equal(getattr(final, k), getattr(state, k)), k
     assert int(summary['episodes']) == episodes >= 16
     # float32 sums in another order: equal to rounding.
     assert abs(float(summary['reward_sum']) - rew) < 1e-4
     assert int(summary['obs_sum']) == (obs_sum + 2**31) % 2**32 - 2**31
-

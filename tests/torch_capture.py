@@ -16,6 +16,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from multigrid_tpu_torch.ops import fused_linear, fused_policy, fused_ppo, obs_cuda
+from multigrid_tpu_torch.utils import prng
 
 #: Operations that read the device on the host or copy host data to it:
 #: a capture refuses them, or freezes what they read.
@@ -37,7 +38,9 @@ KERNEL_PLAIN = [
     (fused_linear, 'onehot_linear_agents_grad_w_plain'),
     (fused_ppo, 'ppo_mlp_grads_plain'), (fused_ppo, 'ppo_mlp_grads_agents_plain'),
     (fused_policy, 'policy_sample_plain'),
+    (prng, 'draw_plain'), (prng, 'step_draws_plain'),
 ]
+
 
 
 def describe(x):

@@ -13,13 +13,14 @@ from multigrid_tpu_torch.learn.ppo import params_digest
 from multigrid_tpu_torch.parallel import VectorEnv, distributed, gather_batch, make_mesh
 from multigrid_tpu_torch.parallel.dryrun import ppo_run
 from multigrid_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from multigrid_tpu_torch.utils import prng
 
 BUP = 'MultiGrid-BlockedUnlockPickup-v0'
 
 #: Rollouts held bit for bit: the counterpart of tests/test_multichip.py:41-56
 #: (Empty-8x8, 2 agents, 16 envs, 4 steps) and of :59-75 (BUP on the
 #: reserve pool with max_steps 6, 8 steps so that episodes end), with the
-#: actions fixed or drawn from the vector env's generator.
+#: actions fixed or drawn from a key, each process drawing its own rows.
 ROLLOUTS = {
     'empty-explicit': dict(env_id='MultiGrid-Empty-8x8-v0', env_kwargs={}, steps=4, drawn=False),
     'empty-drawn': dict(env_id='MultiGrid-Empty-8x8-v0', env_kwargs={}, steps=4, drawn=True),
@@ -56,7 +57,9 @@ TRAIN_RUNS = {
 def rollout(env_id, env_kwargs, steps, drawn, mesh=None) -> dict:
     """Reset (seed 5) and ``steps`` steps of a 16-env batch with 2 agents,
     then a 4-step ``rollout_random``; the global grids, observations,
-    rewards and dones of every step, the summary and the final pool step."""
+    rewards and dones of every step, the summary, the final keys and the
+    final pool step. Drawn actions are ``randint`` of a key chain's keys at
+    the global shape, each process computing only its rows."""
     venv = VectorEnv(make(env_id, agents=2, device='cpu', **env_kwargs), ROLLOUT_ENVS,
                      mesh=mesh)
 
@@ -68,16 +71,19 @@ def rollout(env_id, env_kwargs, steps, drawn, mesh=None) -> dict:
            'done': []}
     fixed = torch.zeros((ROLLOUT_ENVS, 2), dtype=torch.int32)
     fixed[:, 0] = 2
+    key = prng.key(11)
     for _ in range(steps):
-        actions = (torch.randint(0, NUM_ACTIONS, (ROLLOUT_ENVS, 2), generator=venv.generator,
-                                 dtype=torch.int32) if drawn else fixed)
-        obs, state, rew, _, _, done, _ = venv.step(state, venv.local(actions))
+        key, ak = prng.split(key).unbind(0)
+        actions = (prng.randint(ak, (ROLLOUT_ENVS, 2), 0, NUM_ACTIONS, rows=venv.rows)
+                   if drawn else venv.local(fixed))
+        obs, state, rew, _, _, done, _ = venv.step(state, actions)
         for k, v in (('grid', state.grid), ('image', obs['image']), ('reward', rew),
                      ('done', done)):
             rec[k].append(glob(v))
-    state, summary = venv.rollout_random(state, 4)
+    state, summary = venv.rollout_random(state, key, 4)
     rec['summary'] = {k: float(v) for k, v in summary.items()}
     rec['final_grid'] = glob(state.grid)
+    rec['final_rng'] = glob(state.rng)
     rec['pool_step'] = None if state.pool is None else int(state.pool.step)
     return rec
 

@@ -9,7 +9,7 @@ from multigrid_tpu_torch.envs import make
 from multigrid_tpu_torch.learn import PPOConfig, linear_schedule, make_train_step, ppo_init
 from multigrid_tpu_torch.parallel import VectorEnv, distributed, make_mesh
 from multigrid_tpu_torch.parallel.mesh import Mesh
-from multigrid_tpu_torch.utils import graphs
+from multigrid_tpu_torch.utils import graphs, prng
 
 from . import torch_capture
 
@@ -54,7 +54,7 @@ def rollout_report() -> dict:
                      reset_pool_period=4, mesh=make_mesh())
     _, state = venv.reset(seed=1)
     zero = torch.zeros((), dtype=torch.int64)
-    carry = state, (torch.zeros(()), zero, zero.clone())
+    carry = state, prng.key(2), (torch.zeros(()), zero, zero.clone())
     body = torch_capture.chain(
         lambda c: venv._random_steps(c, venv.REFRESH_CHUNK, refresh=False), carry)
     return _report(torch_capture.record(body))
@@ -110,7 +110,7 @@ class EagerGraph(graphs.Graph):
         self.digests.append(graphs.key_digest(graphs.signature(inputs) if key is None
                                               else key))
 
-    def _capture(self, fn, device, gens, carry):
+    def _capture(self, fn, device, carry):
         self.fn, self.carry = fn, carry
 
     def replay(self):
@@ -145,7 +145,7 @@ def real_keys() -> dict:
         pool = VectorEnv(make(BUP, agents=2, max_steps=6, device='cpu'), 16,
                          reset_pool_period=4, mesh=make_mesh())
         _, pool_state = pool.reset(seed=1)
-        pool_state, _ = pool.rollout_random(pool_state, pool.REFRESH_CHUNK + 2)
+        pool_state, _ = pool.rollout_random(pool_state, 2, pool.REFRESH_CHUNK + 2)
         pool.step(pool_state, torch.zeros((16, 2), dtype=torch.int32))
     finally:
         graphs.graphs_on, Mesh.capturable, graphs.Graph = on, capturable, graph

@@ -57,6 +57,16 @@ Phases, in order; any failure exits non-zero:
                masks), 2 on each of the 13 configurations at 4096 envs, one
                launch a call; then the six golden traces (GOLDEN_TRACES)
                through it, one launch a step.
+   prng     — the keyed draws (``csrc/prng.cu``) against their plain
+               versions, ``torch.equal``: R1 in every mode, alone and with
+               its split prologue (``split_first``), at the path's shapes,
+               with rows offsets and an offset read on the device; R2 at
+               teams of 1, 2, 4, 8, 16 and 64 in each mode. Then each
+               one's launches alone (a graph of launches, outputs rotated)
+               beside its bound and the launch floor (an empty kernel on
+               the same grid, timed the same way), and ptxas's registers
+               and stack of R1 and of each R2 instance (the unrolled ones
+               must have neither stack nor spill).
 4. main     — ``VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=4), 4096)``
                on the default device: reset, then ``rollout_random`` for 256
                steps, with every launch count set to 0 just before and read
@@ -852,7 +862,7 @@ def main_path(device=None):
     """The env flagship: reset, then ``rollout_random`` for STEPS steps, the
     launch counts set to 0 just before and read just after (the obs kernel
     once at the reset and once a step, the step kernel once a step, R2 once
-    a step, R1 3 times at the reset and twice a step, no other kernel).
+    a step, R1 3 times at the reset and once a step, no other kernel).
     Returns the VectorEnv, the reset's observations, the final state, the
     summary and the counts."""
 
@@ -873,9 +883,9 @@ def main_path(device=None):
     print(f'reset + rollout_random({STEPS}): launches {counts} (at reset {after_reset})')
     # The reset: split(key), split(key, E) and reset_core's split (the
     # flagship's layout draws nothing); a random step: split(key) and
-    # randint, then R2 once.
+    # randint in one launch, then R2 once.
     want = {**{k: 0 for k in counts}, 'obs': 1 + STEPS, 'step': STEPS,
-            'threefry': 3 + 2 * STEPS, 'step_draws': STEPS}
+            'threefry': 3 + STEPS, 'step_draws': STEPS}
     if after_reset != {**want, 'obs': 1, 'step': 0, 'threefry': 3, 'step_draws': 0} \
             or counts != want:
         fail(f'expected launches {want} (obs 1 at reset), got {counts} '
@@ -1086,6 +1096,9 @@ def step_err(got, want):
 #: R1 and R2's cases (envs, agents): the flagship, the BUP recipe, and a
 #: batch that no block of threads divides.
 PRNG_CASES = [(E, N), (E, BUP_N), (16387, N)]
+#: R2's other teams at E envs: the unrolled instances' ends (1, 8) and the
+#: generic body's (16; 64, where float32 uniforms tie).
+R2_TEAMS = (1, 8, 16, 64)
 #: The integer operations of one threefry2x32-20 hash: 20 rounds of an add,
 #: a rotate and a xor, 5 key injections of 3 adds, the third key's 2 xors.
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
@@ -1100,7 +1113,12 @@ def prng_cases(device):
     learner's Gumbel noise at (E, N, 7), a pool slot's fold-in by a step
     read from the device), and each draw again as rows of a global draw
     twice as long (a process's second half: ``rows=`` offsets its flat
-    index). One launch a call. Returns ``{'cases', 'max_abs_err'}``."""
+    index); R1's split prologue (``split_first``: the carried key and the
+    draw) in every mode, at the path's fused draws (the rollout's split and
+    randint, the learner's split and Gumbel noise, the update's epoch keys,
+    an epoch's roll, a permutation round's bits), with rows and a device
+    offset, and a split alone (count 0); R2 also at R2_TEAMS. One launch a
+    call. Returns ``{'cases', 'max_abs_err'}``."""
     import torch
 
     from multigrid_tpu_torch.ops import prng_cuda
@@ -1123,7 +1141,7 @@ def prng_cases(device):
         if err != 0.0:
             fail(f'prng {label}: the kernel differs from its plain version, max_abs_err {err}')
 
-    for e, n in PRNG_CASES:
+    def check_r2(e, n):
         keys = prng.split(prng.key(e + n, device), e)
         for mode in (prng.STEP_ONLY, prng.STEP_EXACT, prng.STEP_POOL):
             launches = prng_cuda.step_launches
@@ -1133,34 +1151,68 @@ def prng_cases(device):
                 fail('prng: R2 did not launch once a call')
             for name, g, w in zip(('order', 'rng', 'gen_key', 'fresh'), got, want):
                 check(f'R2 ({e}, {n}) mode {mode} {name}', g, w)
+        return keys
+
+    def check_r1(label, k, count, offset, mode, kw, split_first=False):
+        launches = prng_cuda.launches
+        got = prng_cuda.draw(k, count, offset, mode, split_first=split_first, **kw)
+        if prng_cuda.launches != launches + 1:
+            fail(f'prng {label}: R1 did not launch once a call')
+        want = prng.draw_plain(k, count, offset, mode, split_first=split_first, **kw)
+        if split_first:
+            check(f"R1 {label}: k'", got[0], want[0])
+            got, want = got[1], want[1]
+        check(f'R1 {label}', got, want)
+
+    for e, n in PRNG_CASES:
+        keys = check_r2(e, n)
         key = keys[:1]
         step = torch.tensor(7 + e, dtype=torch.int64, device=device)
+        sevens = dict(spans=torch.tensor([7], device=device))
         draws = [('split', keys, 2, 0, prng.PAIR, {}),
                  ('uniform', keys, n, 0, prng.UNIFORM, {}),
                  ('bits (W, H, 4)', keys, SIZE * SIZE * 4, 0, prng.BITS, {}),
-                 ('randint (E, N)', key, e * n, 0, prng.RANDINT,
-                  dict(spans=torch.tensor([7], device=device))),
+                 ('randint (E, N)', key, e * n, 0, prng.RANDINT, sevens),
                  ('randint per position', keys, 2, 0, prng.RANDINT,
                   dict(spans=torch.tensor([3, 5], device=device), minval=0)),
                  ('gumbel (E, N, 7)', key, e * n * 7, 0, prng.GUMBEL, {}),
                  ('uniform [-2, 3)', key, e, 0, prng.UNIFORM, dict(fmin=-2.0, fmax=3.0)),
                  ('fold_in by a device step', keys, 1, step, prng.PAIR, {}),
-                 ('randint rows (E, N) of (2E, N)', key, e * n, e * n, prng.RANDINT,
-                  dict(spans=torch.tensor([7], device=device))),
+                 ('randint rows (E, N) of (2E, N)', key, e * n, e * n, prng.RANDINT, sevens),
                  ('gumbel rows of (2E, N, 7)', key, e * n * 7, e * n * 7, prng.GUMBEL, {}),
                  ('split rows of 2E', key, e, e, prng.PAIR, {})]
         for label, k, count, offset, mode, kw in draws:
-            launches = prng_cuda.launches
-            got = prng_cuda.draw(k, count, offset, mode, **kw)
-            if prng_cuda.launches != launches + 1:
-                fail(f'prng {label}: R1 did not launch once a call')
-            check(f'R1 ({e}, {n}) {label}', got, prng.draw_plain(k, count, offset, mode, **kw))
+            check_r1(f'({e}, {n}) {label}', k, count, offset, mode, kw)
+        fused = [('split + randint (E, N)', key, e * n, 0, prng.RANDINT, sevens),
+                 ('split + gumbel (E, N, 7)', key, e * n * 7, 0, prng.GUMBEL, {}),
+                 ('split + split (epochs)', key, 2, 0, prng.PAIR, {}),
+                 ('split + randint () (an epoch\'s roll)', key, 1, 0, prng.RANDINT,
+                  dict(spans=torch.tensor([e], device=device))),
+                 ('split + bits (T,) (a permutation round)', key, BUP_T, 0, prng.BITS, {}),
+                 ('split + uniform [-2, 3) per key', keys, n, 0, prng.UNIFORM,
+                  dict(fmin=-2.0, fmax=3.0)),
+                 ('split + randint rows (E, N) of (2E, N)', key, e * n, e * n, prng.RANDINT,
+                  sevens),
+                 ('split + gumbel rows of (2E, N, 7)', key, e * n * 7, e * n * 7, prng.GUMBEL,
+                  {}),
+                 ('split + pair by a device step', keys, 1, step, prng.PAIR, {}),
+                 ('split + bits by a device offset', keys, 3, step, prng.BITS, {}),
+                 ('split alone (count 0)', keys, 0, 0, prng.PAIR, {})]
+        for label, k, count, offset, mode, kw in fused:
+            check_r1(f'({e}, {n}) {label}', k, count, offset, mode, kw, split_first=True)
+    for n in R2_TEAMS:
+        check_r2(E, n)
     # rows= through the public functions: a process's half of a global draw.
     key = prng.key(5, device)
     for fn in (lambda r: prng.randint(key, (2 * E, N), 0, 7, rows=r),
                lambda r: prng.gumbel(key, (2 * E, N, 7), rows=r),
                lambda r: prng.split(key, 2 * E, rows=r)):
         check('rows=(E, 2E) of the global draw', fn((E, 2 * E)), fn(None)[E:])
+    for fn in (lambda r: prng.randint(key, (2 * E, N), 0, 7, rows=r, split_first=True),
+               lambda r: prng.gumbel(key, (2 * E, N, 7), rows=r, split_first=True)):
+        (kr, part), (kg, whole) = fn((E, 2 * E)), fn(None)
+        check("split_first rows=(E, 2E): k'", kr, kg)
+        check('split_first rows=(E, 2E) of the global draw', part, whole[E:])
     torch.cuda.synchronize()
     print(f'prng: {cases} cases of R1 and R2 equal to their plain versions (torch.equal), '
           f'max_abs_err {worst}')
@@ -1182,16 +1234,50 @@ def prng_launch_ms(launch, nbytes, reps=100, per_graph=20):
     return event_ms(_graph_of(launches).replay, reps) / count
 
 
+def prng_resources():
+    """ptxas's registers, stack and spills of R1 and of each R2 instance
+    (``step_draws_kernel<N>``, N the team size, 0 the generic body), from
+    the build log; fails if a kernel spills, if an unrolled R2 instance
+    (N 1..8) has a stack frame, or if an instance is missing. Printed."""
+    import re
+
+    from multigrid_tpu_torch.ops import prng_cuda
+    from multigrid_tpu_torch.utils import build
+    usage = {}
+    for name, u in build.resource_usage(prng_cuda.SOURCE).items():
+        if 'threefry_bits_kernel' in name:
+            usage['R1'] = u
+        elif (m := re.search(r'step_draws_kernelILi(\d+)E', name)):
+            usage[f'R2 N={m.group(1)}'] = u
+    want = ['R1'] + [f'R2 N={n}' for n in range(9)]
+    if sorted(usage) != sorted(want):
+        fail(f'prng.cu: kernels in the build log {sorted(usage)}, expected {want}')
+    for label in want:
+        u = usage[label]
+        print(f'{label}: {u.get("registers")} registers, {u.get("stack", 0)} bytes stack, '
+              f'{u.get("spill_stores", 0)} bytes spill stores, {u.get("spill_loads", 0)} bytes '
+              'spill loads')
+        unrolled = label.startswith('R2') and label != 'R2 N=0'
+        if u.get('spill_stores', 0) or u.get('spill_loads', 0) or (unrolled and u.get('stack', 0)):
+            fail(f'{label} spills or, unrolled, has a stack frame: {u}')
+    return usage
+
+
 def prng_times(device):
     """R1 at the flagship random rollout's draw (``randint(key, (E, N), 0,
     7)``, the main path's actions) and at the learner's (``gumbel(key, (E,
-    N, 7))``), R2 at the flagship's step (``E`` envs, ``N`` agents, the
-    exact reset's keys): each kernel's launches alone (graph replays, the
-    outputs rotated), its plain version's device time (a graph of one call)
-    and the bound: its bytes (each key read once, each output written once)
-    over 3.35 TB/s against its integer operations (THREEFRY_OPS a hash: 2
-    for the split of a randint's key, 2 an element; 1 a Gumbel element; R2
-    2 for the split, N for the uniforms, 3 for the reset's keys, and 3 an
+    N, 7))``), each alone (PR 18's launches) and with its split prologue
+    (the path's launches since: ``key, draw = ...(key, ..., split_first=
+    True)``); R2 at the flagship's step (``E`` envs, ``N`` agents, the
+    exact reset's keys) and at BUP's (``E`` envs, 2 agents, the pool's
+    fresh keys); each kernel's launches alone (graph replays, the outputs
+    rotated), its plain version's device time (a graph of one call), the
+    launch floor (an empty kernel on the same grid, in a graph of as many
+    launches) and the bound: its bytes (each key read once, each output
+    written once) over 3.35 TB/s against its integer operations
+    (THREEFRY_OPS a hash: 2 for a split prologue, 2 for the split of a
+    randint's key, 2 an element; 1 a Gumbel element; R2 2 for the split, N
+    for the uniforms, 3 (exact) or 1 (pool) for the reset's keys, and 3 an
     ordered pair of agents to rank them) over the card's 32-bit vector rate
     (67e12/s, the float32 rate outside the tensor cores: the guide's table
     lists no integer rate). Returns ``{name: {...}}``."""
@@ -1204,49 +1290,72 @@ def prng_times(device):
     key = prng.key(11, device)[None]
     spans = torch.tensor([7], dtype=torch.int64, device=device)
     fn = prng_cuda._lib('mgt_threefry_launch')
-    for name, count, mode, dtype, hashes in (
-            ('R1 randint (E, N)', E * N, prng.RANDINT, torch.int32, 2 + 2 * E * N),
-            ('R1 gumbel (E, N, 7)', E * N * 7, prng.GUMBEL, torch.float32, E * N * 7)):
-        nbytes = 16 + count * 4
-        outs = [torch.empty(count, dtype=dtype, device=device)
+    floor = prng_cuda._lib('mgt_launch_floor')
+
+    def floor_ms(kernel, size, nbytes):
+        def launch(i):
+            err = floor(kernel, size, torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f'prng timing: the launch floor failed: CUDA error {err}')
+        return prng_launch_ms(launch, nbytes)
+
+    for name, count, mode, dtype, hashes, fused in (
+            ('R1 randint (E, N)', E * N, prng.RANDINT, torch.int32, 2 + 2 * E * N, False),
+            ('R1 gumbel (E, N, 7)', E * N * 7, prng.GUMBEL, torch.float32, E * N * 7, False),
+            ('R1 split + randint (E, N)', E * N, prng.RANDINT, torch.int32, 4 + 2 * E * N,
+             True),
+            ('R1 split + gumbel (E, N, 7)', E * N * 7, prng.GUMBEL, torch.float32,
+             2 + E * N * 7, True)):
+        nbytes = 16 + count * 4 + (16 if fused else 0)
+        outs = [(torch.empty(count, dtype=dtype, device=device),
+                 torch.empty((1, 2), dtype=torch.int64, device=device) if fused else None)
                 for _ in range(rotations(nbytes))]
 
         def launch(i, count=count, mode=mode, outs=outs):
+            o, carried = outs[i]
             err = fn(key.data_ptr(), 1, count, 0, None, mode, spans.data_ptr(), 1, 0, 0.0,
-                     1.0, outs[i].data_ptr(), torch.cuda.current_stream().cuda_stream)
+                     1.0, o.data_ptr(), None if carried is None else carried.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
             if err:
                 fail(f'prng timing: R1 launch failed: CUDA error {err}')
         ms = prng_launch_ms(launch, nbytes)
-        plain_ms = event_ms(_graph_of(lambda count=count, mode=mode: prng.draw_plain(
-            key, count, 0, mode, spans=spans)).replay, 20)
+        plain_ms = event_ms(_graph_of(lambda count=count, mode=mode, fused=fused: prng.draw_plain(
+            key, count, 0, mode, spans=spans, split_first=fused)).replay, 20)
         b_ms, b_by = bound(nbytes, vector_ops=hashes * THREEFRY_OPS)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, bytes=nbytes, ops=hashes * THREEFRY_OPS)
-    rng = prng.split(prng.key(12, device), E)
-    sets = [[torch.empty((E, N), dtype=torch.int32, device=device)]
-            + [torch.empty_like(rng) for _ in range(3)]
-            for _ in range(rotations(E * (16 + 4 * N + 48)))]
+                         library_ms=None, bytes=nbytes, ops=hashes * THREEFRY_OPS,
+                         launch_floor_ms=floor_ms(1, count, nbytes))
     r2 = prng_cuda._lib('mgt_step_draws_launch')
+    for name, n, mode in (('R2 step draws (E, N), exact reset', N, prng.STEP_EXACT),
+                          ('R2 step draws (E, BUP_N), pool', BUP_N, prng.STEP_POOL)):
+        rng = prng.split(prng.key(12, device), E)
+        keys_out = 16 + (48 if mode == prng.STEP_EXACT else 32)
+        nbytes = E * (keys_out + 4 * n)
+        sets = [[torch.empty((E, n), dtype=torch.int32, device=device)]
+                + [torch.empty_like(rng) for _ in range(3)]
+                for _ in range(rotations(nbytes))]
 
-    def launch_r2(i):
-        err = r2(rng.data_ptr(), E, N, prng.STEP_EXACT, *[t.data_ptr() for t in sets[i]],
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            fail(f'prng timing: R2 launch failed: CUDA error {err}')
-    nbytes = E * (16 + 4 * N + 48)
-    ops = E * ((2 + N + 3) * THREEFRY_OPS + 3 * N * N)
-    b_ms, b_by = bound(nbytes, vector_ops=ops)
-    out['R2 step draws (E, N), exact reset'] = dict(
-        ms=prng_launch_ms(launch_r2, nbytes),
-        plain_ms=event_ms(_graph_of(lambda: prng.step_draws_plain(
-            rng, N, prng.STEP_EXACT)).replay, 20),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes, ops=ops)
+        def launch_r2(i, n=n, mode=mode, rng=rng, sets=sets):
+            err = r2(rng.data_ptr(), E, n, mode, *[t.data_ptr() for t in sets[i]],
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f'prng timing: R2 launch failed: CUDA error {err}')
+        ops = E * ((2 + n + (3 if mode == prng.STEP_EXACT else 1)) * THREEFRY_OPS + 3 * n * n)
+        b_ms, b_by = bound(nbytes, vector_ops=ops)
+        out[name] = dict(
+            ms=prng_launch_ms(launch_r2, nbytes),
+            plain_ms=event_ms(_graph_of(lambda n=n, mode=mode, rng=rng: prng.step_draws_plain(
+                rng, n, mode)).replay, 20),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes, ops=ops,
+            launch_floor_ms=floor_ms(2, E, nbytes))
     card = smi_line()
     for name, r in out.items():
-        print(f'{name} on {card}: launch alone {r["ms"]:.6f} ms, plain version '
+        print(f'{name} on {card}: launch alone {r["ms"]:.6f} ms, launch floor '
+              f'{r["launch_floor_ms"]:.6f} ms (an empty kernel on the same grid), plain version '
               f'{r["plain_ms"]:.6f} ms (a graph of one call), bound {r["bound_ms"]:.6f} ms '
               f'by {r["bound_by"]} ({r["bytes"]} bytes, {r["ops"]} integer operations); '
-              f'{r["bound_ms"] / r["ms"]:.4f} of the bound')
+              f'{r["bound_ms"] / r["ms"]:.4f} of the bound, '
+              f'{r["launch_floor_ms"] / r["ms"]:.4f} of the floor')
     return out
 
 
@@ -1556,7 +1665,7 @@ def step_before_after(device=None, steps=64):
             torch.cuda.synchronize()
             counts = _counts()
         want = {**{k: 0 for k in counts}, 'obs': 16, 'step': 16 if way == 'kernel' else 0,
-                'threefry': 32, 'step_draws': 16}
+                'threefry': 16, 'step_draws': 16}
         if counts != want:
             fail(f'step before/after, {way}: launches {counts}, expected {want}')
         built[way] = [venv, state]
@@ -2317,11 +2426,12 @@ def _gen_draws(env_id, agents):
 
 def _train_draws(env_id, agents, cfg, updates):
     """R1 launches of ``updates`` PPO updates (``cfg`` a ``PPOConfig`` or
-    its keywords) on ``env_id``: each rollout step the key's split and the
-    Gumbel noise, and the exact reset's ``_gen_grid`` without the pool;
-    with minibatches the update's split, its epoch keys, and each epoch's
-    split, ``permutation`` (a split and bits a round) and ``randint``; with
-    the pool (the procedural BUP) its refresh once a rollout: ``fold_in``,
+    its keywords) on ``env_id``: each rollout step one (the key's split and
+    the Gumbel noise, ``split_first``), and the exact reset's ``_gen_grid``
+    without the pool; with minibatches one for the update's split and its
+    epoch keys, then each epoch one for its split and ``randint`` and one
+    a ``permutation`` round (its split and bits); with the pool (the
+    procedural BUP) its refresh once a rollout: ``fold_in``,
     ``reset_core``'s split and ``_gen_grid``."""
     import math
 
@@ -2329,8 +2439,8 @@ def _train_draws(env_id, agents, cfg, updates):
     t, epochs = get('rollout_steps', TRAIN_T), get('epochs', 1)
     gen, pool = _gen_draws(env_id, agents), env_id == BUP
     rounds = math.ceil(3 * math.log(max(1, t)) / math.log(2**32 - 1))
-    shuffle = 0 if get('minibatches', 1) == 1 else 2 + epochs * (2 + 2 * rounds)
-    return updates * (t * (2 + (0 if pool else gen)) + shuffle + (2 + gen if pool else 0))
+    shuffle = 0 if get('minibatches', 1) == 1 else 1 + epochs * (1 + rounds)
+    return updates * (t * (1 + (0 if pool else gen)) + shuffle + (2 + gen if pool else 0))
 
 
 _ACTION_GENERATORS: dict = {}
@@ -4893,6 +5003,7 @@ def main() -> None:
     step_res = step_cases(device)
     phase('prng')
     prng_res = prng_cases(device)
+    prng_res['ptxas'] = prng_resources()
     prng_t = prng_times(device)
     phase('main')
     venv, obs, state, summary, main_counts = main_path()
@@ -5059,20 +5170,25 @@ def main() -> None:
                             'path': '3 flagship updates a process',
                             'nccl_1': dist_res['nccl_1']['launches']['step'],
                             'gloo_2': [c['step'] for c in dist_res['gloo_2']['launches']]}))
-    r1, r1_gumbel = prng_t['R1 randint (E, N)'], prng_t['R1 gumbel (E, N, 7)']
+    r1 = prng_t['R1 split + randint (E, N)']
     kernels.append(dict(name='threefry_bits', route='cuda',
                         source='multigrid_tpu_torch/csrc/prng.cu',
                         replaces='multigrid_tpu/parallel/vector.py:550',
                         serves='the keyed draws jax.random makes, which XLA computes inline '
                                '(no pallas_call): splits, fold-ins, bits, uniforms, randint, '
-                               'Gumbel noise',
+                               'Gumbel noise, each with an optional split of its key first',
                         launches=main_counts['threefry'],
                         launches_path=f'env flagship, reset + rollout_random({STEPS})',
                         max_abs_err=prng_res['max_abs_err'],
                         equal=prng_res['max_abs_err'] == 0, cases=prng_res['cases'],
                         ms=r1['ms'], plain_ms=r1['plain_ms'], bound_ms=r1['bound_ms'],
                         bound_by=r1['bound_by'], library_ms=None,
-                        shape='randint(key, (4096, 4), 0, 7)', gumbel=r1_gumbel,
+                        launch_floor_ms=r1['launch_floor_ms'],
+                        shape='split + randint(key, (4096, 4), 0, 7) (split_first)',
+                        gumbel=prng_t['R1 split + gumbel (E, N, 7)'],
+                        alone={'randint (E, N)': prng_t['R1 randint (E, N)'],
+                               'gumbel (E, N, 7)': prng_t['R1 gumbel (E, N, 7)']},
+                        ptxas=prng_res['ptxas']['R1'],
                         launches_train=counts['threefry'], launches_bup_train=bcounts['threefry']))
     r2 = prng_t['R2 step draws (E, N), exact reset']
     kernels.append(dict(name='step_draws', route='cuda',
@@ -5087,7 +5203,10 @@ def main() -> None:
                         equal=prng_res['max_abs_err'] == 0, cases=prng_res['cases'],
                         ms=r2['ms'], plain_ms=r2['plain_ms'], bound_ms=r2['bound_ms'],
                         bound_by=r2['bound_by'], library_ms=None,
+                        launch_floor_ms=r2['launch_floor_ms'],
                         shape='4096 envs, 4 agents, exact reset',
+                        bup=prng_t['R2 step draws (E, BUP_N), pool'],
+                        ptxas={k: v for k, v in prng_res['ptxas'].items() if k != 'R1'},
                         launches_train=counts['step_draws'],
                         launches_bup_train=bcounts['step_draws']))
     print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate'],

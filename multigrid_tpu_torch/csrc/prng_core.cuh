@@ -9,10 +9,11 @@
 //
 // Every function is __host__ __device__ where nvcc compiles it and plain
 // inline C++ otherwise, so a host compiler builds the same code for the
-// logic test (tests/test_torch_prng.py). Float arithmetic is written with
-// round-to-nearest intrinsics on the card and compiled without contraction
-// on the host, as XLA computes it, but for the one fused multiply-add XLA
-// makes of a uniform's scale and shift.
+// logic test (tests/test_torch_prng.py): R1's grid-stride walk
+// (draw_strided) and R2's per-env bodies (step_draws_env) included. Float
+// arithmetic is written with round-to-nearest intrinsics on the card and
+// compiled without contraction on the host, as XLA computes it, but for the
+// one fused multiply-add XLA makes of a uniform's scale and shift.
 
 #pragma once
 
@@ -22,8 +23,10 @@
 
 #if defined(__CUDACC__)
 #define MGT_PRNG_FN __host__ __device__ __forceinline__
+#define MGT_PRNG_UNROLL _Pragma("unroll")
 #else
 #define MGT_PRNG_FN inline
+#define MGT_PRNG_UNROLL
 #endif
 
 namespace mgt_prng {
@@ -45,6 +48,8 @@ enum StepMode : int {
 };
 
 constexpr int kMaxStepAgents = 64;
+// The most agents whose step draws R2 unrolls in registers (step_draws_env<N>).
+constexpr int kMaxUnrolledAgents = 8;
 constexpr uint32_t kFloatOne = 0x3F800000u;  // 1.0f
 constexpr float kTiny = 1.17549435e-38f;     // float32's smallest normal
 
@@ -128,13 +133,11 @@ MGT_PRNG_FN float gumbel(uint32_t b) {
 // randint(key, minval, minval + span) at flat index i
 // (random.py::_randint for 32-bit integers): k1, k2 = split(key), then the
 // bits of both at i, combined modulo the span in uint32 arithmetic. A span
-// of 0 (maxval <= minval) draws minval.
-MGT_PRNG_FN int32_t randint(uint32_t k0, uint32_t k1, uint64_t i, uint32_t span,
-                            int32_t minval) {
+// of 0 (maxval <= minval) draws minval. Takes the split's two keys (a0, a1)
+// and (b0, b1), which a draw computes once for its key (DrawKey).
+MGT_PRNG_FN int32_t randint(uint32_t a0, uint32_t a1, uint32_t b0, uint32_t b1, uint64_t i,
+                            uint32_t span, int32_t minval) {
   if (span == 0) span = 1;
-  uint32_t a0, a1, b0, b1;
-  pair(k0, k1, 0, a0, a1);
-  pair(k0, k1, 1, b0, b1);
   const uint32_t hi = bits(a0, a1, i), lo = bits(b0, b1, i);
   uint32_t mult = 65536u % span;
   mult = (mult * mult) % span;
@@ -145,6 +148,9 @@ MGT_PRNG_FN int32_t randint(uint32_t k0, uint32_t k1, uint64_t i, uint32_t span,
 // One env's step draws (ops/step.py::step_draws): order_key, rng' =
 // split(rng); the agents' order, the stable argsort of uniform(order_key,
 // (n,)); then the fresh episode's keys by ``mode``. Keys are (word 0, word 1).
+// The generic body, for any n up to kMaxStepAgents: one hash after another,
+// the mantissas in an array (a stack frame on the card). R2 takes it past
+// kMaxUnrolledAgents agents.
 MGT_PRNG_FN void step_draws(uint32_t k0, uint32_t k1, int n, int mode, int32_t* order,
                             uint32_t* rng_out, uint32_t* gen_out, uint32_t* fresh_out) {
   uint32_t o0, o1, r0, r1;
@@ -175,38 +181,166 @@ MGT_PRNG_FN void step_draws(uint32_t k0, uint32_t k1, int n, int mode, int32_t* 
   }
 }
 
-// Element t of a batched draw: key t / count at flat index offset + t %
-// count, written as ``mode`` asks. ``spans`` (randint) is indexed by the
-// flat index modulo ``span_len``, a span for each position of the draw's
-// last axis.
-MGT_PRNG_FN void draw_element(const int64_t* keys, int64_t t, int64_t count, uint64_t offset,
-                              int mode, const int64_t* spans, int span_len, int32_t minval,
-                              float fmin, float fmax, void* out) {
-  const int64_t k = t / count;
-  const uint64_t i = offset + static_cast<uint64_t>(t - k * count);
-  const uint32_t k0 = static_cast<uint32_t>(keys[2 * k]);
-  const uint32_t k1 = static_cast<uint32_t>(keys[2 * k + 1]);
-  switch (mode) {
+// The same for N agents known at compile time (1..kMaxUnrolledAgents): the
+// loops unroll, so the mantissas and ranks stay in registers, and the
+// hashes form independent chains three deep: the key's split; the order's
+// N hashes beside the reset key's first (fold_in(rng', 0) or
+// fold_in(rng', 1)); the exact reset's split.
+template <int N>
+MGT_PRNG_FN void step_draws_unrolled(uint32_t k0, uint32_t k1, int mode, int32_t* order,
+                                     uint32_t* rng_out, uint32_t* gen_out,
+                                     uint32_t* fresh_out) {
+  uint32_t o0, o1, r0, r1;
+  pair(k0, k1, 0, o0, o1);
+  pair(k0, k1, 1, r0, r1);
+  uint32_t m[N];
+  MGT_PRNG_UNROLL
+  for (int j = 0; j < N; ++j) m[j] = N == 1 ? 0u : bits(o0, o1, static_cast<uint64_t>(j)) >> 9;
+  uint32_t f0 = 0, f1 = 0;
+  if (mode != kStepOnly) pair(r0, r1, mode == kStepExact ? 0 : 1, f0, f1);
+  rng_out[0] = r0;
+  rng_out[1] = r1;
+  MGT_PRNG_UNROLL
+  for (int j = 0; j < N; ++j) {
+    int rank = 0;
+    MGT_PRNG_UNROLL
+    for (int l = 0; l < N; ++l) rank += l < j ? (m[l] <= m[j]) : (m[l] < m[j]);
+    order[rank] = j;
+  }
+  if (mode == kStepExact) {
+    pair(f0, f1, 0, gen_out[0], gen_out[1]);
+    pair(f0, f1, 1, fresh_out[0], fresh_out[1]);
+  } else if (mode == kStepPool) {
+    fresh_out[0] = f0;
+    fresh_out[1] = f1;
+  }
+}
+
+// R2's per-env body: the unrolled one for N agents, the generic one (for
+// n agents) where N is 0.
+template <int N>
+MGT_PRNG_FN void step_draws_env(uint32_t k0, uint32_t k1, int n, int mode, int32_t* order,
+                                uint32_t* rng_out, uint32_t* gen_out, uint32_t* fresh_out) {
+  if constexpr (N == 0) {
+    step_draws(k0, k1, n, mode, order, rng_out, gen_out, fresh_out);
+  } else {
+    step_draws_unrolled<N>(k0, k1, mode, order, rng_out, gen_out, fresh_out);
+  }
+}
+
+// x / d and x % d, in 32-bit arithmetic where both fit: a 64-bit division
+// is a long software routine on the card, on every element's path.
+MGT_PRNG_FN void divmod(uint64_t x, uint64_t d, uint64_t& q, uint64_t& r) {
+  if (((x | d) >> 32) == 0) {
+    const uint32_t q32 = static_cast<uint32_t>(x) / static_cast<uint32_t>(d);
+    q = q32;
+    r = static_cast<uint32_t>(x) - q32 * static_cast<uint32_t>(d);
+  } else {
+    q = x / d;
+    r = x - q * d;
+  }
+}
+
+// One batched draw (R1's arguments): each of num_keys keys draws ``count``
+// elements at flat indices offset + [0, count), written as ``mode`` asks
+// into ``out``; element t is key t / count at index offset + t % count.
+// ``spans`` (randint) is indexed by the flat index modulo ``span_len``, a
+// span for each position of the draw's last axis. With ``keys_out``, each
+// key is split first: the draw is made from element 1 of split(key) and
+// element 0 is written to keys_out (one key drawn from, one key carried,
+// in one pass); a count of 0 then writes keys_out alone.
+struct DrawArgs {
+  const int64_t* keys;
+  int64_t* keys_out;
+  int64_t num_keys, count;
+  uint64_t offset;
+  int mode;
+  const int64_t* spans;
+  int span_len;
+  int32_t minval;
+  float fmin, fmax;
+  void* out;
+};
+
+// What an element needs of its key: the key drawn from (the key, or
+// element 1 of its split), element 0 of the split where the draw splits
+// first (independent of element 1: one hash deep), and randint's split of
+// the key drawn from.
+struct DrawKey {
+  uint32_t k0, k1;          // the key drawn from
+  uint32_t c0, c1;          // element 0 of the split: the key carried on
+  uint32_t a0, a1, b0, b1;  // randint: split(k0, k1)
+};
+
+MGT_PRNG_FN DrawKey draw_key(const DrawArgs& a, int64_t k) {
+  const uint32_t p0 = static_cast<uint32_t>(a.keys[2 * k]);
+  const uint32_t p1 = static_cast<uint32_t>(a.keys[2 * k + 1]);
+  DrawKey d = {p0, p1, 0u, 0u, 0u, 0u, 0u, 0u};
+  if (a.keys_out != nullptr) {
+    pair(p0, p1, 0, d.c0, d.c1);
+    pair(p0, p1, 1, d.k0, d.k1);
+  }
+  if (a.mode == kRandint) {
+    pair(d.k0, d.k1, 0, d.a0, d.a1);
+    pair(d.k0, d.k1, 1, d.b0, d.b1);
+  }
+  return d;
+}
+
+// Element t of the draw from its key's words ``d``, at flat index i (``span``
+// randint's span there).
+MGT_PRNG_FN void draw_at(const DrawArgs& a, const DrawKey& d, int64_t t, uint64_t i,
+                         uint32_t span) {
+  switch (a.mode) {
     case kPair: {
       uint32_t y0, y1;
-      pair(k0, k1, i, y0, y1);
-      static_cast<int64_t*>(out)[2 * t] = y0;
-      static_cast<int64_t*>(out)[2 * t + 1] = y1;
+      pair(d.k0, d.k1, i, y0, y1);
+      static_cast<int64_t*>(a.out)[2 * t] = y0;
+      static_cast<int64_t*>(a.out)[2 * t + 1] = y1;
       break;
     }
     case kBits:
-      static_cast<int64_t*>(out)[t] = bits(k0, k1, i);
+      static_cast<int64_t*>(a.out)[t] = bits(d.k0, d.k1, i);
       break;
     case kUniform:
-      static_cast<float*>(out)[t] = uniform(bits(k0, k1, i), fmin, fmax);
+      static_cast<float*>(a.out)[t] = uniform(bits(d.k0, d.k1, i), a.fmin, a.fmax);
       break;
     case kGumbel:
-      static_cast<float*>(out)[t] = gumbel(bits(k0, k1, i));
+      static_cast<float*>(a.out)[t] = gumbel(bits(d.k0, d.k1, i));
       break;
     case kRandint:
-      static_cast<int32_t*>(out)[t] = randint(
-          k0, k1, i, static_cast<uint32_t>(spans[i % static_cast<uint64_t>(span_len)]), minval);
+      static_cast<int32_t*>(a.out)[t] = randint(d.a0, d.a1, d.b0, d.b1, i, span, a.minval);
       break;
+  }
+}
+
+// The elements first, first + stride, ... of the draw: R1's grid-stride
+// loop for one thread (first = its global index, stride = the grid's
+// threads; one element a thread at the path's sizes). Each element's key
+// words are its own: a cache of the last key's words, for threads that
+// walk several elements of one key, timed slower on the card. With
+// keys_out, element 0 of each key also writes its carried key.
+MGT_PRNG_FN void draw_strided(const DrawArgs& a, int64_t first, int64_t stride) {
+  const int64_t slots = a.count > 0 ? a.count : 1;
+  const int64_t total = a.num_keys * slots;
+  for (int64_t t = first; t < total; t += stride) {
+    uint64_t k, j;
+    divmod(static_cast<uint64_t>(t), static_cast<uint64_t>(slots), k, j);
+    const uint64_t i = a.offset + j;
+    // randint's span is read first, so that no store below holds the load
+    // back behind the hashes.
+    uint32_t span = 0;
+    if (a.mode == kRandint && a.count > 0) {
+      uint64_t q, pos = 0;
+      if (a.span_len > 1) divmod(i, static_cast<uint64_t>(a.span_len), q, pos);
+      span = static_cast<uint32_t>(a.spans[pos]);
+    }
+    const DrawKey d = draw_key(a, static_cast<int64_t>(k));
+    if (a.keys_out != nullptr && j == 0) {
+      a.keys_out[2 * k] = d.c0;
+      a.keys_out[2 * k + 1] = d.c1;
+    }
+    if (a.count > 0) draw_at(a, d, t, i, span);
   }
 }
 

@@ -77,7 +77,8 @@ def scan_step(step, params, carry):
     """One step of the JAX script's scan body (scripts/evaluate.py:112-126)
     from ``carry`` (:func:`start`'s form): ``key, ka = split(key)``, the
     actor of ``step`` (a ``TrainStep``) with ``params`` sampling
-    ``categorical(ka, logits)``, one step of ``step.venv``, and its
+    ``categorical(ka, logits)`` (the split and the noise one draw,
+    ``split_first``), one step of ``step.venv``, and its
     finished episodes added to the sums. Returns the carry after it: the
     function the card captures."""
     from multigrid_tpu_torch.learn.ppo import sample_actions
@@ -85,9 +86,9 @@ def scan_step(step, params, carry):
 
     venv = step.venv
     state, obs, key, ep_acc, (episodes, successes, banked) = carry
-    key, ka = prng.split(key).unbind(0)
     logits, _ = step.actor(params, obs['image'], obs['direction'], obs.get('mission'))
-    noise = prng.gumbel(ka, (venv.num_envs,) + tuple(logits.shape[1:]), rows=venv.rows)
+    key, noise = prng.gumbel(key, (venv.num_envs,) + tuple(logits.shape[1:]), rows=venv.rows,
+                             split_first=True)
     action = sample_actions(logits, noise)
     obs, state, rew, _, _, done, success = venv.step(state, action,
                                                      refresh=not venv.reset_pool)

@@ -33,7 +33,8 @@ state's (agent orders, resets) and the train state's ``key`` (a step's
 ``key, k_act = split(key)`` for its actions, an update's ``key, k_perm =
 split(key)`` for its minibatch shuffles, ppo.py:397-400, 667-675), bit-equal
 to ``jax.random``'s draws from the same keys (Gumbel noise up to the ulp
-of ``log``).
+of ``log``). Each such split and the draw from its second key are one draw
+(``split_first``: one launch on the card).
 
 On a vector env sharded over a process mesh (``VectorEnv(mesh=...)``) the
 update is data-parallel with the semantics of the JAX package's sharded
@@ -475,25 +476,28 @@ class TrainStep:
         return fused_policy.prepare(params) if self.fused_policy else None
 
     def policy_step(self, params, prepped, obs, key: torch.Tensor):
-        """One rollout step's ``(action, log_prob, value)``, each (E, N): the
-        fused-policy kernel on ``prepped`` (from :meth:`prepare_policy`)
-        where it is not None, else :meth:`policy` and Gumbel-max sampling
-        (``jax.random.categorical``). Both paths draw the same noise,
-        ``gumbel(key, (E, N, A))`` of the global batch, this process's rows
-        only (ppo.py:364-381)."""
+        """One rollout step from the rollout's ``key``: ``(action, log_prob,
+        value, key')``, the first three (E, N). ``key', k_act = split(key)``
+        and the noise ``gumbel(k_act, (E, N, A))`` of the global batch, this
+        process's rows only, are one draw (ppo.py:364-381, 397-400). The
+        fused-policy kernel samples on ``prepped`` (from
+        :meth:`prepare_policy`) where it is not None, else :meth:`policy`
+        and Gumbel-max sampling (``jax.random.categorical``), both from
+        that noise."""
         lead, a = obs['direction'].shape, self.net.num_actions
         venv = self.venv
-        gumbel = prng.gumbel(key, (venv.num_envs,) + lead[1:] + (a,), rows=venv.rows)
+        key, gumbel = prng.gumbel(key, (venv.num_envs,) + lead[1:] + (a,), rows=venv.rows,
+                                  split_first=True)
         if prepped is None:
             logits, value = self.policy(params, obs)
             action = sample_actions(logits, gumbel)
-            return action, _select_log_prob(logits, action), value
+            return action, _select_log_prob(logits, action), value, key
         b = obs['direction'].numel()
         dirf = self.dir_features(obs['direction'], obs.get('mission'))
         out = fused_policy.policy_sample_prepared(
             prepped, obs['image'].reshape(b, -1), dirf.reshape(b, -1),
             gumbel.reshape(b, a), num_actions=a)
-        return tuple(x.reshape(lead) for x in out)
+        return (*(x.reshape(lead) for x in out), key)
 
     @torch.no_grad()
     def rollout_phase(self, state: TrainState, params=None):
@@ -510,8 +514,7 @@ class TrainStep:
         steps = []
         prepped = self.prepare_policy(params)
         for _ in range(self.config.rollout_steps):
-            key, k_act = prng.split(key).unbind(0)
-            action, log_prob, value = self.policy_step(params, prepped, obs, k_act)
+            action, log_prob, value, key = self.policy_step(params, prepped, obs, key)
             # With the pool, its refresh runs once a rollout (below).
             next_obs, env_state, reward, term, _, done, success = venv.step(
                 env_state, action, refresh=not venv.reset_pool)
@@ -763,16 +766,15 @@ class TrainStep:
                 shard, shards = mesh.coords[0], mesh.env_shards
                 batch = tuple(x.map(self._gather) if isinstance(x, Rollout) else self._gather(x)
                               for x in batch)
-            key, k_perm = prng.split(state.key).unbind(0)
+            # key, k_perm = split(key); the epoch keys split(k_perm, epochs).
+            key, epoch_keys = prng.split(state.key, cfg.epochs, split_first=True)
             state = state.replace(key=key)
-            epoch_keys = prng.split(k_perm, cfg.epochs)
             for epoch in range(cfg.epochs):
                 if shuffle is None:
-                    # k_t, k_e = split(epoch key) (ppo.py:673-675); the roll
-                    # stays on the device (a 0-d tensor).
-                    k_t, k_e = prng.split(epoch_keys[epoch]).unbind(0)
+                    # k_t, k_e = split(epoch key), the roll randint(k_e)
+                    # (ppo.py:673-675), stays on the device (a 0-d tensor).
+                    k_t, off_e = prng.randint(epoch_keys[epoch], (), 0, e, split_first=True)
                     perm_t = prng.permutation(k_t, t)
-                    off_e = prng.randint(k_e, (), 0, e)
                 else:
                     perm_t, off_e = shuffle[epoch]
                 for tr, adv, tg in minibatches(batch, cfg.minibatches, perm_t, off_e,

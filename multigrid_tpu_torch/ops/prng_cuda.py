@@ -6,10 +6,22 @@ computes threefry2x32 inline in the JAX package):
 * R1, ``threefry_bits_kernel`` (:func:`draw`): a batched draw, keys by a
   range of flat indices, written as key pairs, bits, uniform floats, Gumbel
   noise or randint; every ``utils/prng.py`` function on the card is one
-  launch of it.
+  launch of it. With ``split_first`` the launch also splits each key first
+  (``k', sub = split(k)``, the draw from ``sub``): the path's ``split`` and
+  the draw that uses it are one launch.
 * R2, ``step_draws_kernel`` (:func:`step_draws`): each env's step draws in
   one launch: the split of its key, its agents' order and the auto-reset's
-  fresh keys.
+  fresh keys; teams of up to 8 agents take an instance unrolled for their
+  size.
+
+What bounds them on the card is the launch and each thread's chain of
+dependent hashes, not bytes: at the port's sizes their bound by bytes or
+operations is under a microsecond, below the cost of any launch. Their
+yardstick is the launch floor, an empty kernel launched the same way
+(``mgt_launch_floor``, timed by ``chip_smoke.py``). The design cuts
+launches (the split in the draw's launch) and the chain (R1 one element a
+thread, three hashes deep for a split-first randint; R2's per-env hashes
+as independent chains in registers, three deep).
 
 Each is bit-equal to its plain version in :mod:`multigrid_tpu_torch.utils.prng`
 (``draw_plain``, ``step_draws_plain``), which runs for tensors on the CPU;
@@ -43,7 +55,9 @@ def _lib(name: str):
         if name == 'mgt_threefry_launch':
             fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                           ctypes.c_float, ctypes.c_float] + [ctypes.c_void_p] * 3)
+        elif name == 'mgt_launch_floor':
+            fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         else:
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                            + [ctypes.c_void_p] * 5)
@@ -64,18 +78,21 @@ def _stream(dev: torch.device) -> int:
 
 
 def draw(keys: torch.Tensor, count: int, offset, mode: int, *, spans=None, minval: int = 0,
-         fmin: float = 0.0, fmax: float = 1.0) -> torch.Tensor:
+         fmin: float = 0.0, fmax: float = 1.0, split_first: bool = False):
     """R1: ``count`` elements from each key of ``keys`` (K, 2) at flat
     indices from ``offset`` (an int, or a 0-d int64 tensor on the keys'
     device, read there), one launch on the current stream, as
-    :func:`multigrid_tpu_torch.utils.prng.draw_plain` computes them. No
-    host synchronization: a CUDA graph captures it."""
+    :func:`multigrid_tpu_torch.utils.prng.draw_plain` computes them; with
+    ``split_first``, ``(k', draw)``: each key split first in the same
+    launch, the draw from element 1, element 0 returned (K, 2). No host
+    synchronization: a CUDA graph captures it."""
     global launches
     keys = _keys(keys, 'keys')
     dev, k = keys.device, keys.shape[0]
     dtype = {prng.PAIR: torch.int64, prng.BITS: torch.int64, prng.UNIFORM: torch.float32,
              prng.GUMBEL: torch.float32, prng.RANDINT: torch.int32}[mode]
     out = torch.empty((k, count) + ((2,) if mode == prng.PAIR else ()), dtype=dtype, device=dev)
+    carried = torch.empty_like(keys) if split_first else None
     offset_dev = None
     if isinstance(offset, torch.Tensor):
         offset_dev = offset.to(device=dev, dtype=torch.int64).reshape(()).contiguous()
@@ -84,16 +101,17 @@ def draw(keys: torch.Tensor, count: int, offset, mode: int, *, spans=None, minva
     if mode == prng.RANDINT:
         spans = torch.as_tensor(spans, dtype=torch.int64, device=dev).contiguous()
         span_len, spans_ptr = spans.numel(), spans.data_ptr()
-    if k * count > 0:
+    if k > 0 and (count > 0 or split_first):
         with torch.cuda.device(dev):
             err = _lib('mgt_threefry_launch')(
                 keys.data_ptr(), k, count, int(offset),
                 None if offset_dev is None else offset_dev.data_ptr(), mode, spans_ptr,
-                span_len, int(minval), float(fmin), float(fmax), out.data_ptr(), _stream(dev))
+                span_len, int(minval), float(fmin), float(fmax), out.data_ptr(),
+                None if carried is None else carried.data_ptr(), _stream(dev))
         if err != 0:
             raise RuntimeError(f'threefry draw kernel launch failed: CUDA error {err}')
         launches += 1
-    return out
+    return out if carried is None else (carried, out)
 
 
 def step_draws(rng: torch.Tensor, num_agents: int, mode: int = prng.STEP_ONLY):

@@ -353,7 +353,8 @@ class VectorEnv:
         """Advance ``steps`` lockstep steps with uniform-random actions,
         drawn from ``key`` (a key or an int seed) as the JAX package draws
         them: ``key, ak = split(key)``, then ``randint(ak, (E, N))`` a step
-        (vector.py:547-553; this process's rows only).
+        (vector.py:547-553; this process's rows only), the two one draw
+        (``split_first``).
 
         The throughput benchmark core. With the pool, steps run in chunks
         of :attr:`REFRESH_CHUNK` with ``refresh=False``, each followed by
@@ -402,8 +403,8 @@ class VectorEnv:
         state, key, (rew_sum, episodes, obs_sum) = carry
         e, n = self.num_envs, self.num_agents
         for _ in range(steps):
-            key, ak = prng.split(key).unbind(0)
-            actions = prng.randint(ak, (e, n), 0, NUM_ACTIONS, rows=self.rows)
+            key, actions = prng.randint(key, (e, n), 0, NUM_ACTIONS, rows=self.rows,
+                                        split_first=True)
             obs, state, rew, _, _, done, _ = self._step(state, actions, refresh=refresh)
             rew_sum = rew_sum + rew.sum()
             episodes = episodes + done.sum()

@@ -43,15 +43,14 @@ def scan_step(venv, carry):
     """One step of the probe's scan: ``carry`` = ``(state, key, counts)``,
     the counts (3,) of wins, failures and truncations so far. ``key, ak =
     split(key)``, uniform-random actions ``randint(ak, (E, N))``
-    (probe_random_success.py:33-37), one step, its finished episodes
-    classified (:func:`classify`) and added."""
+    (probe_random_success.py:33-37; one draw, ``split_first``), one step,
+    its finished episodes classified (:func:`classify`) and added."""
     from multigrid_tpu_torch.core.actions import NUM_ACTIONS
     from multigrid_tpu_torch.utils import prng
 
     state, key, counts = carry
-    key, ak = prng.split(key).unbind(0)
-    actions = prng.randint(ak, (venv.num_envs, venv.num_agents), 0, NUM_ACTIONS,
-                           rows=venv.rows)
+    key, actions = prng.randint(key, (venv.num_envs, venv.num_agents), 0, NUM_ACTIONS,
+                                rows=venv.rows, split_first=True)
     _, state, _, term, trunc, done, success = venv.step(state, actions)
     return state, key, counts + torch.stack(classify(done, success, term, trunc))
 

@@ -111,8 +111,7 @@ def main(argv=None) -> list[dict]:
         def dynamics():
             state, key = state0.replace(pool=None), prng.key(2, device)
             for _ in range(steps):
-                key, ak = prng.split(key).unbind(0)
-                actions = prng.randint(ak, (e, n), 0, NUM_ACTIONS)
+                key, actions = prng.randint(key, (e, n), 0, NUM_ACTIONS, split_first=True)
                 _, state, _, _, _, done, _, _ = venv.step_dynamics(state, actions)
                 state = state.replace(
                     step_count=torch.where(done, 0, state.step_count),

@@ -48,7 +48,6 @@ def main(argv=None) -> dict[str, float]:
     from multigrid_tpu_torch.envs import make
     from multigrid_tpu_torch.learn import PPOConfig, make_train_loop, make_train_step, ppo_init
     from multigrid_tpu_torch.parallel import VectorEnv
-    from multigrid_tpu_torch.utils import prng
 
     env = make(args.env_id, agents=args.agents, device=args.device)
     venv = VectorEnv(env, args.num_envs)
@@ -76,8 +75,7 @@ def main(argv=None) -> dict[str, float]:
         prepped = step.prepare_policy(params)
         env_state, obs, key, acc = state.env_state, state.last_obs, state.key, 0.0
         for _ in range(steps_per_call):
-            key, k_act = prng.split(key).unbind(0)
-            action, _, value = step.policy_step(params, prepped, obs, k_act)
+            action, _, value, key = step.policy_step(params, prepped, obs, key)
             obs, env_state, reward, *_ = venv.step(env_state, action)
             acc = acc + reward.sum() + value.sum()
         return float(acc)

@@ -15,6 +15,12 @@ them) and returns the batch's axes, then the draw's. The values are
 bit-equal to ``jax.random``'s for the same key (``jax.random.key_data``),
 Gumbel noise up to the ``log`` (XLA's and PyTorch's may differ by an ulp).
 
+Every batched draw takes ``split_first=True``: the keys are split first,
+the draw is made from element 1 of each split and element 0 comes back
+beside it, ``(k', draw)``, as ``k', sub = split(k)`` then the draw from
+``sub`` gives them. That is the key chain's step (``key, sub =
+split(key)``, then a draw from ``sub``), in one launch on the card.
+
 On the card every draw is one launch of a hand-written kernel
 (:mod:`~multigrid_tpu_torch.ops.prng_cuda`: R1, ``threefry_bits_kernel``,
 and R2, ``step_draws_kernel``); on the CPU the plain versions here compute
@@ -136,12 +142,19 @@ def _randint(k0, k1, index, span, minval: int) -> torch.Tensor:
 
 
 def draw_plain(keys: torch.Tensor, count: int, offset, mode: int, *, spans=None,
-               minval: int = 0, fmin: float = 0.0, fmax: float = 1.0) -> torch.Tensor:
+               minval: int = 0, fmin: float = 0.0, fmax: float = 1.0,
+               split_first: bool = False):
     """R1's plain version: keys (K, 2) draw ``count`` elements each, from
     flat index ``offset`` (an int, or a 0-d int64 tensor); (K, count, 2)
     int64 for :data:`PAIR`, (K, count) int64, float32 or int32 for the
     others. ``spans`` (randint) holds a span for each position of the
-    draw's last axis."""
+    draw's last axis. With ``split_first``, ``(k', draw)``: the plain split
+    of each key, then the plain draw from its element 1; element 0 is
+    ``k'`` (K, 2)."""
+    if split_first:
+        pair = draw_plain(keys, 2, 0, PAIR)
+        return pair[:, 0], draw_plain(pair[:, 1], count, offset, mode, spans=spans,
+                                      minval=minval, fmin=fmin, fmax=fmax)
     dev = keys.device
     index = torch.arange(count, dtype=torch.int64, device=dev) + offset
     k0, k1 = keys[:, :1], keys[:, 1:]
@@ -194,7 +207,7 @@ def step_draws_plain(rng: torch.Tensor, num_agents: int, mode: int = STEP_ONLY):
 # ------------------------------------------------------------------- dispatch
 
 
-def _draw(keys: torch.Tensor, count: int, offset, mode: int, **kw) -> torch.Tensor:
+def _draw(keys: torch.Tensor, count: int, offset, mode: int, **kw):
     """R1 on the card, its plain version on the CPU."""
     if keys.device.type == 'cuda':
         from ..ops import prng_cuda
@@ -215,9 +228,11 @@ def _shape(shape) -> tuple[int, ...]:
     return (int(shape),) if isinstance(shape, (int, np.integer)) else tuple(int(s) for s in shape)
 
 
-def _batched(keys: torch.Tensor, shape, rows, mode: int, **kw) -> torch.Tensor:
+def _batched(keys: torch.Tensor, shape, rows, mode: int, split_first: bool = False, **kw):
     """A draw of ``shape`` (its rows ``rows`` of the leading axis) from
-    each key of the batch ``keys`` (..., 2): (..., *local shape[, 2])."""
+    each key of the batch ``keys`` (..., 2): (..., *local shape[, 2]); with
+    ``split_first``, ``(k', draw)`` (module docstring), ``k'`` shaped as
+    ``keys``."""
     shape = _shape(shape)
     batch = keys.shape[:-1]
     flat = keys.reshape(-1, 2).contiguous()
@@ -229,14 +244,17 @@ def _batched(keys: torch.Tensor, shape, rows, mode: int, **kw) -> torch.Tensor:
         if not shape or not 0 <= start <= stop <= shape[0]:
             raise ValueError(f'rows {rows} outside the draw of shape {shape}')
         local, offset = (stop - start,) + shape[1:], start * inner
-    out = _draw(flat, math.prod(local), offset, mode, **kw)
-    return out.reshape(batch + local + ((2,) if mode == PAIR else ()))
+    out = _draw(flat, math.prod(local), offset, mode, split_first=split_first, **kw)
+    if split_first:
+        carried, out = out
+    out = out.reshape(batch + local + ((2,) if mode == PAIR else ()))
+    return (carried.reshape(keys.shape), out) if split_first else out
 
 
-def split(keys: torch.Tensor, num=2, *, rows=None) -> torch.Tensor:
+def split(keys: torch.Tensor, num=2, *, rows=None, split_first: bool = False):
     """``jax.random.split``: ``num`` (an int or a shape) new keys from each
     key: (..., *num, 2)."""
-    return _batched(keys, num, rows, PAIR)
+    return _batched(keys, num, rows, PAIR, split_first)
 
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
@@ -249,23 +267,25 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return _draw(keys.reshape(-1, 2).contiguous(), 1, offset, PAIR).reshape(keys.shape)
 
 
-def bits(keys: torch.Tensor, shape, *, rows=None) -> torch.Tensor:
+def bits(keys: torch.Tensor, shape, *, rows=None, split_first: bool = False):
     """``jax.random.bits`` (uint32 values in int64): (..., *shape)."""
-    return _batched(keys, shape, rows, BITS)
+    return _batched(keys, shape, rows, BITS, split_first)
 
 
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0, maxval: float = 1.0, *,
-            rows=None) -> torch.Tensor:
+            rows=None, split_first: bool = False):
     """``jax.random.uniform`` in float32: (..., *shape)."""
-    return _batched(keys, shape, rows, UNIFORM, fmin=float(minval), fmax=float(maxval))
+    return _batched(keys, shape, rows, UNIFORM, split_first, fmin=float(minval),
+                    fmax=float(maxval))
 
 
-def gumbel(keys: torch.Tensor, shape=(), *, rows=None) -> torch.Tensor:
+def gumbel(keys: torch.Tensor, shape=(), *, rows=None, split_first: bool = False):
     """``jax.random.gumbel`` (float32, mode ``'low'``): (..., *shape)."""
-    return _batched(keys, shape, rows, GUMBEL)
+    return _batched(keys, shape, rows, GUMBEL, split_first)
 
 
-def randint(keys: torch.Tensor, shape, minval: int, maxval, *, rows=None) -> torch.Tensor:
+def randint(keys: torch.Tensor, shape, minval: int, maxval, *, rows=None,
+            split_first: bool = False):
     """``jax.random.randint`` with int32 values in ``[minval, maxval)``
     (random.py:581): (..., *shape). ``maxval`` is an int or a sequence with
     one bound for each position of the draw's last axis (broadcast as JAX
@@ -275,9 +295,8 @@ def randint(keys: torch.Tensor, shape, minval: int, maxval, *, rows=None) -> tor
     if hi.size != 1 and (not shape or hi.size != shape[-1]):
         raise ValueError(f'maxval {maxval} does not broadcast to the last axis of {shape}')
     spans = np.where(hi > minval, (hi - minval) & MASK, 0)
-    return _batched(
-keys, shape, rows, RANDINT, spans=constant(spans, keys.device),
-                    minval=int(minval))
+    return _batched(keys, shape, rows, RANDINT, split_first,
+                    spans=constant(spans, keys.device), minval=int(minval))
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor, *, rows=None) -> torch.Tensor:
@@ -295,7 +314,8 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor, *, rows=None) -> torch
 def permutation(keys: torch.Tensor, x) -> torch.Tensor:
     """``jax.random.permutation`` of ``arange(x)`` (an int) or of a 1-D
     tensor, for each key (random.py:700-729): rounds of a stable sort by
-    fresh 32-bit keys, ``ceil(3 ln(n) / ln(2**32 - 1))`` of them:
+    fresh 32-bit keys, ``ceil(3 ln(n) / ln(2**32 - 1))`` of them, each
+    round's ``keys, sub = split(keys)`` and the bits of ``sub`` one draw:
     (..., n)."""
     if isinstance(x, (int, np.integer)):
         x = torch.arange(int(x), device=keys.device)
@@ -303,9 +323,7 @@ def permutation(keys: torch.Tensor, x) -> torch.Tensor:
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
     out = x.expand(keys.shape[:-1] + (n,))
     for _ in range(rounds):
-        pair = split(keys)
-        keys, sub = pair[..., 0, :], pair[..., 1, :]
-        sort_keys = bits(sub, (n,))
+        keys, sort_keys = bits(keys, (n,), split_first=True)
         idx = torch.sort(sort_keys, dim=-1, stable=True).indices
         out = out.gather(-1, idx)
     return out

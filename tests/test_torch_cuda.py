@@ -1028,7 +1028,7 @@ def test_sharded_training_on_the_card_matches_one_process(cuda_device, backend, 
     for res in sharded:
         assert res['launches'] == {'obs': 8, 'obs_general': 0, 'onehot_linear': 10,
                                    'onehot_linear_grad': 0, 'ppo_loss': 2,
-                                   'policy_sample': 0, 'step': 8, 'threefry': 16,
+                                   'policy_sample': 0, 'step': 8, 'threefry': 8,
                                    'step_draws': 8}
 
 
@@ -1047,7 +1047,7 @@ def test_model_axis_gate_on_the_card_is_one_process(cuda_device):
         assert res['encoder'] == 'cnn'
         assert res['launches'] == {'obs': 6, 'obs_general': 0, 'onehot_linear': 0,
                                    'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0,
-                                   'step': 6, 'threefry': 12, 'step_draws': 6}
+                                   'step': 6, 'threefry': 6, 'step_draws': 6}
 
 
 
@@ -1255,10 +1255,11 @@ def test_nccl_mesh_graphed_updates_equal_eager_and_one_process(nccl_world, repla
             state, rows = step.run(state, 3)
             counts = launch_counts()
         assert len(replays) == (3 if graphed else 0) and len(step._graphs) == int(graphed)
-        # R1: split and Gumbel noise a rollout step; R2 once a step.
+        # R1: the split and Gumbel noise a rollout step, one launch; R2
+        # once a step.
         assert counts == {'obs': 48, 'obs_general': 0, 'onehot_linear': 51,
                           'onehot_linear_grad': 0, 'ppo_loss': 3, 'policy_sample': 0,
-                          'step': 48, 'threefry': 96, 'step_draws': 48}, counts
+                          'step': 48, 'threefry': 48, 'step_draws': 48}, counts
         runs.append((state, rows))
     a, rows_a = runs[-1]
     for b, rows_b in runs[:-1]:
@@ -1361,6 +1362,26 @@ def test_threefry_kernel_matches_plain(cuda_device, mode, k, count, offset):
     assert torch.equal(got, prng.draw_plain(keys, count, offset, mode, **kw))
 
 
+@pytest.mark.parametrize('mode', [prng.PAIR, prng.BITS, prng.UNIFORM, prng.GUMBEL,
+                                  prng.RANDINT])
+@pytest.mark.parametrize('k,count,offset', [(1, 16384, 0), (1, 114688, 0), (1, 16384, 16384),
+                                            (37, 5, 2**32 + 3), (16387, 2, 0), (5, 0, 0)])
+def test_threefry_kernel_split_first_matches_plain(cuda_device, mode, k, count, offset):
+    """R1's split prologue ≡ the plain split then draw, both on the card,
+    ``torch.equal`` (the carried keys and the draw), every mode, one launch
+    a call; with an offset read on the device too."""
+    from multigrid_tpu_torch.ops import prng_cuda
+    keys = prng.split(prng.key(k + count + 1, cuda_device), k)
+    spans = torch.tensor([7, 4, 1000, 0], device=cuda_device)
+    kw = dict(spans=spans, minval=-2, fmin=-1.0, fmax=2.5, split_first=True)
+    for off in (offset, torch.tensor(offset, dtype=torch.int64, device=cuda_device)):
+        launches = prng_cuda.launches
+        got = prng_cuda.draw(keys, count, off, mode, **kw)
+        assert prng_cuda.launches == launches + 1
+        want = prng.draw_plain(keys, count, offset, mode, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_threefry_kernel_reads_its_offset_on_the_device(cuda_device):
     """``fold_in`` by a 0-d device tensor (the pool's step), in a CUDA graph
     replayed after the step changed: the draw follows the device value."""
@@ -1374,10 +1395,13 @@ def test_threefry_kernel_reads_its_offset_on_the_device(cuda_device):
 
 
 @pytest.mark.parametrize('mode', [prng.STEP_ONLY, prng.STEP_EXACT, prng.STEP_POOL])
-@pytest.mark.parametrize('e,n', [(4096, 4), (4096, 2), (16387, 4), (2048, 64), (33, 1)])
+@pytest.mark.parametrize('e,n', [(4096, 4), (4096, 2), (16387, 4), (2048, 64), (33, 1),
+                                 (4096, 3), (4096, 5), (4096, 6), (4096, 7), (4096, 8),
+                                 (4096, 9), (4096, 16), (8192, 64), (40000, 4)])
 def test_step_draws_kernel_matches_plain(cuda_device, mode, e, n):
     """R2 ≡ its plain version on the card, ``torch.equal`` (orders with
-    ties at 64 agents, keys), one launch a call; and ≡ the CPU's."""
+    ties at 64 agents, keys), one launch a call; and ≡ the CPU's. Teams of
+    1 to 8 take the unrolled instances, 9 to 64 the generic body."""
     from multigrid_tpu_torch.ops import prng_cuda
     rng = prng.split(prng.key(e + n, cuda_device), e)
     launches = prng_cuda.step_launches

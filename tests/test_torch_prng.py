@@ -15,9 +15,12 @@ actions, an update's minibatch shuffles) are the JAX package's.
 
 The kernels' per-element code, ``csrc/prng_core.cuh``, is built here with
 g++ into a host library and held bit-equal to the plain versions (Gumbel
-noise to the same ulp bound: glibc's ``logf`` is not torch's ``log``); the
-CUDA kernels themselves are held to the plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``'s ``prng`` phase).
+noise to the same ulp bound: glibc's ``logf`` is not torch's ``log``): R1's
+grid-stride walk over emulated grids, with and without its split prologue,
+and R2's unrolled bodies (teams of 1 to 8) and generic body; the CUDA
+kernels themselves are held to the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``'s ``prng`` phase). A draw
+with ``split_first`` is the split followed by the draw, in every mode.
 """
 
 import ctypes
@@ -278,27 +281,86 @@ def test_train_state_key_carries_across_from_jax():
         prng.key_data(after.key), data(jax.random.split(jax.random.split(jk)[0])[0]))
 
 
+@pytest.mark.parametrize('draw', [
+    lambda k, **kw: prng.split(k, (6, 2), **kw),
+    lambda k, **kw: prng.bits(k, (6, 5), **kw),
+    lambda k, **kw: prng.uniform(k, (6, 2), -2.0, 3.0, **kw),
+    lambda k, **kw: prng.gumbel(k, (6, 4, 7), **kw),
+    lambda k, **kw: prng.randint(k, (6, 4), 0, 7, **kw),
+    lambda k, **kw: prng.randint(k, (), 0, 4096, **kw),
+    lambda k, **kw: prng.randint(k, (6, 2), 0, [3, 5], **kw)],
+    ids=['split', 'bits', 'uniform', 'gumbel', 'randint', 'randint-scalar', 'randint-bounds'])
+@pytest.mark.parametrize('rows', [None, (2, 5)])
+def test_split_first_is_the_split_then_the_draw(draw, rows):
+    """``k', out = draw(k, ..., split_first=True)`` is ``k', sub =
+    split(k)`` then ``draw(sub, ...)``, for one key and a batch of keys,
+    with a process's rows (every mode: PAIR, BITS, UNIFORM, GUMBEL,
+    RANDINT)."""
+    for keys in (prng.key(3), prng.split(prng.key(4), (2, 3))):
+        if rows is not None and draw(keys).dim() == keys.dim() - 1:
+            continue  # a 0-d draw has no rows
+        kw = {} if rows is None else dict(rows=rows)
+        carried, out = draw(keys, split_first=True, **kw)
+        pair = prng.split(keys)
+        assert torch.equal(carried, pair[..., 0, :])
+        assert torch.equal(out, draw(pair[..., 1, :], **kw))
+
+
+def test_learner_split_first_draws_are_the_jax_learners_keys():
+    """The fused draws' carried keys are JAX's: a rollout's ``key, k_act =
+    split(key)`` chain and a permutation round's ``split``."""
+    key = jax.random.key(21)
+    tk = prng.as_key(data(key), 'cpu')
+    for _ in range(3):
+        key, k_act = jax.random.split(key)
+        tk, noise = prng.gumbel(tk, (3, 4), split_first=True)
+        np.testing.assert_array_equal(prng.key_data(tk), data(key))
+        assert_gumbel_close(noise.numpy(), jax.random.gumbel(k_act, (3, 4)))
+
+
 # ----------------------------------------------- the kernels' code on the host
 
 SHIM = r'''
 #include "prng_core.cuh"
 
+// R1 over an emulated grid of ``threads`` threads, each walking its
+// elements as the kernel's grid-stride loop does; keys_out null or (k, 2).
 extern "C" void mgt_draw_host(const int64_t* keys, long long k, long long count,
                               long long offset, int mode, const int64_t* spans, int span_len,
-                              int minval, float fmin, float fmax, void* out) {
-  for (long long t = 0; t < k * count; ++t)
-    mgt_prng::draw_element(keys, t, count, (uint64_t)offset, mode, spans, span_len, minval,
-                           fmin, fmax, out);
+                              int minval, float fmin, float fmax, void* out, int64_t* keys_out,
+                              long long threads) {
+  const mgt_prng::DrawArgs a = {keys, keys_out, k, count, (uint64_t)offset, mode, spans,
+                                span_len, minval, fmin, fmax, out};
+  for (long long t = 0; t < threads; ++t) mgt_prng::draw_strided(a, t, threads);
 }
 
-extern "C" void mgt_step_draws_host(const int64_t* rng, long long e, int n, int mode,
-                                    int32_t* order, int64_t* out) {
+template <int N>
+void step_draws_host(const int64_t* rng, long long e, int n, int mode, int32_t* order,
+                     int64_t* out) {
   for (long long i = 0; i < e; ++i) {
     uint32_t r[2], g[2] = {0, 0}, f[2] = {0, 0};
-    mgt_prng::step_draws((uint32_t)rng[2 * i], (uint32_t)rng[2 * i + 1], n, mode,
-                         order + i * n, r, g, f);
+    mgt_prng::step_draws_env<N>((uint32_t)rng[2 * i], (uint32_t)rng[2 * i + 1], n, mode,
+                                order + i * n, r, g, f);
     const uint32_t v[6] = {r[0], r[1], g[0], g[1], f[0], f[1]};
     for (int j = 0; j < 6; ++j) out[6 * i + j] = v[j];
+  }
+}
+
+// R2's per-env body as the launcher picks it (the unrolled instance for
+// teams of up to kMaxUnrolledAgents), or the generic body where asked.
+extern "C" void mgt_step_draws_host(const int64_t* rng, long long e, int n, int mode,
+                                    int32_t* order, int64_t* out, int generic) {
+  static_assert(mgt_prng::kMaxUnrolledAgents == 8, "an instance below for each team size");
+  switch (generic || n > mgt_prng::kMaxUnrolledAgents ? 0 : n) {
+    case 1: step_draws_host<1>(rng, e, n, mode, order, out); break;
+    case 2: step_draws_host<2>(rng, e, n, mode, order, out); break;
+    case 3: step_draws_host<3>(rng, e, n, mode, order, out); break;
+    case 4: step_draws_host<4>(rng, e, n, mode, order, out); break;
+    case 5: step_draws_host<5>(rng, e, n, mode, order, out); break;
+    case 6: step_draws_host<6>(rng, e, n, mode, order, out); break;
+    case 7: step_draws_host<7>(rng, e, n, mode, order, out); break;
+    case 8: step_draws_host<8>(rng, e, n, mode, order, out); break;
+    default: step_draws_host<0>(rng, e, n, mode, order, out);
   }
 }
 '''
@@ -318,46 +380,145 @@ def lib(tmp_path_factory):
     out = ctypes.CDLL(str(so))
     out.mgt_draw_host.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
                                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_longlong])
     out.mgt_draw_host.restype = None
     out.mgt_step_draws_host.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int]
     out.mgt_step_draws_host.restype = None
     return out
 
 
-@pytest.mark.parametrize('mode', [prng.PAIR, prng.BITS, prng.UNIFORM, prng.GUMBEL,
-                                  prng.RANDINT])
+MODES = [prng.PAIR, prng.BITS, prng.UNIFORM, prng.GUMBEL, prng.RANDINT]
+SPANS = torch.tensor([7, 4, 1000, 0, 2**31 + 1], dtype=torch.int64)
+DRAW_KW = dict(spans=SPANS, minval=-3, fmin=-1.5, fmax=2.0)
+
+
+def host_draw(lib, keys, count, offset, mode, threads, split_first=False):
+    """R1's per-element code through the g++ build, on an emulated grid of
+    ``threads`` threads: the draw, or ``(k', draw)`` with ``split_first``."""
+    k = keys.shape[0]
+    out = torch.empty(prng.draw_plain(keys[:1], count, offset, mode, **DRAW_KW).shape[1:],
+                      dtype=prng.draw_plain(keys[:1], 1, 0, mode, **DRAW_KW).dtype)
+    out = out.new_empty((k,) + tuple(out.shape))
+    carried = torch.full((k, 2), -1, dtype=torch.int64) if split_first else None
+    lib.mgt_draw_host(keys.data_ptr(), k, count, offset, mode, SPANS.data_ptr(), 5, -3, -1.5,
+                      2.0, out.data_ptr(), None if carried is None else carried.data_ptr(),
+                      threads)
+    return out if carried is None else (carried, out)
+
+
+def assert_draws_equal(mode, got, want):
+    if mode == prng.GUMBEL:
+        assert_gumbel_close(got.numpy(), want.numpy())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('mode', MODES)
 @pytest.mark.parametrize('k,count,offset', [(1, 4099, 0), (37, 5, 1000), (3, 2, 2**32 + 5)])
 def test_kernel_draws_are_the_plain_draws(lib, mode, k, count, offset):
     """R1's per-element code: every mode at a range of flat indices,
-    offsets past 2**32 included."""
+    offsets past 2**32 included, one element a thread."""
     keys = prng.split(prng.key(k + count), k)
-    spans = torch.tensor([7, 4, 1000, 0, 2**31 + 1], dtype=torch.int64)
-    plain = prng.draw_plain(keys, count, offset, mode, spans=spans, minval=-3,
-                            fmin=-1.5, fmax=2.0)
-    out = torch.empty_like(plain)
-    lib.mgt_draw_host(keys.data_ptr(), k, count, offset, mode, spans.data_ptr(), 5, -3,
-                      -1.5, 2.0, out.data_ptr())
-    if mode == prng.GUMBEL:
-        assert_gumbel_close(out.numpy(), plain.numpy())
-    else:
-        assert torch.equal(out, plain)
+    plain = prng.draw_plain(keys, count, offset, mode, **DRAW_KW)
+    assert_draws_equal(mode, host_draw(lib, keys, count, offset, mode, k * count), plain)
+
+
+# Keys, count and offset of a split-first draw: one key (the path's key
+# chain) and 37, offsets past 2**32, rows 5..8 of a (10, 4) draw (a
+# process's rows: offset 20, count 12), a count of 0 (the split alone).
+SPLIT_CASES = [(1, 16384, 0), (37, 5, 1000), (1, 7, 2**32 + 5), (37, 3, 2**33 - 1),
+               (37, 12, 20), (5, 0, 0)]
+
+
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('k,count,offset', SPLIT_CASES)
+def test_kernel_split_draws_are_the_plain_split_draws(lib, mode, k, count, offset):
+    """R1's split prologue: ``k'`` and the draw from ``sub`` of ``k', sub =
+    split(k)`` in one walk, equal to ``draw_plain``'s split then draw, on
+    grids of one element a thread, one thread and 7 threads (a thread
+    crossing keys)."""
+    keys = prng.split(prng.key(k + count + 1), k)
+    want_k, want = prng.draw_plain(keys, count, offset, mode, split_first=True, **DRAW_KW)
+    pair = prng.draw_plain(keys, 2, 0, prng.PAIR)
+    assert torch.equal(want_k, pair[:, 0])
+    assert_draws_equal(mode, want, prng.draw_plain(pair[:, 1], count, offset, mode, **DRAW_KW))
+    for threads in (max(1, k * count), 1, 7):
+        got_k, got = host_draw(lib, keys, count, offset, mode, threads, split_first=True)
+        assert torch.equal(got_k, want_k)
+        assert_draws_equal(mode, got, want)
 
 
 @pytest.mark.parametrize('mode', [prng.STEP_ONLY, prng.STEP_EXACT, prng.STEP_POOL])
-@pytest.mark.parametrize('e,n', [(4096, 4), (4096, 2), (257, 1), (2048, 64)])
+@pytest.mark.parametrize('e,n', [(4096, 4), (4096, 2), (257, 1), (2048, 64), (513, 3), (513, 8),
+                                 (1024, 16)])
 def test_kernel_step_draws_are_the_plain_step_draws(lib, mode, e, n):
-    """R2's per-env code: the order (ties at 64 agents included), the
-    carried key and the fresh episode's keys."""
-    rng = prng.split(prng.key(e + n), e)
+    """R2's per-env code as the launcher picks it (teams of up to 8 unrolled,
+    16 and 64 the generic body): the order, the carried key and the fresh
+    episode's keys."""
+    assert_step_draws(lib, e, n, mode, generic=False)
+
+
+def assert_step_draws(lib, e, n, mode, generic, seed=None):
+    rng = prng.split(prng.key(e + n if seed is None else seed), e)
     order, new, gen, fresh = prng.step_draws_plain(rng, n, mode)
     got = torch.full((e, n), -1, dtype=torch.int32)
     keys = torch.zeros((e, 6), dtype=torch.int64)
-    lib.mgt_step_draws_host(rng.data_ptr(), e, n, mode, got.data_ptr(), keys.data_ptr())
+    lib.mgt_step_draws_host(rng.data_ptr(), e, n, mode, got.data_ptr(), keys.data_ptr(),
+                            int(generic))
     assert torch.equal(got, order)
     assert torch.equal(keys[:, :2], new)
     if gen is not None:
         assert torch.equal(keys[:, 2:4], gen)
     if fresh is not None:
         assert torch.equal(keys[:, 4:], fresh)
+    return rng
+
+
+@pytest.mark.parametrize('mode', [prng.STEP_ONLY, prng.STEP_EXACT, prng.STEP_POOL])
+@pytest.mark.parametrize('n', [1, 2, 3, 4, 8])
+def test_kernel_step_draws_generic_body_is_the_unrolled_one(lib, mode, n):
+    """The generic body (R2 past 8 agents) on the unrolled bodies' team
+    sizes: both the plain version's."""
+    assert_step_draws(lib, 512, n, mode, generic=True)
+
+
+def ties(rng, n):
+    """Whether each env's agents' order uniforms tie."""
+    u = prng.uniform(prng.split(rng)[:, 0], (n,))
+    return torch.tensor([len(torch.unique(row)) < n for row in u])
+
+
+@pytest.mark.parametrize('mode', [prng.STEP_ONLY, prng.STEP_EXACT, prng.STEP_POOL])
+def test_kernel_step_draws_rank_ties_by_index(lib, mode):
+    """The generic body at 64 agents in 8192 envs, where float32 uniforms
+    tie in a few envs: the order there is the plain version's (a stable
+    argsort)."""
+    rng = assert_step_draws(lib, 8192, 64, mode, generic=False, seed=77)
+    assert ties(rng, 64).any(), 'no ties drawn'
+
+
+#: Keys whose n agents' order uniforms tie (found by a search over random
+#: keys: one in ~2**23 / (n (n - 1) / 2)).
+TIED_KEYS = {2: [(1702916, 2418982956), (3394354283, 1835291945)],
+             3: [(2533725248, 686978845), (4284064930, 775414574)],
+             4: [(3786593334, 3303290612), (1104135269, 598074742)],
+             8: [(515005830, 3466818898), (951060277, 723438083)]}
+
+
+@pytest.mark.parametrize('mode', [prng.STEP_ONLY, prng.STEP_EXACT, prng.STEP_POOL])
+@pytest.mark.parametrize('n', sorted(TIED_KEYS))
+def test_kernel_step_draws_unrolled_rank_ties_by_index(lib, mode, n):
+    """The unrolled bodies on keys whose agents tie, beside untied ones:
+    the order is the plain version's stable argsort."""
+    rng = torch.cat([torch.tensor(TIED_KEYS[n], dtype=torch.int64),
+                     prng.split(prng.key(n), 6)])
+    assert ties(rng, n).tolist() == [True, True] + [False] * 6
+    order, new, gen, fresh = prng.step_draws_plain(rng, n, mode)
+    got = torch.full((8, n), -1, dtype=torch.int32)
+    keys = torch.zeros((8, 6), dtype=torch.int64)
+    lib.mgt_step_draws_host(rng.data_ptr(), 8, n, mode, got.data_ptr(), keys.data_ptr(), 0)
+    assert torch.equal(got, order)
+    assert torch.equal(keys[:, :2], new)

@@ -177,7 +177,16 @@ Phases, in order; any failure exits non-zero:
                updates each with exact launch counts (the obs kernel only),
                parameters moving, the card within bf16 tolerance of the CPU's
                float32 net (outputs and gradients), trained agent-steps/s and
-               the device's busy share.
+               the device's busy share; then the same two with per-agent
+               policies (each convolution one conv2d over the agents, a
+               block-diagonal kernel): exact launch counts, the one pass within bf16
+               tolerance of the agent loop on the card, and in turns with
+               the loop (one pass, loop, loop, one pass) trained agent-steps/s
+               and a profiled update's device kernels and busy share; the
+               three convolutions' forward and backward at the updates'
+               shapes as the agent loop, grouped NCHW, grouped
+               channels-last and block-diagonal channels-last (the
+               port's form).
 20. resume  — 2 updates, a checkpoint, 1 update, then a restore into fresh
                objects and 1 update, bit-equal to 3 straight, on the mlp
                default path and on the cnn (cuDNN deterministic).
@@ -219,17 +228,23 @@ Phases, in order; any failure exits non-zero:
                (the flagship's 3 updates on the mesh replaying one graph an
                update with the collectives inside, and under
                disable_graphs(), each bit-equal to the plain graphed path;
-               then the three in turns for trained agent-steps/s, and an
-               update's host launch calls under the profiler); gloo
+               the BUP recipe's 3 on the mesh, the reserve pool's exchange a
+               one-rank NCCL call inside the graphs, bit-equal to the plain
+               graphed path; then the three in turns for trained
+               agent-steps/s, and an update's host launch calls under the
+               profiler, the flagship's and BUP's); gloo
                with two processes sharing the card, 2048 of 4096 envs each
                (the flagship, 2 epochs x 4 minibatches, the BUP recipe on
-               the replicated pool, the fused policy; each held to this
+               the pool sharded over the two, the fused policy; each held to this
                process: every rollout bit-equal, metrics at rtol 1e-4; on
                the BUP recipe the first update whose rollout differs, and
                its step, is reported and the metrics are held up to it;
                not a scaling measure); every process's launches exact (B1
                16, B2 17, B4 1 an update, B5 16 fused); the extra ms a BUP
-               step pays a process for the global reserve's draws; and
+               step would pay a process for the global reserve's draws; the
+               BUP pool's bytes a process (int32 triples replicated, packed
+               at 1 and 2 env shards); ms a BUP step and a consume, eager,
+               one process and two gloo processes in turns; and
                torchrun --nproc-per-node 1 -m multigrid_tpu_torch.train
                --mesh (2 updates replaying graphs, one checkpoint that
                evaluate reads). Gloo's collectives run on the host, so its
@@ -3812,6 +3827,190 @@ def cnn_train(device=None):
               + ', '.join(f'{r:.6e}' for r in rates) + ')')
         profile_update(step, state, f'cnn {label} update')
         out[label] = dict(rate=rate, launches=counts, errors=errs)
+    out.update(cnn_agents_train(device))
+    return out
+
+
+@contextlib.contextmanager
+def _agent_loop():
+    """``TrainStep.actor``'s per-agent pass swapped for its plain version,
+    the net applied agent by agent (``nets.apply_per_agent_loop``), for the
+    comparison in :func:`cnn_agents_train` only: a step built and first
+    called inside captures the loop in its graphs."""
+    from multigrid_tpu_torch.learn import nets, ppo
+    ppo.apply_per_agent = nets.apply_per_agent_loop
+    try:
+        yield
+    finally:
+        ppo.apply_per_agent = nets.apply_per_agent
+
+
+def cnn_agents_vs_loop(net, params, obs, label, samples=1024):
+    """The per-agent cnn's one pass against the agent loop on the card
+    (both bf16, cuDNN), on ``samples`` envs of the observations: logits and
+    values within ``max|Δ|/(|want|+1) < 2e-2``, each parameter's gradient of
+    ``Σ logits·u + Σ value`` within ``‖Δ‖/‖want‖ < 5e-2`` (the two sum the
+    convolutions in other orders and round each layer to bf16; the CPU's
+    bf16 nets agree to 2e-2, tests/test_torch_cnn_agents.py)."""
+    import torch
+
+    from multigrid_tpu_torch.learn.nets import apply_per_agent, apply_per_agent_loop
+
+    args = [obs['image'][:samples], obs['direction'][:samples]]
+    u = torch.randn(args[1].shape + (net.num_actions,), device=args[0].device,
+                    generator=torch.Generator(device=args[0].device).manual_seed(0))
+    outs = []
+    for fn in (apply_per_agent_loop, apply_per_agent):
+        leaves = {k: p.detach().clone().requires_grad_(True) for k, p in params.items()}
+        logits, value = fn(net, leaves, *args)
+        ((logits * u).sum() + value.sum()).backward()
+        outs.append(dict(logits=logits.detach(), value=value.detach(),
+                         **{k: p.grad for k, p in leaves.items()}))
+    want, got = outs
+    err_out = max(float(((got[k] - want[k]).abs() / (want[k].abs() + 1)).max())
+                  for k in ('logits', 'value'))
+    err_grad = max(float((got[k] - want[k]).float().norm() / (want[k].float().norm() + 1e-12))
+                   for k in want if k not in ('logits', 'value'))
+    print(f'per-agent cnn {label}: one pass vs agent loop on the card (bf16) on '
+          f'{len(args[0])} envs: outputs {err_out:.3e} (< 2e-2), gradients {err_grad:.3e} of '
+          "each leaf's norm (< 5e-2)")
+    if err_out >= 2e-2 or err_grad >= 5e-2:
+        fail(f'per-agent cnn {label}: the one pass differs from the agent loop')
+    return err_out, err_grad
+
+
+def cnn_agent_layouts(shapes=((2, 16384), (4, 65536)), reps=3):
+    """The per-agent cnn's three convolutions, forward and backward of
+    their bf16 outputs' sum, at the updates' shapes (agents, samples an
+    agent: the CLI defaults' and the flagship's): the agent loop, one
+    grouped ``conv2d(groups=N)`` on an NCHW and on a channels-last batch,
+    and one dense ``conv2d`` of a block-diagonal kernel on a channels-last
+    batch (the port's form, ``nets._cnn_agents``). Prints ms of each,
+    synchronized, after two untimed; returns them."""
+    import torch
+    import torch.nn.functional as F
+
+    dev, dt, out = torch.device('cuda'), torch.bfloat16, {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    last = torch.channels_last
+    for n, b in shapes:
+        x = (torch.rand((b, n * 21, VS, VS), device=dev, generator=gen) < 0.15).to(dt)
+        ws = [(torch.randn((n, o, i, 3, 3), device=dev, generator=gen) * 0.1).requires_grad_()
+              for o, i in ((16, 21), (32, 16), (64, 32))]
+        eye = torch.eye(n, device=dev)[:, None, :, None, None, None]
+
+        def loop():
+            ys = []
+            for a in range(n):
+                y = x[:, a * 21:(a + 1) * 21]
+                for w in ws:
+                    y = torch.relu(F.conv2d(y, w[a].to(dt)))
+                ys.append(y)
+            return torch.stack(ys)
+
+        def grouped(fmt):
+            y = x.contiguous(memory_format=fmt)
+            for w in ws:
+                k = w.to(dt).reshape((-1,) + w.shape[2:]).contiguous(memory_format=fmt)
+                y = torch.relu(F.conv2d(y, k, groups=n))
+            return y
+
+        def block_diagonal():
+            y = x.contiguous(memory_format=last)
+            for w in ws:
+                k = (eye * w[:, :, None]).reshape(n * w.shape[1], n * w.shape[2], 3, 3)
+                y = torch.relu(F.conv2d(y, k.to(dt).contiguous(memory_format=last)))
+            return y
+        forms = {'agent loop': loop,
+                 'grouped NCHW': lambda: grouped(torch.contiguous_format),
+                 'grouped channels-last': lambda: grouped(last),
+                 'block-diagonal channels-last': block_diagonal}
+        row = {}
+        for name, fn in forms.items():
+            for i in range(2 + reps):
+                if i == 2:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                fn().float().sum().backward()
+            torch.cuda.synchronize()
+            row[name] = (time.perf_counter() - t0) * 1e3 / reps
+        print(f'per-agent cnn convolutions, {n} agents x {b} samples, forward + backward: '
+              + ', '.join(f'{k} {v:.4f} ms' for k, v in row.items()))
+        out[f'{n}x{b}'] = row
+    return out
+
+
+#: The per-agent cnn's setups (label, env, agents, envs): the JAX CLI's
+#: defaults and the flagship.
+CNN_AGENT_SETUPS = (('CLI defaults', 'MultiGrid-Empty-8x8-v0', 2, 1024),
+                    ('flagship', 'MultiGrid-Empty-16x16-v0', N, E))
+
+
+def cnn_agents_train(device=None, setups=CNN_AGENT_SETUPS):
+    """Per-agent cnn policies (``PPOConfig.per_agent_policies``, each
+    agent's parameter slice on its observations, each convolution one pass
+    over all agents), at the JAX CLI's defaults and the flagship: 3 updates
+    with exact launch counts, every parameter moving, metrics finite; the
+    one pass against the agent loop on the card
+    (:func:`cnn_agents_vs_loop`); then in turns (one pass, loop, loop,
+    one pass; the loop a step of its own built under :func:`_agent_loop`)
+    trained agent-steps/s (the median of 5 synchronized pairs of updates
+    after an untimed one), and one profiled update of each: device kernels
+    and busy share."""
+    import statistics
+
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.learn import PPOConfig, make_train_step, ppo_init
+
+    out = {}
+    for label, env_id, n, e in setups:
+        venv = VectorEnv(make(env_id, agents=n, device=device), e, packed_obs=True)
+        cfg = PPOConfig(rollout_steps=TRAIN_T, per_agent_policies=True)
+        state, net, cfg, tx = ppo_init(venv, 0, config=cfg,
+                                       net_kwargs=dict(hidden=HIDDEN, encoder='cnn'))
+        steps = {'one pass': make_train_step(venv, net, cfg, tx)}
+        snap = _snapshot(steps['one pass'], state)
+        after, rows = _counted(steps['one pass'], snap, 3, f'per-agent cnn {label}',
+                               env_id=env_id)
+        counts = _counts()
+        still = sorted(k for k in snap.params if torch.equal(snap.params[k], after.params[k]))
+        if still:
+            fail(f'per-agent cnn {label}: parameters that did not move: {still}')
+        print('  metrics of the last update: ' + json.dumps(rows[-1]))
+        errs = cnn_agents_vs_loop(net, after.params, after.last_obs, label)
+        with _agent_loop():
+            steps['loop'] = make_train_step(venv, net, cfg, tx)
+            _run(steps['loop'], after, 1)  # captures the loop's graphs
+        samples = e * n * TRAIN_T
+        rates = {'one pass': [], 'loop': []}
+        states = {k: after for k in steps}
+        for form in ('one pass', 'loop', 'loop', 'one pass'):
+            with _agent_loop() if form == 'loop' else contextlib.nullcontext():
+                st, _ = _run(steps[form], states[form], 1)
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    st, _ = _run(steps[form], st, 2)
+                    times.append(time.perf_counter() - t0)
+            rates[form].append(samples * 2 / statistics.median(times))
+            states[form] = st
+        prof = {}
+        for form, step in steps.items():
+            with _agent_loop() if form == 'loop' else contextlib.nullcontext():
+                prof[form] = _profiled(lambda: step(states[form]), 1)
+        ratio = sum(rates['one pass']) / sum(rates['loop'])
+        print(f'per-agent cnn {label} trained agent-steps/s in turns (one pass, loop, loop, '
+              f'one pass): one pass {rates["one pass"][0]:.6e}, {rates["one pass"][1]:.6e}; loop '
+              f'{rates["loop"][0]:.6e}, {rates["loop"][1]:.6e} ({ratio:.4f}x by sums)')
+        for form, v in prof.items():
+            print(f'per-agent cnn {label}, profiled update, {form}: wall {v["wall_ms"]:.4f} ms, '
+                  f'device kernels {v["device_kernels"]:.1f}, host launch calls '
+                  f'{v["host_launches"]:.1f}, busy ' + (
+                      'not measured' if v['busy_share'] is None else f'{v["busy_share"]:.4f}'))
+        out[f'per-agent {label}'] = dict(rate=rates['one pass'], rate_loop=rates['loop'],
+                                         launches=counts, errors=errs, profile=prof)
     return out
 
 
@@ -4408,11 +4607,12 @@ def _checked(label, results, runs, single=None, exact=False, counted=True):
 
 
 def _bup_reset_extra_ms(device=None, card='', reps=4):
-    """The extra ms a BUP env step pays on each of 2 processes to refresh
-    the global reserve (4096 envs) instead of its own half (2048): one
-    ``refresh_pool(16)`` of each, in turns (global, half, half, global),
-    over 16 steps. Returns ``{'global_ms', 'half_ms', 'extra_ms'}`` a step
-    (medians)."""
+    """The extra ms a BUP env step pays on each of 2 processes for a
+    refresh of the global count of slots (4096 envs; a process of 2 env
+    shards regenerates ``min(count, E/2)`` of its slots, those outside the
+    window masked) instead of half of it (2048): one ``refresh_pool(16)``
+    of each, in turns (global, half, half, global), over 16 steps. Returns
+    ``{'global_ms', 'half_ms', 'extra_ms'}`` a step (medians)."""
     import statistics
 
     import torch
@@ -4432,9 +4632,100 @@ def _bup_reset_extra_ms(device=None, card='', reps=4):
         times[e].append((time.perf_counter() - t0) * 1e3 / chunk)
     g, h = statistics.median(times[E]), statistics.median(times[E // 2])
     print(f'BUP reserve refresh a step on {card}: global {E} envs {g:.6f} ms, half {E // 2} '
-          f'{h:.6f} ms; extra a process pays for the global draws {g - h:.6f} ms '
+          f'{h:.6f} ms; extra a process pays for the global count {g - h:.6f} ms '
           '(medians, in turns)')
     return {'global_ms': g, 'half_ms': h, 'extra_ms': g - h}
+
+
+def _pool_bytes(sharded, device=None):
+    """The reserve pool's bytes a process at BUP (4096 envs, 2 agents):
+    the slots, their keys and the step, counted from the tensors. The form
+    before the pool was packed and sharded (int32 triples, every process
+    the global reserve) is the packed pool unpacked; ``sharded`` is what
+    each of two env shards held in the gloo run."""
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.core.state import ResetPool
+
+    venv = VectorEnv(make(BUP, agents=BUP_N, device=device), E)
+    pool = venv.reset(seed=0)[1].pool
+    whole = ResetPool(venv.pool_unpack(pool.reserve), pool.step, pool.keys).nbytes
+    res = {'replicated_int32': whole, 'packed_1_shard': pool.nbytes, 'packed_2_shards': sharded}
+    print(f'BUP reserve pool, bytes a process ({E} slots, {BUP_N} agents): int32 triples, '
+          f'replicated (every process) {whole}; packed, 1 env shard {pool.nbytes}; packed, '
+          f'2 env shards {sharded} ({whole / E:.1f}, {pool.nbytes / E:.1f} and '
+          f'{sharded[0] / (E // 2):.1f} a slot)')
+    # Each holds half the slots and keys, and the whole 8-byte step.
+    if any(2 * (b - 8) != pool.nbytes - 8 for b in sharded):
+        fail(f'BUP pool: 2 shards hold {sharded} bytes, not half the slots of {pool.nbytes}')
+    return res
+
+
+def pool_exchange_steps(device=None, e=E, steps=16, reps=20):
+    """BUP on the reserve pool (``e`` envs, 2 agents), eager: ms a step
+    over ``steps`` steps after a warm-up, and ms a :meth:`VectorEnv.consume`
+    (under a mesh of several env shards its barrel shift and gather), on a
+    mesh of every process of the run (one process: no mesh). Returns JSON
+    values."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.parallel import distributed, make_mesh
+    from multigrid_tpu_torch.utils import prng
+    from multigrid_tpu_torch.utils.graphs import disable_graphs
+
+    mesh = make_mesh() if distributed.process_count() > 1 else None
+    venv = VectorEnv(make(BUP, agents=BUP_N, device=device), e, mesh=mesh)
+    with disable_graphs():
+        _, state = venv.reset(seed=0)
+        key = prng.key(1, venv.device)
+
+        def run(state, key, k):
+            for _ in range(k):
+                key, actions = prng.randint(key, (e, BUP_N), 0, 7, rows=venv.rows,
+                                            split_first=True)
+                state = venv.step(state, actions)[1]
+            return state, key
+        state, key = run(state, key, 4)
+        distributed.barrier(None if mesh is None else mesh.group)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, key = run(state, key, steps)
+        _sync(device)
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        venv.consume(state.pool)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            venv.consume(state.pool)
+        _sync(device)
+        consume_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return {'step_ms': step_ms, 'consume_ms': consume_ms, 'slots': state.pool.keys.shape[0]}
+
+
+def _pool_exchange(device=None, card=''):
+    """The sharded pool's exchange on two gloo processes sharing the card
+    (eager, gloo's collectives on the host) against one process, eager: ms
+    a BUP step and ms a consume, in turns (one process, two, two, one).
+    The replicated pool it replaced is another tree's: not in turns."""
+    from multigrid_tpu_torch.parallel.dryrun import spawn
+
+    res = {'one': [], 'two': []}
+    for form in ('one', 'two', 'two', 'one'):
+        if form == 'one':
+            res[form].append(pool_exchange_steps(device, E))
+        else:
+            res[form].append(spawn(pool_exchange_steps, 2, (device, E), backend='gloo',
+                                   device=device, timeout=SPAWN_TIMEOUT))
+    print(f'BUP pool exchange on {card}, eager, in turns (one process, 2 gloo processes, '
+          'the same, one): one process ' + ', '.join(
+              f'{r["step_ms"]:.4f} ms a step (consume {r["consume_ms"]:.4f})'
+              for r in res['one']) + '; 2 processes ' + ', '.join(
+              '/'.join(f'{p["step_ms"]:.4f}' for p in r) + ' ms a step (consume '
+              + '/'.join(f'{p["consume_ms"]:.4f}' for p in r) + ')' for r in res['two'])
+          + '; the replicated pool of the tree before: not in turns')
+    if any(p['slots'] != E // 2 for r in res['two'] for p in r):
+        fail(f'BUP pool exchange: a process of 2 holds {res["two"]} slots, not {E // 2}')
+    return res
 
 
 def _sync(device=None):
@@ -4443,7 +4734,8 @@ def _sync(device=None):
         torch.cuda.synchronize()
 
 
-def nccl_world_of_one(device=None, updates=3, timed=2, e=E, t=TRAIN_T, hidden=HIDDEN):
+def nccl_world_of_one(device=None, updates=3, timed=2, e=E, t=TRAIN_T, hidden=HIDDEN,
+                      bup_t=BUP_T):
     """Run in a spawned world of one (NCCL on the card, gloo in a rehearsal
     on the CPU), whose mesh's groups are the world's, so its collectives
     are real calls over one rank. The trained flagship (mlp on packed
@@ -4473,6 +4765,12 @@ def nccl_world_of_one(device=None, updates=3, timed=2, e=E, t=TRAIN_T, hidden=HI
     for sharded, graphed in ways.values():
         with mode(graphed):
             runs.append(ppo_run(**kw, sharded=sharded))
+    # The BUP recipe on the reserve pool: on the mesh its exchange is a
+    # one-rank NCCL call, captured in the rollout's and the update's graphs.
+    bup_kw = dict(num_envs=e, updates=updates, env_id=BUP, agents=BUP_N, hidden=hidden,
+                  config=dict(rollout_steps=bup_t, epochs=BUP_EPOCHS, minibatches=BUP_MB),
+                  device=device)
+    bup_runs = [ppo_run(**bup_kw, sharded=sharded) for sharded in (True, False)]
     built = {}
     for name, (sharded, graphed) in ways.items():
         venv = VectorEnv(make('MultiGrid-Empty-16x16-v0', agents=N, device=device), e,
@@ -4501,7 +4799,16 @@ def nccl_world_of_one(device=None, updates=3, timed=2, e=E, t=TRAIN_T, hidden=HI
             step, state = built[name]
             with mode(ways[name][1]):
                 profile[name] = _profiled(lambda: step(state), 1)
-    return {'runs': runs, 'trained_agent_steps_per_s': rates, 'profile': profile,
+        venv = VectorEnv(make(BUP, agents=BUP_N, device=device), e, packed_obs=True,
+                         mesh=make_mesh())
+        state, net, cfg, tx = ppo_init(venv, 0, config=PPOConfig(**bup_kw['config']),
+                                       hidden=hidden, net_kwargs=dict(encoder='mlp'))
+        step = make_train_step(venv, net, cfg, tx)
+        state = step(state)[0]
+        _sync(device)
+        profile['BUP mesh, graphed'] = _profiled(lambda: step(state), 1)
+    return {'runs': runs, 'bup_runs': bup_runs, 'trained_agent_steps_per_s': rates,
+            'profile': profile,
             'captures': {name: [dict(warmup_s=g.warmup_s, capture_s=g.capture_s,
                                      pool_mib=g.pool_bytes / 2**20)
                                 for g in _captures(built[name][0])] for name in ways}}
@@ -4553,8 +4860,9 @@ def distributed_path(tmp, device=None):
     counted = device is None
     nccl = [dict(_flagship_run(3, device), name=name)
             for name in ('mesh, graphed', 'mesh, eager')]
+    bup_cfg = dict(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)
     t0 = time.perf_counter()
-    res = spawn(nccl_world_of_one, 1, (device, 3, 2, E, TRAIN_T, HIDDEN),
+    res = spawn(nccl_world_of_one, 1, (device, 3, 2, E, TRAIN_T, HIDDEN, BUP_T),
                 backend='nccl' if counted else 'gloo', device=device,
                 timeout=SPAWN_TIMEOUT)[0]
     print(f'nccl, 1 process: {time.perf_counter() - t0:.1f} s with start-up')
@@ -4563,6 +4871,10 @@ def distributed_path(tmp, device=None):
              counted=counted)
     if counted and not _same_launches(plain['launches'], _want_launches(nccl[0])):
         fail(f'nccl, 1 process, plain graphed: launches {plain["launches"]}')
+    bup_one = [dict(num_envs=E, updates=3, env_id=BUP, agents=BUP_N, hidden=HIDDEN,
+                    config=bup_cfg, device=device, name='BUP recipe, pool exchange graphed')]
+    _checked('nccl, 1 process', [res['bup_runs'][:1]], bup_one, single=res['bup_runs'][1:],
+             exact=True, counted=counted)
     card = smi_line() if counted else 'the CPU'
     rates = res['trained_agent_steps_per_s']
     sums = {k: sum(v) for k, v in rates.items()}
@@ -4575,9 +4887,10 @@ def distributed_path(tmp, device=None):
               f'calls {v["host_launches"]:.1f} ({v["graph_launches"]:.1f} graphs), device '
               f'kernels {v["device_kernels"]:.1f}, busy ' + (
                   'not measured' if v['busy_share'] is None else f'{v["busy_share"]:.4f}'))
-    if counted and res['profile']['mesh, graphed']['graph_launches'] != 1:
-        fail(f'nccl, 1 process: {res["profile"]["mesh, graphed"]["graph_launches"]} graph '
-             'launches in an update, not 1')
+    for k in ('mesh, graphed', 'BUP mesh, graphed'):
+        if counted and res['profile'][k]['graph_launches'] != 1:
+            fail(f'nccl, 1 process, {k}: {res["profile"][k]["graph_launches"]} graph '
+                 'launches in an update, not 1')
     for k, v in res['captures'].items():
         print(f'nccl, 1 process, {k}: captures {v}')
     out['nccl_1'] = {'launches': res['runs'][0]['launches'],
@@ -4585,13 +4898,12 @@ def distributed_path(tmp, device=None):
                      'captures': res['captures']}
 
     # gloo, two processes on the one card, against this process.
-    bup_cfg = dict(rollout_steps=BUP_T, epochs=BUP_EPOCHS, minibatches=BUP_MB)
     gloo = [dict(_flagship_run(3, device), name='flagship'),
             dict(_flagship_run(1, device, config=dict(rollout_steps=TRAIN_T, epochs=2,
                                                       minibatches=4)),
                  name='2 epochs x 4 minibatches'),
             dict(num_envs=E, updates=2, env_id=BUP, agents=BUP_N, hidden=HIDDEN,
-                 config=bup_cfg, device=device, name='BUP recipe, replicated pool'),
+                 config=bup_cfg, device=device, name='BUP recipe, sharded pool'),
             dict(_flagship_run(3, device), fused_policy=True, name='fused policy')]
     runs = [{k: v for k, v in kw.items() if k != 'name'} for kw in gloo]
     # The BUP recipe's one process follows the sharded run's parameters.
@@ -4626,6 +4938,8 @@ def distributed_path(tmp, device=None):
                          single[0]['agent_steps'] / single[0]['seconds'],
                      'bup_gradient_error': bup_error}
     out['bup_reset_extra'] = _bup_reset_extra_ms(device, card)
+    out['pool_bytes'] = _pool_bytes([r[2]['pool_bytes'] for r in res], device)
+    out['pool_exchange'] = _pool_exchange(device, card)
 
     # The CLI under torchrun, then evaluate on its checkpoint.
     ck = os.path.join(tmp, 'mesh-ck')
@@ -5043,6 +5357,7 @@ def main() -> None:
     pt = pool_timing()
     phase('cnn train')
     cnn = cnn_train()
+    cnn_layouts = cnn_agent_layouts()
     phase('resume')
     resumed = resume_path()
     phase('wrappers')
@@ -5217,6 +5532,7 @@ def main() -> None:
                       'wide_view_layers_ms': wide_layers,
                       'pool_layers_ms': pool['layers'], 'bup_pool_timing': pt,
                       'cnn_trained_agent_steps_per_s': {k: v['rate'] for k, v in cnn.items()},
+                      'cnn_agent_layouts_ms': cnn_layouts,
                       'resume': resumed, 'cli_evaluate': cli_row, 'wrapped_step_ms': wt,
                       'gym_adapter': {k: v for k, v in adapters.items() if k != 'launches'},
                       'render_ms_a_frame': render_ms,

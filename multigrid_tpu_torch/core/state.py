@@ -23,8 +23,8 @@ Layouts and dtypes (the same as the JAX package's, with the ``E`` axis):
                                 (:mod:`~multigrid_tpu_torch.utils.prng`).
 
 A :class:`~multigrid_tpu_torch.parallel.VectorEnv` with a reserve pool
-carries it in ``pool`` (:class:`ResetPool`): batch-level state, never
-selected per env.
+carries it in ``pool`` (:class:`ResetPool`, its layouts packed): batch-level
+state, never selected per env.
 """
 
 from __future__ import annotations
@@ -55,18 +55,33 @@ STATE_FIELDS = FIELDS + ('rng',)
 @dataclasses.dataclass
 class ResetPool:
     """A VectorEnv's reserve pool (multigrid_tpu/parallel/vector.py:243-263):
-    ``reserve`` holds one pregenerated layout a slot, extras included, and
-    ``step`` is the global step ``g`` (env ``i`` consumes slot ``(i + g) mod
-    E``): a 0-d int64 tensor on the reserve's device, as the JAX package
-    carries ``_GSTEP`` on the device, so that a captured step reads it there
-    (an int, or a tensor on another device, given here becomes one).
-    ``keys`` (E, 2) is each slot's key stream (``_RKEY``): a refresh at
-    step ``g`` regenerates a slot from ``fold_in(keys[slot], g)``; None
-    where the slots are given without one (a refresh then raises)."""
+    ``reserve`` holds one pregenerated layout a slot, extras included, in
+    the JAX package's storage form (``VectorEnv.pool_pack``,
+    vector.py:199-240): ``grid`` one int32 plane (E, W·H) of packed cells
+    ``type<<8 | color<<4 | state`` with a Box's contents in bits 12–23, and
+    ``box_contents`` zero-sized (E, 0, 0, 3); ``VectorEnv.pool_unpack``
+    gives the triples back. ``step`` is the global step ``g`` (env ``i``
+    consumes slot ``(i + g) mod E``): a 0-d int64 tensor on the reserve's
+    device, as the JAX package carries ``_GSTEP`` on the device, so that a
+    captured step reads it there (an int, or a tensor on another device,
+    given here becomes one). ``keys`` (E, 2) is each slot's key stream
+    (``_RKEY``): a refresh at step ``g`` regenerates a slot from
+    ``fold_in(keys[slot], g)``; None where the slots are given without one
+    (a refresh then raises). Under a mesh a process holds the slots of its
+    own env rows and their keys (``E/R`` of each), the step whole."""
 
     reserve: 'MultiGridState'
     step: torch.Tensor | int = 0
     keys: torch.Tensor | None = None
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes this pool holds: the reserve's tensors and extras, the
+        slots' keys and the step."""
+        r = self.reserve
+        tensors = [getattr(r, f) for f in STATE_FIELDS] + list(r.extras.values()) + [
+            self.step] + ([] if self.keys is None else [self.keys])
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def __post_init__(self):
         dev = self.reserve.device
@@ -268,8 +283,9 @@ def state_from_arrays(
 def state_to_numpy(state: MultiGridState) -> dict[str, Any]:
     """Batched numpy copies of the state's tensor fields (``rng`` as uint32
     words, ``jax.random.key_data``'s layout), with its ``extras`` (a dict of
-    arrays) and its ``pool`` (None, or the reserve's own ``state_to_numpy``,
-    the step as an int and the slots' keys as uint32 words or None)."""
+    arrays) and its ``pool`` (None, or the reserve's own ``state_to_numpy``
+    in its packed storage form, the step as an int and the slots' keys as
+    uint32 words or None)."""
     out: dict[str, Any] = {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}
     out['rng'] = out['rng'].astype(np.uint32)
     out['extras'] = {k: v.cpu().numpy() for k, v in state.extras.items()}

@@ -31,10 +31,13 @@ outside the kernel. The cnn runs its three VALID 3x3 convolutions through
 in a Pallas kernel).
 
 Per-agent policies stack every parameter on a leading agent axis; the JAX
-package applies the net to them with ``jax.vmap``. For the mlp,
-:func:`apply_per_agent` is that batched forward: the first layer of all
-agents in one launch of the first-layer kernel's agent axis, ``Dense_0…3``
-batched products over the stacked weights.
+package applies the net to them with ``jax.vmap``, which XLA turns into
+batched products and convolutions. :func:`apply_per_agent` is that batched
+forward: for the mlp the first layer of all agents in one launch of the
+first-layer kernel's agent axis, for the cnn each convolution one
+``conv2d`` over the agents' channel blocks (a block-diagonal kernel), and
+``Dense_0…3`` batched products over the stacked weights. :func:`apply_per_agent_loop`, the net
+applied agent by agent, is its plain version, for tests.
 """
 
 from __future__ import annotations
@@ -46,15 +49,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..ops.fused_linear import NCH, OBS_CHANNELS, one_hot_image, onehot_linear
+from ..utils.device import constant
 
 #: The compute type of the trunk and heads (flax's ``dtype``).
 DTYPE = torch.bfloat16
 
 __all__ = ['CNN_MIN_VIEW', 'OBS_CHANNELS', 'ActorCritic', 'CentralizedCritic',
-           'apply_per_agent', 'direction_features', 'dir_mission_features',
-           'make_centralized_critic', 'one_hot_image', 'params_from_flax', 'params_to_flax']
+           'apply_per_agent', 'apply_per_agent_loop', 'direction_features',
+           'dir_mission_features', 'make_centralized_critic', 'one_hot_image',
+           'params_from_flax', 'params_to_flax']
 
 
 def direction_features(direction: torch.Tensor, dtype=DTYPE) -> torch.Tensor:
@@ -232,21 +238,20 @@ def _first_layer(image, w, cells, lead, packed, dtype):
 
 def apply_per_agent(net: ActorCritic, params: dict[str, torch.Tensor], image: torch.Tensor,
                     direction: torch.Tensor, mission: torch.Tensor | None = None):
-    """The mlp ``net`` with per-agent parameters (every leaf stacked (N,
-    ...)), agent ``i``'s slice on agent ``i``'s observations, all agents at
-    once: the counterpart of the JAX package's ``jax.vmap(net.apply)`` over
-    the agent axis (multigrid_tpu/learn/ppo.py:269-285).
+    """``net`` with per-agent parameters (every leaf stacked (N, ...)),
+    agent ``i``'s slice on agent ``i``'s observations, all agents at once:
+    the counterpart of the JAX package's ``jax.vmap(net.apply)`` over the
+    agent axis (multigrid_tpu/learn/ppo.py:264-287).
 
     ``image`` (..., N, C) packed cells or (..., N, vs, vs, 3) triples,
-    ``direction`` and ``mission`` (..., N). The first layer is one call of
-    :func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear` on (N, B,
-    C) cells (one launch on the card) where :func:`_first_layer` would take
-    the kernel, else the one-hot product; ``Dense_0…3`` are batched products
-    over the stacked weights, in the net's ``dtype`` as ``Dense`` computes
-    them. Returns float32 ``(logits (..., N, A), value (..., N))``.
+    ``direction`` and ``mission`` (..., N). The mlp's first layer is one
+    call of :func:`~multigrid_tpu_torch.ops.fused_linear.onehot_linear` on
+    (N, B, C) cells (one launch on the card) where :func:`_first_layer`
+    would take the kernel, else the one-hot product; the cnn's encoder is
+    :func:`_cnn_agents`. ``Dense_0…3`` are batched products over the stacked
+    weights, in the net's ``dtype`` as ``Dense`` computes them. Returns
+    float32 ``(logits (..., N, A), value (..., N))``.
     """
-    if net.encoder != 'mlp':
-        raise ValueError(f'apply_per_agent batches the mlp, not the {net.encoder}')
     n, lead, dt = direction.shape[-1], direction.shape[:-1], net.dtype
     axis = image.dim() - (2 if net.packed_obs else 4)
     # Agent axis first, copied once, each agent's rows contiguous.
@@ -254,22 +259,83 @@ def apply_per_agent(net: ActorCritic, params: dict[str, torch.Tensor], image: to
     x = x.reshape((n, -1) + x.shape[len(lead) + 1:])
     d = dir_mission_features(direction, mission, net.num_missions, dt)
     d = d.movedim(-2, 0).reshape(n, -1, d.shape[-1])
-    w = params['img_kernel']
-    if net.packed_obs and (x.is_cuda or dt == torch.bfloat16):
-        h = onehot_linear(x, w).to(dt)
-    else:
-        h = torch.bmm(one_hot_image(x, dt, packed=net.packed_obs).reshape(n, x.shape[1], -1),
-                      w.to(dt))
 
     def dense(x, name):
         y = torch.bmm(x.to(dt), params[f'{name}.kernel'].to(dt))
-        return y + params[f'{name}.bias'].to(dt)[:, None]
+        bias = params.get(f'{name}.bias')
+        return y if bias is None else y + bias.to(dt)[:, None]
 
-    x = torch.relu(h + dense(d, 'Dense_0'))
+    if net.encoder == 'cnn':
+        x = _cnn_agents(net, params, x, dense(d, 'Dense_0'))
+    else:
+        w = params['img_kernel']
+        if net.packed_obs and (x.is_cuda or dt == torch.bfloat16):
+            h = onehot_linear(x, w).to(dt)
+        else:
+            h = torch.bmm(one_hot_image(x, dt, packed=net.packed_obs).reshape(n, x.shape[1], -1),
+                          w.to(dt))
+        x = torch.relu(h + dense(d, 'Dense_0'))
     x = torch.relu(dense(x, 'Dense_1'))
     logits = dense(x, 'Dense_2').float().reshape((n,) + lead + (-1,))
     value = dense(x, 'Dense_3').float().reshape((n,) + lead)
     return logits.movedim(0, -2), value.movedim(0, -1)
+
+
+def _cnn_agents(net: ActorCritic, params: dict[str, torch.Tensor], x: torch.Tensor,
+                d0: torch.Tensor) -> torch.Tensor:
+    """The N agents' cnn features (N, B, (vs-6)²·64), flax's (h, w, c)
+    order, from their observations ``x`` (N, B, ...) and ``Dense_0`` of
+    their direction features ``d0`` (N, B, 16): the agents' one-hot planes
+    are the channel blocks of one batch, and each VALID 3x3 convolution is
+    one convolution over all of them in the net's ``dtype``, the grouped
+    convolution written as a dense one whose (N·out, N·in, 3, 3) kernel
+    holds agent ``i``'s (out, in, 3, 3) in its ``i``-th diagonal block and
+    zeros elsewhere (the zeros add nothing, so each agent's outputs are its
+    own kernel's); each bias is added to the rounded product as
+    :class:`Conv` adds it, and ``d0`` to each agent's first 16 channels, as
+    :meth:`ActorCritic._cnn` adds it.
+
+    On the H100 the dense block-diagonal convolution of a channels-last
+    batch took less time an update than the agent loop, and cuDNN's
+    grouped convolution (``groups=N``) more, in NCHW or channels-last
+    (``chip_smoke.py``'s ``cnn_agent_layouts`` times the four): its
+    operations grow as N², its launches stay three a pass."""
+    n, b, vs, dt = x.shape[0], x.shape[1], net.view_size, net.dtype
+    last = torch.channels_last
+    if net.packed_obs:
+        x = x.reshape(n, b, vs, vs)
+    x = one_hot_image(x, dt, packed=net.packed_obs)          # (N, B, vs, vs, 21)
+    # (B, vs, vs, N·21) in memory, agent-major channels: an NCHW view of NHWC.
+    x = x.permute(1, 2, 3, 0, 4).reshape(b, vs, vs, n * NCH).permute(0, 3, 1, 2)
+    eye = constant(np.eye(n, dtype=np.float32), x.device)[:, None, :, None, None, None]
+
+    def conv(x, i):
+        w = params[f'Conv_{i}.kernel']
+        w = (eye * w[:, :, None]).reshape(n * w.shape[1], n * w.shape[2], 3, 3)
+        y = F.conv2d(x, w.to(dt).contiguous(memory_format=last))
+        return y + params[f'Conv_{i}.bias'].to(dt).reshape(-1)[:, None, None]
+
+    x = torch.relu(conv(x, 0) + d0.permute(1, 0, 2).reshape(b, -1, 1, 1))
+    x = torch.relu(conv(x, 1))
+    x = torch.relu(conv(x, 2)).contiguous(memory_format=last)
+    hw = vs - 6
+    # NHWC (B, h, w, N·64) → (N, B, h·w·64).
+    x = x.permute(0, 2, 3, 1).reshape(b, hw, hw, n, -1)
+    return x.permute(3, 0, 1, 2, 4).reshape(n, b, -1)
+
+
+def apply_per_agent_loop(net: ActorCritic, params: dict[str, torch.Tensor],
+                         image: torch.Tensor, direction: torch.Tensor,
+                         mission: torch.Tensor | None = None):
+    """The plain version of :func:`apply_per_agent`: ``net`` applied agent
+    by agent, each on its parameter slice, the results stacked. For tests
+    and comparisons only."""
+    image = image.movedim(image.dim() - (2 if net.packed_obs else 4), 0).contiguous()
+    outs = [functional_call(net, {k: v[i] for k, v in params.items()},
+                            (image[i], direction[..., i],
+                             None if mission is None else mission[..., i]))
+            for i in range(direction.shape[-1])]
+    return (torch.stack([o[0] for o in outs], -2), torch.stack([o[1] for o in outs], -1))
 
 
 class CentralizedCritic(nn.Module):

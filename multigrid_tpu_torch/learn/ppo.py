@@ -12,7 +12,8 @@ with actions sampled from the policy, computes GAE, and takes ``epochs`` ×
 agents, :func:`~multigrid_tpu_torch.learn.nets.apply_per_agent`), or, with
 ``MULTIGRID_FUSED_POLICY`` set for a shared policy without the critic, the
 whole policy step is the fused-policy kernel; a cnn actor runs through
-autograd and ``conv2d`` (the kernels are the mlp's). Envs with missions
+autograd and ``conv2d`` (the kernels are the mlp's; per-agent cnn actors
+one ``conv2d`` a layer over all agents, of a block-diagonal kernel). Envs with missions
 (BlockedUnlockPickup) give the nets the episode's mission, sized from the
 env's mission space, as a one-hot after the direction features: the
 kernels' direction-feature operand (F = 2 + missions). The learner is the fused
@@ -427,23 +428,13 @@ class TrainStep:
     def actor(self, params, image, direction, mission=None):
         """The actor's ``(logits, value)`` for (..., N, ...) observations.
         Per-agent policies apply agent i's parameter slice to agent i's
-        observations: the mlp for all agents at once (one first-layer
-        launch, :func:`apply_per_agent`, as the JAX package ``vmap``s it),
-        the cnn agent by agent."""
+        observations, all agents at once (:func:`apply_per_agent`, as the
+        JAX package ``vmap``s it): the mlp's first layer in one launch, the
+        cnn's convolutions each one over all agents."""
         ap = self.actor_params(params)
         if not self.config.per_agent_policies:
             return functional_call(self.net, ap, (image, direction, mission))
-        if self.net.encoder == 'mlp':
-            return apply_per_agent(self.net, ap, image, direction, mission)
-        # Agent axis first, copied once, so each agent's rows are contiguous
-        # (a strided slice of (E, N, C) may reshape to a non-contiguous view).
-        image = image.movedim(image.dim() - (2 if self.net.packed_obs else 4), 0).contiguous()
-        outs = [functional_call(self.net, {k: v[i] for k, v in ap.items()},
-                                (image[i], direction[..., i],
-                                 None if mission is None else mission[..., i]))
-                for i in range(direction.shape[-1])]
-        return (torch.stack([o[0] for o in outs], -2),
-                torch.stack([o[1] for o in outs], -1))
+        return apply_per_agent(self.net, ap, image, direction, mission)
 
     def central_value(self, params, image, direction, mission=None):
         """The centralized critic's value of the joint observation,

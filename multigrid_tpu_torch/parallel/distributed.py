@@ -5,12 +5,14 @@ process per card (``python -m torch.distributed.run --nproc-per-node N``),
 each driving its share of the env batch; :func:`initialize` joins them into
 a ``torch.distributed`` process group, NCCL on the card and gloo on the
 CPU, after which :func:`~multigrid_tpu_torch.parallel.mesh.make_mesh` spans
-every process and the same ``VectorEnv`` and PPO code runs on each. The
-learner's gradient all-reduce is the only collective of an update's hot
-path.
+every process and the same ``VectorEnv`` and PPO code runs on each. On
+an update's hot path the collectives are the learner's gradient
+all-reduce and, with the reserve pool, the exchange of its rows between
+the env shards at every step.
 
 The collectives the port needs live here: a sum (or max) all-reduce, an
-all-gather of env rows and a barrier. Gloo reduces CUDA tensors but
+all-gather of env rows, a shift of rows between two fixed peers (the
+sharded reserve pool's exchange) and a barrier. Gloo reduces CUDA tensors but
 gathers only host tensors, so under gloo, and only there, the gather of
 CUDA tensors goes through host memory (two gloo processes may share one
 card, which NCCL refuses). Under NCCL nothing goes through the host: every
@@ -175,6 +177,24 @@ def all_gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.view((world,) + tuple(src.shape)).movedim(0, dim).reshape(shape).to(x.device)
 
 
+def shift_rows(x: torch.Tensor, group, src: int, dst: int) -> torch.Tensor:
+    """The rows ``x`` of the process of rank ``src`` in ``group``, this
+    process's sent to rank ``dst`` in exchange: one all-to-all with fixed
+    split sizes, every process sending its rows (all of one shape) to one
+    peer, so that a graph holds it under NCCL; under gloo a CUDA tensor
+    goes through host memory. ``x`` itself when ``group`` is None."""
+    if group is None:
+        return x
+    src_rows = x.contiguous()
+    if src_rows.is_cuda and not capturable(group):
+        src_rows = src_rows.cpu()
+    n, world = src_rows.shape[0], dist.get_world_size(group)
+    out = torch.empty_like(src_rows)
+    dist.all_to_all_single(out, src_rows, [n if r == src else 0 for r in range(world)],
+                           [n if r == dst else 0 for r in range(world)], group=group)
+    return out.to(x.device)
+
+
 def barrier(group) -> None:
     """Wait for every process of ``group`` (none when it is None)."""
     if group is not None:
@@ -183,4 +203,4 @@ def barrier(group) -> None:
 
 __all__ = ['agree', 'all_gather_rows', 'all_reduce', 'barrier', 'capturable',
            'global_env_batch', 'initialize', 'join', 'process_count', 'process_index',
-           'process_summary', 'shutdown']
+           'process_summary', 'shift_rows', 'shutdown']

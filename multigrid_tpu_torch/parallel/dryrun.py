@@ -142,7 +142,8 @@ def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: 
     its rollout's :func:`rollout_checksums` (the rollout run once more from
     the update's state and keys, untimed), the full parameters'
     digest after each update, the kernels' launches in the updates and
-    their seconds (on the host's clock, to the metrics' copy to the host).
+    their seconds (on the host's clock, to the metrics' copy to the host),
+    and the bytes of this process's reserve pool (0 without one).
     cuDNN runs deterministic meanwhile, and the CPU on one thread as each
     spawned process does, so that the cnn's processes compute the same
     bits.
@@ -217,7 +218,8 @@ def ppo_run(num_envs: int, updates: int = 3, *, env_id: str = FLAGSHIP, agents: 
             'agent_steps': updates * cfg.rollout_steps * num_envs * agents,
             'process_count': 1 if venv.mesh is None else venv.mesh.env_shards,
             'mesh_shape': [1, 1] if venv.mesh is None else list(venv.mesh.shape),
-            'encoder': net.encoder}
+            'encoder': net.encoder,
+            'pool_bytes': 0 if state.env_state.pool is None else state.env_state.pool.nbytes}
 
 
 def _params_path(folder: str, update: int) -> str:

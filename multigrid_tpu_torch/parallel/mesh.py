@@ -25,7 +25,7 @@ from typing import Any, ClassVar
 import torch
 import torch.distributed as dist
 
-from ..core.state import STATE_FIELDS, MultiGridState
+from ..core.state import STATE_FIELDS, MultiGridState, ResetPool
 from . import distributed
 
 
@@ -133,12 +133,24 @@ def env_rows(num_envs: int, mesh: Mesh) -> slice:
     return slice(mesh.coords[0] * per, (mesh.coords[0] + 1) * per)
 
 
+def env_peer(mesh: Mesh, offset: int) -> int:
+    """The rank, in this process's env group (:attr:`Mesh.group`), of the
+    process ``offset`` env shards after this one, cyclically, with this
+    process's model coordinate."""
+    e, m = mesh.coords
+    peer = mesh.ranks[(e + offset) % mesh.env_shards * mesh.model_shards + m]
+    return dist.get_group_rank(mesh.group, peer) if mesh.group is not None else 0
+
+
 def _map_rows(tree, fn):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, MultiGridState):
+        p = tree.pool
+        pool = None if p is None else ResetPool(_map_rows(p.reserve, fn), p.step,
+                                                None if p.keys is None else fn(p.keys))
         return tree.replace(**{f: fn(getattr(tree, f)) for f in STATE_FIELDS},
-                            extras={k: fn(v) for k, v in tree.extras.items()})
+                            extras={k: fn(v) for k, v in tree.extras.items()}, pool=pool)
     if isinstance(tree, dict):
         return {k: _map_rows(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -148,14 +160,16 @@ def _map_rows(tree, fn):
 
 def shard_batch(tree, mesh: Mesh):
     """This process's rows of a tree of global ``(E, ...)`` tensors (dicts,
-    lists, tuples and states; a state's reserve pool stays whole: every
-    process holds the global reserve)."""
+    lists, tuples and states; a state's reserve pool too, its slots and
+    their keys cut to the same rows, as ``P('env')`` places the JAX
+    package's, its global step kept)."""
     return _map_rows(tree, lambda x: x[env_rows(x.shape[0], mesh)])
 
 
 def gather_batch(tree, mesh: Mesh):
     """The global batch of a tree of this process's ``(E/R, ...)`` rows
-    (the inverse of :func:`shard_batch`), on every process."""
+    (the inverse of :func:`shard_batch`; a state's reserve pool too), on
+    every process."""
     return _map_rows(tree, lambda x: distributed.all_gather_rows(x, mesh.group))
 
 
@@ -198,5 +212,5 @@ def gather_params(params: dict[str, torch.Tensor], mesh: Mesh | None) -> dict[st
             if model_sharded(k, v) else v for k, v in params.items()}
 
 
-__all__ = ['Mesh', 'env_rows', 'gather_batch', 'gather_params', 'make_mesh', 'model_columns',
-           'model_sharded', 'shard_batch', 'shard_params']
+__all__ = ['Mesh', 'env_peer', 'env_rows', 'gather_batch', 'gather_params', 'make_mesh',
+           'model_columns', 'model_sharded', 'shard_batch', 'shard_params']

@@ -39,27 +39,75 @@ Under a process mesh (``mesh=``, :mod:`~multigrid_tpu_torch.parallel.mesh`)
 process makes only its own rows' draws over the env axis (``rows=`` of the
 global draw: its envs' keys, its random actions), so a sharded run's envs
 are the unsharded run's, bit for bit, as the JAX package's partitionable
-threefry computes each device's rows alone. The reserve pool is
-replicated: every process holds and refreshes the global reserve, and env
-``i`` of the global batch consumes slot ``(i + g) mod E`` as in one process.
-Under NCCL every process replays the same graphs (:attr:`capture_group`
-checks their keys at the capture); the rollout's summary is summed over
-the processes after the replays.
+threefry computes each device's rows alone. The reserve pool is sharded
+over the env axis as the JAX package places it (``P('env')`` on the whole
+state, vector.py:180-183): a process holds the slots of its own rows and
+their keys, and a finished env takes slot ``(i + g) mod E`` of the global
+reserve through a barrel shift of the packed rows between the env shards
+(:meth:`VectorEnv.consume`). Under NCCL every process replays the same
+graphs (:attr:`capture_group` checks their keys at the capture); the
+rollout's summary is summed over the processes after the replays.
+
+The reserve is stored bit-packed, as the JAX package stores it
+(vector.py:199-240, ``_pool_pack``): each slot's grid is one int32 plane
+of ``W·H`` cells ``type<<8 | color<<4 | state``, a Box's contents in bits
+12–23 of the same cell (:meth:`VectorEnv.pool_pack`), so that a consume
+reads 4 bytes a cell in place of 12 or 24.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.actions import NUM_ACTIONS
-from ..core.constants import Color, State
+from ..core.constants import Color, State, Type
 from ..core.state import STATE_FIELDS, MultiGridState, ResetPool, where_state
 from ..envs.env import MultiGridEnv
 from ..ops.obs_cuda import gen_obs_batched
 from ..utils import graphs, prng
-from ..utils.device import resolve_device
+from ..utils.device import constant, resolve_device
 from . import distributed
-from .mesh import Mesh, env_rows, make_mesh, shard_batch
+from .mesh import Mesh, env_peer, env_rows, make_mesh, shard_batch
+
+
+#: The bit offsets of a packed cell's type, color and state
+#: (``type<<8 | color<<4 | state``).
+_LANES = [8, 4, 0]
+
+
+def _row_parts(state: MultiGridState) -> list[torch.Tensor]:
+    return [getattr(state, f) for f in STATE_FIELDS] + [
+        state.extras[k] for k in sorted(state.extras)]
+
+
+def _row_width(t: torch.Tensor) -> int:
+    return math.prod(t.shape[1:]) * (2 if t.dtype == torch.int64 else 1)
+
+
+def _rows(state: MultiGridState) -> torch.Tensor:
+    """A batch of reserve slots as one int32 row a slot: every field and
+    extra flattened (booleans as 0/1, int64 keys as their two words), in
+    :data:`STATE_FIELDS` order, then the extras by name."""
+    def cols(t):
+        t = t.contiguous().reshape(t.shape[0], math.prod(t.shape[1:]))
+        return t.view(torch.int32) if t.dtype == torch.int64 else t.to(torch.int32)
+    return torch.cat([cols(t) for t in _row_parts(state)], dim=1)
+
+
+def _from_rows(rows: torch.Tensor, like: MultiGridState) -> MultiGridState:
+    """The inverse of :func:`_rows`, the fields' shapes and types from
+    ``like``."""
+    out, i = [], 0
+    for t in _row_parts(like):
+        c = rows[:, i:i + _row_width(t)]
+        i += _row_width(t)
+        if t.dtype == torch.int64:
+            c = c.contiguous().view(torch.int64)
+        out.append(c.reshape((rows.shape[0],) + t.shape[1:]).to(t.dtype))
+    fields = dict(zip(STATE_FIELDS, out))
+    return like.replace(**fields, extras=dict(zip(sorted(like.extras), out[len(fields):])))
 
 
 class VectorEnv:
@@ -147,6 +195,17 @@ class VectorEnv:
         #: The processes that capture this env's graphs together: the
         #: mesh's (None in one process).
         self.capture_group = None if mesh is None else mesh.mesh_group
+        #: Whether the reserve is stored bit-packed (:meth:`pool_pack`):
+        #: every field fits its 4-bit lane (vector.py:97-104).
+        self.pool_packed = len(Color) <= 16 and len(State) <= 16 and len(Type) <= 16
+        # The env axis's group, over which the reserve's rows move to the
+        # envs that consume them (None: the whole reserve is here), and the
+        # barrel shift's peers (:meth:`_window`): stage b receives from the
+        # shard 2^b after this one, the last stage from the next shard.
+        self._pool_group = None if mesh is None else mesh.group
+        self._shifts = [] if self._pool_group is None else [
+            (env_peer(mesh, s), env_peer(mesh, -s))
+            for s in [2 ** b for b in range((mesh.env_shards - 1).bit_length())] + [1]]
         # This process's envs' indices in the global batch, and slot offsets.
         self._envs = torch.arange(self.rows.start, self.rows.stop, device=self.device)
         self._slots = torch.arange(num_envs, device=self.device)
@@ -188,10 +247,47 @@ class VectorEnv:
         """The reserve pool drawn from ``key``: ``k_res, k_stream =
         split(key)``, slot ``i`` from key ``i`` of ``split(k_res, E)`` and
         its key stream key ``i`` of ``split(k_stream, E)`` (vector.py:265-280),
-        the global step 0."""
+        packed (:meth:`pool_pack`), the global step 0. Under a mesh this
+        process draws only the slots of its rows."""
         k_res, k_stream = prng.split(key).unbind(0)
-        reserve = self.env.reset_core(prng.split(k_res, self.num_envs)).clone()
-        return ResetPool(reserve, 0, prng.split(k_stream, self.num_envs))
+        reserve = self.env.reset_core(prng.split(k_res, self.num_envs, rows=self.rows))
+        return ResetPool(self.pool_pack(reserve).clone(), 0,
+                         prng.split(k_stream, self.num_envs, rows=self.rows))
+
+    def pool_pack(self, state: MultiGridState) -> MultiGridState:
+        """The reserve's storage form of a batch of layouts (vector.py:209-222):
+        ``grid`` one int32 plane (E, W·H) of ``type<<8 | color<<4 | state``
+        and, where the env holds Boxes, their contents' cells in bits 12–23
+        of it, ``box_contents`` then zero-sized; the rest as it is. The
+        state itself where :attr:`pool_packed` is false."""
+        if not self.pool_packed:
+            return state
+        g = state.grid
+        # The fields' bits are disjoint, so a sum is their OR.
+        lanes = constant(_LANES, g.device, torch.int32)
+        p = (g << lanes).sum(-1, dtype=torch.int32).reshape(g.shape[0], -1)
+        if state.box_contents.numel():
+            b = state.box_contents
+            p = p | ((b << lanes).sum(-1, dtype=torch.int32).reshape(p.shape) << 12)
+            state = state.replace(box_contents=b.new_zeros((b.shape[0], 0, 0, 3)))
+        return state.replace(grid=p)
+
+    def pool_unpack(self, state: MultiGridState) -> MultiGridState:
+        """The inverse of :meth:`pool_pack` (vector.py:224-240): the grid's
+        and the Boxes' (W, H, 3) triples of packed layouts, every field of a
+        cell in one shift and one mask (two elementwise launches; the two
+        triples are views of their result)."""
+        if not self.pool_packed:
+            return state
+        p, e = state.grid, state.grid.shape[0]
+        boxes = self.env.uses_boxes
+        lanes = constant(_LANES + ([lane + 12 for lane in _LANES] if boxes else []), p.device,
+                         torch.int32)
+        cells = ((p[..., None] >> lanes) & 15).reshape(e, self.env.width, self.env.height, -1)
+        state = state.replace(grid=cells[..., :3])
+        if boxes:
+            state = state.replace(box_contents=cells[..., 3:])
+        return state
 
     def graphed(self) -> bool:
         """Whether this env's entry points replay CUDA graphs now: on the
@@ -278,11 +374,40 @@ class VectorEnv:
         """The reserve as the envs read it at the pool's step ``g``: env
         ``i`` gets slot ``(i + g) mod E``, so an env never replays the
         layout it just played (vector.py:392-405), ``i`` counting in the
-        global batch. One gather a tensor, at indices computed on the device."""
+        global batch; unpacked (:meth:`pool_unpack`) after the packed rows
+        are gathered. Where the whole reserve is here, one gather a tensor
+        at indices computed on the device; under a mesh's env group the
+        window crosses the shards (:meth:`_window`)."""
+        if self._pool_group is not None:
+            return self.pool_unpack(self._window(pool))
         idx = (self._envs + pool.step) % self.num_envs
         r = pool.reserve
-        return r.replace(**{f: getattr(r, f).index_select(0, idx) for f in STATE_FIELDS},
-                         extras={k: v.index_select(0, idx) for k, v in r.extras.items()})
+        return self.pool_unpack(r.replace(
+            **{f: getattr(r, f).index_select(0, idx) for f in STATE_FIELDS},
+            extras={k: v.index_select(0, idx) for k, v in r.extras.items()}))
+
+    def _window(self, pool: ResetPool) -> MultiGridState:
+        """This process's envs' slots, packed, from a reserve sharded over
+        the env group's ``P`` processes of ``L`` slots each. With ``m = g
+        mod E``, shard ``q``'s envs read rows ``[o, L)`` of shard ``a = q +
+        k`` and rows ``[0, o)`` of shard ``a + 1`` (mod ``P``), ``k = m // L``
+        and ``o = m mod L``: ``k`` is reached by a barrel shift of the
+        slots' rows (one int32 row a slot, :func:`_rows`), stage ``b``
+        taking the rows of the shard ``2^b`` after where bit ``b`` of ``k``
+        is set, then one more shift gives shard ``a + 1``, and one gather
+        the window. Fixed peers and sizes, every value on the device, so a
+        graph holds it; ``(⌈log2 P⌉ + 1)·L`` rows move a step, never the
+        global reserve."""
+        group, n = self._pool_group, self.local_envs
+        m = pool.step % self.num_envs
+        k, o = m // n, m % n
+        buf = _rows(pool.reserve)
+        for b, (src, dst) in enumerate(self._shifts[:-1]):
+            got = distributed.shift_rows(buf, group, src, dst)
+            buf = torch.where(((k >> b) & 1).bool(), got, buf)
+        after = distributed.shift_rows(buf, group, *self._shifts[-1])
+        window = torch.cat([buf, after]).index_select(0, self._slots[:n] + o)
+        return _from_rows(window, pool.reserve)
 
     def next_pool(self, pool: ResetPool, refresh: bool = True) -> ResetPool:
         """The last stage of :meth:`step` with a pool: this step's slots
@@ -309,17 +434,31 @@ class VectorEnv:
     def _refresh(self, pool: ResetPool, chunk: int) -> ResetPool:
         """The pool with ``chunk`` steps' worth of slots regenerated, slot
         ``s`` from ``fold_in(pool.keys[s], g)`` at the pool's step ``g``
-        (vector.py:316-320), scattered at indices computed on the device;
-        the tensors of ``pool`` are left as they are."""
+        (vector.py:316-320), packed and scattered at indices computed on the
+        device; the tensors of ``pool`` are left as they are. A process
+        holding ``L`` of the ``E`` slots regenerates a slice of ``min(count,
+        L)`` of its own at an offset clamped on the device, and keeps the
+        old layout of those outside ``[start, start + count)``."""
         if pool.keys is None:
             raise ValueError('a pool without slot keys cannot be refreshed')
         start, count = self.refresh_slots(pool.step, chunk)
         if count == self.num_envs:
             fresh = self.env.reset_core(prng.fold_in(pool.keys, pool.step))
-            return ResetPool(fresh.clone(), pool.step, pool.keys)
-        idx = self._slots[:count] + start
-        fresh = self.env.reset_core(prng.fold_in(pool.keys.index_select(0, idx), pool.step))
+            return ResetPool(self.pool_pack(fresh).clone(), pool.step, pool.keys)
+        n = self.local_envs
+        if n == self.num_envs:
+            idx = self._slots[:count] + start
+        else:
+            c = min(count, n)
+            idx = self._slots[:c] + (start - self.rows.start).clamp(0, n - c)
+        fresh = self.pool_pack(self.env.reset_core(
+            prng.fold_in(pool.keys.index_select(0, idx), pool.step)))
         r = pool.reserve
+        if n != self.num_envs:
+            slot = idx + self.rows.start
+            old = r.replace(**{f: getattr(r, f).index_select(0, idx) for f in STATE_FIELDS},
+                            extras={k: v.index_select(0, idx) for k, v in r.extras.items()})
+            fresh = where_state((slot >= start) & (slot < start + count), fresh, old)
 
         def put(old, new):
             return old.index_copy(0, idx, new)

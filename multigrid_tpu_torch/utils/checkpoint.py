@@ -13,7 +13,8 @@ not read here.
 A sharded run's checkpoint holds the global state, as the JAX package's
 holds global arrays: the columns of the ``Dense_0`` kernels and of their
 Adam moments are gathered over the ``'model'`` axis, the processes' env
-rows over ``'env'``, and the mesh's first process alone writes; on restore
+rows over ``'env'`` (the reserve pool's slots and keys with them, packed),
+and the mesh's first process alone writes; on restore
 every process reads the file and takes its rows and columns, so a
 checkpoint written on one mesh restores on any other, or in one process.
 """
@@ -112,7 +113,7 @@ def _load(path: str) -> dict[str, Any]:
 
 def _local_part(tree: dict[str, Any], venv: VectorEnv) -> dict[str, Any]:
     """A stored train tree's ``Dense_0`` columns and env rows cut to this
-    process's (the reserve pool stays whole)."""
+    process's, the reserve pool's slots and keys too (its step whole)."""
     opt = tree['opt_state']
     tree = {**tree, 'params': shard_params(tree['params'], venv.mesh),
             'opt_state': {**opt, 'mu': shard_params(opt['mu'], venv.mesh),
@@ -122,10 +123,17 @@ def _local_part(tree: dict[str, Any], venv: VectorEnv) -> dict[str, Any]:
     stored = tuple(getattr(tree.get('ep_return_acc'), 'shape', ()))
     if stored != (venv.num_envs,):
         raise _mismatch('train_state.ep_return_acc', stored, (venv.num_envs,))
-    rows, env = venv.rows, tree['env_state']
+    rows = venv.rows
+
+    def cut(env):
+        pool = env['pool']
+        if pool is not None:
+            pool = {**pool, 'reserve': cut(pool['reserve']),
+                    'keys': None if pool['keys'] is None else pool['keys'][rows]}
+        return {**{f: env[f][rows] for f in STATE_FIELDS}, 'pool': pool,
+                'extras': {k: v[rows] for k, v in env['extras'].items()}}
     return {**tree,
-            'env_state': {**{f: env[f][rows] for f in STATE_FIELDS}, 'pool': env['pool'],
-                          'extras': {k: v[rows] for k, v in env['extras'].items()}},
+            'env_state': cut(tree['env_state']),
             'last_obs': {k: v[rows] for k, v in tree['last_obs'].items()},
             'ep_return_acc': tree['ep_return_acc'][rows]}
 
@@ -134,7 +142,8 @@ def save_checkpoint(path: str, state: TrainState, venv: VectorEnv) -> str:
     """Atomically write ``state`` to the file ``path`` (a temporary file
     in the same directory, then a rename).
     Under a mesh every process calls it: the kernels' columns and the env
-    rows are gathered, the mesh's first process writes, and all return once
+    rows (the reserve's slots and keys among them) are gathered, the
+    mesh's first process writes, and all return once
     the file is there. Returns the absolute path."""
     mesh = venv.mesh
     if mesh is not None:

@@ -902,6 +902,50 @@ def test_cnn_on_the_card_matches_cpu_float32(cuda_device):
         assert float((g.float() - w).norm() / w.norm()) < 0.1
 
 
+def test_per_agent_cnn_one_pass_on_the_card(cuda_device):
+    """Per-agent cnn actors as one pass (``apply_per_agent``: each
+    convolution one ``conv2d`` of a block-diagonal kernel, bf16, cuDNN,
+    channels-last) against the agent
+    loop (``apply_per_agent_loop``) on the card and against the float32
+    loop on the CPU with the same weights, 3 agents on packed cells with 12
+    missions: logits and values within ``max|Δ|/(|want|+1) < 2e-2``; each
+    parameter's gradient of a scalar of them within ``‖Δ‖/‖want‖ < 5e-2``
+    of the card's loop and ``< 0.1`` of the CPU's float32 (as the shared
+    cnn's card test holds it)."""
+    from multigrid_tpu_torch.learn.nets import (
+        ActorCritic,
+        apply_per_agent,
+        apply_per_agent_loop,
+    )
+    rng = np.random.default_rng(9)
+    b, n = 1024, 3
+    image = _packed(rng, b * n, 81, 0.0).reshape(b, n, 81)
+    direction = torch.as_tensor(rng.integers(0, 4, (b, n)))
+    mission = torch.as_tensor(rng.integers(0, 12, (b, n)))
+    u = torch.as_tensor(rng.normal(size=(b, n, 7)).astype(np.float32))
+    nets = [ActorCritic(81, hidden=64, packed_obs=True, num_missions=12, encoder='cnn', seed=i)
+            for i in range(n)]
+    params = {k: torch.stack([dict(m.named_parameters())[k].detach() for m in nets])
+              for k, _ in nets[0].named_parameters()}
+    outs = {}
+    for name, fn, dev, dtype in (('cpu loop', apply_per_agent_loop, 'cpu', torch.float32),
+                                 ('card loop', apply_per_agent_loop, cuda_device, torch.bfloat16),
+                                 ('card one pass', apply_per_agent, cuda_device, torch.bfloat16)):
+        net = ActorCritic(81, hidden=64, packed_obs=True, num_missions=12, dtype=dtype,
+                          encoder='cnn').to(dev)
+        leaves = {k: v.to(dev).clone().requires_grad_(True) for k, v in params.items()}
+        logits, value = fn(net, leaves, image.to(dev), direction.to(dev), mission.to(dev))
+        ((logits * u.to(dev)).sum() + value.sum()).backward()
+        outs[name] = [logits.detach().cpu(), value.detach().cpu()] + [
+            leaves[k].grad.cpu() for k in sorted(leaves)]
+    got = outs['card one pass']
+    for want, grad_tol in ((outs['card loop'], 5e-2), (outs['cpu loop'], 0.1)):
+        for g, w in zip(got[:2], want[:2]):
+            assert _rel_err(g, w) < 2e-2
+        for g, w in zip(got[2:], want[2:]):
+            assert float((g.float() - w.float()).norm() / w.float().norm()) < grad_tol
+
+
 def test_resume_on_the_card_is_exact(cuda_device, tmp_path):
     """BUP on the card (mlp on B2 and B4, the pool): 2 updates straight ≡ 1
     update, a checkpoint, a restore into freshly built objects and 1 more,
@@ -1225,6 +1269,26 @@ def test_nccl_collectives_replay_in_a_graph(nccl_world):
     for _ in range(2):
         got, want = graph.replay(), fn(x)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+        x.add_(1)
+
+
+def test_nccl_shift_rows_replays_in_a_graph(nccl_world):
+    """The reserve pool's exchange (``shift_rows``, an all-to-all with fixed
+    split sizes) captured in a graph over the world of one, its one rank
+    both peers: each replay gives the buffer's rows then, as eagerly."""
+    import torch.distributed as dist
+
+    from multigrid_tpu_torch.parallel import distributed
+    from multigrid_tpu_torch.utils.graphs import Graph
+    world = dist.group.WORLD
+
+    def fn(x):
+        return [distributed.shift_rows(x + 1, world, 0, 0)]
+    x = torch.randint(0, 1000, (2048, 97), dtype=torch.int32, device=nccl_world)
+    graph = Graph(fn, x, group=world)
+    for _ in range(2):
+        got = graph.replay()
+        assert torch.equal(got[0], x + 1) and torch.equal(fn(x)[0], x + 1)
         x.add_(1)
 
 

@@ -101,8 +101,10 @@ def test_make_mesh_in_one_process():
 
 
 def test_rows_and_shard_batch_of_a_two_shard_mesh():
-    """Process 1 of 2 holds rows 6..12 of 12; a state's pool stays whole;
-    the env shards must divide the batch (vector.py:121-131)."""
+    """Process 1 of 2 holds rows 6..12 of 12, of the state and of its
+    reserve pool (the slots and their keys; the global step whole, as the
+    JAX package places its pool on ``P('env')``); the env shards must
+    divide the batch (vector.py:121-131)."""
     mesh = Mesh((2, 1), (0, 1), 1)
     assert env_rows(12, mesh) == slice(6, 12)
     with pytest.raises(ValueError, match='not divisible by 2 mesh shards'):
@@ -112,7 +114,11 @@ def test_rows_and_shard_batch_of_a_two_shard_mesh():
     venv = VectorEnv(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device='cpu'), 12)
     _, state = venv.reset(seed=0)
     part = shard_batch(state, mesh)
-    assert torch.equal(part.grid, state.grid[6:]) and part.pool is state.pool
+    assert torch.equal(part.grid, state.grid[6:]) and part.pool.step is state.pool.step
+    assert torch.equal(part.pool.reserve.grid, state.pool.reserve.grid[6:])
+    assert torch.equal(part.pool.reserve.extras['mission_color'],
+                       state.pool.reserve.extras['mission_color'][6:])
+    assert torch.equal(part.pool.keys, state.pool.keys[6:])
     assert torch.equal(part.extras['mission_color'], state.extras['mission_color'][6:])
     assert gather_batch(x, make_mesh()) is x
     with pytest.raises(ValueError, match='not divisible by 2 mesh shards'):

@@ -234,13 +234,14 @@ def test_pool_slots_on_the_device_match_jax_over_a_period(e, period, chunk):
     venv = VectorEnv(make(BUP, agents=2, device='cpu'), e, reset_pool_period=period)
     _, state = venv.reset(seed=0)
     reserve = state.pool.reserve
-    # Slot i's grid holds i everywhere, so a gathered row names its slot;
-    # a grid of -1 everywhere shows which slots a refresh rewrote.
+    # Slot i's packed grid holds i in every cell (the state lane of the
+    # unpacked cell), so a gathered row names its slot; a grid of -1
+    # everywhere shows which slots a refresh rewrote.
     ids = torch.arange(e, dtype=torch.int32)
-    tagged = reserve.replace(grid=ids.view(e, 1, 1, 1).expand_as(reserve.grid).clone())
+    tagged = reserve.replace(grid=ids.view(e, 1).expand_as(reserve.grid).clone())
     blank = reserve.replace(grid=torch.full_like(reserve.grid, -1))
     for g in range(2 * e * chunk):
-        got = venv.consume(ResetPool(tagged, torch.tensor(g))).grid[:, 0, 0, 0].tolist()
+        got = venv.consume(ResetPool(tagged, torch.tensor(g))).grid[:, 0, 0, 2].tolist()
         want = np.asarray(jnp.roll(jnp.arange(e), -(g % e))).tolist()
         assert got == want, (g, got, want)
         new = venv._refresh(ResetPool(blank, torch.tensor(g), state.pool.keys),

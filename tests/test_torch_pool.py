@@ -225,7 +225,8 @@ def test_done_env_takes_its_reserve_slots_extras(env_id):
     finished = 0
     for _ in range(9):
         slots = venv.consume(state.pool)
-        assert torch.equal(slots.grid[0], state.pool.reserve.grid[state.pool.step % e])
+        reserve = venv.pool_unpack(state.pool.reserve)
+        assert torch.equal(slots.grid[0], reserve.grid[state.pool.step % e])
         obs, state, *_, done, _ = venv.step(state, _idle(e))
         for i in done.nonzero().flatten().tolist():
             finished += 1
@@ -274,11 +275,13 @@ def test_rollout_random_refreshes_in_chunks():
 # ------------------------------------------ bit parity with the JAX pool
 
 def _port_state(jstate, jvenv):
-    """The port's state, pool included, from a JAX state with its pool."""
+    """The port's state, pool included, from a JAX state with its pool: the
+    reserve carried across in the JAX package's packed storage form, which
+    is the port's."""
     host = jax.device_get(jstate)
     extras = {k: v for k, v in host.extras.items() if not k.startswith('_vec:')}
     state = state_from_arrays({k: getattr(host, k) for k in FIELDS}, 'cpu', extras=extras)
-    reserve = jax.device_get(jvenv._pool_unpack(jstate.extras[_RESERVE], jstate))
+    reserve = host.extras[_RESERVE]
     reserve = state_from_arrays({k: getattr(reserve, k) for k in FIELDS}, 'cpu',
                                 extras=dict(reserve.extras))
     return state.replace(pool=ResetPool(reserve, int(host.extras[_GSTEP][0])))
@@ -334,6 +337,44 @@ def test_consumption_matches_jax_bit_for_bit():
     assert dones == 3 * e
 
 
+def test_packed_reserve_is_the_jax_packages():
+    """The reserve's storage form is the JAX package's ``_pool_pack``
+    (vector.py:215-229), bit for bit: the port's reserve drawn from the same
+    key equals JAX's stored reserve (one int32 plane a slot, the Boxes'
+    contents in bits 12-23, ``box_contents`` zero-sized); ``pool_pack`` of
+    JAX's unpacked reserve carried across as numpy equals JAX's
+    ``_pool_pack`` of it, run eagerly, and ``pool_unpack`` equals its
+    ``_pool_unpack``; the extras and keys stay as they are."""
+    e, n = 6, 2
+    kw = dict(agents=n, max_steps=3, see_through_walls=True)
+    jvenv = JaxVectorEnv(jax_make(BUP, **kw), e, reset_pool_period=4)
+    venv = VectorEnv(make(BUP, device='cpu', **kw), e, reset_pool_period=4)
+    _, jstate = jvenv.reset(jax.random.key(4))
+    _, state = venv.reset(prng.key(4))
+    stored = jax.device_get(jstate.extras[_RESERVE])
+    assert stored.grid.shape == (e, 11 * 6) and stored.box_contents.shape == (e, 0, 0, 3)
+    unpacked = jax.device_get(jvenv._pool_unpack(jstate.extras[_RESERVE], jstate))
+    reserve = state.pool.reserve
+    for f in ('grid', 'box_contents'):
+        np.testing.assert_array_equal(getattr(reserve, f).numpy(), getattr(stored, f), f)
+    for k, v in reserve.extras.items():
+        np.testing.assert_array_equal(v.numpy(), stored.extras[k], k)
+    carried = state_from_arrays({k: getattr(unpacked, k) for k in FIELDS}, 'cpu',
+                                extras=dict(unpacked.extras))
+    ours = venv.pool_pack(carried)
+    theirs = jvenv._pool_pack(jvenv._pool_unpack(jstate.extras[_RESERVE], jstate))
+    np.testing.assert_array_equal(ours.grid.numpy(), np.asarray(theirs.grid))
+    assert ours.box_contents.shape == theirs.box_contents.shape
+    back = venv.pool_unpack(ours)
+    for f in ('grid', 'box_contents'):
+        np.testing.assert_array_equal(getattr(back, f).numpy(), getattr(unpacked, f), f)
+    for f in FIELDS[2:]:
+        assert torch.equal(getattr(back, f), getattr(carried, f)), f
+    # The box table rides in the upper bits: every cell's is the empty
+    # encoding (1, 0, 0), as BUP's Box holds nothing.
+    assert ((ours.grid >> 12) == 1 << 8).all()
+
+
 def test_pool_is_batch_state_carried_whole():
     """``clone`` copies the pool (no tensor shared), ``where_state`` keeps
     ``b``'s pool unmerged, ``state_to_numpy`` carries it, and the per-env
@@ -342,14 +383,15 @@ def test_pool_is_batch_state_carried_whole():
     venv = VectorEnv(make(RBD, agents=2, device='cpu'), 4)
     _, state = venv.reset(seed=6)
     copy = state.clone()
-    copy.pool.reserve.grid[0, 0, 0, 0] = 99
-    assert state.pool.reserve.grid[0, 0, 0, 0] != 99 and copy.pool.step == state.pool.step
+    copy.pool.reserve.grid[0, 0] = 99
+    assert state.pool.reserve.grid[0, 0] != 99 and copy.pool.step == state.pool.step
     merged = where_state(torch.tensor([True, False, True, False]), copy, state)
     assert merged.pool is state.pool
     host = state_to_numpy(state)
     assert host['pool']['step'] == 0 and set(host['extras']) == set(state.extras)
     np.testing.assert_array_equal(host['pool']['reserve']['grid'],
                                   state.pool.reserve.grid.numpy())
+    assert host['pool']['reserve']['grid'].shape == (4, venv.env.width * venv.env.height)
     seen = []
     step_core = venv.env.step_core
     venv.env.step_core = lambda s, *a, **k: seen.append(s.pool) or step_core(s, *a, **k)

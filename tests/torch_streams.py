@@ -114,8 +114,10 @@ def port_run(name: str, device) -> dict:
         fields = {f: h[f] for f in FIELDS}
         fields['extras'] = h['extras']
         p = h['pool']
+        # The reserve's layouts as the JAX side records them: unpacked.
+        reserve = None if p is None else state_to_numpy(venv.pool_unpack(s.pool.reserve))
         pool_rec = None if p is None else {
-            **{f: p['reserve'][f] for f in FIELDS}, 'extras': p['reserve']['extras'],
+            **{f: reserve[f] for f in FIELDS}, 'extras': reserve['extras'],
             'keys': p['keys'], 'step': np.int64(p['step'])}
         return fields, pool_rec
 

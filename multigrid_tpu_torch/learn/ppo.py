@@ -79,7 +79,7 @@ from ..ops import fused_policy, fused_ppo
 from ..parallel import distributed
 from ..parallel.mesh import gather_params, shard_params
 from ..parallel.vector import VectorEnv
-from ..utils import graphs, prng
+from ..utils import graphs, prng, profiling
 from .nets import (
     ACTOR,
     CRITIC,
@@ -698,6 +698,11 @@ class TrainStep:
         """``updates`` updates from ``state``: ``(state, [metrics of each
         update])``. On the card, replays of one carry graph, the train state
         staying in the graph's buffers from one update to the next."""
+        with profiling.trace_annotation('mgt.update'):
+            return self._run(state, updates, shuffle)
+
+    def _run(self, state: TrainState, updates: int, shuffle=None):
+        """:meth:`run`'s body."""
         if not self.venv.graphed():
             rows = []
             for _ in range(updates):
@@ -708,7 +713,7 @@ class TrainStep:
             shuffle = [(torch.as_tensor(p, device=self.venv.device),
                         torch.as_tensor(o, device=self.venv.device)) for p, o in shuffle]
         args = (self._carry(state), shuffle)
-        key = ('update', graphs.signature(args))
+        key = ('update', graphs.signature(args), profiling.counting())
         if key not in self._graphs:
             buffers = graphs.clone(args)
             self._graphs[key] = graphs.Graph(
@@ -737,41 +742,48 @@ class TrainStep:
         return (self._carry(state), shuffle), metrics
 
     def update(self, state: TrainState, shuffle=None):
-        """One update, eagerly: :meth:`__call__`'s body."""
+        """One update, eagerly: :meth:`__call__`'s body. Under the stage
+        counters (:mod:`~multigrid_tpu_torch.utils.profiling`) it marks the
+        stages ``rollout`` (with the env step's stages inside it), ``gae``
+        and ``sgd``."""
         cfg = self.config
         params, opt_state = gather_params(state.params, self.venv.mesh), state.opt_state
-        state, traj, last_value, (ep_sum, ep_cnt, ep_suc) = self.rollout_phase(state, params)
-        advantages, targets = self.compute_gae(traj, last_value)
-        if cfg.minibatches == 1:
-            for _ in range(cfg.epochs):
-                params, opt_state, metrics = self.sgd_step(
-                    params, opt_state, traj, advantages, targets)
-        else:
-            t, e = advantages.shape[0], self.venv.num_envs
-            if e % cfg.minibatches:
-                raise ValueError(f'env batch {e} not divisible by '
-                                 f'{cfg.minibatches} minibatches')
-            batch, shard, shards = (traj, advantages, targets), 0, 1
-            if self.split:
-                mesh = self.venv.mesh
-                shard, shards = mesh.coords[0], mesh.env_shards
-                batch = tuple(x.map(self._gather) if isinstance(x, Rollout) else self._gather(x)
-                              for x in batch)
-            # key, k_perm = split(key); the epoch keys split(k_perm, epochs).
-            key, epoch_keys = prng.split(state.key, cfg.epochs, split_first=True)
-            state = state.replace(key=key)
-            for epoch in range(cfg.epochs):
-                if shuffle is None:
-                    # k_t, k_e = split(epoch key), the roll randint(k_e)
-                    # (ppo.py:673-675), stays on the device (a 0-d tensor).
-                    k_t, off_e = prng.randint(epoch_keys[epoch], (), 0, e, split_first=True)
-                    perm_t = prng.permutation(k_t, t)
-                else:
-                    perm_t, off_e = shuffle[epoch]
-                for tr, adv, tg in minibatches(batch, cfg.minibatches, perm_t, off_e,
-                                               shard, shards):
+        with profiling.stage('rollout'):
+            state, traj, last_value, (ep_sum, ep_cnt, ep_suc) = self.rollout_phase(
+                state, params)
+        with profiling.stage('gae'):
+            advantages, targets = self.compute_gae(traj, last_value)
+        with profiling.stage('sgd'):
+            if cfg.minibatches == 1:
+                for _ in range(cfg.epochs):
                     params, opt_state, metrics = self.sgd_step(
-                        params, opt_state, tr, adv, tg)
+                        params, opt_state, traj, advantages, targets)
+            else:
+                t, e = advantages.shape[0], self.venv.num_envs
+                if e % cfg.minibatches:
+                    raise ValueError(f'env batch {e} not divisible by '
+                                     f'{cfg.minibatches} minibatches')
+                batch, shard, shards = (traj, advantages, targets), 0, 1
+                if self.split:
+                    mesh = self.venv.mesh
+                    shard, shards = mesh.coords[0], mesh.env_shards
+                    batch = tuple(x.map(self._gather) if isinstance(x, Rollout)
+                                  else self._gather(x) for x in batch)
+                # key, k_perm = split(key); the epoch keys split(k_perm, epochs).
+                key, epoch_keys = prng.split(state.key, cfg.epochs, split_first=True)
+                state = state.replace(key=key)
+                for epoch in range(cfg.epochs):
+                    if shuffle is None:
+                        # k_t, k_e = split(epoch key), the roll randint(k_e)
+                        # (ppo.py:673-675), stays on the device (a 0-d tensor).
+                        k_t, off_e = prng.randint(epoch_keys[epoch], (), 0, e, split_first=True)
+                        perm_t = prng.permutation(k_t, t)
+                    else:
+                        perm_t, off_e = shuffle[epoch]
+                    for tr, adv, tg in minibatches(batch, cfg.minibatches, perm_t, off_e,
+                                                   shard, shards):
+                        params, opt_state, metrics = self.sgd_step(
+                            params, opt_state, tr, adv, tg)
         metrics = self.mean_over_processes({**metrics, 'reward_per_step': traj.reward.mean()})
         if self.group is not None:
             sums = distributed.all_reduce(torch.stack([ep_sum.double(), ep_cnt.double(),

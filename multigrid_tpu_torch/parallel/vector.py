@@ -48,6 +48,13 @@ reserve through a barrel shift of the packed rows between the env shards
 graphs (:attr:`capture_group` checks their keys at the capture); the
 rollout's summary is summed over the processes after the replays.
 
+Under the stage counters (:mod:`~multigrid_tpu_torch.utils.profiling`) a
+step marks its stages on the device: ``draws.actions`` (the random
+rollout's actions), ``draws.step``, ``dynamics``, ``reset``, ``merge``,
+``observe``, ``pool`` and the rollout's ``summary``, and counts the fresh
+layouts made (``layouts.made``: each exact reset's, each refresh's slots)
+and those taken by finished envs (``layouts.used``).
+
 The reserve is stored bit-packed, as the JAX package stores it
 (vector.py:199-240, ``_pool_pack``): each slot's grid is one int32 plane
 of ``W·H`` cells ``type<<8 | color<<4 | state``, a Box's contents in bits
@@ -66,7 +73,7 @@ from ..core.constants import Color, State, Type
 from ..core.state import STATE_FIELDS, MultiGridState, ResetPool, where_state
 from ..envs.env import MultiGridEnv
 from ..ops.obs_cuda import gen_obs_batched
-from ..utils import graphs, prng
+from ..utils import graphs, prng, profiling
 from ..utils.device import constant, resolve_device
 from . import distributed
 from .mesh import Mesh, env_peer, env_rows, make_mesh, shard_batch
@@ -237,11 +244,12 @@ class VectorEnv:
         ``pool_key`` (vector.py:186-196, 265-280). Returns ``(obs, state)``."""
         if key is None:
             key = 0 if seed is None else seed
-        key, pool_key = prng.split(prng.as_key(key, self.device)).unbind(0)
-        state = self.env.reset_core(prng.split(key, self.num_envs, rows=self.rows)).clone()
-        if self.reset_pool:
-            state = state.replace(pool=self.new_pool(pool_key))
-        return self.observe(state), state
+        with profiling.trace_annotation('mgt.reset'):
+            key, pool_key = prng.split(prng.as_key(key, self.device)).unbind(0)
+            state = self.env.reset_core(prng.split(key, self.num_envs, rows=self.rows)).clone()
+            if self.reset_pool:
+                state = state.replace(pool=self.new_pool(pool_key))
+            return self.observe(state), state
 
     def new_pool(self, key: torch.Tensor) -> ResetPool:
         """The reserve pool drawn from ``key``: ``k_res, k_stream =
@@ -249,10 +257,11 @@ class VectorEnv:
         its key stream key ``i`` of ``split(k_stream, E)`` (vector.py:265-280),
         packed (:meth:`pool_pack`), the global step 0. Under a mesh this
         process draws only the slots of its rows."""
-        k_res, k_stream = prng.split(key).unbind(0)
-        reserve = self.env.reset_core(prng.split(k_res, self.num_envs, rows=self.rows))
-        return ResetPool(self.pool_pack(reserve).clone(), 0,
-                         prng.split(k_stream, self.num_envs, rows=self.rows))
+        with profiling.trace_annotation('mgt.pool.new'):
+            k_res, k_stream = prng.split(key).unbind(0)
+            reserve = self.env.reset_core(prng.split(k_res, self.num_envs, rows=self.rows))
+            return ResetPool(self.pool_pack(reserve).clone(), 0,
+                             prng.split(k_stream, self.num_envs, rows=self.rows))
 
     def pool_pack(self, state: MultiGridState) -> MultiGridState:
         """The reserve's storage form of a batch of layouts (vector.py:209-222):
@@ -345,12 +354,14 @@ class VectorEnv:
         ``auto_reset``)."""
         mode = (prng.STEP_ONLY if not self.auto_reset
                 else prng.STEP_EXACT if state.pool is None else prng.STEP_POOL)
-        drawn, rng, gen, fresh_rng = prng.step_draws(state.rng, self.num_agents, mode)
-        obs_state, new_state, rew, term, trunc = self.env.step_core(
-            state.replace(pool=None, rng=rng), actions, drawn if order is None else order)
-        done = term.all(dim=-1) | trunc.any(dim=-1)
-        # Task completion on the final state, before the reset erases it.
-        success = self.env.success(new_state)
+        with profiling.stage('draws.step'):
+            drawn, rng, gen, fresh_rng = prng.step_draws(state.rng, self.num_agents, mode)
+        with profiling.stage('dynamics'):
+            obs_state, new_state, rew, term, trunc = self.env.step_core(
+                state.replace(pool=None, rng=rng), actions, drawn if order is None else order)
+            done = term.all(dim=-1) | trunc.any(dim=-1)
+            # Task completion on the final state, before the reset erases it.
+            success = self.env.success(new_state)
         return obs_state, new_state, rew, term, trunc, done, success, (gen, fresh_rng)
 
     def reset_done(self, done: torch.Tensor, obs_state: MultiGridState,
@@ -363,11 +374,17 @@ class VectorEnv:
         their keys (the JAX package's ``reset_pool=False``). Returns
         ``(obs_state, state)``."""
         gen, rng = fresh
-        fresh = (self.env.reset_from(gen, rng) if pool is None
-                 else self.consume(pool).replace(rng=rng))
-        merged = where_state(done, fresh, new_state)
-        obs_state = merged if obs_state is new_state \
-            else where_state(done, fresh, obs_state)
+        with profiling.stage('reset'):
+            if pool is None:
+                fresh = self.env.reset_from(gen, rng)
+                profiling.count('layouts.made', done.shape[0], done.device)
+            else:
+                fresh = self.consume(pool).replace(rng=rng)
+        with profiling.stage('merge'):
+            profiling.count('layouts.used', done)
+            merged = where_state(done, fresh, new_state)
+            obs_state = merged if obs_state is new_state \
+                else where_state(done, fresh, obs_state)
         return obs_state, merged
 
     def consume(self, pool: ResetPool) -> MultiGridState:
@@ -412,9 +429,10 @@ class VectorEnv:
     def next_pool(self, pool: ResetPool, refresh: bool = True) -> ResetPool:
         """The last stage of :meth:`step` with a pool: this step's slots
         regenerated where ``refresh``, then the global step advanced."""
-        if refresh:
-            pool = self._refresh(pool, 1)
-        return ResetPool(pool.reserve, pool.step + 1, pool.keys)
+        with profiling.stage('pool'):
+            if refresh:
+                pool = self._refresh(pool, 1)
+            return ResetPool(pool.reserve, pool.step + 1, pool.keys)
 
     def refresh_slots(self, step, chunk: int = 1):
         """``(start, count)`` of the slots a refresh at global step ``step``
@@ -444,6 +462,7 @@ class VectorEnv:
         start, count = self.refresh_slots(pool.step, chunk)
         if count == self.num_envs:
             fresh = self.env.reset_core(prng.fold_in(pool.keys, pool.step))
+            profiling.count('layouts.made', pool.keys.shape[0], pool.keys.device)
             return ResetPool(self.pool_pack(fresh).clone(), pool.step, pool.keys)
         n = self.local_envs
         if n == self.num_envs:
@@ -451,6 +470,7 @@ class VectorEnv:
         else:
             c = min(count, n)
             idx = self._slots[:c] + (start - self.rows.start).clamp(0, n - c)
+        profiling.count('layouts.made', idx.shape[0], idx.device)
         fresh = self.pool_pack(self.env.reset_core(
             prng.fold_in(pool.keys.index_select(0, idx), pool.step)))
         r = pool.reserve
@@ -475,18 +495,20 @@ class VectorEnv:
         a chunk. A state without a pool is returned as it is."""
         if state.pool is None:
             return state
-        return state.replace(pool=self._refresh(state.pool, chunk))
+        with profiling.stage('pool'):
+            return state.replace(pool=self._refresh(state.pool, chunk))
 
     def observe(self, state: MultiGridState):
         """Observations of a batched state, through the kernel wrapper, with
         each env's mission index (E, N) where the env has missions, then the
         env's observation wrappers (``transform_obs``, vector.py:443-444)."""
         cfg = self.env.cfg
-        image = gen_obs_batched(state, cfg.view_size, cfg.see_through_walls,
-                                self.packed_obs)
-        obs = self.env.attach_mission(
-            {'image': image, 'direction': state.agent_dir}, state)
-        return self.env.transform_obs(obs, state)
+        with profiling.stage('observe'):
+            image = gen_obs_batched(state, cfg.view_size, cfg.see_through_walls,
+                                    self.packed_obs)
+            obs = self.env.attach_mission(
+                {'image': image, 'direction': state.agent_dir}, state)
+            return self.env.transform_obs(obs, state)
 
     def rollout_random(self, state: MultiGridState, key, steps: int):
         """Advance ``steps`` lockstep steps with uniform-random actions,
@@ -508,6 +530,11 @@ class VectorEnv:
         chunk, steps carried on the device from replay to replay, and a
         graph of one step for the rest (or every step, without the pool).
         """
+        with profiling.trace_annotation('mgt.rollout'):
+            return self._rollout(state, key, steps)
+
+    def _rollout(self, state: MultiGridState, key, steps: int):
+        """:meth:`rollout_random`'s body."""
         dev = self.device
         carry = (state, prng.as_key(key, dev),
                  (torch.zeros((), dtype=torch.float32, device=dev),
@@ -542,12 +569,14 @@ class VectorEnv:
         state, key, (rew_sum, episodes, obs_sum) = carry
         e, n = self.num_envs, self.num_agents
         for _ in range(steps):
-            key, actions = prng.randint(key, (e, n), 0, NUM_ACTIONS, rows=self.rows,
-                                        split_first=True)
+            with profiling.stage('draws.actions'):
+                key, actions = prng.randint(key, (e, n), 0, NUM_ACTIONS, rows=self.rows,
+                                            split_first=True)
             obs, state, rew, _, _, done, _ = self._step(state, actions, refresh=refresh)
-            rew_sum = rew_sum + rew.sum()
-            episodes = episodes + done.sum()
-            obs_sum = obs_sum + obs['image'].sum()
+            with profiling.stage('summary'):
+                rew_sum = rew_sum + rew.sum()
+                episodes = episodes + done.sum()
+                obs_sum = obs_sum + obs['image'].sum()
         if not refresh:
             state = self.refresh_pool(state, steps)
         return state, key, (rew_sum, episodes, obs_sum)
@@ -555,7 +584,7 @@ class VectorEnv:
     def _rollout_graphed(self, carry, chunks: int, rest: int):
         """:meth:`rollout_random`'s loop as replays of two carry graphs on
         one set of buffers: a chunk (``refresh=False``) and one step."""
-        key = ('rollout', self.auto_reset, graphs.signature(carry))
+        key = ('rollout', self.auto_reset, graphs.signature(carry), profiling.counting())
         if key not in self._graphs:
             self._graphs[key] = (graphs.clone(carry), {})
         buffers, by_refresh = self._graphs[key]

@@ -40,7 +40,11 @@ and ``--num-gpus`` are accepted and ignored, as there.
 
 Every ``--log-interval`` updates (and after the last) it prints one JSON row
 of metrics, and appends it to ``--log-jsonl`` when given; the last line is
-the phase timer's ``timing:``. ``--device cpu`` runs on the CPU with the
+the phase timer's ``timing:``; with ``--stage-times`` a ``stages:`` line
+follows it, the milliseconds an update took on the device by stage (the
+stage counters of ``utils/profiling.py``: ``rollout`` with the env step's
+stages, ``gae``, ``sgd``, ...), counted over every update after the first
+(the first captures the counted graph). ``--device cpu`` runs on the CPU with the
 kernels' plain versions. With ``MULTIGRID_FUSED_POLICY`` set (a shared mlp
 policy, local critic), the rollout samples through the fused-policy kernel.
 """
@@ -48,6 +52,7 @@ policy, local critic), the rollout samples through the fused-policy kernel.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pickle
@@ -132,6 +137,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         'int32 cells')
     p.add_argument('--device', default=None,
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument('--stage-times', action='store_true',
+                   help='count device time by stage inside the update and print a '
+                        "'stages:' line of ms an update by stage after the timing line")
     return p.parse_args(argv)
 
 
@@ -162,7 +170,7 @@ def _train(args: argparse.Namespace, mesh) -> None:
         restore_checkpoint,
         save_checkpoint,
     )
-    from multigrid_tpu_torch.utils.profiling import PhaseTimer
+    from multigrid_tpu_torch.utils import profiling
 
     env = make(args.env, agents=args.num_agents, device=args.device, **args.env_config)
     venv = VectorEnv(env, args.num_envs, packed_obs=not args.no_packed_obs, mesh=mesh)
@@ -213,7 +221,7 @@ def _train(args: argparse.Namespace, mesh) -> None:
 
     train_step = build_step(stage_config(0))
     current_ent = stage_config(0).ent_coef
-    timer = PhaseTimer()
+    timer = profiling.PhaseTimer()
     kind = (torch.cuda.get_device_name(venv.device) if venv.device.type == 'cuda'
             else 'cpu')
     say(f'training {args.env}: {args.num_agents} agents x {args.num_envs} envs, '
@@ -221,6 +229,10 @@ def _train(args: argparse.Namespace, mesh) -> None:
           flush=True)
 
     log_f = open(args.log_jsonl, 'a') if args.log_jsonl and lead else None
+    first, counted, stages = state.update_count // upc, 0, None
+    counters = contextlib.ExitStack()
+    if args.stage_times:
+        counters.enter_context(profiling.stage_counters())
     try:
         t_start = time.perf_counter()
         t_last, steps_last = t_start, 0
@@ -240,6 +252,12 @@ def _train(args: argparse.Namespace, mesh) -> None:
                     # The only waits for the card, as in the JAX CLI: between
                     # them the queue keeps it fed.
                     timer.sync(metrics)
+            if args.stage_times:
+                # Counted from the end of the first update, which captures.
+                if update == first and num_updates - first > 1:
+                    profiling.zero_stages()
+                else:
+                    counted += 1
             if save:
                 path = save_checkpoint(os.path.join(args.save_dir, f'step_{update + 1}'),
                                        state, venv)
@@ -278,10 +296,16 @@ def _train(args: argparse.Namespace, mesh) -> None:
                     best_val = val
                     path = save_checkpoint(os.path.join(args.save_dir, 'best'), state, venv)
                     say(f'best {args.save_best}={val:.4f} -> {path}', flush=True)
+        if args.stage_times:
+            stages = profiling.stage_totals()[0]
     finally:
+        counters.close()
         if log_f:
             log_f.close()
     say('timing:', json.dumps(timer.summary()), flush=True)
+    if stages is not None:
+        say('stages:', json.dumps({name: round(v['ns'] / 1e6 / max(counted, 1), 4)
+                                   for name, v in stages.items()}), flush=True)
 
 
 def main(argv=None) -> None:

@@ -33,6 +33,7 @@ from ..learn.ppo import OptState, TrainState
 from ..parallel import distributed
 from ..parallel.mesh import gather_batch, gather_params, shard_params
 from ..parallel.vector import VectorEnv
+from .profiling import trace_annotation
 
 
 def _state_tree(s: MultiGridState) -> dict[str, Any]:
@@ -145,23 +146,24 @@ def save_checkpoint(path: str, state: TrainState, venv: VectorEnv) -> str:
     rows (the reserve's slots and keys among them) are gathered, the
     mesh's first process writes, and all return once
     the file is there. Returns the absolute path."""
-    mesh = venv.mesh
-    if mesh is not None:
-        opt = state.opt_state
-        state = state.replace(
-            params=gather_params(state.params, mesh),
-            opt_state=dataclasses.replace(opt, mu=gather_params(opt.mu, mesh),
-                                          nu=gather_params(opt.nu, mesh)),
-            env_state=gather_batch(state.env_state, mesh),
-            last_obs=gather_batch(state.last_obs, mesh),
-            ep_return_acc=gather_batch(state.ep_return_acc, mesh))
-        if mesh.coords != (0, 0):
+    with trace_annotation('mgt.checkpoint.save'):
+        mesh = venv.mesh
+        if mesh is not None:
+            opt = state.opt_state
+            state = state.replace(
+                params=gather_params(state.params, mesh),
+                opt_state=dataclasses.replace(opt, mu=gather_params(opt.mu, mesh),
+                                              nu=gather_params(opt.nu, mesh)),
+                env_state=gather_batch(state.env_state, mesh),
+                last_obs=gather_batch(state.last_obs, mesh),
+                ep_return_acc=gather_batch(state.ep_return_acc, mesh))
+            if mesh.coords != (0, 0):
+                distributed.barrier(mesh.mesh_group)
+                return os.path.abspath(path)
+        path = _write(path, state, venv)
+        if mesh is not None:
             distributed.barrier(mesh.mesh_group)
-            return os.path.abspath(path)
-    path = _write(path, state, venv)
-    if mesh is not None:
-        distributed.barrier(mesh.mesh_group)
-    return path
+        return path
 
 
 def _write(path: str, state: TrainState, venv: VectorEnv) -> str:

@@ -23,6 +23,13 @@ A :class:`Graph`:
   and adds that at every replay, so the counts count the launches that
   replays make.
 
+The captured function is the root stage ``graph`` of the stage counters
+(:mod:`~multigrid_tpu_torch.utils.profiling`), its carry copy the stage
+``carry``; where counting is on at the capture, the graph holds their marks,
+and every cache of graphs keys on whether it is. The host's spans
+``mgt.graph.warmup``, ``mgt.graph.capture``, ``mgt.graph.replay``,
+``mgt.graph.load`` and ``mgt.graph.clone`` show each in a profile.
+
 Inputs are static buffers. A caller's tensors are copied in (:func:`load`);
 the outputs are the graph's own tensors, which the next replay overwrites
 (:func:`clone` keeps them). A *carry* graph copies its carried outputs
@@ -67,6 +74,7 @@ from typing import Any
 import torch
 
 from .. import ops
+from . import profiling
 
 _local = threading.local()
 
@@ -111,41 +119,43 @@ def flatten(tree) -> tuple[list[torch.Tensor], Any]:
     tuples and dataclasses are walked, anything else is a static leaf kept
     in the structure (which is hashable where the static leaves are)."""
     leaves: list[torch.Tensor] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return _TENSOR
-        if isinstance(x, dict):
-            return (dict, tuple(x), tuple(walk(v) for v in x.values()))
-        if isinstance(x, (list, tuple)):
-            return (type(x), None, tuple(walk(v) for v in x))
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return (type(x), names, tuple(walk(getattr(x, n)) for n in names))
-        return (_STATIC, x, ())
 
-    return leaves, walk(tree)
+# Module-level recursions: a nested function that calls itself is a
+# reference cycle, which would hold its tensors until the cyclic collector
+# runs.
+def _walk(x, leaves: list[torch.Tensor]):
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return _TENSOR
+    if isinstance(x, dict):
+        return (dict, tuple(x), tuple(_walk(v, leaves) for v in x.values()))
+    if isinstance(x, (list, tuple)):
+        return (type(x), None, tuple(_walk(v, leaves) for v in x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return (type(x), names, tuple(_walk(getattr(x, n), leaves) for n in names))
+    return (_STATIC, x, ())
 
 
 def unflatten(spec, leaves: list[torch.Tensor]):
     """The tree of structure ``spec`` (from :func:`flatten`) over ``leaves``."""
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(s):
-        if s == _TENSOR:
-            return next(it)
-        kind, names, children = s
-        if kind == _STATIC:
-            return names
-        values = [build(c) for c in children]
-        if kind is dict:
-            return dict(zip(names, values))
-        if names is None:
-            return kind(values)
-        return kind(**dict(zip(names, values)))
 
-    return build(spec)
+def _build(s, it):
+    if s == _TENSOR:
+        return next(it)
+    kind, names, children = s
+    if kind == _STATIC:
+        return names
+    values = [_build(c, it) for c in children]
+    if kind is dict:
+        return dict(zip(names, values))
+    if names is None:
+        return kind(values)
+    return kind(**dict(zip(names, values)))
 
 
 def signature(tree) -> tuple:
@@ -203,19 +213,44 @@ def _copy(dst: list[torch.Tensor], src: list[torch.Tensor]) -> None:
 def load(buffers, values) -> None:
     """Copy the tensors of ``values`` into those of ``buffers``, a tree of
     the same structure (a buffer given as its own value is left alone)."""
-    dst, spec = flatten(buffers)
-    src, spec_v = flatten(values)
-    if spec != spec_v:
-        raise ValueError('the values do not have the buffers\' structure')
-    _copy(dst, src)
+    with profiling.trace_annotation('mgt.graph.load'):
+        dst, spec = flatten(buffers)
+        src, spec_v = flatten(values)
+        if spec != spec_v:
+            raise ValueError('the values do not have the buffers\' structure')
+        _copy(dst, src)
 
 
 def clone(tree):
     """``tree`` with every tensor copied into a fresh contiguous one."""
-    leaves, spec = flatten(tree)
-    out = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in leaves]
-    _copy(out, leaves)
-    return unflatten(spec, out)
+    with profiling.trace_annotation('mgt.graph.clone'):
+        leaves, spec = flatten(tree)
+        out = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in leaves]
+        _copy(out, leaves)
+        return unflatten(spec, out)
+
+
+def run_body(fn: Callable, inputs, carry: bool, device: torch.device):
+    """What a :class:`Graph` captures: ``fn(inputs)`` as the root stage
+    ``graph`` and, for a carry graph, the copy of the carried outputs into
+    ``inputs`` as the stage ``carry``. Returns the outputs."""
+    leaves, spec = flatten(inputs)
+    with profiling.graph_stage(device):
+        out = fn(inputs)
+        if carry:
+            new, out = out
+            new_leaves, new_spec = flatten(new)
+            if new_spec != spec:
+                raise ValueError('a carry graph must return its inputs\' structure')
+            with profiling.stage('carry'):
+                # A carried output that is another input's buffer is read
+                # before that buffer is written.
+                ptrs = {x.untyped_storage().data_ptr() for x in leaves if x.numel()}
+                new_leaves = [s.clone() if s is not d and s.numel()
+                              and s.untyped_storage().data_ptr() in ptrs else s
+                              for d, s in zip(leaves, new_leaves)]
+                _copy(leaves, new_leaves)
+    return out
 
 
 class Graph:
@@ -231,10 +266,11 @@ class Graph:
     over it first (:func:`check_key`).
 
     After the capture, :attr:`launches` holds each kernel wrapper's
-    launches a replay makes, :attr:`warmup_s` and :attr:`capture_s` the
-    host seconds of the warm-up (synchronized) and of the capture, and
-    :attr:`pool_bytes` the device memory the capture reserved for the
-    graph's private pool.
+    launches a replay makes (each replay adds them to the wrappers' counts,
+    whose owners are resolved once, here), :attr:`warmup_s` and
+    :attr:`capture_s` the host seconds of the warm-up (synchronized) and of
+    the capture, and :attr:`pool_bytes` the device memory the capture
+    reserved for the graph's private pool.
     """
 
     def __init__(self, fn: Callable, inputs, *, carry: bool = False,
@@ -252,7 +288,6 @@ class Graph:
 
     def _capture(self, fn: Callable, device: torch.device, carry: bool) -> None:
         """The warm-up of ``fn`` on :attr:`inputs` and its capture."""
-        leaves, _ = flatten(self.inputs)
         inputs = self.inputs
         # Any draw of the warm-up from the device's default generator is
         # undone (the capture registers that generator by itself).
@@ -264,8 +299,9 @@ class Graph:
         t0 = time.perf_counter()
         side = torch.cuda.Stream(device)
         side.wait_stream(stream)
-        with torch.cuda.stream(side), _tracing():
-            fn(inputs)
+        with profiling.trace_annotation('mgt.graph.warmup'), torch.cuda.stream(side), \
+                _tracing():
+            run_body(fn, inputs, False, device)
         stream.wait_stream(side)
         torch.cuda.synchronize(device)
         self.warmup_s = time.perf_counter() - t0
@@ -278,35 +314,25 @@ class Graph:
         mode = 'thread_local' if torch.distributed.is_available() \
             and torch.distributed.is_initialized() else 'global'
         t0 = time.perf_counter()
-        with torch.cuda.device(device), \
+        with profiling.trace_annotation('mgt.graph.capture'), torch.cuda.device(device), \
                 torch.cuda.graph(self.graph, capture_error_mode=mode), _tracing():
-            out = fn(inputs)
-            if carry:
-                new, out = out
-                new_leaves, new_spec = flatten(new)
-                if new_spec != flatten(inputs)[1]:
-                    raise ValueError('a carry graph must return its inputs\' structure')
-                # A carried output that is another input's buffer is read
-                # before that buffer is written.
-                ptrs = {x.untyped_storage().data_ptr() for x in leaves if x.numel()}
-                new_leaves = [s.clone() if s is not d and s.numel()
-                              and s.untyped_storage().data_ptr() in ptrs else s
-                              for d, s in zip(leaves, new_leaves)]
-                _copy(leaves, new_leaves)
+            out = run_body(fn, inputs, carry, device)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         after = ops.launch_counts()
         self.launches = {k: after[k] - counts[k] for k in counts if after[k] != counts[k]}
+        self._adds = [(owner, attr, self.launches[k]) for k, owner, attr in ops.launch_owners()
+                      if k in self.launches]
         ops.set_launch_counts(counts)
         self.outputs = out
 
     def replay(self):
         """Launch the graph on the current stream; returns its outputs (the
         graph's own tensors)."""
-        self.graph.replay()
-        if self.launches:
-            counts = ops.launch_counts()
-            ops.set_launch_counts({k: counts[k] + n for k, n in self.launches.items()})
+        with profiling.trace_annotation('mgt.graph.replay'):
+            self.graph.replay()
+            for owner, attr, n in self._adds:
+                setattr(owner, attr, getattr(owner, attr) + n)
         return self.outputs
 
 
@@ -329,4 +355,4 @@ def call(cache: dict, key, args, fn: Callable, *,
 
 
 __all__ = ['Graph', 'call', 'check_key', 'clone', 'disable_graphs', 'flatten', 'graphs_on',
-           'key_digest', 'load', 'signature', 'unflatten']
+           'key_digest', 'load', 'run_body', 'signature', 'unflatten']

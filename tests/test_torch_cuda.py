@@ -1488,3 +1488,81 @@ def test_streams_on_the_card_are_the_jax_packages(cuda_device):
     for name in torch_streams.RUNS:
         got = torch_streams.port_run(name, cuda_device)
         assert got['steps'] == want[name]['steps'], name
+
+
+# --------------------------------------------- spans and stage counters (tracing)
+
+def _device_names(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return ({e.name for e in events if e.device_type == DeviceType.CUDA},
+            {e.name for e in events if e.device_type == DeviceType.CPU})
+
+
+def test_graphs_without_counting_hold_no_mark_and_spans_stay_on_the_host(cuda_device):
+    """A rollout's graphs captured with the stage counters off launch no
+    mark and the same kernels a step as before (one obs, one step launch);
+    the ``mgt.*`` spans are on the host's timeline of a profile, and none
+    of them on the device's."""
+    venv = VectorEnv(make('MultiGrid-BlockedUnlockPickup-v0', agents=2, device=cuda_device),
+                     1024, packed_obs=True)
+    _, state = venv.reset(seed=3)
+    state, _ = venv.rollout_random(state, 1, 18)
+    launches = obs_cuda.launches, step_cuda.launches
+    device, host = _device_names(lambda: venv.rollout_random(state, 2, 18))
+    assert (obs_cuda.launches, step_cuda.launches) == (launches[0] + 18, launches[1] + 18)
+    assert not any('stage_mark' in n for n in device), sorted(device)
+    assert not any(n.startswith('mgt.') for n in device)
+    assert {'mgt.rollout', 'mgt.graph.load', 'mgt.graph.replay', 'mgt.graph.clone'} <= host
+
+
+@pytest.mark.parametrize('env_id,agents,steps', [
+    ('MultiGrid-Empty-16x16-v0', 4, 64), ('MultiGrid-BlockedUnlockPickup-v0', 2, 64)],
+    ids=['flagship', 'bup-pool'])
+def test_marked_replays_sum_to_the_events_and_change_no_bit(cuda_device, env_id, agents,
+                                                            steps):
+    """With the stage counters on, a graphed rollout's stage table (4096
+    envs) sums, ``between`` and ``graph`` included, to the CUDA events'
+    time around the stretch within 2 %; each env stage closes once a step;
+    ``layouts.used`` is the summary's episodes, ``layouts.made`` E a step
+    (the exact reset) or the refreshes' slots; state and summary are the
+    bits of the same rollout with counting off. The clock's tick is under
+    a microsecond."""
+    from multigrid_tpu_torch.utils import profiling
+    runs = []
+    for on in (True, False):
+        venv = VectorEnv(make(env_id, agents=agents, max_steps=40, device=cuda_device), 4096)
+        _, state = venv.reset(seed=5)
+        with profiling.stage_counters() if on else contextlib.nullcontext():
+            state, _ = venv.rollout_random(state, 1, steps)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            if on:
+                profiling.zero_stages(cuda_device)
+            state, summary = venv.rollout_random(state, 2, steps)
+            end.record()
+            if on:
+                stages, counts = profiling.stage_totals(cuda_device)
+                wall = start.elapsed_time(end) * 1e6
+        runs.append((state, summary))
+    total = sum(v['ns'] for v in stages.values())
+    assert abs(total - wall) <= 0.02 * wall, (total, wall, stages)
+    for name in ('draws.actions', 'draws.step', 'dynamics', 'reset', 'merge', 'observe',
+                 'summary'):
+        assert stages[name]['marks'] == steps, (name, stages)
+    assert counts['layouts.used'] == int(summary['episodes']) > 0
+    if venv.reset_pool:
+        assert counts['layouts.made'] == steps // 16 * venv.refresh_slots(0, 16)[1]
+    else:
+        assert counts['layouts.made'] == 4096 * steps
+    (a, sa), (b, sb) = runs
+    _states_equal(a, b)
+    assert all(torch.equal(sa[k], sb[k]) for k in sa), (sa, sb)
+    assert 0 < profiling.timer_tick_ns(cuda_device) < 1000

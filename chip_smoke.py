@@ -334,7 +334,7 @@ STEPS = 256
 #: The trained flagship: mlp 128 on packed cells, T 16 (scripts/measure_train.py:25-36).
 TRAIN_T, HIDDEN, C = 16, 128, VS * VS
 SOURCES = ('obs.cu', 'fused_linear.cu', 'fused_ppo.cu', 'fused_policy.cu', 'step.cu',
-           'prng.cu')
+           'prng.cu', 'merge.cu')
 #: B5's cases (B, C, H, F, share of pad cells): the rollout's flagship shape
 #: first, then other cell counts, widths, feature counts and ragged batches.
 POLICY_SHAPES = [(E * N, C, HIDDEN, 2, 0.0), (4096, 9, 128, 2, 0.0), (4096, 25, 32, 14, 0.05),
@@ -900,8 +900,9 @@ def main_path(device=None):
     # flagship's layout draws nothing); a random step: split(key) and
     # randint in one launch, then R2 once.
     want = {**{k: 0 for k in counts}, 'obs': 1 + STEPS, 'step': STEPS,
-            'threefry': 3 + STEPS, 'step_draws': STEPS}
-    if after_reset != {**want, 'obs': 1, 'step': 0, 'threefry': 3, 'step_draws': 0} \
+            'threefry': 3 + STEPS, 'step_draws': STEPS, 'reset_merge': STEPS}
+    if after_reset != {**want, 'obs': 1, 'step': 0, 'threefry': 3, 'step_draws': 0,
+                       'reset_merge': 0} \
             or counts != want:
         fail(f'expected launches {want} (obs 1 at reset), got {counts} '
              f'({after_reset} at reset)')
@@ -1680,7 +1681,7 @@ def step_before_after(device=None, steps=64):
             torch.cuda.synchronize()
             counts = _counts()
         want = {**{k: 0 for k in counts}, 'obs': 16, 'step': 16 if way == 'kernel' else 0,
-                'threefry': 16, 'step_draws': 16}
+                'threefry': 16, 'step_draws': 16, 'reset_merge': 16}
         if counts != want:
             fail(f'step before/after, {way}: launches {counts}, expected {want}')
         built[way] = [venv, state]
@@ -2418,11 +2419,11 @@ DRAWS = ('threefry', 'step_draws')
 
 def _launches(counts, env_steps, **want):
     """The launches a run of ``env_steps`` env steps must count: ``want``,
-    R2 once a step, 0 of any other kernel not named, and R1 as ``want``
-    says, else as counted (the zoo's families, wrappers and adapters draw
-    by their layouts; the main path and the trained paths hold it
-    exactly)."""
-    return {**{k: 0 for k in counts}, 'step_draws': env_steps,
+    R2 once a step, M1 (``reset_merge``) once a step (a ``VectorEnv``'s
+    auto-reset), 0 of any other kernel not named, and R1 as ``want`` says,
+    else as counted (the zoo's families, wrappers and adapters draw by
+    their layouts; the main path and the trained paths hold it exactly)."""
+    return {**{k: 0 for k in counts}, 'step_draws': env_steps, 'reset_merge': env_steps,
             'threefry': counts['threefry'], **want}
 
 
@@ -3266,6 +3267,8 @@ def env_layers(venv, state, steps=8, policy=None, chunk=None):
     Returns ``(state, obs, {layer: ms a step})``."""
     import torch
 
+    from multigrid_tpu_torch.ops import merge_cuda
+
     g, e, n = action_gen(venv), venv.local_envs, venv.num_agents
     layers = {'policy': 0.0, 'step': 0.0, 'reset+merge': 0.0, 'obs': 0.0}
     obs = venv.observe(state)
@@ -3277,10 +3280,14 @@ def env_layers(venv, state, steps=8, policy=None, chunk=None):
             0, 7, (e, n), generator=g, device=venv.device)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        obs_state, state, *_, done, _, fresh = venv.step_dynamics(state, actions)
+        given = state
+        obs_state, state, rew, term, trunc, done, success, fresh = venv.step_dynamics(
+            state, actions)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        obs_state, state = venv.reset_done(done, obs_state, state, fresh, pool)
+        obs_state, state = venv.reset_done(
+            done, obs_state, state, fresh, pool,
+            protected=merge_cuda.state_tensors(given) + [rew, term, trunc, done, success])
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         obs = venv.observe(obs_state)
@@ -4347,7 +4354,7 @@ def adapters_path(device=None, steps=256, checked=32):
 
     def expect(label, want_obs, want_steps):
         counts = _counts()
-        want = _launches(counts, want_steps, obs=want_obs, step=want_steps)
+        want = _launches(counts, want_steps, obs=want_obs, step=want_steps, reset_merge=0)
         if counts != want:
             fail(f'adapters {label}: expected launches {want}, got {counts}')
 
@@ -4512,7 +4519,7 @@ def visualize_path(ckdir, device=None):
         counts = _counts()
         policy_steps = len(frames) - 2
         want = _launches(counts, policy_steps, obs=1 + len(frames), step=policy_steps,
-                         onehot_linear=policy_steps if label == 'mlp' else 0)
+                         onehot_linear=policy_steps if label == 'mlp' else 0, reset_merge=0)
         if counts != want:
             fail(f'visualize {label}: expected launches {want}, got {counts}')
         if mismatches or not b2_err[0] < 2e-2:
@@ -4556,12 +4563,13 @@ def _want_launches(kw):
     if kw.get('encoder', 'mlp') == 'cnn':
         return {'obs': t * updates, 'obs_general': 0, 'onehot_linear': 0,
                 'onehot_linear_grad': 0, 'ppo_loss': 0, 'policy_sample': 0,
-                'step': t * updates, 'threefry': draws, 'step_draws': t * updates}
+                'step': t * updates, 'threefry': draws, 'step_draws': t * updates,
+                'reset_merge': t * updates}
     return {'obs': t * updates, 'obs_general': 0,
             'onehot_linear': (1 if fused else t + 1) * updates, 'onehot_linear_grad': 0,
             'ppo_loss': cfg.get('epochs', 1) * cfg.get('minibatches', 1) * updates,
             'policy_sample': t * updates if fused else 0, 'step': t * updates,
-            'threefry': draws, 'step_draws': t * updates}
+            'threefry': draws, 'step_draws': t * updates, 'reset_merge': t * updates}
 
 
 def _same_launches(got, want):
@@ -5153,7 +5161,8 @@ def kernel_times(device):
     script, for comparing two trees in turns within one call; and digests
     of B1's flagship images and of B4's gradients at 262,144, which two
     trees must share where the kernels compute the same bits. Prints one
-    JSON line."""
+    JSON line. Then M1 at BUP's and the flagship's shapes, each case held
+    to its plain version first (:func:`merge_cases`)."""
     import hashlib
 
     import numpy as np
@@ -5237,9 +5246,115 @@ def kernel_times(device):
                 lambda: fp.policy_sample_prepared(w, packed, args[1], gumbel),
                 'policy_sample_kernel')
     res.update(step_kernel_times(device))
+    for k, r in merge_cases(device)['times'].items():
+        res.update({f'reset_merge {k} {m}': v for m, v in r.items()})
     for k, v in res.items():
         print(f'{k}: {v}')
     print(json.dumps({'kernel_times_ms': res, 'tree': HERE}))
+
+
+def merge_cases(device):
+    """The reset-merge kernel M1 at BUP's shape (``E`` envs, 2 agents, the
+    pool) and the flagship's (``E`` envs, ``N`` agents, the exact reset),
+    after one step of random actions, with none, 8 and every env finished.
+    Each case first holds ``reset_done`` on the card (M1, the step's input
+    state and returned tensors protected as ``VectorEnv.step`` protects
+    them) to its plain version on the card (the consume or the exact reset,
+    then ``where_state`` of each state), every field, extra and both states
+    bit for bit, and checks that no protected tensor changed; any
+    difference fails. Then times: its launches alone (graph replays of the
+    table the step builds), the device time of ``reset_done`` and of the
+    plain version (a graph of one call each), and the bound: the done
+    flags, each kept field's rows read and written for every env, each
+    finished env's rows written, and each distinct fresh source read once
+    for every finished env (a packed row a third of its cells' bytes), or
+    once in all where one row serves every env (Empty's broadcast grid),
+    over 3.35 TB/s. Returns ``{'max_abs_err', 'times': {case: {...}}}``."""
+    import torch
+
+    from multigrid_tpu_torch import VectorEnv, make
+    from multigrid_tpu_torch.core.state import STATE_FIELDS, where_state
+    from multigrid_tpu_torch.ops import merge_cuda
+
+    def tensors(s):
+        return [getattr(s, f) for f in STATE_FIELDS] + [s.extras[k] for k in sorted(s.extras)]
+
+    err, times = 0, {}
+    for env_id, n in ((BUP, BUP_N), ('MultiGrid-Empty-16x16-v0', N)):
+        venv = VectorEnv(make(env_id, agents=n, device=device), E, packed_obs=True)
+        _, state = venv.reset(seed=1)
+        actions = torch.randint(0, 7, (E, n), generator=action_gen(venv), device=device)
+        obs_state, new_state, rew, term, trunc, done_, success, fresh = venv.step_dynamics(
+            state, actions)
+        inputs = merge_cuda.state_tensors(state) + [rew, term, trunc, done_, success]
+        pool = state.pool
+        source, step = (venv.env.reset_from(*fresh), None) if pool is None else (
+            pool.reserve, pool.step)
+        for finished in (0, 8, E):
+            done = torch.zeros(E, dtype=torch.bool, device=device)
+            done[torch.randperm(E, generator=action_gen(venv), device=device)[:finished]] = True
+
+            def plain():
+                f = venv.env.reset_from(*fresh) if pool is None else \
+                    venv.consume(pool).replace(rng=fresh[1])
+                merged = where_state(done, f, new_state)
+                return (merged if obs_state is new_state
+                        else where_state(done, f, obs_state)), merged
+
+            def m1():
+                return venv.reset_done(done, obs_state, new_state, fresh, pool, protected=inputs)
+
+            # The plain version first: it makes new tensors, where M1 then
+            # writes the stepped states in place.
+            want = plain()
+            before = [t.clone() for t in inputs]
+            got = m1()
+            for label, a, b in zip(('obs_state', 'state'), got, want):
+                for name, x, y in zip([*STATE_FIELDS, *sorted(b.extras)], tensors(a),
+                                      tensors(b)):
+                    if x.shape != y.shape or x.dtype != y.dtype:
+                        fail(f'reset merge {env_id} finished {finished}: {label}.{name} '
+                             f'{x.dtype} {tuple(x.shape)} != plain {y.dtype} {tuple(y.shape)}')
+                    if x.numel() and not torch.equal(x, y):
+                        err = max(err, int((x.long() - y.long()).abs().max()))
+                        fail(f'reset merge {env_id} finished {finished}: {label}.{name} '
+                             f'differs from the plain consume and merge')
+            if any(not torch.equal(a, b) for a, b in zip(inputs, before)):
+                fail(f'reset merge {env_id} finished {finished}: a protected tensor changed')
+
+            fields, _, _ = merge_cuda.plan(
+                done, obs_state, new_state, source, fresh[1],
+                slots=None if step is None else E, packed=pool is not None, inputs=inputs)
+            rows, alive = merge_cuda.table(fields)
+            fn, count = merge_cuda._lib_fn(), 20
+            args = (rows, len(fields), done.data_ptr(),
+                    None if step is None else step.data_ptr(), E, 0 if step is None else E)
+
+            def launches():
+                stream = torch.cuda.current_stream().cuda_stream
+                for _ in range(count):
+                    if fn(*args, stream) != 0:
+                        fail('reset merge kernel launch failed')
+
+            reads = {}
+            for f, r in zip(fields, rows):
+                row = f.row_bytes // (3 if f.kind == merge_cuda.UNPACK else 1)
+                key = (r.src, r.src_stride)
+                reads[key] = max(reads.get(key, 0), row * (1 if r.src_stride == 0 else finished))
+            nbytes = E + sum(2 * E * f.row_bytes for f in fields if f.keep is not None) + \
+                finished * sum(f.row_bytes for f in fields) + sum(reads.values())
+            bd, by = bound(nbytes)
+            times[f'{env_id.split("-")[1]} ({E}, {n}) finished {finished}'] = dict(
+                ms=event_ms(_graph_of(launches).replay, 50) / count,
+                call_ms=event_ms(_graph_of(m1).replay, 50),
+                plain_ms=event_ms(_graph_of(plain).replay, 50),
+                bound_ms=bd, bound_by=by, bytes=nbytes, fields=len(fields))
+    for k, r in times.items():
+        print(f'reset_merge {k}: {r["ms"]:.6f} ms/launch; reset_done {r["call_ms"]:.6f} ms; '
+              f'plain {r["plain_ms"]:.6f} ms; bound {r["bound_ms"]:.6f} ms by {r["bound_by"]} '
+              f'({r["bytes"]} bytes, {r["fields"]} fields); {r["bound_ms"] / r["ms"]:.4f} of '
+              f'the bound')
+    return dict(max_abs_err=err, times=times)
 
 
 def step_kernel_times(device):
@@ -5319,6 +5434,8 @@ def main() -> None:
     prng_res = prng_cases(device)
     prng_res['ptxas'] = prng_resources()
     prng_t = prng_times(device)
+    phase('reset merge')
+    merge_res = merge_cases(device)
     phase('main')
     venv, obs, state, summary, main_counts = main_path()
     phase('check')
@@ -5524,6 +5641,25 @@ def main() -> None:
                         ptxas={k: v for k, v in prng_res['ptxas'].items() if k != 'R1'},
                         launches_train=counts['step_draws'],
                         launches_bup_train=bcounts['step_draws']))
+    m1 = merge_res['times'][f'Empty ({E}, {N}) finished 8']
+    kernels.append(dict(name='reset_merge', route='cuda',
+                        source='multigrid_tpu_torch/csrc/merge.cu',
+                        replaces='multigrid_tpu/parallel/vector.py:392',
+                        serves='the auto-reset\'s consume (a gather of every reserve slot, '
+                               'then the unpack) or exact reset and the select of every field '
+                               '(multigrid_tpu/parallel/vector.py:392-411), which XLA fuses '
+                               '(no pallas_call)',
+                        launches=main_counts['reset_merge'],
+                        launches_path=f'env flagship, reset + rollout_random({STEPS})',
+                        max_abs_err=merge_res['max_abs_err'],
+                        equal=merge_res['max_abs_err'] == 0,
+                        cases='BUP (pool) and the flagship (exact reset), 0, 8 and all '
+                              'finished: every field, extra and both states',
+                        ms=m1['ms'], call_ms=m1['call_ms'], plain_ms=m1['plain_ms'],
+                        bound_ms=m1['bound_ms'], bound_by=m1['bound_by'], library_ms=None,
+                        shape=f'4096 envs, {N} agents, exact reset, 8 finished',
+                        times=merge_res['times'], launches_train=counts['reset_merge'],
+                        launches_bup_train=bcounts['reset_merge']))
     print(json.dumps({'kernels': kernels, 'trained_agent_steps_per_s': tt['rate'],
                       'variants_trained_agent_steps_per_s': vt['rates'],
                       'bup_trained_agent_steps_per_s': bt['rate'],

@@ -19,14 +19,16 @@ def launch_owners() -> list[tuple[str, object, str]]:
     """``(name, module, attribute)`` of each kernel wrapper's launch count,
     in :func:`launch_counts`' order (resolved at the first call)."""
     if not _owners:
-        from . import fused_linear, fused_policy, fused_ppo, obs_cuda, prng_cuda, step_cuda
+        from . import (fused_linear, fused_policy, fused_ppo, merge_cuda, obs_cuda, prng_cuda,
+                       step_cuda)
         _owners.extend([
             ('obs', obs_cuda, 'launches'), ('obs_general', obs_cuda, 'general_launches'),
             ('onehot_linear', fused_linear, 'launches'),
             ('onehot_linear_grad', fused_linear, 'grad_launches'),
             ('ppo_loss', fused_ppo, 'launches'), ('policy_sample', fused_policy, 'launches'),
             ('step', step_cuda, 'launches'), ('threefry', prng_cuda, 'launches'),
-            ('step_draws', prng_cuda, 'step_launches')])
+            ('step_draws', prng_cuda, 'step_launches'),
+            ('reset_merge', merge_cuda, 'launches')])
     return _owners
 
 

@@ -4,7 +4,9 @@
 :class:`~multigrid_tpu_torch.envs.env.MultiGridEnv` in lockstep on one
 device. Whenever an env is done (all agents terminated, or truncated —
 multigrid/base.py:534-539), a fresh layout is swapped in with a per-env
-select, so stepping never leaves the device.
+select (on the card, one launch of the reset-merge kernel that writes only
+the finished envs' rows, :mod:`~multigrid_tpu_torch.ops.merge_cuda`), so
+stepping never leaves the device.
 
 Procedurally generated layouts (``env.procedural_reset``: the RoomGrid
 families and RedBlueDoors) go through the reserve pool by default, as in
@@ -72,6 +74,7 @@ from ..core.actions import NUM_ACTIONS
 from ..core.constants import Color, State, Type
 from ..core.state import STATE_FIELDS, MultiGridState, ResetPool, where_state
 from ..envs.env import MultiGridEnv
+from ..ops import merge_cuda
 from ..ops.obs_cuda import gen_obs_batched
 from ..utils import graphs, prng, profiling
 from ..utils.device import constant, resolve_device
@@ -336,7 +339,12 @@ class VectorEnv:
         obs_state, new_state, rew, term, trunc, done, success, fresh = self.step_dynamics(
             state, actions, order=order)
         if self.auto_reset:
-            obs_state, new_state = self.reset_done(done, obs_state, new_state, fresh, pool)
+            # The kernel writes the stepped states in place on the card:
+            # never the caller's state, nor a tensor this step returns
+            # (``term`` is the stepped ``agent_terminated``).
+            obs_state, new_state = self.reset_done(
+                done, obs_state, new_state, fresh, pool,
+                protected=merge_cuda.state_tensors(state) + [rew, term, trunc, done, success])
         obs = self.observe(obs_state)
         if pool is not None:
             new_state = new_state.replace(pool=self.next_pool(pool, refresh))
@@ -365,23 +373,43 @@ class VectorEnv:
         return obs_state, new_state, rew, term, trunc, done, success, (gen, fresh_rng)
 
     def reset_done(self, done: torch.Tensor, obs_state: MultiGridState,
-                   new_state: MultiGridState, fresh, pool: ResetPool | None = None):
+                   new_state: MultiGridState, fresh, pool: ResetPool | None = None, *,
+                   protected: list[torch.Tensor]):
         """The second stage of :meth:`step` (with ``auto_reset``): the fresh
         episodes, kept where ``done``, with their extras (mission, doors)
         and keys (``fresh`` from :meth:`step_dynamics`). From ``pool`` where
         there is one (:meth:`consume`, its slots' keys replaced by the
         folded ones), else one exact reset of this process's envs from
         their keys (the JAX package's ``reset_pool=False``). Returns
-        ``(obs_state, state)``."""
+        ``(obs_state, state)``.
+
+        On the card one launch of the reset-merge kernel
+        (:mod:`~multigrid_tpu_torch.ops.merge_cuda`) writes the finished
+        envs' rows, from the packed reserve itself (or this process's
+        window of it, or the exact reset), into the stepped states in
+        place, except a tensor that shares memory with one of
+        ``protected`` (the step's input state and the tensors it returns),
+        which it fills anew. On the CPU, the plain version
+        (``protected`` unused): :meth:`consume` and
+        :func:`~multigrid_tpu_torch.core.state.where_state`."""
         gen, rng = fresh
+        card, step = done.device.type == 'cuda', None
         with profiling.stage('reset'):
             if pool is None:
                 fresh = self.env.reset_from(gen, rng)
                 profiling.count('layouts.made', done.shape[0], done.device)
-            else:
+            elif not card:
                 fresh = self.consume(pool).replace(rng=rng)
+            elif self._pool_group is not None:
+                fresh = self._window(pool)
+            else:
+                fresh, step = pool.reserve, pool.step
         with profiling.stage('merge'):
             profiling.count('layouts.used', done)
+            if card:
+                return merge_cuda.reset_merge(
+                    done, obs_state, new_state, fresh, rng, step=step,
+                    packed=pool is not None and self.pool_packed, inputs=protected)
             merged = where_state(done, fresh, new_state)
             obs_state = merged if obs_state is new_state \
                 else where_state(done, fresh, obs_state)
